@@ -1,0 +1,239 @@
+"""Qwen2/2.5 decoder with a preallocated KV cache, HF state-dict names.
+
+Port of ``hicom_tpu/models/qwen2.py`` (unrolled layers, unquantized weights):
+RMSNorm pre-norm blocks, GQA attention with QKV bias, NeoX rotary embeddings,
+SwiGLU MLP; tied embeddings optional. ``DecoderAttention`` has three modes:
+
+* no cache: causal, right padding carried as ``kv_lengths``;
+* ``prefill_from_empty``: the same attention over the new tokens, which are
+  also written to the cache;
+* a one-token step over the cache: slot-causal over the cache's validity
+  bitmap, through the K3 decode kernel on the card (its plain twin on the CPU)
+  over a bf16 or int8 cache.
+
+Unlike the JAX cache, :class:`KVCache` is updated in place: the tensors are
+written at the shared offset and ``length`` advances, which saves a copy of
+the whole cache per step.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..ops.attention import sdpa
+from ..ops.flash_decode import flash_decode
+
+Tensor = torch.Tensor
+
+
+@dataclass
+class KVCache:
+    """k/v (num_layers, b, kv_heads, max_len, head_dim); ``valid`` (b, max_len)
+    marks real (non-padding) slots; ``length`` is the shared write offset.
+    int8 mode: k/v hold codes and ``k_scale``/``v_scale`` (num_layers, b,
+    kv_heads, max_len) per-slot absmax scales."""
+
+    k: Tensor
+    v: Tensor
+    valid: Tensor
+    length: int = 0
+    k_scale: Optional[Tensor] = None
+    v_scale: Optional[Tensor] = None
+
+    @classmethod
+    def zeros(cls, num_layers, batch, kv_heads, max_len, head_dim, dtype, device, quantized: bool = False):
+        shape = (num_layers, batch, kv_heads, max_len, head_dim)
+        valid = torch.zeros((batch, max_len), dtype=torch.bool, device=device)
+        if quantized:
+            return cls(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape, dtype=torch.int8, device=device), valid, 0,
+                       torch.ones(shape[:-1], dtype=torch.float32, device=device),
+                       torch.ones(shape[:-1], dtype=torch.float32, device=device))
+        return cls(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device),
+                   valid, 0)
+
+
+def quantize_kv(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """(..., d) -> int8 codes + per-slot absmax scale (...,)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: Tensor, scale: Tensor, dtype) -> Tensor:
+    return q.to(dtype) * scale[..., None].to(dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype))
+
+    def forward(self, x: Tensor) -> Tensor:
+        xf = x.float()
+        xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
+        return (xf * self.weight.float()).to(x.dtype)
+
+
+def rotary_tables(positions: Tensor, head_dim: int, theta: float, dtype) -> Tuple[Tensor, Tensor]:
+    """cos/sin of shape (b, L, head_dim) for NeoX-style rotation."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device)
+                                / head_dim))
+    angles = positions.float()[..., None] * inv_freq
+    emb = torch.cat([angles, angles], dim=-1)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def apply_rotary(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
+    """x: (b, H, L, d); cos/sin: (b, L, d)."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return x * cos[:, None] + rotated * sin[:, None]
+
+
+class DecoderAttention(nn.Module):
+    def __init__(self, cfg, dtype=None):
+        super().__init__()
+        H, KVH, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        self.num_heads, self.num_kv_heads, self.head_dim = H, KVH, hd
+        bias = cfg.attention_bias
+        self.q_proj = nn.Linear(cfg.hidden_size, H * hd, bias=bias, dtype=dtype)
+        self.k_proj = nn.Linear(cfg.hidden_size, KVH * hd, bias=bias, dtype=dtype)
+        self.v_proj = nn.Linear(cfg.hidden_size, KVH * hd, bias=bias, dtype=dtype)
+        self.o_proj = nn.Linear(H * hd, cfg.hidden_size, bias=False, dtype=dtype)
+
+    def forward(self, x: Tensor, rope: Tuple[Tensor, Tensor], cache: Optional[KVCache] = None, layer: int = 0,
+                kv_lengths: Optional[Tensor] = None, prefill_from_empty: bool = False,
+                slot_mask: Optional[Tensor] = None) -> Tensor:
+        """``rope`` = the step's (cos, sin); ``kv_lengths`` the right-padded rows'
+        lengths (cache-less or prefill modes); ``slot_mask`` the visible cache
+        slots of a one-token step. The decoder computes all three once per step."""
+        b, L, _ = x.shape
+        H, KVH, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        q = self.q_proj(x).reshape(b, L, H, hd).transpose(1, 2)
+        k = self.k_proj(x).reshape(b, L, KVH, hd).transpose(1, 2)
+        v = self.v_proj(x).reshape(b, L, KVH, hd).transpose(1, 2)
+        q = apply_rotary(q, *rope)
+        k = apply_rotary(k, *rope)
+
+        if cache is None or prefill_from_empty:
+            if cache is not None:
+                self._write(cache, layer, k, v)
+            out = sdpa(q, k, v, scale=hd**-0.5, is_causal=True, kv_lengths=kv_lengths)
+        else:
+            if L != 1:
+                raise ValueError("a step over a filled cache takes one token per row")
+            self._write(cache, layer, k, v)
+            quant = cache.k_scale is not None
+            out = flash_decode(q, cache.k[layer], cache.v[layer], slot_mask,
+                               k_scale=cache.k_scale[layer] if quant else None,
+                               v_scale=cache.v_scale[layer] if quant else None, scale=hd**-0.5)
+        out = out.transpose(1, 2).reshape(b, L, H * hd)
+        return self.o_proj(out)
+
+    @staticmethod
+    def _write(cache: KVCache, layer: int, k: Tensor, v: Tensor) -> None:
+        off, L = cache.length, k.shape[2]
+        if cache.k_scale is not None:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            cache.k[layer, :, :, off:off + L] = kq
+            cache.v[layer, :, :, off:off + L] = vq
+            cache.k_scale[layer, :, :, off:off + L] = ks
+            cache.v_scale[layer, :, :, off:off + L] = vs
+        else:
+            cache.k[layer, :, :, off:off + L] = k
+            cache.v[layer, :, :, off:off + L] = v
+
+
+class DecoderMLP(nn.Module):
+    def __init__(self, hidden: int, intermediate: int, dtype=None):
+        super().__init__()
+        self.gate_proj = nn.Linear(hidden, intermediate, bias=False, dtype=dtype)
+        self.up_proj = nn.Linear(hidden, intermediate, bias=False, dtype=dtype)
+        self.down_proj = nn.Linear(intermediate, hidden, bias=False, dtype=dtype)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg, dtype=None):
+        super().__init__()
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype=dtype)
+        self.self_attn = DecoderAttention(cfg, dtype=dtype)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype=dtype)
+        self.mlp = DecoderMLP(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
+
+    def forward(self, x, rope, cache=None, layer=0, kv_lengths=None, prefill_from_empty=False, slot_mask=None):
+        x = x + self.self_attn(self.input_layernorm(x), rope, cache, layer, kv_lengths, prefill_from_empty,
+                               slot_mask)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class Qwen2Model(nn.Module):
+    """Decoder stack over embeddings (the multimodal splice output)."""
+
+    def __init__(self, cfg, dtype=None):
+        super().__init__()
+        self.config = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=dtype)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, dtype=dtype) for _ in range(cfg.num_hidden_layers))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype=dtype)
+
+    def forward(self, inputs_embeds: Tensor, positions: Tensor, cache: Optional[KVCache] = None,
+                padding_mask: Optional[Tensor] = None, prefill_from_empty: bool = False) -> Tensor:
+        """Returns the final-norm hidden states; a given cache is written in place."""
+        cfg = self.config
+        x = inputs_embeds.to(self.norm.weight.dtype)
+        b, L = x.shape[:2]
+        rope = rotary_tables(positions, cfg.head_dim, cfg.rope_theta, x.dtype)
+        # right-padded rows: the mask is a per-row length (padded queries emit
+        # values nobody reads)
+        kv_lengths = padding_mask.to(torch.int32).sum(dim=-1) if padding_mask is not None else None
+        slot_mask = None
+        if cache is not None:
+            step_valid = padding_mask.to(torch.bool) if padding_mask is not None else True
+            cache.valid[:, cache.length:cache.length + L] = step_valid
+            if not prefill_from_empty:
+                # causality over cache SLOTS: slot s is visible if written (valid)
+                # and s <= the current offset
+                S = cache.valid.shape[1]
+                slot_mask = cache.valid & (torch.arange(S, device=x.device)[None, :] <= cache.length)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, rope, cache, i, kv_lengths, prefill_from_empty, slot_mask)
+        if cache is not None:
+            cache.length += L
+        return self.norm(x)
+
+
+class Qwen2ForCausalLM(nn.Module):
+    def __init__(self, cfg, dtype=None):
+        super().__init__()
+        self.config = cfg
+        self.model = self._make_model(cfg, dtype)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype)
+
+    def _make_model(self, cfg, dtype) -> Qwen2Model:
+        return Qwen2Model(cfg, dtype=dtype)
+
+    def embed(self, input_ids: Tensor) -> Tensor:
+        return self.model.embed_tokens(input_ids)
+
+    def logits(self, hidden: Tensor) -> Tensor:
+        if self.config.tie_word_embeddings:
+            return hidden @ self.model.embed_tokens.weight.T
+        return self.lm_head(hidden)
+
+    def forward(self, inputs_embeds: Tensor, positions: Tensor, cache: Optional[KVCache] = None,
+                padding_mask: Optional[Tensor] = None) -> Tuple[Tensor, Optional[KVCache]]:
+        hidden = self.model(inputs_embeds, positions, cache, padding_mask)
+        return self.logits(hidden), cache

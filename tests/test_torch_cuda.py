@@ -1,0 +1,93 @@
+"""The CUDA kernels against their plain PyTorch twins, on the card.
+
+Marked ``cuda``: they skip without a CUDA device (so on the CPU test runs).
+On a machine with a card and no JAX, run them without the JAX-loading
+conftest: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
+
+bf16 inputs. Each output element may differ from the twin's by 2^-6 |ref| +
+2^-5 rms(ref), the rule of ``chip_smoke.py``: two bf16 ulps of its own value
+(both sides round the output; the kernel rounds or sums p at another running
+max than the twin), plus a 32nd of the output's typical size for elements near
+zero, whose error is that of the row's sum of rounded terms.
+"""
+
+import pytest
+import torch
+
+from hicom_tpu_torch.ops.flash_attention import flash_forward, flash_reference, fullblock_attention
+from hicom_tpu_torch.ops.flash_decode import decode_reference, flash_decode
+from hicom_tpu_torch.ops.local_attn import fused_tile_attention, tile_reference
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def rn():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator("cuda").manual_seed(0)
+    return lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def _worst(got, ref):
+    """The largest ratio of an element's error to its tolerance (pass: <= 1)."""
+    got, ref = got.float(), ref.float()
+    tol = 2**-6 * ref.abs() + 2**-5 * ref.square().mean().sqrt()
+    return ((got - ref).abs() / tol).max().item()
+
+
+@pytest.mark.parametrize("bh,L,d", [(8, 729, 72), (4, 577, 64), (3, 200, 128)])
+def test_fullblock(rn, bh, L, d):
+    q, k, v = rn(bh, L, d), rn(bh, L, d), rn(bh, L, d)
+    before = fullblock_attention.launches
+    out, lse = fullblock_attention(q, k, v, d**-0.5, 0.1)
+    ref, ref_lse = flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.1, False)
+    assert fullblock_attention.launches == before + 1
+    # lse is fp32 on both sides, about log(L): 1e-3 absolute is 1e-4 of it
+    assert _worst(out, ref[:, 0]) <= 1 and (lse - ref_lse[:, 0]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens", [
+    (2, 28, 4, 743, 743, 128, True, [743, 700]),
+    (1, 9, 9, 32, 5000, 128, False, None),
+    (2, 4, 2, 64, 192, 64, True, None),
+    (2, 4, 4, 37, 130, 32, False, [100, 130]),
+])
+def test_flash_forward(rn, b, H, KVH, Lq, Lk, d, causal, lens):
+    q, k, v = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, _ = flash_forward(q, k, v, kl, d**-0.5, 0.0, causal)
+    ref, _ = flash_reference(q, k, v, kl, d**-0.5, 0.0, causal)
+    if kl is not None:  # padded query rows are not read by anyone
+        valid = (torch.arange(Lq, device="cuda")[None] < kl[:, None])[:, None, :].expand(b, H, Lq)
+        out, ref = out[valid], ref[valid]
+    assert _worst(out, ref) <= 1
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_flash_decode(rn, quantized):
+    b, H, KVH, S, d = 2, 28, 4, 1000, 128
+    q = rn(b, H, 1, d)
+    mask = torch.rand(b, S, device="cuda") < 0.5
+    mask[:, 0] = True
+    if quantized:
+        k = torch.randint(-127, 128, (b, KVH, S, d), device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, KVH, S, d), device="cuda", dtype=torch.int8)
+        ks, vs = torch.rand(b, KVH, S, device="cuda") * 0.02, torch.rand(b, KVH, S, device="cuda") * 0.02
+    else:
+        k, v, ks, vs = rn(b, KVH, S, d), rn(b, KVH, S, d), None, None
+    out = flash_decode(q, k, v, mask, k_scale=ks, v_scale=vs)
+    assert _worst(out, decode_reference(q, k, v, mask, ks, vs, d**-0.5)) <= 1
+
+
+def test_tile_attention(rn):
+    key, val, q = rn(8, 27, 27, 1152), rn(8, 27, 27, 1152), rn(2, 9, 9, 1152)
+    scale = torch.tensor(1152**-0.5, device="cuda")  # a device scalar: no host sync
+    out = fused_tile_attention(q, key, val, (4, 3, 3), scale, 0.0)
+    assert _worst(out, tile_reference(q, key, val, (4, 3, 3), scale, 0.0)) <= 1
+
+
+def test_cuda_wrappers_refuse_what_they_cannot_take(rn):
+    q = rn(2, 4, 16, 72).float()  # fp32: the kernel takes bf16 only
+    with pytest.raises(TypeError):
+        flash_forward(q, q, q, None, 0.1, 0.0, False)
