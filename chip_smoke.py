@@ -6,16 +6,23 @@
 Phases:
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: every kernel of hicom_tpu_torch/csrc, one nvcc per source, in parallel;
-  3. each kernel against its plain PyTorch version at the main path's shapes, in
+  3. each kernel against its plain PyTorch version at the main paths' shapes, in
      bf16, with its time, the plain version's, a PyTorch library call's where one
-     computes the same function, and the card's bound for the same work;
-  4. the main path at the full width of the released HICom-7B (SigLIP-so400m,
+     computes the same function, and the card's bound for the same work (the
+     flash backward's dQ, dK and dV at the decoder, global compressor and tower
+     shapes; the decode kernel also on a bitmap row with no valid slot);
+  4. serving at the full width of the released HICom-7B (SigLIP-so400m,
      local43_global32 with direct guide, Qwen2.5-7B in bf16, weights from a seed
      on the card): 3 requests of a 32-frame 384x384 video through
      ``HICom.generate`` (a right-padded batch of 2, then one alone), greedy, 16
-     new tokens; every kernel's launch count must rise. Then, with 2 decoder and
-     2 tower layers, the kernel path's last-token prefill logits against the
-     plain path's.
+     new tokens; every kernel's launch count must rise;
+  5. training at the same width: 3 stage-2 steps (projector and guide injectors
+     trained, towers and decoder frozen) on a seeded batch of 2, with finite
+     losses, frozen weights bit-identical, trained weights moved, 29 flash
+     backward launches per step and no tile-kernel launch; then one step split
+     into stages and one under torch.profiler;
+  6. with 2 decoder and 2 tower layers, the kernel path against the plain path:
+     last-token prefill logits, and the trained parameters' gradients.
 
 Prints one line per check, then a JSON object with the kernels, then the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any
@@ -35,12 +42,16 @@ import numpy as np
 
 # H100 data-sheet peaks (dense bf16 tensor-core FLOP/s, HBM bytes/s) by card name
 PEAKS = {"PCIe": (756e12, 2.0e12), "NVL": (835e12, 3.9e12), "": (989e12, 3.35e12)}
-SOURCES = {
-    "fullblock_attention": ("hicom_tpu_torch/csrc/flash_fwd.cu", "hicom_tpu/ops/flash_attention.py:141"),
-    "flash_forward": ("hicom_tpu_torch/csrc/flash_fwd.cu", "hicom_tpu/ops/flash_attention.py:31"),
-    "flash_decode": ("hicom_tpu_torch/csrc/flash_decode.cu", "hicom_tpu/ops/flash_decode.py:32"),
-    "fused_tile_attention": ("hicom_tpu_torch/csrc/local_attn.cu", "hicom_tpu/ops/local_attn.py:26"),
+# kernel: (its wrapper, whose launch count it reports; source; the TPU kernel it replaces)
+KERNELS = {
+    "K1": ("fullblock_attention", "hicom_tpu_torch/csrc/flash_fwd.cu", "hicom_tpu/ops/flash_attention.py:141"),
+    "K2": ("flash_forward", "hicom_tpu_torch/csrc/flash_fwd.cu", "hicom_tpu/ops/flash_attention.py:31"),
+    "K3": ("flash_decode", "hicom_tpu_torch/csrc/flash_decode.cu", "hicom_tpu/ops/flash_decode.py:32"),
+    "K4": ("fused_tile_attention", "hicom_tpu_torch/csrc/local_attn.cu", "hicom_tpu/ops/local_attn.py:26"),
+    "K5": ("flash_backward", "hicom_tpu_torch/csrc/flash_bwd.cu", "hicom_tpu/ops/flash_attention.py:262"),
+    "K6": ("flash_backward", "hicom_tpu_torch/csrc/flash_bwd.cu", "hicom_tpu/ops/flash_attention.py:309"),
 }
+TRAIN_STEPS = 3
 
 
 def log(*a):
@@ -85,7 +96,7 @@ def agreement(got, ref):
 
 
 def kernel_checks(card: str):
-    """Phase 3: returns {entry name: record} for the JSON line."""
+    """Phase 3: returns {entry name: (kernel id, record)} for the JSON line."""
     import torch
     import torch.nn.functional as F
 
@@ -102,19 +113,25 @@ def kernel_checks(card: str):
 
     records = {}
 
-    def record(name, wrapper, kernel_fn, plain_fn, library_fn, flops, nbytes, valid=None):
+    def record(name, kid, kernel_fn, plain_fn, library_fn, flops, nbytes, valid=None, outputs=1):
+        """Hold the first ``outputs`` tensors of the kernel's result to the plain
+        version's (or the one selected by ``outputs``, a tuple of indices)."""
         got, ref = kernel_fn(), plain_fn()
-        got = got[0] if isinstance(got, tuple) else got
-        ref = ref[0] if isinstance(ref, tuple) else ref
-        if valid is not None:
-            got, ref = got[valid], ref[valid]
-        err, ratio, rms, top = agreement(got, ref)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        idx = outputs if isinstance(outputs, tuple) else tuple(range(outputs))
+        worst = (0.0, -1.0, 0.0, 0.0)
+        for g, r in zip(got, (ref[i] for i in idx)):
+            if valid is not None:
+                g, r = g[valid], r[valid]
+            worst = max(worst, agreement(g, r), key=lambda a: a[1])
+        err, ratio, rms, top = worst
         bound_c, bound_b = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-        rec = dict(name=name, route="cuda", source=SOURCES[wrapper][0], replaces=SOURCES[wrapper][1],
+        rec = dict(name=name, route="cuda", source=KERNELS[kid][1], replaces=KERNELS[kid][2],
                    launches=None, max_abs_err=err, ms=cuda_ms(kernel_fn), plain_ms=cuda_ms(plain_fn, iters=3),
                    bound_ms=max(bound_c, bound_b), bound_by="operations" if bound_c >= bound_b else "bytes",
                    library_ms=cuda_ms(library_fn) if library_fn is not None else None)
-        records[name] = (wrapper, rec)
+        records[name] = (kid, rec)
         log(f"[kernel] {name}: max_abs_err {err:.3g}, worst err/tol {ratio:.3f} (tol 2^-6|ref| + 2^-5 rms, "
             f"ref rms {rms:.3g}, max {top:.3g}) | kernel {rec['ms']:.4f} ms | plain "
             f"{rec['plain_ms']:.4f} ms | library {rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)} ms"
@@ -125,7 +142,7 @@ def kernel_checks(card: str):
     # K1: SigLIP tower self-attention, 32 frames x 16 heads, L = 729, d = 72
     bh, L, d = 32 * 16, 729, 72
     q, k, v = rn(bh, L, d), rn(bh, L, d), rn(bh, L, d)
-    record("fullblock_attention[siglip 32f]", "fullblock_attention",
+    record("fullblock_attention[siglip 32f]", "K1",
            lambda: fullblock_attention(q, k, v, d**-0.5),
            lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.0, False)[0][:, 0],
            lambda: F.scaled_dot_product_attention(q, k, v, scale=d**-0.5),
@@ -142,7 +159,7 @@ def kernel_checks(card: str):
     mask = (pos[None, :] <= pos[:, None])[None, None] & (pos[None, None, None, :] < kl[:, None, None, None])
     valid = (pos[None, :] < kl[:, None])[:, None, :].expand(b, H, L)
     pairs = sum(int(np.minimum(n, np.arange(L) + 1).sum()) for n in lens)
-    record("flash_forward[prefill 7b]", "flash_forward",
+    record("flash_forward[prefill 7b]", "K2",
            lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
            lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
@@ -152,7 +169,7 @@ def kernel_checks(card: str):
     # K2 global compressor: 9 heads, 32 queries over 32 x 27 x 27 = 23,328 keys, d = 128
     H, Lq, Lk, d = 9, 32, 23328, 128
     q, k, v = rn(1, H, Lq, d), rn(1, H, Lk, d), rn(1, H, Lk, d)
-    record("flash_forward[global 32f]", "flash_forward",
+    record("flash_forward[global 32f]", "K2",
            lambda: flash_forward(q, k, v, None, d**-0.5, 0.0, False),
            lambda: flash_reference(q, k, v, None, d**-0.5, 0.0, False),
            lambda: F.scaled_dot_product_attention(q, k, v, scale=d**-0.5),
@@ -167,7 +184,7 @@ def kernel_checks(card: str):
     n_valid = int(bitmap.sum())
     q = rn(b, H, 1, d)
     kb, vb = rn(b, KVH, S, d), rn(b, KVH, S, d)
-    record("flash_decode[bf16 cache]", "flash_decode",
+    record("flash_decode[bf16 cache]", "K3",
            lambda: flash_decode(q, kb, vb, bitmap),
            lambda: decode_reference(q, kb, vb, bitmap, None, None, d**-0.5),
            lambda: F.scaled_dot_product_attention(q, kb, vb, attn_mask=bitmap[:, None, None, :], enable_gqa=True),
@@ -176,11 +193,23 @@ def kernel_checks(card: str):
     vi = torch.randint(-127, 128, (b, KVH, S, d), generator=gen, device=dev, dtype=torch.int8)
     ks = torch.rand(b, KVH, S, generator=gen, device=dev) * 0.02
     vs = torch.rand(b, KVH, S, generator=gen, device=dev) * 0.02
-    record("flash_decode[int8 cache]", "flash_decode",
+    record("flash_decode[int8 cache]", "K3",
            lambda: flash_decode(q, ki, vi, bitmap, k_scale=ks, v_scale=vs),
            lambda: decode_reference(q, ki, vi, bitmap, ks, vs, d**-0.5), None,
            4 * H * d * n_valid, 2 * b * H * d * 2 + n_valid * KVH * (d * 2 + 8) + b * S)
     records.pop("flash_decode[int8 cache]")  # the main path's cache is bf16; this line is the int8 check
+    # a row whose bitmap has no valid slot: the uniform average of its values (the
+    # TPU kernel's and the twin's answer), each row held to the twin on its own
+    clear = bitmap.clone()
+    clear[1] = False
+    for label, kk, vv, kss, vss in (("bf16", kb, vb, None, None), ("int8", ki, vi, ks, vs)):
+        got = flash_decode(q, kk, vv, clear, k_scale=kss, v_scale=vss)
+        ref = decode_reference(q, kk, vv, clear, kss, vss, d**-0.5)
+        ratios = [agreement(got[r], ref[r])[1] for r in (0, 1)]
+        log(f"[kernel] flash_decode[{label} cache, all-clear row]: worst err/tol {ratios[0]:.3f} (normal row), "
+            f"{ratios[1]:.3f} (all-clear row, ref rms {agreement(ref[1], ref[1])[2]:.3g})")
+        if not max(ratios) <= 1:
+            raise AssertionError(f"flash_decode disagrees with its twin on an all-clear row ({label})")
     del kb, vb, ki, vi
 
     # K4: local compressor, key/value (32, 27, 27, 1152), one query per 4x3x3 tile
@@ -188,11 +217,68 @@ def kernel_checks(card: str):
     key, val, qq = rn(t, h, w, c), rn(t, h, w, c), rn(t // 4, h // 3, w // 3, c)
     scale = torch.tensor(c**-0.5, device=dev)
     n_tiles = (t // 4) * (h // 3) * (w // 3)
-    record("fused_tile_attention[local 32f]", "fused_tile_attention",
+    record("fused_tile_attention[local 32f]", "K4",
            lambda: fused_tile_attention(qq, key, val, (4, 3, 3), scale, 0.0),
            lambda: tile_reference(qq, key, val, (4, 3, 3), scale, 0.0), None,
            4 * n_tiles * 36 * c, 2 * t * h * w * c * 2 + 2 * n_tiles * c * 2)
+    del key, val, qq
+    backward_checks(rn, record)
     return records
+
+
+def backward_checks(rn, record):
+    """Phase 3, flash backward: K5 (dQ) and K6 (dK, dV) at the three shapes the
+    train step gives them, each held to the plain twin; the library call is the
+    backward of ``F.scaled_dot_product_attention`` at the same shape (dQ, dK and
+    dV together), through ``torch.autograd.grad`` on a kept graph."""
+    import torch
+    import torch.nn.functional as F
+
+    from hicom_tpu_torch.ops.flash_attention import (_launch_dkv, _launch_dq, backward_operands,
+                                                     flash_backward_reference, flash_forward, fullblock_attention)
+
+    dev = "cuda"
+    shapes = [  # label, b, H, KVH, Lq, Lk, d, causal, kv lengths
+        ("prefill 7b", 2, 28, 4, 743, 743, 128, True, [743, 700]),  # decoder, right-padded row
+        ("global 32f b2", 2, 9, 9, 32, 23328, 128, False, None),  # global compressor
+        ("siglip 32f", 512, 1, 1, 729, 729, 72, False, None),  # tower rows (K1's route)
+    ]
+    for label, b, H, KVH, Lq, Lk, d, causal, lens in shapes:
+        q, k, v, do = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d), rn(b, H, Lq, d)
+        kl = torch.tensor(lens, device=dev, dtype=torch.int32) if lens else None
+        scale = d**-0.5
+        if KVH == H == 1:  # the tower's rows come from K1
+            out, lse = fullblock_attention(q[:, 0], k[:, 0], v[:, 0], scale)
+            out, lse = out[:, None], lse[:, None]
+        else:
+            out, lse = flash_forward(q, k, v, kl, scale, 0.0, causal)
+        ops = backward_operands(q, k, v, kl, out, lse, do)
+        plain = lambda: flash_backward_reference(q, k, v, kl, out, lse, do, scale, 0.0, causal)  # noqa: E731
+
+        # the library: SDPA's backward; a boolean mask where there are lengths
+        mask = None
+        if lens:
+            pos = torch.arange(Lk, device=dev)
+            mask = (pos[None, None, None, :] < kl[:, None, None, None]) & (
+                pos[None, :] <= torch.arange(Lq, device=dev)[:, None] + (Lk - Lq))[None, None]
+        lq, lk_, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk_, lv, attn_mask=mask, is_causal=causal and mask is None,
+                                                 scale=scale, enable_gqa=H != KVH)
+        library = lambda: torch.autograd.grad(lib_out, (lq, lk_, lv), do, retain_graph=True)  # noqa: E731
+
+        # unmasked (q, k) pairs, per head
+        rows = np.arange(Lq)
+        visible = [np.minimum(n if n is not None else Lk, rows + 1 + (Lk - Lq) if causal else Lk)
+                   for n in (lens or [None] * b)]
+        pairs = int(sum(np.clip(x, 0, None).sum() for x in visible))
+        qd_bytes = 2 * b * H * Lq * d * 2 + 2 * b * H * Lq * 4  # q and dO read, lse and delta read
+        kv_bytes = 2 * b * KVH * Lk * d * 2  # k and v (read), or dk and dv (written)
+        record(f"flash_backward_dq[{label}]", "K5", lambda: (_launch_dq(*ops, scale, 0.0, causal),), plain, library,
+               6 * H * d * pairs, qd_bytes + kv_bytes + b * H * Lq * d * 2, outputs=(0,))
+        record(f"flash_backward_dkv[{label}]", "K6", lambda: _launch_dkv(*ops, scale, 0.0, causal), plain, library,
+               8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2))
+        del q, k, v, do, out, lse, ops, lib_out, lq, lk_, lv, mask
+        torch.cuda.empty_cache()
 
 
 def serving_config(layers: int = None):
@@ -236,6 +322,17 @@ def make_requests(cfg, seed: int = 0):
     return batch, single
 
 
+def make_train_batch(cfg, seed: int = 0):
+    """The batch-of-2 request as a training batch: labels are the prompt ids
+    with the first 8 and the padding set to IGNORE_INDEX."""
+    from hicom_tpu_torch.constants import IGNORE_INDEX
+
+    batch, _ = make_requests(cfg, seed)
+    labels = np.where(batch["attention_mask"], batch["input_ids"], IGNORE_INDEX)
+    labels[:, :8] = IGNORE_INDEX
+    return dict(batch, labels=labels)
+
+
 @contextmanager
 def plain_path():
     """Route attention to the plain paths while inside (kernels stay untouched)."""
@@ -252,12 +349,14 @@ def plain_path():
         attention.flash_route, projector.fused_tile_attention = saved
 
 
-def counters():
-    from hicom_tpu_torch.ops.flash_attention import flash_forward, fullblock_attention
+def counters(train: bool = False):
+    """The serving path's kernel wrappers by name, and the flash backward's with ``train``."""
+    from hicom_tpu_torch.ops.flash_attention import flash_backward, flash_forward, fullblock_attention
     from hicom_tpu_torch.ops.flash_decode import flash_decode
     from hicom_tpu_torch.ops.local_attn import fused_tile_attention
 
-    return {f.__name__: f for f in (fullblock_attention, flash_forward, flash_decode, fused_tile_attention)}
+    fns = (fullblock_attention, flash_forward, flash_decode, fused_tile_attention) + ((flash_backward,) if train else ())
+    return {f.__name__: f for f in fns}
 
 
 def main_path(card: str):
@@ -384,8 +483,192 @@ def stage_breakdown(hc, single, new_tokens: int = 16):
     return decode_tps
 
 
+def train_phase(card: str):
+    """Phase 5: stage 2 of the reference's recipe (``--use-guide direct
+    --mm-tunable-parts mm_projector --guide-injector-lr 1e-3``) at the full
+    width of HICom-7B: 3 train steps on a seeded batch of 2 (prompts of 64 and
+    41 tokens, 32-frame videos, 743 spliced tokens per row). Returns the flash
+    backward's launches over the 3 steps."""
+    import torch
+
+    from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.train.optimizer import build_optimizer, trainable_param_count
+    from hicom_tpu_torch.train.train_step import batch_to_device, create_train_state, make_train_step
+
+    cfg = serving_config()
+    model = build_model(cfg, device="cuda", seed=0)
+    # total_steps counts the staged and profiled steps too; no warmup (int(5 * 0.03) = 0)
+    opt = build_optimizer(model, learning_rate=1e-3, guide_injector_lr=1e-3, total_steps=TRAIN_STEPS + 2,
+                          tunable_parts="mm_projector", use_guide="direct")
+    state = create_train_state(model, opt)
+    params = dict(model.named_parameters())
+    trained = {n for n, p in params.items() if p.requires_grad}
+    log(f"[train] stage 2: {trainable_param_count(model, 'mm_projector', 'direct') / 1e6:.1f} M trained "
+        f"parameters (fp32 masters), {sum(p.numel() for n, p in params.items() if n not in trained) / 1e9:.2f} B "
+        "frozen (bf16)")
+    frozen_before = {n: p.detach().cpu() for n, p in params.items() if n not in trained}  # host copies
+    trained_before = {n: params[n].detach().clone() for n in trained}
+    batch = batch_to_device(make_train_batch(cfg), torch.device("cuda"), torch.bfloat16)
+    step = make_train_step()
+
+    fns = counters(train=True)
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics, per_step, with_grad = [], [], [], set()
+    for _ in range(TRAIN_STEPS):
+        before = fns["flash_backward"].launches
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append(fns["flash_backward"].launches - before)
+        metrics.append({k: float(v) for k, v in m.items()})
+        with_grad |= {n for n in trained if params[n].grad is not None and bool(params[n].grad.any())}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: f.launches for name, f in fns.items()}
+    log(f"[train] launches over {TRAIN_STEPS} steps: {launches}; flash_backward per step {per_step}")
+    for i, m in enumerate(metrics):
+        log(f"[train] step {i + 1}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6g}, target tokens "
+            f"{int(m['target_tokens'])}, {times[i] * 1e3:.1f} ms")
+
+    n_layers = cfg.text_config.num_hidden_layers
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
+        raise AssertionError(f"non-finite loss or grad norm: {metrics}")
+    if per_step != [n_layers + 1] * TRAIN_STEPS:  # every decoder layer + the global compressor
+        raise AssertionError(f"flash backward launched {per_step} times per step, not {n_layers + 1}")
+    if launches["fused_tile_attention"] or launches["flash_decode"]:
+        raise AssertionError(f"a kernel without a backward ran in training: {launches}")
+    if not (launches["fullblock_attention"] and launches["flash_forward"]):
+        raise AssertionError(f"the train step never launched a forward kernel: {launches}")
+    changed = [n for n, before in frozen_before.items() if not torch.equal(params[n].detach().cpu(), before)]
+    if changed:
+        raise AssertionError(f"{len(changed)} frozen parameters changed, e.g. {changed[:3]}")
+    still = [n for n in with_grad if torch.equal(params[n].detach(), trained_before[n])]
+    if still or not with_grad:
+        raise AssertionError(f"trained parameters with a nonzero gradient did not move: {still[:5]}")
+    log(f"[train] checks: {len(frozen_before)} frozen tensors bit-identical; {len(with_grad)} of {len(trained)} "
+        f"trained tensors had a nonzero gradient and all moved")
+
+    spliced = batch["input_ids"].shape[0] * (batch["input_ids"].shape[1] - 1 + model.visual_token_count(
+        cfg.num_frames, "video"))
+    steady = sum(times[1:]) / len(times[1:])
+    targets = metrics[-1]["target_tokens"]
+    log(f"[train] {card} | HICom-7B stage 2, batch 2 x 32 frames, {spliced} spliced tokens, {int(targets)} target "
+        f"tokens | step {steady * 1e3:.1f} ms (mean of steps 2-{TRAIN_STEPS}; step 1 {times[0] * 1e3:.1f} ms) | "
+        f"{targets / steady:.1f} target tokens/s | {spliced / steady:.1f} spliced tokens/s | peak memory "
+        f"{peak_gb:.2f} GB")
+    train_profile(state, step, batch)
+    del model, state, opt, params, trained_before, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_profile(state, step, batch, top: int = 12):
+    """Phase 5a: one more step split into stages (host clock around
+    synchronised stages: the frozen tower's forward alone, then the step's
+    forward, backward and update), then one under torch.profiler: device
+    kernel time by kernel and the device's idle share of the step's wall
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hicom_tpu_torch.train.train_step import make_loss_fn
+
+    model = state.model
+    stamps = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        stamps.append((name, time.perf_counter()))
+
+    mark("start")
+    with torch.no_grad():
+        frames = batch["frames"]
+        model.model.vision_tower.vision_tower(frames.reshape((-1,) + frames.shape[2:]))
+    mark("vision tower forward (alone)")
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = make_loss_fn(model)(batch)
+    mark("forward + loss (tower included)")
+    loss.backward()
+    mark("backward")
+    state.optimizer.update(model)
+    mark("clip + AdamW + write-back")
+    log("[train-stages] " + " | ".join(f"{n} {1e3 * (t - stamps[i][1]):.1f} ms"
+                                       for i, (n, t) in enumerate(stamps[1:])))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
+    busy_us = sum(dev_time(e) for e in kernels)
+    if busy_us <= 0:
+        log("[train-profile] the profiler saw no device time")
+        return
+    log(f"[train-profile] step wall {wall_us / 1e3:.1f} ms, device kernels {busy_us / 1e3:.1f} ms, "
+        f"idle share {1 - busy_us / wall_us:.3f}")
+    for e in sorted(kernels, key=dev_time, reverse=True)[:top]:
+        log(f"[train-profile]   {dev_time(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def plain_vs_kernel_grads():
+    """Phase 6b: at 2 decoder and 2 tower layers, the trained parameters'
+    gradients of one stage-2 loss on the kernel path against the plain path's."""
+    import torch
+
+    from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.ops.flash_attention import flash_backward
+    from hicom_tpu_torch.train.optimizer import build_optimizer
+    from hicom_tpu_torch.train.train_step import batch_to_device, make_loss_fn
+
+    cfg = serving_config(layers=2)
+    model = build_model(cfg, device="cuda", seed=4)
+    build_optimizer(model, learning_rate=1e-3, tunable_parts="mm_projector", use_guide="direct").init(model)
+    batch = batch_to_device(make_train_batch(cfg, seed=5), torch.device("cuda"), torch.bfloat16)
+    loss_fn = make_loss_fn(model)
+
+    def grads():
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = loss_fn(batch)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
+
+    before = flash_backward.launches
+    loss_k, got = grads()
+    launched = flash_backward.launches - before
+    with plain_path():
+        loss_p, ref = grads()
+    if launched != 3 or flash_backward.launches - before != 3:
+        raise AssertionError(f"the kernel path launched the flash backward {launched} times (2 layers + global: 3),"
+                             " or the plain path launched it")
+    if set(got) != set(ref):
+        raise AssertionError("the two paths gave gradients to different parameters")
+    diff = sum((got[n] - ref[n]).square().sum() for n in ref).sqrt().item()
+    norm = sum(ref[n].square().sum() for n in ref).sqrt().item()
+    # bf16 activations and gradients round at other points on the two paths
+    # (flash tiles with P and dS rounded to bf16, against a whole-row fp32
+    # softmax and its fp32 autograd) through 2 tower, 2 guide and 2 decoder
+    # layers: hold the global relative difference of the gradients to 5%
+    tol = 0.05
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    log(f"[train] 2-layer stage-2 gradients, kernel vs plain path: loss {loss_k:.6f} vs {loss_p:.6f}, "
+        f"{len(got)} tensors, global |diff| / |plain| {diff / norm:.4g} (tol {tol}), |plain| {norm:.4g}, "
+        f"finite {finite}")
+    if not (finite and norm > 0 and diff <= tol * norm):
+        raise AssertionError("kernel-path gradients disagree with the plain path")
+    del model, got, ref, batch
+    torch.cuda.empty_cache()
+
+
 def plain_vs_kernel_logits():
-    """Phase 4b: at 2 decoder and 2 tower layers, the kernel path's last-token
+    """Phase 6a: at 2 decoder and 2 tower layers, the kernel path's last-token
     prefill logits against the plain path's, on the batch-of-2 request."""
     import torch
 
@@ -452,11 +735,13 @@ def main() -> int:
 
     records = kernel_checks(card)
     launches = main_path(card)
+    launches["flash_backward"] = train_phase(card)["flash_backward"]
     plain_vs_kernel_logits()
+    plain_vs_kernel_grads()
 
     kernels = []
-    for name, (wrapper, rec) in records.items():
-        rec["launches"] = launches[wrapper]
+    for name, (kid, rec) in records.items():
+        rec["launches"] = launches[KERNELS[kid][0]]
         kernels.append(rec)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,10 +11,11 @@
 // rows, so one block per row would leave 128 of 132 SMs idle. The design splits the slot axis
 // (flash-decoding): blocks of 128 slots each produce a partial (max, denominator, accumulator)
 // per head in fp32, and a second small kernel merges the partials. Slots whose bit is clear are
-// skipped without reading K/V; a masked slot contributes exp(-1e30 - m) = 0 in the TPU kernel too,
-// so only a row with no valid slot at all differs (zeros here, the TPU kernel's uniform average
-// there). Inside a block each warp walks its own slots with lanes split over d and keeps an
-// online softmax in registers; the four warps merge through shared memory.
+// skipped without reading K/V; a masked slot contributes exp(-1e30 - m) = 0 in the TPU kernel too.
+// A row with no valid slot at all has every logit at -1e30 there, hence the uniform average of
+// its values: the merge kernel computes that average for such a row. Inside a block each warp
+// walks its own slots with lanes split over d and keeps an online softmax in registers; the four
+// warps merge through shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,10 +145,14 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict_
   }
 }
 
-// grid (B * KVH * G), block D: merge the chunks' partials into o (B, KVH * G, 1, D) bf16
+// grid (B * KVH * G), block D: merge the chunks' partials into o (B, KVH * G, 1, D) bf16.
+// A row with no valid slot at all gets what the TPU kernel gives it: every logit is -1e30, so
+// every p is 1 and the output is the plain average of all S value rows (times their v scales).
+template <typename KV, bool QUANT>
 __global__ void decode_combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl,
-                                      const float* __restrict__ pacc, __nv_bfloat16* __restrict__ o,
-                                      int G, int n_chunks) {
+                                      const float* __restrict__ pacc, const KV* __restrict__ v,
+                                      const float* __restrict__ v_scale, __nv_bfloat16* __restrict__ o,
+                                      int G, int n_chunks, int S) {
   const int rh = blockIdx.x;  // (b * KVH + kvh) * G + h
   const int rowi = rh / G;
   const int h = rh % G;
@@ -167,6 +172,18 @@ __global__ void decode_combine_kernel(const float* __restrict__ pm, const float*
         A += pacc[idx * D + c] * f;
       }
     }
+  } else {  // all-clear bitmap: the uniform average (rare; one pass over the row's values)
+    for (int s = 0; s < S; ++s) {
+      const size_t off = (size_t)rowi * S + s;
+      float x;
+      if constexpr (QUANT) {
+        x = (float)v[off * D + c] * v_scale[off];
+      } else {
+        x = __bfloat162float(v[off * D + c]);
+      }
+      A += x;
+    }
+    L = (float)S;
   }
   o[(size_t)rh * D + c] = __float2bfloat16(A / fmaxf(L, 1e-30f));
 }
@@ -182,16 +199,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
   float* pacc = pl + (size_t)rows * n_chunks * G;
   dim3 grid(rows, n_chunks);
   auto qp = static_cast<const __nv_bfloat16*>(q);
-  if (quant)
+  auto op = static_cast<__nv_bfloat16*>(o);
+  if (quant) {
+    auto vp = static_cast<const int8_t*>(v);
     decode_partial_kernel<G, int8_t, true><<<grid, NWARPS * 32, 0, stream>>>(
-        qp, static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), ks, vs, mask, pm, pl, pacc, KVH, S, scale);
-  else
+        qp, static_cast<const int8_t*>(k), vp, ks, vs, mask, pm, pl, pacc, KVH, S, scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    decode_combine_kernel<int8_t, true><<<rows * G, D, 0, stream>>>(pm, pl, pacc, vp, vs, op, G, n_chunks, S);
+  } else {
+    auto vp = static_cast<const __nv_bfloat16*>(v);
     decode_partial_kernel<G, __nv_bfloat16, false><<<grid, NWARPS * 32, 0, stream>>>(
-        qp, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), ks, vs, mask, pm, pl, pacc,
-        KVH, S, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<<<rows * G, D, 0, stream>>>(pm, pl, pacc, static_cast<__nv_bfloat16*>(o), G, n_chunks);
+        qp, static_cast<const __nv_bfloat16*>(k), vp, ks, vs, mask, pm, pl, pacc, KVH, S, scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    decode_combine_kernel<__nv_bfloat16, false><<<rows * G, D, 0, stream>>>(pm, pl, pacc, vp, vs, op, G,
+                                                                           n_chunks, S);
+  }
   return cudaGetLastError();
 }
 

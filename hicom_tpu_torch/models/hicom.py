@@ -17,7 +17,7 @@ the multimodal parts hung under ``model`` as the reference does.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -81,9 +81,12 @@ class HIComModel(Qwen2ForCausalLM):
 
     def encode_visual(self, frames: Tensor, guide_embeds: Optional[Tensor] = None, modal: str = "video") -> Tensor:
         """(b, t, 3, H, W) frames -> (b, V, hidden) visual tokens: SigLIP over all
-        frames at once, then the projector over the batch."""
+        frames at once, then the projector over the batch. A frozen tower runs
+        without a graph (:func:`_unless_frozen`)."""
         b, t = frames.shape[:2]
-        features, image_embeds = self.model.vision_tower.vision_tower(frames.reshape((b * t,) + frames.shape[2:]))
+        tower = self.model.vision_tower.vision_tower
+        with _unless_frozen(tower):
+            features, image_embeds = tower(frames.reshape((b * t,) + frames.shape[2:]))
         features = features.reshape((b, t) + features.shape[1:])
         if image_embeds is not None:
             image_embeds = image_embeds.reshape((b, t) + image_embeds.shape[1:])
@@ -124,3 +127,32 @@ class HIComModel(Qwen2ForCausalLM):
 
     def decode(self, embeds: Tensor, positions: Tensor, cache=None, padding_mask: Optional[Tensor] = None):
         return self(embeds, positions, cache, padding_mask)
+
+    # ------------------------------------------------------------------ #
+    # One-shot forward (training / eval loss)
+    # ------------------------------------------------------------------ #
+
+    def one_shot_forward(self, input_ids: Tensor, frames: Optional[Tensor] = None,
+                         attention_mask: Optional[Tensor] = None, labels: Optional[Tensor] = None,
+                         guide_ids: Optional[Tensor] = None, guide_mask: Optional[Tensor] = None,
+                         modal: str = "video") -> Tuple[Tensor, Optional[Tensor], Tensor]:
+        """The JAX ``HIComModel.__call__``: guide -> ``encode_visual`` ->
+        ``embed_and_splice`` with labels -> decoder. Returns (logits, spliced
+        labels, attention mask). A tower or guide encoder whose parameters are
+        all frozen runs under ``no_grad``, the counterpart of the JAX train
+        step's ``stop_gradient`` pruning: a frozen tower costs one forward."""
+        visual = None
+        if frames is not None:
+            guide_embeds = None
+            if self.hicom_config.guide_enabled():
+                with _unless_frozen(self.model.vision_tower.guide_encoder):
+                    guide_embeds = self.encode_guide(guide_ids, guide_mask)
+            visual = self.encode_visual(frames, guide_embeds, modal)
+        spliced = self.embed_and_splice(input_ids, visual, attention_mask, labels)
+        logits, _ = self.decode(spliced.embeds, spliced.positions, padding_mask=spliced.attention_mask)
+        return logits, spliced.labels, spliced.attention_mask
+
+
+def _unless_frozen(module: nn.Module):
+    """A context that turns gradients off when no parameter of ``module`` requires one."""
+    return torch.set_grad_enabled(torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters()))

@@ -6,9 +6,11 @@ batch axis instead: volumes are (b, t, h, w, d), guides (b, d) or (b, Lg, d).
 State-dict names follow the reference (``local_compressor.readout.0.weight``).
 
 On the card the local compressor's divisible tile grid runs the K4 tile
-kernel (the batch folds into the frame axis, which tiles the same way); the
-overlapping grid stays on ``tile_thw`` + ``sdpa``. The global compressor's
-32-query cross-attention reaches the K2 flash kernel through ``sdpa``.
+kernel (the batch folds into the frame axis, which tiles the same way) when
+grad mode is off; the overlapping grid, and every pass under grad mode (the
+train step, as the JAX train step runs it), stays on ``tile_thw`` + ``sdpa``
+(K4 has no backward). The global compressor's 32-query cross-attention
+reaches the K2 flash kernel, and its K5/K6 backward, through ``sdpa``.
 """
 
 from __future__ import annotations
@@ -150,7 +152,7 @@ class LocalCompressor(nn.Module):
         att_scale = torch.exp(logit_scale) if logit_scale is not None else 1.0 / math.sqrt(self.qk_dim)
         divisible = t % kt == 0 and h % ks == 0 and w % ks == 0
         dv = value.shape[-1]
-        if divisible and q.is_cuda:
+        if divisible and q.is_cuda and not torch.is_grad_enabled():
             # tiles never cross frames, so the batch folds into the frame axis
             out = fused_tile_attention(q.reshape(b * down[0], *down[1:], q.shape[-1]),
                                        key.reshape(b * t, h, w, key.shape[-1]),

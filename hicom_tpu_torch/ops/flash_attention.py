@@ -1,22 +1,30 @@
-"""Flash-attention forward: the Hopper kernel of ``csrc/flash_fwd.cu`` and its plain twin.
+"""Flash attention: the Hopper kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, their
+plain twins, and the ``torch.autograd.Function`` that joins them.
 
-One CUDA kernel takes the place of two Pallas TPU kernels of
+Two CUDA sources take the place of four Pallas TPU kernels of
 ``hicom_tpu/ops/flash_attention.py``:
 
 * :func:`fullblock_attention` replaces ``_fullblock_kernel`` (K1): unmasked
   attention with every row seeing the whole kv, the SigLIP tower shape;
 * :func:`flash_forward` replaces ``_flash_kernel`` (K2): causal (aligned
   bottom-right) and ``kv_lengths`` masks, and grouped-query attention with the
-  kv head indexed as ``h // g`` instead of folded rows.
+  kv head indexed as ``h // g`` instead of folded rows;
+* :func:`flash_backward` replaces ``_bwd_dq_kernel`` (K5) and
+  ``_bwd_dkv_kernel`` (K6): dQ, and dK/dV summed over each kv head's group of
+  query heads, with P recomputed from the forward's lse.
 
-Both return ``(out, lse)``; the lse is what a backward pass will need. Each
-wrapper runs the plain PyTorch twin for CPU tensors and launches the kernel for
-CUDA tensors, or raises; ``launches`` counts kernel launches.
+The forwards return ``(out, lse)``. Each wrapper runs the plain PyTorch twin
+for CPU tensors and launches its kernels for CUDA tensors, or raises;
+``launches`` counts wrapper calls that launched kernels.
 
-:func:`flash_attention` and :func:`flash_attention_gqa` keep the signatures of
-the JAX entry points. :func:`uses_fullblock` is the one rule that chooses
-between the two kernels, as ``_flash_fwd_impl`` chooses on the TPU; ``sdpa``
-and :func:`flash_attention` both go through it and :func:`run_kernel`.
+:class:`FlashAttention` is the counterpart of JAX's ``_flash_bhld``
+``custom_vjp``: its forward runs K1 or K2 and saves (q, k, v, kv_lengths, out,
+lse), its backward runs :func:`flash_backward`. :func:`run_kernel`,
+:func:`flash_attention` and :func:`flash_attention_gqa` (so ``sdpa`` too) go
+through it whenever a gradient is wanted, and straight to the forward kernel
+otherwise (serving under ``torch.inference_mode()`` saves nothing).
+:func:`uses_fullblock` is the one rule that chooses between K1 and K2, as
+``_flash_fwd_impl`` chooses on the TPU.
 """
 
 from __future__ import annotations
@@ -35,55 +43,102 @@ NEG_INF = -1e30
 Tensor = torch.Tensor
 
 
+def _acc_dtype(x: Tensor) -> torch.dtype:
+    """The twins' working type: float64 for float64 inputs (gradcheck), else float32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _valid(b: int, Lq: int, Lk: int, kv_lengths: Optional[Tensor], causal: bool, device) -> Tensor:
+    """(b, 1, 1, Lq, Lk) bool: keys below the row's kv length and, if causal,
+    at most ``q + Lk - Lq`` (the diagonal aligned bottom-right)."""
+    k_pos = torch.arange(Lk, device=device)
+    valid = torch.ones((b, 1, 1, Lq, Lk), dtype=torch.bool, device=device)
+    if kv_lengths is not None:
+        valid = valid & (k_pos[None, :] < kv_lengths.to(device)[:, None]).reshape(b, 1, 1, 1, Lk)
+    if causal:
+        q_pos = torch.arange(Lq, device=device)
+        valid = valid & (k_pos[None, :] <= q_pos[:, None] + (Lk - Lq))
+    return valid
+
+
 def flash_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float,
                     logit_bias: float, causal: bool) -> Tuple[Tensor, Tensor]:
-    """Plain twin of the kernel: q (b, H, Lq, d), k/v (b, KVH, Lk, d), kv_lengths (b,).
+    """Plain twin of the forward kernel: q (b, H, Lq, d), k/v (b, KVH, Lk, d), kv_lengths (b,).
 
-    fp32 logits, masked entries at -1e30 (the TPU kernel's convention), causal
-    mask aligned bottom-right, p rounded to v's dtype before the weighted sum,
-    denominator ``max(l, 1e-30)``. Returns out (q.dtype) and lse (b, H, Lq) fp32.
+    fp32 logits (fp64 for fp64 inputs), masked entries at -1e30 (the TPU
+    kernel's convention), causal mask aligned bottom-right, p rounded to v's
+    dtype before the weighted sum, denominator ``max(l, 1e-30)``. Returns out
+    (q.dtype) and lse (b, H, Lq) in the working type.
     """
     b, H, Lq, d = q.shape
     KVH, Lk = k.shape[1], k.shape[2]
-    g = H // KVH
-    qg = q.reshape(b, KVH, g, Lq, d).float()
-    logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale + logit_bias
-    k_pos = torch.arange(Lk, device=q.device)
-    valid = torch.ones((b, 1, 1, Lq, Lk), dtype=torch.bool, device=q.device)
-    if kv_lengths is not None:
-        valid = valid & (k_pos[None, :] < kv_lengths.to(q.device)[:, None]).reshape(b, 1, 1, 1, Lk)
-    if causal:
-        q_pos = torch.arange(Lq, device=q.device)
-        valid = valid & (k_pos[None, :] <= q_pos[:, None] + (Lk - Lq))
+    acc = _acc_dtype(q)
+    qg = q.reshape(b, KVH, H // KVH, Lq, d).to(acc)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(acc)) * scale + logit_bias
+    valid = _valid(b, Lq, Lk, kv_lengths, causal, q.device)
     logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype).float(), v.float()) / denom
+    out = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype).to(acc), v.to(acc)) / denom
     lse = (m + torch.log(denom))[..., 0]
     return out.reshape(b, H, Lq, d).to(q.dtype), lse.reshape(b, H, Lq)
 
 
-def _launch(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float,
-            logit_bias: float, causal: bool) -> Tuple[Tensor, Tensor]:
+def flash_backward_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], out: Tensor,
+                             lse: Tensor, do: Tensor, scale: float, logit_bias: float, causal: bool
+                             ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain twin of K5 + K6, written out from the formulas of
+    ``_bwd_dq_kernel``/``_bwd_dkv_kernel``: p = exp(s - lse) where unmasked, else
+    0; delta = rowsum(dO * O); dS = p (dP - delta); dQ = scale dS K, dK = scale
+    dSᵀ Q (summed over each group's query heads), dV = pᵀ dO. p is rounded to
+    dO's dtype before dV, dS to K's/Q's dtype before dQ/dK, and every sum is in
+    the working type. Query rows past ``kv_lengths`` are not masked. Returns
+    (dq, dk, dv) in the dtypes of q, k and v."""
+    b, H, Lq, d = q.shape
+    KVH, Lk = k.shape[1], k.shape[2]
+    g = H // KVH
+    acc = _acc_dtype(q)
+    grouped = lambda x: x.reshape(b, KVH, g, Lq, x.shape[-1]).to(acc)  # noqa: E731
+    qg, dog = grouped(q), grouped(do)
+    kf, vf = k.to(acc), v.to(acc)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf) * scale + logit_bias
+    valid = _valid(b, Lq, Lk, kv_lengths, causal, q.device)
+    p = torch.where(valid, torch.exp(s - lse.reshape(b, KVH, g, Lq, 1).to(acc)), torch.zeros_like(s))
+    delta = (dog * grouped(out)).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dog, vf) - delta)
+    dq = scale * torch.einsum("bkgqs,bksd->bkgqd", ds.to(k.dtype).to(acc), kf)
+    dk = scale * torch.einsum("bkgqs,bkgqd->bksd", ds.to(q.dtype).to(acc), qg)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p.to(do.dtype).to(acc), dog)
+    return dq.reshape(b, H, Lq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], what: str):
+    """The kernels' common contract; returns (b, H, KVH, Lq, Lk, d, int32 lengths or None)."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"flash kernel takes q (b,H,Lq,d), k/v (b,KVH,Lk,d); got {q.shape}, {k.shape}, {v.shape}")
+        raise ValueError(f"{what} takes q (b,H,Lq,d), k/v (b,KVH,Lk,d); got {q.shape}, {k.shape}, {v.shape}")
     b, H, Lq, d = q.shape
     KVH, Lk = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or H % KVH:
-        raise ValueError(f"flash kernel: incompatible q {tuple(q.shape)} and k {tuple(k.shape)}")
+        raise ValueError(f"{what}: incompatible q {tuple(q.shape)} and k {tuple(k.shape)}")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError("flash kernel takes bfloat16 q, k and v")
+        raise TypeError(f"{what} takes bfloat16 q, k and v")
     if any(t.device != q.device for t in (k, v)):
-        raise ValueError("flash kernel: q, k and v must be on one device")
+        raise ValueError(f"{what}: q, k and v must be on one device")
     if d % 8 or d > 128 or (d + 15) // 16 * 16 not in (32, 64, 80, 128):
-        raise ValueError(f"flash kernel: head dim {d} not supported")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        raise ValueError(f"{what}: head dim {d} not supported")
     lens = None
     if kv_lengths is not None:
         lens = kv_lengths.to(device=q.device, dtype=torch.int32).contiguous()
         if lens.shape != (b,):
             raise ValueError(f"kv_lengths must be ({b},), got {tuple(lens.shape)}")
+    return b, H, KVH, Lq, Lk, d, lens
+
+
+def _launch(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float,
+            logit_bias: float, causal: bool) -> Tuple[Tensor, Tensor]:
+    b, H, KVH, Lq, Lk, d, lens = _check(q, k, v, kv_lengths, "flash kernel")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, H, Lq), dtype=torch.float32, device=q.device)
     fn = c_function("flash_fwd", "hicom_flash_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
@@ -122,6 +177,111 @@ def flash_forward(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor],
 flash_forward.launches = 0
 
 
+_BWD_ARGS = [ctypes.c_void_p] * 7
+
+
+def _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal):
+    b, H, Lq, d = q.shape
+    KVH, Lk = k.shape[1], k.shape[2]
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr() if lens is not None else None,
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr()),
+            (b, H, KVH, Lq, Lk, d, float(scale), float(logit_bias), int(causal),
+             torch.cuda.current_stream(q.device).cuda_stream))
+
+
+_BWD_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def _launch_dq(q, k, v, lens, do, lse, delta, scale, logit_bias, causal) -> Tensor:
+    """K5 on checked, contiguous CUDA tensors (no launch count: see :func:`flash_backward`)."""
+    dq = torch.empty_like(q)
+    head, tail = _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal)
+    fn = c_function("flash_bwd", "hicom_flash_bwd_dq", _BWD_ARGS + [ctypes.c_void_p] + _BWD_TAIL)
+    check(fn(*head, dq.data_ptr(), *tail), "hicom_flash_bwd_dq")
+    return dq
+
+
+def _launch_dkv(q, k, v, lens, do, lse, delta, scale, logit_bias, causal) -> Tuple[Tensor, Tensor]:
+    """K6 on checked, contiguous CUDA tensors (no launch count: see :func:`flash_backward`)."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    head, tail = _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal)
+    fn = c_function("flash_bwd", "hicom_flash_bwd_dkv", _BWD_ARGS + [ctypes.c_void_p] * 2 + _BWD_TAIL)
+    check(fn(*head, dk.data_ptr(), dv.data_ptr(), *tail), "hicom_flash_bwd_dkv")
+    return dk, dv
+
+
+def backward_operands(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], out: Tensor, lse: Tensor,
+                      do: Tensor):
+    """Check the backward's inputs and bring them to the kernels' layout:
+    returns (q, k, v, int32 lengths or None, dO, lse, delta), contiguous, with
+    delta = rowsum(dO * O) in fp32 (one reduction, as ``_flash_bwd_impl``)."""
+    b, H, KVH, Lq, Lk, d, lens = _check(q, k, v, kv_lengths, "flash backward")
+    if out.shape != q.shape or do.shape != q.shape or lse.shape != (b, H, Lq):
+        raise ValueError(f"flash backward: out/dO must be {tuple(q.shape)} and lse {(b, H, Lq)}")
+    if out.dtype != torch.bfloat16 or do.dtype != torch.bfloat16 or lse.dtype != torch.float32:
+        raise TypeError("flash backward takes bfloat16 out and dO and a float32 lse")
+    if any(t.device != q.device for t in (out, lse, do)):
+        raise ValueError("flash backward: all inputs must be on one device")
+    delta = (do.float() * out.float()).sum(dim=-1)
+    return q.contiguous(), k.contiguous(), v.contiguous(), lens, do.contiguous(), lse.contiguous(), delta
+
+
+def flash_backward(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], out: Tensor, lse: Tensor,
+                   do: Tensor, scale: float, logit_bias: float = 0.0, causal: bool = False
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K5 + K6: (dq, dk, dv) of the attention whose forward gave ``out`` and
+    ``lse``; shapes as :func:`flash_forward`, dO like ``out``."""
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, kv_lengths, out, lse, do, scale, logit_bias, causal)
+    ops = backward_operands(q, k, v, kv_lengths, out, lse, do)
+    dq = _launch_dq(*ops, scale, logit_bias, causal)
+    dk, dv = _launch_dkv(*ops, scale, logit_bias, causal)
+    flash_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_backward.launches = 0
+
+
+def _forward(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float, logit_bias: float,
+             causal: bool, fullblock: bool) -> Tuple[Tensor, Tensor]:
+    """K1 on (bh, 1, L, d) rows or K2 on (b, H, L, d); (out, lse) as 4-D / 3-D."""
+    if fullblock:
+        out, lse = fullblock_attention(q[:, 0], k[:, 0], v[:, 0], scale, logit_bias)
+        return out[:, None], lse[:, None]
+    return flash_forward(q, k, v, kv_lengths, scale, logit_bias, causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward (JAX ``_flash_bhld``'s custom VJP).
+
+    ``apply(q, k, v, kv_lengths, scale, logit_bias, causal, fullblock)`` on
+    (b, H, Lq, d) / (b, KVH, Lk, d) tensors; ``fullblock`` runs K1 on
+    (bh, 1, L, d) rows. ``kv_lengths`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, scale, logit_bias, causal, fullblock):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = _forward(q, k, v, kv_lengths, scale, logit_bias, causal, fullblock)
+        ctx.save_for_backward(q, k, v, kv_lengths, out, lse)
+        ctx.args = (scale, logit_bias, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_lengths, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, kv_lengths, out, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def attend(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float, logit_bias: float,
+           causal: bool, fullblock: bool) -> Tensor:
+    """:class:`FlashAttention` when a gradient is wanted, else the forward kernel alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, kv_lengths, scale, logit_bias, causal, fullblock)
+    return _forward(q, k, v, kv_lengths, scale, logit_bias, causal, fullblock)[0]
+
+
 def uses_fullblock(lq: int, lk: int, *, causal: bool, has_lengths: bool, block_q: int, block_k: int) -> bool:
     """Whether ``_flash_fwd_impl`` runs K1 rather than K2 for ungrouped rows:
     no mask, and each whole sequence is exactly one (block_q, block_k) block
@@ -132,16 +292,17 @@ def uses_fullblock(lq: int, lk: int, *, causal: bool, has_lengths: bool, block_q
 
 def run_kernel(kernel: str, q: Tensor, k: Tensor, v: Tensor, *, scale: float, logit_bias: float,
                is_causal: bool, kv_lengths: Optional[Tensor]) -> Tensor:
-    """Run ``"fullblock"`` (K1) or ``"flash"`` (K2) on (..., L, d) tensors.
+    """Run ``"fullblock"`` (K1) or ``"flash"`` (K2) on (..., L, d) tensors,
+    differentiably (:func:`attend`).
 
     For K2 the leading axis is the batch that ``kv_lengths`` indexes and the
     axes between it and (L, d) are heads; a 4-D q with fewer k heads is GQA."""
     if kernel == "fullblock":
-        rows = lambda x: x.reshape((-1,) + tuple(x.shape[-2:]))  # noqa: E731
-        out, _ = fullblock_attention(rows(q), rows(k), rows(v), scale, logit_bias)
+        shape = lambda x: (-1, 1) + tuple(x.shape[-2:])  # noqa: E731
     else:
-        bhld = lambda x: x.reshape((x.shape[0] if x.ndim > 2 else 1, -1) + tuple(x.shape[-2:]))  # noqa: E731
-        out, _ = flash_forward(bhld(q), bhld(k), bhld(v), kv_lengths, scale, logit_bias, is_causal)
+        shape = lambda x: (x.shape[0] if x.ndim > 2 else 1, -1) + tuple(x.shape[-2:])  # noqa: E731
+    out = attend(q.reshape(shape(q)), k.reshape(shape(k)), v.reshape(shape(v)), kv_lengths, scale, logit_bias,
+                 is_causal, kernel == "fullblock")
     return out.reshape(q.shape)
 
 
@@ -188,5 +349,4 @@ def flash_attention_gqa(
     if q.shape[1] % k.shape[1]:
         raise ValueError("query heads must be a multiple of kv heads")
     scale = float(scale) if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
-    out, _ = flash_forward(q, k, v, kv_lengths, scale, float(logit_bias), is_causal)
-    return out
+    return attend(q, k, v, kv_lengths, scale, float(logit_bias), is_causal, False)

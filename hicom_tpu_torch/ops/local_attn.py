@@ -5,6 +5,9 @@ Replaces the Pallas TPU kernel ``hicom_tpu/ops/local_attn.py:_tile_attn_kernel``
 tile's keys, read straight from the volumes with no retiled copy. Scale and
 bias may be device tensors (the clip-scale path), so no host sync is needed.
 Divisible tile grids only; the overlap case stays on ``tile_thw`` + ``sdpa``.
+K4 has no backward, on the TPU or here: under grad mode the CUDA wrapper
+refuses inputs that require a gradient, and the projector takes ``tile_thw`` +
+``sdpa`` there, the path the JAX train step runs.
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ def fused_tile_attention(
         raise ValueError(f"query grid {tuple(q.shape)} does not match tiles of {tuple(key.shape)}")
     if q.device.type == "cpu":
         return tile_reference(q, key, value, kernel, scale, logit_bias)
+    if torch.is_grad_enabled() and any(isinstance(x, Tensor) and x.requires_grad
+                                       for x in (q, key, value, scale, logit_bias)):
+        raise RuntimeError("the tile kernel has no backward: take tile_thw + sdpa when a gradient is needed")
 
     dv = value.shape[-1]
     if any(x.dtype != torch.bfloat16 for x in (q, key, value)):

@@ -14,7 +14,8 @@ zero, whose error is that of the row's sum of rounded terms.
 import pytest
 import torch
 
-from hicom_tpu_torch.ops.flash_attention import flash_forward, flash_reference, fullblock_attention
+from hicom_tpu_torch.ops.flash_attention import (flash_attention_gqa, flash_backward, flash_backward_reference,
+                                                 flash_forward, flash_reference, fullblock_attention)
 from hicom_tpu_torch.ops.flash_decode import decode_reference, flash_decode
 from hicom_tpu_torch.ops.local_attn import fused_tile_attention, tile_reference
 
@@ -85,6 +86,65 @@ def test_tile_attention(rn):
     scale = torch.tensor(1152**-0.5, device="cuda")  # a device scalar: no host sync
     out = fused_tile_attention(q, key, val, (4, 3, 3), scale, 0.0)
     assert _worst(out, tile_reference(q, key, val, (4, 3, 3), scale, 0.0)) <= 1
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_flash_decode_all_clear_row(rn, quantized):
+    # a row whose bitmap has no valid slot: the uniform average of its values,
+    # as the TPU kernel and the twin give it
+    b, H, KVH, S, d = 2, 28, 4, 1000, 128
+    q = rn(b, H, 1, d)
+    mask = torch.rand(b, S, device="cuda") < 0.5
+    mask[0, 0], mask[1] = True, False
+    if quantized:
+        k = torch.randint(-127, 128, (b, KVH, S, d), device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, KVH, S, d), device="cuda", dtype=torch.int8)
+        ks, vs = torch.rand(b, KVH, S, device="cuda") * 0.02, torch.rand(b, KVH, S, device="cuda") * 0.02
+    else:
+        k, v, ks, vs = rn(b, KVH, S, d), rn(b, KVH, S, d), None, None
+    out = flash_decode(q, k, v, mask, k_scale=ks, v_scale=vs)
+    ref = decode_reference(q, k, v, mask, ks, vs, d**-0.5)
+    assert _worst(out[1], ref[1]) <= 1 and _worst(out[0], ref[0]) <= 1
+
+
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens,bias", [
+    (2, 28, 4, 743, 743, 128, True, [743, 700], 0.0),
+    (2, 9, 9, 32, 5000, 128, False, None, 0.0),
+    (2, 16, 16, 729, 729, 72, False, None, 0.0),
+    (2, 4, 2, 64, 192, 64, True, None, 0.3),
+    (2, 4, 4, 37, 130, 32, False, [100, 130], -0.2),
+])
+def test_flash_backward(rn, b, H, KVH, Lq, Lk, d, causal, lens, bias):
+    q, k, v, do = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d), rn(b, H, Lq, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = flash_forward(q, k, v, kl, d**-0.5, bias, causal)
+    before = flash_backward.launches
+    got = flash_backward(q, k, v, kl, out, lse, do, d**-0.5, bias, causal)
+    assert flash_backward.launches == before + 1
+    ref = flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, bias, causal)
+    assert max(_worst(g, r) for g, r in zip(got, ref)) <= 1
+
+
+def test_flash_function_backward_runs_the_kernels(rn):
+    b, H, KVH, L, d = 2, 8, 2, 150, 128
+    q, k, v, do = rn(b, H, L, d), rn(b, KVH, L, d), rn(b, KVH, L, d), rn(b, H, L, d)
+    kl = torch.tensor([150, 120], device="cuda", dtype=torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (flash_forward.launches, flash_backward.launches)
+    out = flash_attention_gqa(*leaves, is_causal=True, kv_lengths=kl)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert (flash_forward.launches, flash_backward.launches) == (before[0] + 1, before[1] + 1)
+    _, lse = flash_reference(q, k, v, kl, d**-0.5, 0.0, True)
+    ref = flash_backward_reference(q, k, v, kl, out.detach(), lse.float(), do, d**-0.5, 0.0, True)
+    assert max(_worst(g, r) for g, r in zip(grads, ref)) <= 1
+    with torch.inference_mode():  # serving: the forward kernel alone, nothing saved
+        assert not flash_attention_gqa(q, k, v, is_causal=True, kv_lengths=kl).requires_grad
+
+
+def test_tile_kernel_refuses_gradients(rn):
+    key, val, q = rn(8, 27, 27, 64), rn(8, 27, 27, 64), rn(2, 9, 9, 64).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_tile_attention(q, key, val, (4, 3, 3), 0.125, 0.0)
 
 
 def test_cuda_wrappers_refuse_what_they_cannot_take(rn):

@@ -35,30 +35,51 @@ def test_port_and_chip_smoke_import_no_jax():
     assert n_modules >= 20, out.stdout
 
 
-@pytest.mark.parametrize("entry", ["build_model", "load_model"])
+TRAIN_MODULES = ("hicom_tpu_torch.train.optimizer", "hicom_tpu_torch.train.train_step",
+                 "hicom_tpu_torch.train.checkpoints")
+
+
+def test_train_modules_import_no_jax():
+    code = f"import importlib, sys\nfor m in {TRAIN_MODULES!r}: importlib.import_module(m)\n" + \
+        "print('BAD', sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'hicom_tpu')))"
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("entry", ["build_model", "load_model", "create_train_state"])
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     import hicom_tpu_torch
+    from hicom_tpu_torch.models.hicom import HIComModel
+    from hicom_tpu_torch.train.optimizer import build_optimizer
+    from hicom_tpu_torch.train.train_step import create_train_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "build_model":
             hicom_tpu_torch.build_model(hicom_tpu_torch.tiny_test_config())
-        else:
+        elif entry == "load_model":
             hicom_tpu_torch.load_model(str(tmp_path))
+        else:
+            model = HIComModel(hicom_tpu_torch.tiny_test_config())
+            create_train_state(model, build_optimizer(model, learning_rate=1e-3, tunable_parts="mm_projector"))
 
 
 def test_cpu_tensors_take_plain_twins_without_counting():
-    from hicom_tpu_torch.ops.flash_attention import flash_forward, fullblock_attention
+    from hicom_tpu_torch.ops.flash_attention import flash_backward, flash_forward, fullblock_attention
     from hicom_tpu_torch.ops.flash_decode import flash_decode
     from hicom_tpu_torch.ops.local_attn import fused_tile_attention
 
-    before = [f.launches for f in (fullblock_attention, flash_forward, flash_decode, fused_tile_attention)]
+    wrappers = (fullblock_attention, flash_forward, flash_backward, flash_decode, fused_tile_attention)
+    before = [f.launches for f in wrappers]
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((2, 2, 16, 8)).astype(np.float32))
     fullblock_attention(x[0], x[0], x[0], 0.3)
-    flash_forward(x, x[:, :1], x[:, :1], torch.tensor([9, 16]), 0.3, 0.0, True)
+    out, lse = flash_forward(x, x[:, :1], x[:, :1], torch.tensor([9, 16]), 0.3, 0.0, True)
+    flash_backward(x, x[:, :1], x[:, :1], torch.tensor([9, 16]), out, lse, x, 0.3, 0.0, True)
     flash_decode(x[:, :, :1], x, x, torch.ones(2, 16, dtype=torch.bool))
     vol = torch.from_numpy(rng.standard_normal((4, 3, 3, 8)).astype(np.float32))
     fused_tile_attention(vol[:1, :1, :1], vol, vol, (4, 3, 3), 0.3)
-    after = [f.launches for f in (fullblock_attention, flash_forward, flash_decode, fused_tile_attention)]
+    after = [f.launches for f in wrappers]
     assert after == before
