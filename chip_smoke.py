@@ -9,8 +9,11 @@ Phases:
   3. each kernel against its plain PyTorch version at the main paths' shapes, in
      bf16, with its time, the plain version's, a PyTorch library call's where one
      computes the same function, and the card's bound for the same work (the
-     flash backward's dQ, dK and dV at the decoder, global compressor and tower
-     shapes; the decode kernel also on a bitmap row with no valid slot);
+     global compressor's forward at b 1 and b 2 and its dQ split over the keys,
+     with each launch's grid; the forward at a small masked shape with forced
+     splits of 1, 2, 3 and 7; the split path's merge and dQ-sum kernels alone;
+     the flash backward's dQ, dK and dV at the decoder, global compressor and
+     tower shapes; the decode kernel also on a bitmap row with no valid slot);
   4. serving at the full width of the released HICom-7B (SigLIP-so400m,
      local43_global32 with direct guide, Qwen2.5-7B in bf16, weights from a seed
      on the card): 3 requests of a 32-frame 384x384 video through
@@ -42,6 +45,7 @@ import numpy as np
 
 # H100 data-sheet peaks (dense bf16 tensor-core FLOP/s, HBM bytes/s) by card name
 PEAKS = {"PCIe": (756e12, 2.0e12), "NVL": (835e12, 3.9e12), "": (989e12, 3.35e12)}
+FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (the split path's second passes)
 # kernel: (its wrapper, whose launch count it reports; source; the TPU kernel it replaces)
 KERNELS = {
     "K1": ("fullblock_attention", "hicom_tpu_torch/csrc/flash_fwd.cu", "hicom_tpu/ops/flash_attention.py:141"),
@@ -51,6 +55,9 @@ KERNELS = {
     "K5": ("flash_backward", "hicom_tpu_torch/csrc/flash_bwd.cu", "hicom_tpu/ops/flash_attention.py:262"),
     "K6": ("flash_backward", "hicom_tpu_torch/csrc/flash_bwd.cu", "hicom_tpu/ops/flash_attention.py:309"),
 }
+# the split path's second passes run inside the K2 and K5 wrappers and count with them
+KERNELS["K2-merge"] = KERNELS["K2"]
+KERNELS["K5-sum"] = KERNELS["K5"]
 TRAIN_STEPS = 3
 
 
@@ -100,7 +107,8 @@ def kernel_checks(card: str):
     import torch
     import torch.nn.functional as F
 
-    from hicom_tpu_torch.ops.flash_attention import flash_forward, flash_reference, fullblock_attention
+    from hicom_tpu_torch.ops.flash_attention import (FWD_BLOCK_Q, _launch, flash_forward, flash_reference,
+                                                     forward_splits, fullblock_attention)
     from hicom_tpu_torch.ops.flash_decode import decode_reference, flash_decode
     from hicom_tpu_torch.ops.local_attn import fused_tile_attention, tile_reference
 
@@ -112,10 +120,17 @@ def kernel_checks(card: str):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
     records = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def record(name, kid, kernel_fn, plain_fn, library_fn, flops, nbytes, valid=None, outputs=1):
+    def fwd_grid(b, H, Lq, Lk, n_split=None):
+        return (-(-Lq // FWD_BLOCK_Q), b * H, n_split or forward_splits(b, H, Lq, Lk, sms))
+
+    def record(name, kid, kernel_fn, plain_fn, library_fn, flops, nbytes, valid=None, outputs=1, grid=None,
+               flops_rate=None):
         """Hold the first ``outputs`` tensors of the kernel's result to the plain
-        version's (or the one selected by ``outputs``, a tuple of indices)."""
+        version's (or the one selected by ``outputs``, a tuple of indices).
+        ``grid`` is the kernel launch's (x, y, z), printed with its blocks;
+        ``flops_rate`` the peak for ``flops`` when they are not bf16 products."""
         got, ref = kernel_fn(), plain_fn()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -126,7 +141,7 @@ def kernel_checks(card: str):
                 g, r = g[valid], r[valid]
             worst = max(worst, agreement(g, r), key=lambda a: a[1])
         err, ratio, rms, top = worst
-        bound_c, bound_b = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        bound_c, bound_b = flops / (flops_rate or peak_flops) * 1e3, nbytes / peak_bw * 1e3
         rec = dict(name=name, route="cuda", source=KERNELS[kid][1], replaces=KERNELS[kid][2],
                    launches=None, max_abs_err=err, ms=cuda_ms(kernel_fn), plain_ms=cuda_ms(plain_fn, iters=3),
                    bound_ms=max(bound_c, bound_b), bound_by="operations" if bound_c >= bound_b else "bytes",
@@ -135,18 +150,21 @@ def kernel_checks(card: str):
         log(f"[kernel] {name}: max_abs_err {err:.3g}, worst err/tol {ratio:.3f} (tol 2^-6|ref| + 2^-5 rms, "
             f"ref rms {rms:.3g}, max {top:.3g}) | kernel {rec['ms']:.4f} ms | plain "
             f"{rec['plain_ms']:.4f} ms | library {rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)} ms"
-            f" | bound {rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']})")
+            f" | bound {rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']})"
+            + (f" | grid {'x'.join(map(str, grid))} = {int(np.prod(grid))} blocks" if grid else ""))
         if not ratio <= 1:
             raise AssertionError(f"{name}: kernel disagrees with its plain version (worst err/tol {ratio})")
 
     # K1: SigLIP tower self-attention, 32 frames x 16 heads, L = 729, d = 72
     bh, L, d = 32 * 16, 729, 72
     q, k, v = rn(bh, L, d), rn(bh, L, d), rn(bh, L, d)
+    # the library call on 4-D (bh, 1, L, d) tensors: SDPA's fused backends take only 4-D inputs
+    # (on 3-D ones it falls back to the math path, which writes out every score)
     record("fullblock_attention[siglip 32f]", "K1",
            lambda: fullblock_attention(q, k, v, d**-0.5),
            lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.0, False)[0][:, 0],
-           lambda: F.scaled_dot_product_attention(q, k, v, scale=d**-0.5),
-           4 * bh * L * L * d, 4 * bh * L * d * 2 + bh * L * 4)
+           lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
+           4 * bh * L * L * d, 4 * bh * L * d * 2 + bh * L * 4, grid=fwd_grid(bh, 1, L, L))
     del q, k, v
 
     # K2 prefill: 28 q / 4 kv heads, L = 743 (64-token bucket - 1 + 680), causal,
@@ -163,18 +181,44 @@ def kernel_checks(card: str):
            lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
            lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
-           4 * H * d * pairs, 2 * b * H * L * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * L * 4, valid)
+           4 * H * d * pairs, 2 * b * H * L * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * L * 4, valid,
+           grid=fwd_grid(b, H, L, L))
     del q, k, v, mask
 
-    # K2 global compressor: 9 heads, 32 queries over 32 x 27 x 27 = 23,328 keys, d = 128
+    # K2 global compressor: 9 heads, 32 queries over 32 x 27 x 27 = 23,328 keys, d = 128, split
+    # over the keys; b 1 serves one request, b 2 the batched request and the train step
     H, Lq, Lk, d = 9, 32, 23328, 128
-    q, k, v = rn(1, H, Lq, d), rn(1, H, Lk, d), rn(1, H, Lk, d)
-    record("flash_forward[global 32f]", "K2",
-           lambda: flash_forward(q, k, v, None, d**-0.5, 0.0, False),
-           lambda: flash_reference(q, k, v, None, d**-0.5, 0.0, False),
-           lambda: F.scaled_dot_product_attention(q, k, v, scale=d**-0.5),
-           4 * H * Lq * Lk * d, 2 * H * Lq * d * 2 + 2 * H * Lk * d * 2 + H * Lq * 4)
-    del q, k, v
+    for b in (1, 2):
+        q, k, v = rn(b, H, Lq, d), rn(b, H, Lk, d), rn(b, H, Lk, d)
+        record(f"flash_forward[global 32f b{b}]", "K2",
+               lambda: flash_forward(q, k, v, None, d**-0.5, 0.0, False),
+               lambda: flash_reference(q, k, v, None, d**-0.5, 0.0, False),
+               lambda: F.scaled_dot_product_attention(q, k, v, scale=d**-0.5),
+               4 * b * H * Lq * Lk * d, 2 * b * H * Lq * d * 2 + 2 * b * H * Lk * d * 2 + b * H * Lq * 4,
+               outputs=2, grid=fwd_grid(b, H, Lq, Lk))
+        if b * H * fwd_grid(b, H, Lq, Lk)[2] < sms:
+            raise AssertionError(f"the global compressor's forward at b {b} does not fill the card")
+        del q, k, v
+
+    # K2 with forced splits at a small masked shape: uneven chunks, chunks wholly past
+    # kv_lengths (b 0 has 2 key tiles), and a causal one whose last chunk is all masked for
+    # some rows of a query block
+    for label, (b, H, KVH, Lq, Lk, d, causal, lens) in (
+            ("lengths", (2, 4, 4, 37, 130, 32, False, [100, 130])),
+            ("causal", (2, 4, 2, 300, 300, 64, True, [217, 300]))):
+        q, k, v = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d)
+        kl = torch.tensor(lens, device=dev, dtype=torch.int32)
+        pos = torch.arange(max(Lq, Lk))
+        pairs = sum(int(((pos[None, :Lk] < n) & ((pos[None, :Lk] <= pos[:Lq, None] + Lk - Lq) | (not causal)))
+                        .sum()) for n in lens)
+        for n_split in (1, 2, 3, 7):
+            record(f"flash_forward[{label} split {n_split}]", "K2",
+                   lambda: _launch(q, k, v, kl, d**-0.5, 0.1, causal, n_split=n_split),
+                   lambda: flash_reference(q, k, v, kl, d**-0.5, 0.1, causal), None,
+                   4 * H * d * pairs, 2 * b * H * Lq * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * Lq * 4,
+                   outputs=2, grid=fwd_grid(b, H, Lq, Lk, n_split))
+        del q, k, v
+    split_pass_checks(rn, record)
 
     # K3: decode over a 4096-slot cache, b = 2, ragged bitmaps (a padded prompt's
     # pad slots are invalid), bf16 cache and int8 cache + scales
@@ -226,6 +270,33 @@ def kernel_checks(card: str):
     return records
 
 
+def split_pass_checks(rn, record):
+    """Phase 3, the split path's second passes alone, at the global
+    compressor's shapes: the forward's merge of 29 chunk partials (b 1) with
+    chunks that walked no tile (max -inf) and chunks all masked for their rows
+    (max -1e30), and K5's sum of 14 dQ partials (b 2)."""
+    import torch
+
+    from hicom_tpu_torch.ops.flash_attention import (_launch_dq_sum, _launch_merge, merge_partials_reference,
+                                                     sum_dq_partials_reference)
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    n, rows, d = 29, 9 * 32, 128
+    o = torch.randn(n, rows, d, generator=gen, device="cuda") * 50
+    m = torch.randn(n, rows, generator=gen, device="cuda") * 3
+    m[3], m[7, : rows // 2] = -1e30, float("-inf")
+    l = torch.rand(n, rows, generator=gen, device="cuda") * 50 + 1
+    record("flash_merge[global 32f b1, 29 chunks]", "K2-merge", lambda: _launch_merge(o, m, l),
+           lambda: merge_partials_reference(o, m, l, torch.bfloat16), None,
+           4 * n * rows * d, n * rows * (d + 2) * 4 + rows * (d * 2 + 4), outputs=2, grid=(-(-rows // 4),),
+           flops_rate=FP32_PEAK)
+    n, N = 14, 2 * 9 * 32 * 128
+    part = torch.randn(n, N, generator=gen, device="cuda")
+    record("flash_dq_sum[global 32f b2, 14 chunks]", "K5-sum", lambda: _launch_dq_sum(part, 128**-0.5),
+           lambda: sum_dq_partials_reference(part, 128**-0.5, torch.bfloat16), None,
+           n * N, n * N * 4 + N * 2, grid=(-(-N // 4 // 64),), flops_rate=FP32_PEAK)
+
+
 def backward_checks(rn, record):
     """Phase 3, flash backward: K5 (dQ) and K6 (dK, dV) at the three shapes the
     train step gives them, each held to the plain twin; the library call is the
@@ -234,7 +305,7 @@ def backward_checks(rn, record):
     import torch
     import torch.nn.functional as F
 
-    from hicom_tpu_torch.ops.flash_attention import (_launch_dkv, _launch_dq, backward_operands,
+    from hicom_tpu_torch.ops.flash_attention import (_launch_dkv, _launch_dq, backward_operands, dq_block_q, dq_splits,
                                                      flash_backward_reference, flash_forward, fullblock_attention)
 
     dev = "cuda"
@@ -273,8 +344,10 @@ def backward_checks(rn, record):
         pairs = int(sum(np.clip(x, 0, None).sum() for x in visible))
         qd_bytes = 2 * b * H * Lq * d * 2 + 2 * b * H * Lq * 4  # q and dO read, lse and delta read
         kv_bytes = 2 * b * KVH * Lk * d * 2  # k and v (read), or dk and dv (written)
+        dq_grid = (-(-Lq // dq_block_q(Lq)), b * H, dq_splits(b, H, Lq, Lk, torch.cuda.get_device_properties(0)
+                                                                .multi_processor_count))
         record(f"flash_backward_dq[{label}]", "K5", lambda: (_launch_dq(*ops, scale, 0.0, causal),), plain, library,
-               6 * H * d * pairs, qd_bytes + kv_bytes + b * H * Lq * d * 2, outputs=(0,))
+               6 * H * d * pairs, qd_bytes + kv_bytes + b * H * Lq * d * 2, outputs=(0,), grid=dq_grid)
         record(f"flash_backward_dkv[{label}]", "K6", lambda: _launch_dkv(*ops, scale, 0.0, causal), plain, library,
                8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2))
         del q, k, v, do, out, lse, ops, lib_out, lq, lk_, lv, mask

@@ -15,7 +15,17 @@ Two CUDA sources take the place of four Pallas TPU kernels of
 
 The forwards return ``(out, lse)``. Each wrapper runs the plain PyTorch twin
 for CPU tensors and launches its kernels for CUDA tensors, or raises;
-``launches`` counts wrapper calls that launched kernels.
+``launches`` counts wrapper calls that launched kernels (a split launch and
+its merge or sum pass count once).
+
+When a grid of one block per query tile cannot fill the card (the global
+compressor's 32 queries), the forward and K5 split the key axis into chunks
+(:func:`forward_splits`, :func:`dq_splits`): each block writes its chunk's
+fp32 partial to a workspace, and a second kernel merges the forward's
+partials by their maxima (:func:`merge_partials_reference` is its plain
+version) or sums K5's (:func:`sum_dq_partials_reference`), in a fixed order.
+:func:`split_forward_reference` and :func:`split_dq_reference` are the split
+path in plain PyTorch, chunk by chunk over the kernels' own key tiles.
 
 :class:`FlashAttention` is the counterpart of JAX's ``_flash_bhld``
 ``custom_vjp``: its forward runs K1 or K2 and saves (q, k, v, kv_lengths, out,
@@ -30,6 +40,7 @@ otherwise (serving under ``torch.inference_mode()`` saves nothing).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -39,6 +50,9 @@ from .cuda_build import c_function, check
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 256
 NEG_INF = -1e30
+FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64  # the forward kernel's query rows per block, keys per tile
+DQ_BLOCK_K = 32  # K5's keys per tile
+H100_SMS = 132
 
 Tensor = torch.Tensor
 
@@ -113,6 +127,153 @@ def flash_backward_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Option
     return dq.reshape(b, H, Lq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def dq_block_q(lq: int) -> int:
+    """K5's query rows per block: 32 (two warps) for at most 32 queries, else 64."""
+    return 32 if lq <= 32 else 64
+
+
+def _splits(blocks: int, lk: int, block_k: int, sms: int) -> int:
+    """One chunk when ``blocks`` fill the card, else about two blocks per SM,
+    never more chunks than key tiles."""
+    if blocks >= sms:
+        return 1
+    return max(1, min(-(-lk // block_k), 2 * sms // blocks))
+
+
+def forward_splits(b: int, H: int, lq: int, lk: int, sms: int = H100_SMS) -> int:
+    """Chunks of the key axis for the forward kernel (K1/K2): 1 at the tower
+    and prefill shapes, 29 at the global compressor's b 1 and 14 at b 2."""
+    return _splits(-(-lq // FWD_BLOCK_Q) * b * H, lk, FWD_BLOCK_K, sms)
+
+
+def dq_splits(b: int, H: int, lq: int, lk: int, sms: int = H100_SMS) -> int:
+    """Chunks of the key axis for K5: 1 at the tower and prefill shapes, 14
+    at the global compressor's b 2 (252 blocks of 32 query rows)."""
+    return _splits(-(-lq // dq_block_q(lq)) * b * H, lk, DQ_BLOCK_K, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_range(q0: int, block_q: int, lq: int, lk: int, kv_limit: int, causal: bool, block_k: int, split: int,
+               n_split: int, walk_empty: bool) -> Tuple[int, int]:
+    """The key tiles [begin, end) that chunk ``split`` of the query block at
+    row ``q0`` walks, as the kernels compute it: the tiles below ``kv_limit``
+    and (causal) up to the block's last diagonal, cut into ``n_split`` near-
+    equal chunks. With ``walk_empty`` (the forward) a block holding a row
+    with no valid key walks every tile."""
+    n = max(0, -(-kv_limit // block_k))
+    if causal:
+        max_key = min(q0 + block_q - 1, lq - 1) + lk - lq
+        n = 0 if max_key < 0 else min(n, max_key // block_k + 1)
+    if walk_empty and (kv_limit == 0 or (causal and q0 + lk - lq < 0)):
+        n = -(-lk // block_k)
+    return n * split // n_split, n * (split + 1) // n_split
+
+
+def _limits(b: int, lk: int, kv_lengths: Optional[Tensor]):
+    lens = kv_lengths.tolist() if kv_lengths is not None else [lk] * b
+    return [max(0, min(lk, int(n))) for n in lens]
+
+
+def _chunk_valid(rows: slice, keys: slice, limit: int, causal: bool, lq: int, lk: int, device) -> Tensor:
+    """(rows, keys) bool: keys below ``limit`` and, if causal, at most ``q + lk - lq``."""
+    k_pos = torch.arange(keys.start, keys.stop, device=device)[None, :]
+    valid = k_pos < limit
+    if causal:
+        valid = valid & (k_pos <= torch.arange(rows.start, rows.stop, device=device)[:, None] + (lk - lq))
+    return valid
+
+
+def merge_partials_reference(o_part: Tensor, m_part: Tensor, l_part: Tensor, dtype: torch.dtype
+                             ) -> Tuple[Tensor, Tensor]:
+    """Plain twin of the forward's merge kernel: o_part (n, ..., d), m_part and
+    l_part (n, ...). Chunk s weighs exp(m_s - M), M the largest chunk max (0
+    for a chunk with max -inf, which walked no tile); out = sum w o / max(sum
+    w l, 1e-30) in ``dtype``, lse = M + log of that denominator."""
+    M = m_part.amax(dim=0)
+    w = torch.where(m_part == float("-inf"), torch.zeros_like(m_part), torch.exp(m_part - M))
+    denom = (w * l_part).sum(dim=0).clamp_min(1e-30)
+    out = (w[..., None] * o_part).sum(dim=0) / denom[..., None]
+    return out.to(dtype), M + torch.log(denom)
+
+
+def split_forward_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float,
+                            logit_bias: float, causal: bool, n_split: int) -> Tuple[Tensor, Tensor]:
+    """The forward's split path in plain PyTorch: for every query block of
+    128 rows, batch row and chunk, the partial (unnormalised output, max,
+    denominator) over that chunk's 64-key tiles (:func:`tile_range`), masked
+    logits at -1e30 and p rounded to v's dtype as the kernel does; then
+    :func:`merge_partials_reference`. Shapes and result as :func:`flash_reference`."""
+    b, H, Lq, d = q.shape
+    KVH, Lk = k.shape[1], k.shape[2]
+    acc = _acc_dtype(q)
+    o_part = torch.zeros((n_split, b, H, Lq, d), dtype=acc)
+    m_part = torch.full((n_split, b, H, Lq), float("-inf"), dtype=acc)
+    l_part = torch.zeros((n_split, b, H, Lq), dtype=acc)
+    for bi, limit in enumerate(_limits(b, Lk, kv_lengths)):
+        for q0 in range(0, Lq, FWD_BLOCK_Q):
+            rows = slice(q0, min(q0 + FWD_BLOCK_Q, Lq))
+            qs = q[bi, :, rows].reshape(KVH, H // KVH, -1, d).to(acc)
+            for s in range(n_split):
+                t0, t1 = tile_range(q0, FWD_BLOCK_Q, Lq, Lk, limit, causal, FWD_BLOCK_K, s, n_split, True)
+                if t0 >= t1:
+                    continue
+                keys = slice(t0 * FWD_BLOCK_K, min(t1 * FWD_BLOCK_K, Lk))
+                logits = torch.einsum("kgqd,ksd->kgqs", qs, k[bi, :, keys].to(acc)) * scale + logit_bias
+                valid = _chunk_valid(rows, keys, limit, causal, Lq, Lk, q.device)
+                logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+                m = logits.amax(dim=-1, keepdim=True)
+                p = torch.exp(logits - m)
+                o = torch.einsum("kgqs,ksd->kgqd", p.to(v.dtype).to(acc), v[bi, :, keys].to(acc))
+                o_part[s, bi, :, rows] = o.reshape(H, -1, d)
+                m_part[s, bi, :, rows] = m[..., 0].reshape(H, -1)
+                l_part[s, bi, :, rows] = p.sum(dim=-1).reshape(H, -1)
+    return merge_partials_reference(o_part, m_part, l_part, q.dtype)
+
+
+def sum_dq_partials_reference(dq_part: Tensor, scale: float, dtype: torch.dtype) -> Tensor:
+    """Plain twin of K5's reduction: ``scale`` times the sum of the chunks'
+    fp32 partials (n, ...), in ``dtype``."""
+    return (dq_part.sum(dim=0) * scale).to(dtype)
+
+
+def split_dq_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], out: Tensor, lse: Tensor,
+                       do: Tensor, scale: float, logit_bias: float, causal: bool, n_split: int) -> Tensor:
+    """K5's split path in plain PyTorch: for every query block
+    (:func:`dq_block_q` rows), batch row and chunk of 32-key tiles, the
+    unscaled dQ partial sum of dS K with dS rounded to K's dtype, as
+    :func:`flash_backward_reference` forms it; then
+    :func:`sum_dq_partials_reference`. Returns dq like q."""
+    b, H, Lq, d = q.shape
+    KVH, Lk = k.shape[1], k.shape[2]
+    acc = _acc_dtype(q)
+    bq = dq_block_q(Lq)
+    parts = torch.zeros((n_split, b, H, Lq, d), dtype=acc)
+    delta = (do.to(acc) * out.to(acc)).sum(dim=-1)
+    for bi, limit in enumerate(_limits(b, Lk, kv_lengths)):
+        for q0 in range(0, Lq, bq):
+            rows = slice(q0, min(q0 + bq, Lq))
+            grouped = lambda x: x[bi, :, rows].reshape(KVH, H // KVH, -1, x.shape[-1]).to(acc)  # noqa: E731
+            qs, dos = grouped(q), grouped(do)
+            row_lse = lse[bi, :, rows].reshape(KVH, H // KVH, -1, 1).to(acc)
+            row_delta = delta[bi, :, rows].reshape(KVH, H // KVH, -1, 1)
+            for s in range(n_split):
+                t0, t1 = tile_range(q0, bq, Lq, Lk, limit, causal, DQ_BLOCK_K, s, n_split, False)
+                if t0 >= t1:
+                    continue
+                keys = slice(t0 * DQ_BLOCK_K, min(t1 * DQ_BLOCK_K, Lk))
+                kf, vf = k[bi, :, keys].to(acc), v[bi, :, keys].to(acc)
+                sc = torch.einsum("kgqd,ksd->kgqs", qs, kf) * scale + logit_bias
+                valid = _chunk_valid(rows, keys, limit, causal, Lq, Lk, q.device)
+                p = torch.where(valid, torch.exp(sc - row_lse), torch.zeros_like(sc))
+                ds = p * (torch.einsum("kgqd,ksd->kgqs", dos, vf) - row_delta)
+                parts[s, bi, :, rows] = torch.einsum("kgqs,ksd->kgqd", ds.to(k.dtype).to(acc), kf).reshape(H, -1, d)
+    return sum_dq_partials_reference(parts, scale, q.dtype)
+
+
 def _check(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], what: str):
     """The kernels' common contract; returns (b, H, KVH, Lq, Lk, d, int32 lengths or None)."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
@@ -136,17 +297,42 @@ def _check(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], what: 
 
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float,
-            logit_bias: float, causal: bool) -> Tuple[Tensor, Tensor]:
+            logit_bias: float, causal: bool, n_split: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """The forward kernel (and its merge pass when split) on CUDA tensors.
+    ``n_split`` defaults to :func:`forward_splits`; tests force it."""
     b, H, KVH, Lq, Lk, d, lens = _check(q, k, v, kv_lengths, "flash kernel")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if n_split is None:
+        n_split = forward_splits(b, H, Lq, Lk, _sm_count(q.device.index or 0))
     out = torch.empty_like(q)
     lse = torch.empty((b, H, Lq), dtype=torch.float32, device=q.device)
-    fn = c_function("flash_fwd", "hicom_flash_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    parts = (None, None, None)
+    if n_split > 1:
+        parts = (torch.empty((n_split, b * H, Lq, d), dtype=torch.float32, device=q.device),
+                 torch.empty((n_split, b * H, Lq), dtype=torch.float32, device=q.device),
+                 torch.empty((n_split, b * H, Lq), dtype=torch.float32, device=q.device))
+    fn = c_function("flash_fwd", "hicom_flash_fwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                     + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr() if lens is not None else None,
-                out.data_ptr(), lse.data_ptr(), b, H, KVH, Lq, Lk, d, float(scale), float(logit_bias),
-                int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+                out.data_ptr(), lse.data_ptr(), *(t.data_ptr() if t is not None else None for t in parts),
+                b, H, KVH, Lq, Lk, d, int(n_split), float(scale), float(logit_bias), int(causal),
+                torch.cuda.current_stream(q.device).cuda_stream)
     check(status, "hicom_flash_fwd")
+    return out, lse
+
+
+def _launch_merge(o_part: Tensor, m_part: Tensor, l_part: Tensor) -> Tuple[Tensor, Tensor]:
+    """The forward's merge kernel alone on fp32 CUDA partials o_part (n, rows,
+    d), m_part and l_part (n, rows): returns (out (rows, d) bf16, lse (rows,))."""
+    n, rows, d = o_part.shape
+    if m_part.shape != (n, rows) or l_part.shape != (n, rows) or d % 4:
+        raise ValueError(f"merge takes o_part (n, rows, d % 4 == 0) and m/l (n, rows); got {tuple(o_part.shape)}")
+    o_part, m_part, l_part = (t.float().contiguous() for t in (o_part, m_part, l_part))
+    out = torch.empty((rows, d), dtype=torch.bfloat16, device=o_part.device)
+    lse = torch.empty((rows,), dtype=torch.float32, device=o_part.device)
+    fn = c_function("flash_fwd", "hicom_flash_merge", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    check(fn(o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(), lse.data_ptr(), n, rows, d,
+             torch.cuda.current_stream(o_part.device).cuda_stream), "hicom_flash_merge")
     return out, lse
 
 
@@ -192,12 +378,34 @@ def _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal):
 _BWD_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
 
 
-def _launch_dq(q, k, v, lens, do, lse, delta, scale, logit_bias, causal) -> Tensor:
-    """K5 on checked, contiguous CUDA tensors (no launch count: see :func:`flash_backward`)."""
+def _launch_dq(q, k, v, lens, do, lse, delta, scale, logit_bias, causal, n_split: Optional[int] = None) -> Tensor:
+    """K5 (and its sum pass when split) on checked, contiguous CUDA tensors
+    (no launch count: see :func:`flash_backward`). ``n_split`` defaults to
+    :func:`dq_splits`; tests force it."""
+    b, H, Lq, d = q.shape
+    if n_split is None:
+        n_split = dq_splits(b, H, Lq, k.shape[2], _sm_count(q.device.index or 0))
     dq = torch.empty_like(q)
+    part = torch.empty((n_split, b * H, Lq, d), dtype=torch.float32, device=q.device) if n_split > 1 else None
     head, tail = _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal)
-    fn = c_function("flash_bwd", "hicom_flash_bwd_dq", _BWD_ARGS + [ctypes.c_void_p] + _BWD_TAIL)
-    check(fn(*head, dq.data_ptr(), *tail), "hicom_flash_bwd_dq")
+    fn = c_function("flash_bwd", "hicom_flash_bwd_dq", _BWD_ARGS + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    check(fn(*head, dq.data_ptr(), part.data_ptr() if part is not None else None, *tail[:6], int(n_split), *tail[6:]),
+          "hicom_flash_bwd_dq")
+    return dq
+
+
+def _launch_dq_sum(dq_part: Tensor, scale: float) -> Tensor:
+    """K5's sum pass alone on an fp32 CUDA workspace (n, ...): ``scale`` times
+    the sum over n, in bf16."""
+    dq_part = dq_part.float().contiguous()
+    dq = torch.empty(dq_part.shape[1:], dtype=torch.bfloat16, device=dq_part.device)
+    if dq.numel() % 4:
+        raise ValueError("the dQ sum takes a multiple of 4 elements per chunk")
+    fn = c_function("flash_bwd", "hicom_flash_dq_sum", [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong,
+                                                                                ctypes.c_float, ctypes.c_void_p])
+    check(fn(dq_part.data_ptr(), dq.data_ptr(), dq_part.shape[0], dq.numel(), float(scale),
+             torch.cuda.current_stream(dq_part.device).cuda_stream), "hicom_flash_dq_sum")
     return dq
 
 

@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Device time of the port's flash kernels, kernel by kernel, at the main path's shapes.
+
+    python3 scripts/torch_flash_profile.py [--root DIR] [--iters 20] [--cases K1,K2]
+
+Runs on one CUDA card. Each case calls its wrapper (``fullblock_attention``,
+``flash_forward``, or K5's ``_launch_dq``) ``--iters`` times under
+torch.profiler after a warm-up, and prints every CUDA kernel's mean device
+time per call, so a split launch shows its main kernel and its merge or sum
+pass apart, and the sum beside the CUDA-event time of the same calls (which
+also holds launch gaps). The last line is the card's name and power limit.
+``--root`` imports ``hicom_tpu_torch`` from another checkout (its kernels
+build into that checkout's ``build/``), so two versions can be timed in turns
+in one call on one card. ``--cases`` keeps the cases whose label contains one
+of the given words. Kernels build on first use, inside the warm-up.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+
+def cases(torch, fa):
+    """(label, call) pairs at the shapes chip_smoke.py times."""
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    out = []
+    for rows in (512, 1024):  # the tower: one 32-frame request, the train step's two
+        q, k, v = rn(rows, 729, 72), rn(rows, 729, 72), rn(rows, 729, 72)
+        out.append((f"K1 tower {rows} rows", lambda q=q, k=k, v=v: fa.fullblock_attention(q, k, v, 72**-0.5)))
+    q, k, v = rn(2, 28, 743, 128), rn(2, 4, 743, 128), rn(2, 4, 743, 128)
+    kl = torch.tensor([743, 700], device="cuda", dtype=torch.int32)
+    out.append(("K2 prefill", lambda: fa.flash_forward(q, k, v, kl, 128**-0.5, 0.0, True)))
+    do = rn(2, 28, 743, 128)
+    o, lse = fa.flash_forward(q, k, v, kl, 128**-0.5, 0.0, True)
+    ops_prefill = fa.backward_operands(q, k, v, kl, o, lse, do)
+    out.append(("K5 prefill", lambda: fa._launch_dq(*ops_prefill, 128**-0.5, 0.0, True)))
+    for b in (1, 2):
+        qg, kg, vg = rn(b, 9, 32, 128), rn(b, 9, 23328, 128), rn(b, 9, 23328, 128)
+        out.append((f"K2 global b{b}", lambda qg=qg, kg=kg, vg=vg: fa.flash_forward(qg, kg, vg, None, 128**-0.5)))
+    dog = rn(2, 9, 32, 128)
+    og, lseg = fa.flash_forward(qg, kg, vg, None, 128**-0.5)
+    ops_global = fa.backward_operands(qg, kg, vg, None, og, lseg, dog)
+    out.append(("K5 global b2", lambda: fa._launch_dq(*ops_global, 128**-0.5, 0.0, False)))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--cases", default="", help="comma-separated words; a case runs when its label holds one")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("torch_flash_profile: no CUDA device", file=sys.stderr)
+        return 2
+    from hicom_tpu_torch.ops import flash_attention as fa
+
+    print(f"[profile-flash] hicom_tpu_torch from {os.path.dirname(fa.__file__)}", flush=True)
+    words = [w for w in args.cases.split(",") if w]
+    for label, call in cases(torch, fa):
+        if words and not any(w in label for w in words):
+            continue
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(args.iters):
+            call()
+        end.record()
+        end.synchronize()
+        event_us = 1e3 * start.elapsed_time(end) / args.iters
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.iters):
+                call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        times = sorted(((getattr(e, "self_device_time_total", 0.0) / args.iters, e.key) for e in kernels), reverse=True)
+        parts = " | ".join(f"{name[:70]} {us:.2f} us" for us, name in times if us > 0)
+        print(f"[profile-flash] {label}: device {sum(us for us, _ in times):.2f} us per call (events "
+              f"{event_us:.2f} us) | {parts}", flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

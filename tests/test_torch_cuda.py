@@ -14,8 +14,10 @@ zero, whose error is that of the row's sum of rounded terms.
 import pytest
 import torch
 
-from hicom_tpu_torch.ops.flash_attention import (flash_attention_gqa, flash_backward, flash_backward_reference,
-                                                 flash_forward, flash_reference, fullblock_attention)
+from hicom_tpu_torch.ops.flash_attention import (_launch, _launch_dq, _launch_dq_sum, _launch_merge, backward_operands,
+                                                 flash_attention_gqa, flash_backward, flash_backward_reference,
+                                                 flash_forward, flash_reference, forward_splits, fullblock_attention,
+                                                 merge_partials_reference, sum_dq_partials_reference)
 from hicom_tpu_torch.ops.flash_decode import decode_reference, flash_decode
 from hicom_tpu_torch.ops.local_attn import fused_tile_attention, tile_reference
 
@@ -53,6 +55,7 @@ def test_fullblock(rn, bh, L, d):
     (1, 9, 9, 32, 5000, 128, False, None),
     (2, 4, 2, 64, 192, 64, True, None),
     (2, 4, 4, 37, 130, 32, False, [100, 130]),
+    (2, 9, 9, 32, 23328, 128, False, None),  # the global compressor at b 2, split over the keys
 ])
 def test_flash_forward(rn, b, H, KVH, Lq, Lk, d, causal, lens):
     q, k, v = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d)
@@ -151,3 +154,64 @@ def test_cuda_wrappers_refuse_what_they_cannot_take(rn):
     q = rn(2, 4, 16, 72).float()  # fp32: the kernel takes bf16 only
     with pytest.raises(TypeError):
         flash_forward(q, q, q, None, 0.1, 0.0, False)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens", [
+    (2, 4, 4, 37, 130, 32, False, [100, 130]),  # 3 and 7 chunks: some walk nothing (past kv_lengths)
+    (2, 4, 2, 300, 300, 64, True, [217, 300]),  # chunks all masked for some rows (above their diagonal)
+    (1, 3, 3, 200, 729, 72, False, None),  # d 72 (K1's width), ragged last tile
+])
+def test_flash_forward_forced_split(rn, b, H, KVH, Lq, Lk, d, causal, lens, n_split):
+    q, k, v = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = _launch(q, k, v, kl, d**-0.5, 0.1, causal, n_split=n_split)
+    ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.1, causal)
+    assert _worst(out, ref) <= 1 and (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("causal,lens", [(True, None), (False, [0, 60])])
+def test_flash_forward_rows_without_keys(rn, causal, lens, n_split):
+    # rows with no valid key (causal with Lq > Lk; a zero kv length) give the twin's mean of all values
+    q, k, v = rn(2, 2, 100, 32), rn(2, 2, 60, 32), rn(2, 2, 60, 32)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, _ = _launch(q, k, v, kl, 0.2, 0.0, causal, n_split=n_split)
+    assert _worst(out, flash_reference(q, k, v, kl, 0.2, 0.0, causal)[0]) <= 1
+
+
+def test_global_shape_splits_fill_the_card():
+    assert 2 * 9 * forward_splits(2, 9, 32, 23328) >= 132 and 9 * forward_splits(1, 9, 32, 23328) >= 132
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 5, 14])
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens", [
+    (2, 9, 9, 32, 5000, 128, False, None),  # the global compressor's 32-row tiles
+    (2, 4, 2, 300, 300, 64, True, [217, 300]),
+    (2, 4, 4, 37, 130, 80, False, [100, 130]),
+])
+def test_dq_forced_split(rn, b, H, KVH, Lq, Lk, d, causal, lens, n_split):
+    q, k, v, do = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d), rn(b, H, Lq, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = flash_forward(q, k, v, kl, d**-0.5, 0.0, causal)
+    ops = backward_operands(q, k, v, kl, out, lse, do)
+    dq = _launch_dq(*ops, d**-0.5, 0.0, causal, n_split=n_split)
+    assert _worst(dq, flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, 0.0, causal)[0]) <= 1
+
+
+def test_merge_and_sum_kernels_match_their_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator("cuda").manual_seed(1)
+    n, rows, d = 5, 300, 72
+    o = torch.randn(n, rows, d, generator=gen, device="cuda")
+    m = torch.randn(n, rows, generator=gen, device="cuda") * 3
+    m[1] = -1e30  # a chunk all masked for every row
+    m[2, :100] = float("-inf")  # chunks that walked no tile
+    m[:, 200:] = -1e30  # rows whose chunks are all masked
+    l = torch.rand(n, rows, generator=gen, device="cuda") * 10 + 1
+    out, lse = _launch_merge(o, m, l)
+    ref, ref_lse = merge_partials_reference(o, m, l, torch.bfloat16)
+    assert _worst(out, ref) <= 1 and (lse - ref_lse).abs().max().item() <= 1e-3
+    dq = _launch_dq_sum(o, 0.125)
+    assert _worst(dq, sum_dq_partials_reference(o, 0.125, torch.bfloat16)) <= 1
