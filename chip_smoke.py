@@ -13,7 +13,10 @@ Phases:
      with each launch's grid; the forward at a small masked shape with forced
      splits of 1, 2, 3 and 7; the split path's merge and dQ-sum kernels alone;
      the flash backward's dQ, dK and dV at the decoder, global compressor and
-     tower shapes; the decode kernel also on a bitmap row with no valid slot);
+     tower shapes, with each launch's grid, dK and dV also with forced splits
+     of 1, 2 and 7 at the decoder shape and their sum pass alone; the decode
+     kernel at b 2 and at b 1, with an int8 cache, and on a bitmap row with no
+     valid slot);
   4. serving at the full width of the released HICom-7B (SigLIP-so400m,
      local43_global32 with direct guide, Qwen2.5-7B in bf16, weights from a seed
      on the card): 3 requests of a 32-frame 384x384 video through
@@ -58,6 +61,7 @@ KERNELS = {
 # the split path's second passes run inside the K2 and K5 wrappers and count with them
 KERNELS["K2-merge"] = KERNELS["K2"]
 KERNELS["K5-sum"] = KERNELS["K5"]
+KERNELS["K6-sum"] = KERNELS["K6"]
 TRAIN_STEPS = 3
 
 
@@ -109,7 +113,8 @@ def kernel_checks(card: str):
 
     from hicom_tpu_torch.ops.flash_attention import (FWD_BLOCK_Q, _launch, flash_forward, flash_reference,
                                                      forward_splits, fullblock_attention)
-    from hicom_tpu_torch.ops.flash_decode import decode_reference, flash_decode
+    from hicom_tpu_torch.ops.flash_decode import DECODE_CHUNK, decode_reference, flash_decode
+    from hicom_tpu_torch.ops.grouping import tile_thw
     from hicom_tpu_torch.ops.local_attn import fused_tile_attention, tile_reference
 
     peak_flops, peak_bw = next(v for k, v in PEAKS.items() if k in card)
@@ -220,19 +225,24 @@ def kernel_checks(card: str):
         del q, k, v
     split_pass_checks(rn, record)
 
-    # K3: decode over a 4096-slot cache, b = 2, ragged bitmaps (a padded prompt's
-    # pad slots are invalid), bf16 cache and int8 cache + scales
+    # K3: decode over a 4096-slot cache, ragged bitmaps (a padded prompt's pad slots are
+    # invalid): b 1 (the single request; its valid slots end inside a 32-slot chunk) and
+    # b 2 (the batched request), bf16 cache; b 2 also with an int8 cache + scales
     b, H, KVH, S, d = 2, 28, 4, 4096, 128
     slot = torch.arange(S, device=dev)
     bitmap = torch.stack([slot < 760, (slot < 700) | ((slot >= 743) & (slot < 760))])
     n_valid = int(bitmap.sum())
     q = rn(b, H, 1, d)
     kb, vb = rn(b, KVH, S, d), rn(b, KVH, S, d)
-    record("flash_decode[bf16 cache]", "K3",
-           lambda: flash_decode(q, kb, vb, bitmap),
-           lambda: decode_reference(q, kb, vb, bitmap, None, None, d**-0.5),
-           lambda: F.scaled_dot_product_attention(q, kb, vb, attn_mask=bitmap[:, None, None, :], enable_gqa=True),
-           4 * H * d * n_valid, 2 * b * H * d * 2 + n_valid * KVH * d * 2 * 2 + b * S)
+    for label, rows in (("b1", slice(0, 1)), ("b2", slice(0, 2))):
+        qr, kr, vr, mr = q[rows], kb[rows], vb[rows], bitmap[rows]
+        nv, br = int(mr.sum()), mr.shape[0]
+        record(f"flash_decode[bf16 cache {label}]", "K3",
+               lambda: flash_decode(qr, kr, vr, mr),
+               lambda: decode_reference(qr, kr, vr, mr, None, None, d**-0.5),
+               lambda: F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mr[:, None, None, :], enable_gqa=True),
+               4 * H * d * nv, 2 * br * H * d * 2 + nv * KVH * d * 2 * 2 + br * S,
+               grid=(-(-S // DECODE_CHUNK), br * KVH))
     ki = torch.randint(-127, 128, (b, KVH, S, d), generator=gen, device=dev, dtype=torch.int8)
     vi = torch.randint(-127, 128, (b, KVH, S, d), generator=gen, device=dev, dtype=torch.int8)
     ks = torch.rand(b, KVH, S, generator=gen, device=dev) * 0.02
@@ -256,14 +266,17 @@ def kernel_checks(card: str):
             raise AssertionError(f"flash_decode disagrees with its twin on an all-clear row ({label})")
     del kb, vb, ki, vi
 
-    # K4: local compressor, key/value (32, 27, 27, 1152), one query per 4x3x3 tile
+    # K4: local compressor, key/value (32, 27, 27, 1152), one query per 4x3x3 tile; the library
+    # call is SDPA over the tile-grouped view, the grouping copy of key and value (tile_thw) included
     t, h, w, c = 32, 27, 27, 1152
     key, val, qq = rn(t, h, w, c), rn(t, h, w, c), rn(t // 4, h // 3, w // 3, c)
     scale = torch.tensor(c**-0.5, device=dev)
     n_tiles = (t // 4) * (h // 3) * (w // 3)
     record("fused_tile_attention[local 32f]", "K4",
            lambda: fused_tile_attention(qq, key, val, (4, 3, 3), scale, 0.0),
-           lambda: tile_reference(qq, key, val, (4, 3, 3), scale, 0.0), None,
+           lambda: tile_reference(qq, key, val, (4, 3, 3), scale, 0.0),
+           lambda: F.scaled_dot_product_attention(qq.reshape(n_tiles, 1, 1, c), tile_thw(key, (4, 3, 3))[:, None],
+                                                  tile_thw(val, (4, 3, 3))[:, None], scale=c**-0.5),
            4 * n_tiles * 36 * c, 2 * t * h * w * c * 2 + 2 * n_tiles * c * 2)
     del key, val, qq
     backward_checks(rn, record)
@@ -277,8 +290,8 @@ def split_pass_checks(rn, record):
     (max -1e30), and K5's sum of 14 dQ partials (b 2)."""
     import torch
 
-    from hicom_tpu_torch.ops.flash_attention import (_launch_dq_sum, _launch_merge, merge_partials_reference,
-                                                     sum_dq_partials_reference)
+    from hicom_tpu_torch.ops.flash_attention import (_launch_merge, _launch_part_sum, merge_partials_reference,
+                                                     sum_partials_reference)
 
     gen = torch.Generator("cuda").manual_seed(2)
     n, rows, d = 29, 9 * 32, 128
@@ -292,23 +305,28 @@ def split_pass_checks(rn, record):
            flops_rate=FP32_PEAK)
     n, N = 14, 2 * 9 * 32 * 128
     part = torch.randn(n, N, generator=gen, device="cuda")
-    record("flash_dq_sum[global 32f b2, 14 chunks]", "K5-sum", lambda: _launch_dq_sum(part, 128**-0.5),
-           lambda: sum_dq_partials_reference(part, 128**-0.5, torch.bfloat16), None,
-           n * N, n * N * 4 + N * 2, grid=(-(-N // 4 // 64),), flops_rate=FP32_PEAK)
+    record("flash_dq_sum[global 32f b2, 14 chunks]", "K5-sum", lambda: _launch_part_sum((part, 128**-0.5)),
+           lambda: sum_partials_reference(part, 128**-0.5, torch.bfloat16), None,
+           n * N, n * N * 4 + N * 2, grid=(-(-N // 4 // 128), 1), flops_rate=FP32_PEAK)
 
 
 def backward_checks(rn, record):
     """Phase 3, flash backward: K5 (dQ) and K6 (dK, dV) at the three shapes the
     train step gives them, each held to the plain twin; the library call is the
     backward of ``F.scaled_dot_product_attention`` at the same shape (dQ, dK and
-    dV together), through ``torch.autograd.grad`` on a kept graph."""
+    dV together), through ``torch.autograd.grad`` on a kept graph. At the
+    decoder shape K6 also runs with forced splits of 1, 2 and 7 (the default is
+    3), and its sum pass alone on two seeded fp32 workspaces."""
     import torch
     import torch.nn.functional as F
 
-    from hicom_tpu_torch.ops.flash_attention import (_launch_dkv, _launch_dq, backward_operands, dq_block_q, dq_splits,
-                                                     flash_backward_reference, flash_forward, fullblock_attention)
+    from hicom_tpu_torch.ops.flash_attention import (DKV_BLOCK_K, _launch_dkv, _launch_dq, _launch_part_sum,
+                                                     backward_operands, dkv_splits, dq_block_q, dq_splits,
+                                                     flash_backward_reference, flash_forward, fullblock_attention,
+                                                     sum_partials_reference)
 
     dev = "cuda"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     shapes = [  # label, b, H, KVH, Lq, Lk, d, causal, kv lengths
         ("prefill 7b", 2, 28, 4, 743, 743, 128, True, [743, 700]),  # decoder, right-padded row
         ("global 32f b2", 2, 9, 9, 32, 23328, 128, False, None),  # global compressor
@@ -344,12 +362,28 @@ def backward_checks(rn, record):
         pairs = int(sum(np.clip(x, 0, None).sum() for x in visible))
         qd_bytes = 2 * b * H * Lq * d * 2 + 2 * b * H * Lq * 4  # q and dO read, lse and delta read
         kv_bytes = 2 * b * KVH * Lk * d * 2  # k and v (read), or dk and dv (written)
-        dq_grid = (-(-Lq // dq_block_q(Lq)), b * H, dq_splits(b, H, Lq, Lk, torch.cuda.get_device_properties(0)
-                                                                .multi_processor_count))
+        dq_grid = (-(-Lq // dq_block_q(Lq)), b * H, dq_splits(b, H, Lq, Lk, sms))
         record(f"flash_backward_dq[{label}]", "K5", lambda: (_launch_dq(*ops, scale, 0.0, causal),), plain, library,
                6 * H * d * pairs, qd_bytes + kv_bytes + b * H * Lq * d * 2, outputs=(0,), grid=dq_grid)
+        dkv_grid = (-(-Lk // DKV_BLOCK_K), b * KVH, dkv_splits(b, H, KVH, Lq, Lk, sms))
         record(f"flash_backward_dkv[{label}]", "K6", lambda: _launch_dkv(*ops, scale, 0.0, causal), plain, library,
-               8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2))
+               8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid)
+        if label == "prefill 7b":
+            if int(np.prod(dkv_grid)) < sms:
+                raise AssertionError(f"K6's grid {dkv_grid} at the decoder shape does not fill the card")
+            for n_split in (1, 2, 7):
+                record(f"flash_backward_dkv[{label} split {n_split}]", "K6",
+                       lambda: _launch_dkv(*ops, scale, 0.0, causal, n_split=n_split), plain, None,
+                       8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid[:2] + (n_split,))
+            gen = torch.Generator(dev).manual_seed(3)
+            n, N = dkv_grid[2], b * KVH * Lk * d
+            dk_part, dv_part = (torch.randn(n, N, generator=gen, device=dev) for _ in range(2))
+            record(f"flash_dkv_sum[{label}, {n} splits]", "K6-sum",
+                   lambda: _launch_part_sum((dk_part, scale), (dv_part, 1.0)),
+                   lambda: (sum_partials_reference(dk_part, scale, torch.bfloat16),
+                            sum_partials_reference(dv_part, 1.0, torch.bfloat16)), None,
+                   2 * n * N, 2 * (n * N * 4 + N * 2), outputs=2, grid=(-(-N // 4 // 128), 2), flops_rate=FP32_PEAK)
+            del dk_part, dv_part
         del q, k, v, do, out, lse, ops, lib_out, lq, lk_, lv, mask
         torch.cuda.empty_cache()
 

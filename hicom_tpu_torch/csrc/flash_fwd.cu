@@ -48,17 +48,12 @@
 // values, flash_reference's answer. A chunk with no tile writes max -inf and denominator 0 and gets
 // weight 0 in the merge; a chunk whose tiles are all masked for a row writes max -1e30 and weighs
 // exp(-1e30 - M) = 0 against any chunk with a real maximum M. The final divide uses max(l, 1e-30).
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through cudaGetDriverEntryPointByVersion
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int WG_THREADS = 128;           // one warpgroup
 constexpr int NWG = 2;                    // warpgroups per block
 constexpr int NTHREADS = NWG * WG_THREADS;
 constexpr int BQ = 64 * NWG;              // query rows per block
@@ -66,126 +61,7 @@ constexpr int BK = 64;                    // keys per tile
 // K/V tiles in the ring: 4 where two blocks share an SM (d <= 80), else 5
 __host__ __device__ constexpr int stages_for(int dp) { return dp <= 80 ? 4 : 5; }
 constexpr float NEG = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG2 = NEG * LOG2E;       // the -1e30 mask in the log2 domain (NEG2 * LN2 == NEG)
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-// One arrival that also expects `bytes` of TMA transactions before the phase completes.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\nmbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n@!done bra WAIT;\n}\n" ::"r"(
-          bar),
-      "r"(parity)
-      : "memory");
-}
-// A TMA box of a 3-D tensor map (columns, rows, heads) to shared memory at dst, completing on the
-// barrier. Rows and columns past the map's extent arrive as zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col, int row, int head,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
-      "[%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head), "r"(bar)
-      : "memory");
-}
-
-// This thread's finished generic-proxy writes to shared memory become visible to wgmma's reads.
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
-
-// Keep the compiler from reading or writing accumulators between a wgmma's issue and its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma shared-memory descriptor: the start address, and the byte offsets between 8-row core matrices
-// along K (leading) and along M or N (stride), each in 16-byte units; SW128 marks the 128-byte
-// swizzle (rows of 128 B, 8-row atoms of 1 KB), else no swizzle (8 x 16-byte core matrices).
-constexpr uint64_t SW128 = 1ull << 62;
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
-}
-
-// d (64 x N fp32, the warpgroup's accumulator) = a (64 x 16 bf16, registers) * b (16 x N bf16,
-// shared memory; K-major when TRANS_B = 0, MN-major when 1) + (scale_d ? d : 0).
-template <int N, int TRANS_B>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b, int scale_d) {
-  static_assert(N == 16 || N == 32 || N == 64, "wgmma_rs: N not instantiated");
-  if constexpr (N == 16) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
-  }
-  if constexpr (N == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
-  }
-  if constexpr (N == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
-  }
-}
-
-// d (64 x 64 fp32) = a (64 x 16 bf16, K-major in shared memory) * b (16 x 64 bf16, K-major in shared
-// memory) + (scale_d ? d : 0).
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
 
 // TMA maps of q (d columns, Lq rows, B * H heads), k and v (d columns, Lk rows, B * KVH heads): boxes of
 // 64 columns with the 128-byte swizzle, and boxes of 8 columns without, for the tail past them.
@@ -245,51 +121,31 @@ __global__ void __launch_bounds__(NTHREADS, DP <= 80 ? 2 : 1) flash_fwd_kernel(c
   const int t_begin = n_tiles * split / p.n_split;
   const int t_end = n_tiles * (split + 1) / p.n_split;
 
-  // A tile of R rows (Q: BQ, K and V: BK) holds NB boxes of 64 columns, R rows of 128 B each with the
-  // 128-byte swizzle, then the TAIL columns past them as 16-byte chunks of R rows without swizzle (d 72:
-  // one box and the chunks of columns 64-71 and 72-79, the last zero). TMA writes both forms.
-  constexpr int NB = DP / 64;
-  constexpr int TAIL = DP % 64;
-  const int tail_loaded = max(0, p.d / 8 - NB * 8);  // tail chunks that hold columns below d
-  auto load_tile = [&](uint32_t dst, const CUtensorMap* sw, const CUtensorMap* narrow, int R, int r0, int hd,
-                       uint32_t barrier) {
-    for (int bx = 0; bx < NB; ++bx) tma_load(dst + bx * R * 128, sw, bx * 64, r0, hd, barrier);
-    for (int c = 0; c < tail_loaded; ++c) tma_load(dst + NB * R * 128 + c * R * 16, narrow, NB * 64 + c * 8, r0, hd, barrier);
-  };
-  auto tile_bytes = [&](int R) { return NB * R * 128 + tail_loaded * R * 16; };
-  // K-major operand descriptor for columns kc * 16 .. + 15 of rows row0 .. of a tile of R rows
-  auto kmajor = [&](uint32_t base, int R, int row0, int kc) -> uint64_t {
-    if (kc < NB * 4) return make_desc(base + (kc / 4) * R * 128 + row0 * 128 + (kc % 4) * 32, 16, 1024) | SW128;
-    return make_desc(base + NB * R * 128 + (kc * 2 - NB * 8) * R * 16 + row0 * 16, R * 16, 128);
-  };
+  // Q (BQ rows) and each K and V tile (BK rows) in hopper.cuh's tile layout
+  typedef Tile<DP> T;
+  const int tail_loaded = max(0, p.d / 8 - T::NB * 8);  // tail chunks that hold columns below d
 
   const int head = b * p.KVH + kvh;
   auto slot = [&](int kt) { return ring + ((kt - t_begin) % STAGES) * 2 * TILE; };
   auto bar = [&](int kt) { return bars + ((kt - t_begin) % STAGES) * 8; };
   auto wait_tile = [&](int kt) { mbar_wait(bar(kt), ((kt - t_begin) / STAGES) & 1); };
   auto issue = [&](int kt) {  // one thread: tile kt of K and V
-    mbar_expect_tx(bar(kt), 2 * tile_bytes(BK));
-    load_tile(slot(kt), &p.tk, &p.tk8, BK, kt * BK, head, bar(kt));
-    load_tile(slot(kt) + TILE, &p.tv, &p.tv8, BK, kt * BK, head, bar(kt));
+    mbar_expect_tx(bar(kt), 2 * T::bytes(BK, tail_loaded));
+    T::load(slot(kt), &p.tk, &p.tk8, BK, kt * BK, head, bar(kt), tail_loaded);
+    T::load(slot(kt) + TILE, &p.tv, &p.tv8, BK, kt * BK, head, bar(kt), tail_loaded);
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s <= STAGES; ++s) mbar_init(bars + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // the tail chunks past d (columns 72-79 at d 72) are zero in Q and every slot, once
-  const int npad = TAIL / 8 - tail_loaded;
-  for (int idx = threadIdx.x; idx < npad * (BQ + STAGES * 2 * BK); idx += NTHREADS) {
-    const int c = tail_loaded + idx % npad;
-    const int r = idx / npad;  // rows of Q, then the rows of each K and V tile
-    const uint32_t at = r < BQ ? sq + NB * BQ * 128 + c * BQ * 16 + r * 16
-                               : ring + ((r - BQ) / BK) * TILE + NB * BK * 128 + c * BK * 16 + ((r - BQ) % BK) * 16;
-    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(at), "r"(0u) : "memory");
-  }
+  T::zero_pad(sq, BQ, tail_loaded, threadIdx.x, NTHREADS);
+  for (int i = 0; i < 2 * STAGES; ++i) T::zero_pad(ring + i * TILE, BK, tail_loaded, threadIdx.x, NTHREADS);
   fence_proxy_async();
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_expect_tx(qbar, tile_bytes(BQ));
-    load_tile(sq, &p.tq, &p.tq8, BQ, q0, bh, qbar);
+    mbar_expect_tx(qbar, T::bytes(BQ, tail_loaded));
+    T::load(sq, &p.tq, &p.tq8, BQ, q0, bh, qbar, tail_loaded);
     // tiles t_begin .. t_begin + STAGES - 1 in flight
     for (int s = 0; s < STAGES; ++s)
       if (t_begin + s < t_end) issue(t_begin + s);
@@ -301,7 +157,7 @@ __global__ void __launch_bounds__(NTHREADS, DP <= 80 ? 2 : 1) flash_fwd_kernel(c
   auto issue_qk = [&](float* s, int kt) {
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) wgmma_ss_n64(s, kmajor(sq, BQ, wg * 64, kc), kmajor(slot(kt), BK, 0, kc), kc > 0);
+    for (int kc = 0; kc < KC; ++kc) wgmma_ss_n64(s, T::kmajor(sq, BQ, wg * 64, kc), T::kmajor(slot(kt), BK, 0, kc), kc > 0);
     wgmma_commit();
   };
 
@@ -368,8 +224,7 @@ __global__ void __launch_bounds__(NTHREADS, DP <= 80 ? 2 : 1) flash_fwd_kernel(c
       pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
     }
   };
-  // O = alpha O + P V of tile kt, issued and committed. MN-major B: 8-column chunks BK * 16 B apart,
-  // 8-key groups 128 B apart.
+  // O = alpha O + P V of tile kt, issued and committed; V is the MN-major B (Tile::rs_mn).
   auto issue_pv = [&](int kt) {
 #pragma unroll
     for (int nt = 0; nt < NT_O; ++nt) {
@@ -380,13 +235,7 @@ __global__ void __launch_bounds__(NTHREADS, DP <= 80 ? 2 : 1) flash_fwd_kernel(c
     }
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-#pragma unroll
-      for (int bx = 0; bx < NB; ++bx)  // 64 columns of a box: keys 128 B apart, 8-key atoms 1 KB
-        wgmma_rs<64, 1>(acc + bx * 32, pa[kc], make_desc(slot(kt) + TILE + bx * BK * 128 + kc * 2048, BK * 128, 1024) | SW128, 1);
-      if constexpr (TAIL > 0)  // the tail: 8-key groups 128 B apart, 8-column chunks BK * 16 B apart
-        wgmma_rs<TAIL, 1>(acc + NB * 32, pa[kc], make_desc(slot(kt) + TILE + NB * BK * 128 + kc * 256, 128, BK * 16), 1);
-    }
+    for (int kc = 0; kc < BK / 16; ++kc) T::rs_mn(acc, pa[kc], slot(kt) + TILE, BK, kc);
     wgmma_commit();
   };
 
@@ -520,32 +369,6 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return merge(p.o_part, p.m_part, p.l_part, p.o, p.lse, p.n_split, p.B * p.H * p.Lq, p.d, stream);
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// (heads, rows, d) bf16 at base as a 3-D TMA map: columns, rows, heads; boxes of box_cols columns x
-// box_rows rows, with the 128-byte swizzle when box_cols is 64. Rows past the extent arrive as zeros.
-cudaError_t tile_map(CUtensorMap* map, const void* base, int d, int rows, int heads, int box_cols, int box_rows) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int DP>
 cudaError_t dispatch(const Params& p, bool causal, cudaStream_t stream) {
   const bool has_len = p.kv_lengths != nullptr;
@@ -580,18 +403,9 @@ extern "C" int hicom_flash_fwd(const void* q, const void* k, const void* v, cons
   p.B = B, p.H = H, p.KVH = KVH, p.Lq = Lq, p.Lk = Lk, p.d = d, p.n_split = n_split;
   p.scale = scale, p.bias = bias;
   // the swizzled maps serve the kernel's 64-column boxes, the narrow ones the columns past them
-  const int boxes = (d + 15) / 16 * 16 / 64;
-  cudaError_t err = cudaSuccess;
-  if (boxes > 0) {
-    err = tile_map(&p.tq, q, d, Lq, B * H, 64, BQ);
-    if (err == cudaSuccess) err = tile_map(&p.tk, k, d, Lk, B * KVH, 64, BK);
-    if (err == cudaSuccess) err = tile_map(&p.tv, v, d, Lk, B * KVH, 64, BK);
-  }
-  if (err == cudaSuccess && d > boxes * 64) {
-    err = tile_map(&p.tq8, q, d, Lq, B * H, 8, BQ);
-    if (err == cudaSuccess) err = tile_map(&p.tk8, k, d, Lk, B * KVH, 8, BK);
-    if (err == cudaSuccess) err = tile_map(&p.tv8, v, d, Lk, B * KVH, 8, BK);
-  }
+  cudaError_t err = tile_maps(&p.tq, &p.tq8, q, d, Lq, B * H, BQ);
+  if (err == cudaSuccess) err = tile_maps(&p.tk, &p.tk8, k, d, Lk, B * KVH, BK);
+  if (err == cudaSuccess) err = tile_maps(&p.tv, &p.tv8, v, d, Lk, B * KVH, BK);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 15) / 16 * 16) {

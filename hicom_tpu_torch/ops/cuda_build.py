@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` beside the package (the hash
-is the source's, so an edited source rebuilds) and loaded with ``ctypes``. Nothing
+covers the source and the ``csrc`` headers it includes, so an edited source or
+header rebuilds) and loaded with ``ctypes``. Nothing
 is built or loaded at import: the first launch builds what it needs, and
 :func:`build_all` builds every kernel at once, one ``nvcc`` process per source.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,9 +38,27 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str):
+    """``csrc/<name>.cu`` and the headers beside it that it includes with
+    quotes, recursively, in include order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [h for h in (path.parent / inc for inc in _INCLUDE.findall(path.read_text())) if h.exists()]
+    return seen
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for path in _sources(name):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES, verbose: bool = False) -> Dict[str, float]:

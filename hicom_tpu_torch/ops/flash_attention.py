@@ -23,9 +23,13 @@ compressor's 32 queries), the forward and K5 split the key axis into chunks
 (:func:`forward_splits`, :func:`dq_splits`): each block writes its chunk's
 fp32 partial to a workspace, and a second kernel merges the forward's
 partials by their maxima (:func:`merge_partials_reference` is its plain
-version) or sums K5's (:func:`sum_dq_partials_reference`), in a fixed order.
-:func:`split_forward_reference` and :func:`split_dq_reference` are the split
-path in plain PyTorch, chunk by chunk over the kernels' own key tiles.
+version) or sums K5's (:func:`sum_partials_reference`), in a fixed order.
+K6 has one block per 64 keys of a kv head; when those cannot fill the card
+(the decoder's 96) it splits each block's walk over its (query head, query
+tile) units (:func:`dkv_splits`, :func:`dkv_unit_range`) and sums the fp32
+dK and dV partials the same way. :func:`split_forward_reference`,
+:func:`split_dq_reference` and :func:`split_dkv_reference` are the split
+paths in plain PyTorch, over the kernels' own tiles.
 
 :class:`FlashAttention` is the counterpart of JAX's ``_flash_bhld``
 ``custom_vjp``: its forward runs K1 or K2 and saves (q, k, v, kv_lengths, out,
@@ -52,6 +56,7 @@ DEFAULT_BLOCK_K = 256
 NEG_INF = -1e30
 FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64  # the forward kernel's query rows per block, keys per tile
 DQ_BLOCK_K = 32  # K5's keys per tile
+DKV_BLOCK_K, DKV_BLOCK_Q = 64, 64  # K6's keys per block, query rows per unit
 H100_SMS = 132
 
 Tensor = torch.Tensor
@@ -132,24 +137,36 @@ def dq_block_q(lq: int) -> int:
     return 32 if lq <= 32 else 64
 
 
-def _splits(blocks: int, lk: int, block_k: int, sms: int) -> int:
+def _splits(blocks: int, units: int, sms: int) -> int:
     """One chunk when ``blocks`` fill the card, else about two blocks per SM,
-    never more chunks than key tiles."""
+    never more chunks than a block has ``units`` (key tiles, or K6's units)."""
     if blocks >= sms:
         return 1
-    return max(1, min(-(-lk // block_k), 2 * sms // blocks))
+    return max(1, min(units, 2 * sms // blocks))
 
 
 def forward_splits(b: int, H: int, lq: int, lk: int, sms: int = H100_SMS) -> int:
     """Chunks of the key axis for the forward kernel (K1/K2): 1 at the tower
     and prefill shapes, 29 at the global compressor's b 1 and 14 at b 2."""
-    return _splits(-(-lq // FWD_BLOCK_Q) * b * H, lk, FWD_BLOCK_K, sms)
+    return _splits(-(-lq // FWD_BLOCK_Q) * b * H, -(-lk // FWD_BLOCK_K), sms)
 
 
 def dq_splits(b: int, H: int, lq: int, lk: int, sms: int = H100_SMS) -> int:
     """Chunks of the key axis for K5: 1 at the tower and prefill shapes, 14
     at the global compressor's b 2 (252 blocks of 32 query rows)."""
-    return _splits(-(-lq // dq_block_q(lq)) * b * H, lk, DQ_BLOCK_K, sms)
+    return _splits(-(-lq // dq_block_q(lq)) * b * H, -(-lk // DQ_BLOCK_K), sms)
+
+
+def dkv_splits(b: int, H: int, KVH: int, lq: int, lk: int, sms: int = H100_SMS) -> int:
+    """Ranges of each K6 block's units: one where the blocks of 64 keys fill
+    the card (the global compressor, the tower), else at least two blocks per
+    SM, rounded up because a causal mask leaves the blocks uneven (the first
+    key tile is seen by every query tile, the last by one): 3 at the decoder
+    prefill's b 2, whose 96 blocks become 288, never more than a block's units."""
+    blocks = -(-lk // DKV_BLOCK_K) * b * KVH
+    if blocks >= sms:
+        return 1
+    return max(1, min(H // KVH * -(-lq // DKV_BLOCK_Q), -(-2 * sms // blocks)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -171,6 +188,18 @@ def tile_range(q0: int, block_q: int, lq: int, lk: int, kv_limit: int, causal: b
     if walk_empty and (kv_limit == 0 or (causal and q0 + lk - lq < 0)):
         n = -(-lk // block_k)
     return n * split // n_split, n * (split + 1) // n_split
+
+
+def dkv_unit_range(k0: int, lq: int, lk: int, kv_limit: int, causal: bool, g: int, split: int, n_split: int
+                   ) -> Tuple[int, int, int, int]:
+    """K6's walk, as the kernel computes it, for the block of keys from
+    ``k0``: its units are (query head of the group, 64-row query tile) pairs,
+    head-major, over the tiles that can see the keys (none for keys wholly
+    past ``kv_limit``). Returns (first query tile, tiles per head, and the
+    units [begin, end) of chunk ``split`` of ``n_split``)."""
+    qt_begin = max(0, k0 - (lk - lq)) // DKV_BLOCK_Q if causal else 0
+    nq = max(0, -(-lq // DKV_BLOCK_Q) - qt_begin) if k0 < kv_limit else 0
+    return qt_begin, nq, g * nq * split // n_split, g * nq * (split + 1) // n_split
 
 
 def _limits(b: int, lk: int, kv_lengths: Optional[Tensor]):
@@ -234,10 +263,10 @@ def split_forward_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optiona
     return merge_partials_reference(o_part, m_part, l_part, q.dtype)
 
 
-def sum_dq_partials_reference(dq_part: Tensor, scale: float, dtype: torch.dtype) -> Tensor:
-    """Plain twin of K5's reduction: ``scale`` times the sum of the chunks'
-    fp32 partials (n, ...), in ``dtype``."""
-    return (dq_part.sum(dim=0) * scale).to(dtype)
+def sum_partials_reference(part: Tensor, scale: float, dtype: torch.dtype) -> Tensor:
+    """Plain twin of the split path's sum pass (K5's dQ, K6's dK and dV):
+    ``scale`` times the sum of the chunks' fp32 partials (n, ...), in ``dtype``."""
+    return (part.sum(dim=0) * scale).to(dtype)
 
 
 def split_dq_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], out: Tensor, lse: Tensor,
@@ -246,7 +275,7 @@ def split_dq_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Ten
     (:func:`dq_block_q` rows), batch row and chunk of 32-key tiles, the
     unscaled dQ partial sum of dS K with dS rounded to K's dtype, as
     :func:`flash_backward_reference` forms it; then
-    :func:`sum_dq_partials_reference`. Returns dq like q."""
+    :func:`sum_partials_reference`. Returns dq like q."""
     b, H, Lq, d = q.shape
     KVH, Lk = k.shape[1], k.shape[2]
     acc = _acc_dtype(q)
@@ -271,7 +300,45 @@ def split_dq_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Ten
                 p = torch.where(valid, torch.exp(sc - row_lse), torch.zeros_like(sc))
                 ds = p * (torch.einsum("kgqd,ksd->kgqs", dos, vf) - row_delta)
                 parts[s, bi, :, rows] = torch.einsum("kgqs,ksd->kgqd", ds.to(k.dtype).to(acc), kf).reshape(H, -1, d)
-    return sum_dq_partials_reference(parts, scale, q.dtype)
+    return sum_partials_reference(parts, scale, q.dtype)
+
+
+def split_dkv_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], out: Tensor, lse: Tensor,
+                        do: Tensor, scale: float, logit_bias: float, causal: bool, n_split: int
+                        ) -> Tuple[Tensor, Tensor]:
+    """K6's split path in plain PyTorch: for every block of 64 keys, batch row
+    and chunk, the unscaled dK and the dV partial sums over that chunk's
+    units (:func:`dkv_unit_range`) in the kernel's order, with P and dS
+    rounded as :func:`flash_backward_reference` rounds them; then the chunks
+    summed in order by :func:`sum_partials_reference`, ``scale`` on dK.
+    Returns (dk, dv) like k and v."""
+    b, H, Lq, d = q.shape
+    KVH, Lk = k.shape[1], k.shape[2]
+    g = H // KVH
+    acc = _acc_dtype(q)
+    dk_part = torch.zeros((n_split, b, KVH, Lk, d), dtype=acc)
+    dv_part = torch.zeros((n_split, b, KVH, Lk, d), dtype=acc)
+    delta = (do.to(acc) * out.to(acc)).sum(dim=-1)
+    grouped = lambda x, bi: x[bi].reshape(KVH, g, Lq, x.shape[-1]).to(acc)  # noqa: E731
+    for bi, limit in enumerate(_limits(b, Lk, kv_lengths)):
+        qs, dos = grouped(q, bi), grouped(do, bi)
+        row_lse, row_delta = lse[bi].reshape(KVH, g, Lq).to(acc), delta[bi].reshape(KVH, g, Lq)
+        for k0 in range(0, Lk, DKV_BLOCK_K):
+            keys = slice(k0, min(k0 + DKV_BLOCK_K, Lk))
+            kf, vf = k[bi, :, keys].to(acc), v[bi, :, keys].to(acc)
+            for s in range(n_split):
+                qt_begin, nq, u0, u1 = dkv_unit_range(k0, Lq, Lk, limit, causal, g, s, n_split)
+                for u in range(u0, u1):
+                    hh, q0 = u // nq, (qt_begin + u % nq) * DKV_BLOCK_Q
+                    rows = slice(q0, min(q0 + DKV_BLOCK_Q, Lq))
+                    qu, dou = qs[:, hh, rows], dos[:, hh, rows]
+                    sc = torch.einsum("krd,ksd->krs", qu, kf) * scale + logit_bias
+                    valid = _chunk_valid(rows, keys, limit, causal, Lq, Lk, q.device)
+                    p = torch.where(valid, torch.exp(sc - row_lse[:, hh, rows, None]), torch.zeros_like(sc))
+                    ds = p * (torch.einsum("krd,ksd->krs", dou, vf) - row_delta[:, hh, rows, None])
+                    dk_part[s, bi, :, keys] += torch.einsum("krs,krd->ksd", ds.to(q.dtype).to(acc), qu)
+                    dv_part[s, bi, :, keys] += torch.einsum("krs,krd->ksd", p.to(do.dtype).to(acc), dou)
+    return sum_partials_reference(dk_part, scale, k.dtype), sum_partials_reference(dv_part, 1.0, v.dtype)
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], what: str):
@@ -375,9 +442,6 @@ def _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal):
              torch.cuda.current_stream(q.device).cuda_stream))
 
 
-_BWD_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
-
-
 def _launch_dq(q, k, v, lens, do, lse, delta, scale, logit_bias, causal, n_split: Optional[int] = None) -> Tensor:
     """K5 (and its sum pass when split) on checked, contiguous CUDA tensors
     (no launch count: see :func:`flash_backward`). ``n_split`` defaults to
@@ -395,26 +459,42 @@ def _launch_dq(q, k, v, lens, do, lse, delta, scale, logit_bias, causal, n_split
     return dq
 
 
-def _launch_dq_sum(dq_part: Tensor, scale: float) -> Tensor:
-    """K5's sum pass alone on an fp32 CUDA workspace (n, ...): ``scale`` times
-    the sum over n, in bf16."""
-    dq_part = dq_part.float().contiguous()
-    dq = torch.empty(dq_part.shape[1:], dtype=torch.bfloat16, device=dq_part.device)
-    if dq.numel() % 4:
-        raise ValueError("the dQ sum takes a multiple of 4 elements per chunk")
-    fn = c_function("flash_bwd", "hicom_flash_dq_sum", [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong,
-                                                                                ctypes.c_float, ctypes.c_void_p])
-    check(fn(dq_part.data_ptr(), dq.data_ptr(), dq_part.shape[0], dq.numel(), float(scale),
-             torch.cuda.current_stream(dq_part.device).cuda_stream), "hicom_flash_dq_sum")
-    return dq
+def _launch_part_sum(*pairs: Tuple[Tensor, float]) -> Tuple[Tensor, ...]:
+    """The split path's sum pass alone on one or two (fp32 CUDA workspace (n,
+    ...), scale) pairs of one shape (K5's dQ; K6's dK and dV): ``scale`` times
+    the sum over n, in bf16, one launch for all."""
+    parts = [p.float().contiguous() for p, _ in pairs]
+    if len(parts) not in (1, 2) or any(p.shape != parts[0].shape for p in parts):
+        raise ValueError("the sum pass takes one or two workspaces of one shape")
+    outs = [torch.empty(p.shape[1:], dtype=torch.bfloat16, device=p.device) for p in parts]
+    if outs[0].numel() % 4:
+        raise ValueError("the sum pass takes a multiple of 4 elements per chunk")
+    fn = c_function("flash_bwd", "hicom_flash_part_sum", [ctypes.c_void_p] * 2 + [ctypes.c_float]
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+    second = (parts[1].data_ptr(), outs[1].data_ptr(), float(pairs[1][1])) if len(parts) == 2 else (None, None, 0.0)
+    check(fn(parts[0].data_ptr(), outs[0].data_ptr(), float(pairs[0][1]), *second, parts[0].shape[0], outs[0].numel(),
+             torch.cuda.current_stream(parts[0].device).cuda_stream), "hicom_flash_part_sum")
+    return tuple(outs)
 
 
-def _launch_dkv(q, k, v, lens, do, lse, delta, scale, logit_bias, causal) -> Tuple[Tensor, Tensor]:
-    """K6 on checked, contiguous CUDA tensors (no launch count: see :func:`flash_backward`)."""
+def _launch_dkv(q, k, v, lens, do, lse, delta, scale, logit_bias, causal, n_split: Optional[int] = None
+                ) -> Tuple[Tensor, Tensor]:
+    """K6 (and its sum pass when split) on checked, contiguous CUDA tensors
+    (no launch count: see :func:`flash_backward`). ``n_split`` defaults to
+    :func:`dkv_splits`; tests force it."""
+    b, H, Lq, d = q.shape
+    KVH, Lk = k.shape[1], k.shape[2]
+    if n_split is None:
+        n_split = dkv_splits(b, H, KVH, Lq, Lk, _sm_count(q.device.index or 0))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    parts = (None, None)
+    if n_split > 1:
+        parts = tuple(torch.empty((n_split, b * KVH, Lk, d), dtype=torch.float32, device=q.device) for _ in range(2))
     head, tail = _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal)
-    fn = c_function("flash_bwd", "hicom_flash_bwd_dkv", _BWD_ARGS + [ctypes.c_void_p] * 2 + _BWD_TAIL)
-    check(fn(*head, dk.data_ptr(), dv.data_ptr(), *tail), "hicom_flash_bwd_dkv")
+    fn = c_function("flash_bwd", "hicom_flash_bwd_dkv", _BWD_ARGS + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    check(fn(*head, dk.data_ptr(), dv.data_ptr(), *(t.data_ptr() if t is not None else None for t in parts),
+             *tail[:6], int(n_split), *tail[6:]), "hicom_flash_bwd_dkv")
     return dk, dv
 
 

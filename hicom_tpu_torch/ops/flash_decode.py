@@ -4,8 +4,10 @@ Replaces the Pallas TPU kernel ``hicom_tpu/ops/flash_decode.py:_decode_kernel``
 (K3). One query token per row attends over the cache slots its bitmap marks,
 for a bf16 cache or an int8 cache with per-slot scales. With int8, the k scales
 multiply the logits and the v scales multiply p for the accumulator only, not
-the denominator, as on the TPU. The CUDA kernel splits the slot axis across
-blocks and merges the partials in a second small kernel (see the source).
+the denominator, as on the TPU. The CUDA kernel splits the slot axis into
+chunks of :data:`DECODE_CHUNK` slots, one warp each, skips chunks with no valid
+slot, and merges the chunks' partials in a second small kernel (see the
+source); :func:`chunked_decode_reference` is that path in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from .cuda_build import c_function, check
 
 NEG_INF = -1e30
+DECODE_CHUNK = 32  # the kernel's slots per block
 
 Tensor = torch.Tensor
 
@@ -39,6 +42,40 @@ def decode_reference(q: Tensor, k: Tensor, v: Tensor, slot_mask: Tensor, k_scale
     denom = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     p = e * v_scale[:, :, None, :] if v_scale is not None else e
     out = torch.einsum("bkgs,bksd->bkgd", p.to(q.dtype).float(), v.to(q.dtype).float()) / denom
+    return out.reshape(b, H, 1, d).to(q.dtype)
+
+
+def chunked_decode_reference(q: Tensor, k: Tensor, v: Tensor, slot_mask: Tensor, k_scale: Optional[Tensor],
+                             v_scale: Optional[Tensor], scale: float) -> Tensor:
+    """The kernel's chunked path in plain PyTorch, shapes as :func:`decode_reference`:
+    per chunk of :data:`DECODE_CHUNK` slots with a valid one, its max m, the
+    fp32 sum l of p = exp(logit - m) and the sum of p (times the v scale, in
+    q's dtype) times v; an empty chunk weighs 0. The chunks merge with weights
+    exp(m - M), M their largest max; a row with no valid slot at all is the
+    plain average of its S values (times their v scales)."""
+    b, H, _, d = q.shape
+    KVH, S = k.shape[1], k.shape[2]
+    g, n = H // KVH, -(-S // DECODE_CHUNK)
+    pad = n * DECODE_CHUNK - S
+    vf = v.to(q.dtype).float()
+    vsf = v_scale.float() if v_scale is not None else torch.ones((b, KVH, S), device=q.device)
+    logits = torch.einsum("bkgd,bksd->bkgs", q.reshape(b, KVH, g, d).float(), k.to(q.dtype).float())
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, :]
+    mask = torch.nn.functional.pad(slot_mask.bool(), (0, pad))
+    logits = torch.nn.functional.pad(logits * scale, (0, pad))
+    logits = torch.where(mask[:, None, None, :], logits, torch.full_like(logits, NEG_INF)).unflatten(-1, (n, -1))
+    m = logits.amax(dim=-1)  # (b, KVH, g, n)
+    p = torch.exp(logits - m[..., None])
+    l = p.sum(dim=-1)
+    pv = (p * torch.nn.functional.pad(vsf, (0, pad)).unflatten(-1, (n, -1))[:, :, None]).to(q.dtype).float()
+    o = torch.einsum("bkgnc,bkncd->bkgnd", pv, torch.nn.functional.pad(vf, (0, 0, 0, pad)).unflatten(2, (n, -1)))
+    busy = mask.unflatten(-1, (n, -1)).any(dim=-1)[:, None, None, :]  # (b, 1, 1, n)
+    M = torch.where(busy, m, torch.full_like(m, float("-inf"))).amax(dim=-1, keepdim=True)
+    w = torch.where(busy, torch.exp(m - torch.where(busy, M, m)), torch.zeros_like(m))
+    out = (w[..., None] * o).sum(dim=-2) / (w * l).sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    clear = ~busy.any(dim=-1, keepdim=True)  # (b, 1, 1, 1): the uniform average
+    out = torch.where(clear, (vf * vsf[..., None]).sum(dim=2)[:, :, None] / S, out)
     return out.reshape(b, H, 1, d).to(q.dtype)
 
 

@@ -4,7 +4,8 @@
     python3 scripts/torch_flash_profile.py [--root DIR] [--iters 20] [--cases K1,K2]
 
 Runs on one CUDA card. Each case calls its wrapper (``fullblock_attention``,
-``flash_forward``, or K5's ``_launch_dq``) ``--iters`` times under
+``flash_forward``, K5's ``_launch_dq``, K6's ``_launch_dkv``, ``flash_decode``
+or ``fused_tile_attention``) ``--iters`` times under
 torch.profiler after a warm-up, and prints every CUDA kernel's mean device
 time per call, so a split launch shows its main kernel and its merge or sum
 pass apart, and the sum beside the CUDA-event time of the same calls (which
@@ -23,7 +24,7 @@ import subprocess
 import sys
 
 
-def cases(torch, fa):
+def cases(torch, fa, fd, la):
     """(label, call) pairs at the shapes chip_smoke.py times."""
     gen = torch.Generator("cuda").manual_seed(0)
 
@@ -41,6 +42,9 @@ def cases(torch, fa):
     o, lse = fa.flash_forward(q, k, v, kl, 128**-0.5, 0.0, True)
     ops_prefill = fa.backward_operands(q, k, v, kl, o, lse, do)
     out.append(("K5 prefill", lambda: fa._launch_dq(*ops_prefill, 128**-0.5, 0.0, True)))
+    out.append(("K6 prefill", lambda: fa._launch_dkv(*ops_prefill, 128**-0.5, 0.0, True)))
+    for n in (1, 2, 4, 5, 6, 7):  # the decoder's K6 with other split counts than dkv_splits' 3
+        out.append((f"K6 prefill split {n}", lambda n=n: fa._launch_dkv(*ops_prefill, 128**-0.5, 0.0, True, n_split=n)))
     for b in (1, 2):
         qg, kg, vg = rn(b, 9, 32, 128), rn(b, 9, 23328, 128), rn(b, 9, 23328, 128)
         out.append((f"K2 global b{b}", lambda qg=qg, kg=kg, vg=vg: fa.flash_forward(qg, kg, vg, None, 128**-0.5)))
@@ -48,6 +52,20 @@ def cases(torch, fa):
     og, lseg = fa.flash_forward(qg, kg, vg, None, 128**-0.5)
     ops_global = fa.backward_operands(qg, kg, vg, None, og, lseg, dog)
     out.append(("K5 global b2", lambda: fa._launch_dq(*ops_global, 128**-0.5, 0.0, False)))
+    out.append(("K6 global b2", lambda: fa._launch_dkv(*ops_global, 128**-0.5, 0.0, False)))
+    qt, kt, vt, dot = (rn(512, 1, 729, 72) for _ in range(4))  # the tower's rows, off the stage-2 path
+    ot, lset = fa.fullblock_attention(qt[:, 0], kt[:, 0], vt[:, 0], 72**-0.5)
+    ops_tower = fa.backward_operands(qt, kt, vt, None, ot[:, None], lset[:, None], dot)
+    out.append(("K6 tower", lambda: fa._launch_dkv(*ops_tower, 72**-0.5, 0.0, False)))
+    # decode over a 4096-slot cache: the single request (b 1) and the batched one (b 2)
+    slot = torch.arange(4096, device="cuda")
+    bitmap = torch.stack([slot < 760, (slot < 700) | ((slot >= 743) & (slot < 760))])
+    qd, kd, vd = rn(2, 28, 1, 128), rn(2, 4, 4096, 128), rn(2, 4, 4096, 128)
+    for b in (1, 2):
+        out.append((f"K3 decode b{b}", lambda b=b: fd.flash_decode(qd[:b], kd[:b], vd[:b], bitmap[:b])))
+    key, val, qq = rn(32, 27, 27, 1152), rn(32, 27, 27, 1152), rn(8, 9, 9, 1152)
+    scale = torch.tensor(1152**-0.5, device="cuda")
+    out.append(("K4 local", lambda: la.fused_tile_attention(qq, key, val, (4, 3, 3), scale, 0.0)))
     return out
 
 
@@ -66,10 +84,12 @@ def main() -> int:
         print("torch_flash_profile: no CUDA device", file=sys.stderr)
         return 2
     from hicom_tpu_torch.ops import flash_attention as fa
+    from hicom_tpu_torch.ops import flash_decode as fd
+    from hicom_tpu_torch.ops import local_attn as la
 
     print(f"[profile-flash] hicom_tpu_torch from {os.path.dirname(fa.__file__)}", flush=True)
     words = [w for w in args.cases.split(",") if w]
-    for label, call in cases(torch, fa):
+    for label, call in cases(torch, fa, fd, la):
         if words and not any(w in label for w in words):
             continue
         for _ in range(3):

@@ -14,11 +14,12 @@ zero, whose error is that of the row's sum of rounded terms.
 import pytest
 import torch
 
-from hicom_tpu_torch.ops.flash_attention import (_launch, _launch_dq, _launch_dq_sum, _launch_merge, backward_operands,
-                                                 flash_attention_gqa, flash_backward, flash_backward_reference,
-                                                 flash_forward, flash_reference, forward_splits, fullblock_attention,
-                                                 merge_partials_reference, sum_dq_partials_reference)
-from hicom_tpu_torch.ops.flash_decode import decode_reference, flash_decode
+from hicom_tpu_torch.ops.flash_attention import (DKV_BLOCK_K, _launch, _launch_dkv, _launch_dq, _launch_merge,
+                                                 _launch_part_sum, backward_operands, dkv_splits, flash_attention_gqa,
+                                                 flash_backward, flash_backward_reference, flash_forward,
+                                                 flash_reference, forward_splits, fullblock_attention,
+                                                 merge_partials_reference, sum_partials_reference)
+from hicom_tpu_torch.ops.flash_decode import DECODE_CHUNK, decode_reference, flash_decode
 from hicom_tpu_torch.ops.local_attn import fused_tile_attention, tile_reference
 
 pytestmark = pytest.mark.cuda
@@ -213,5 +214,60 @@ def test_merge_and_sum_kernels_match_their_plain_versions():
     out, lse = _launch_merge(o, m, l)
     ref, ref_lse = merge_partials_reference(o, m, l, torch.bfloat16)
     assert _worst(out, ref) <= 1 and (lse - ref_lse).abs().max().item() <= 1e-3
-    dq = _launch_dq_sum(o, 0.125)
-    assert _worst(dq, sum_dq_partials_reference(o, 0.125, torch.bfloat16)) <= 1
+    dq, = _launch_part_sum((o, 0.125))
+    assert _worst(dq, sum_partials_reference(o, 0.125, torch.bfloat16)) <= 1
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens,bias", [
+    (2, 28, 4, 743, 743, 128, True, [743, 700], 0.0),  # the decoder prefill (dkv_splits picks 2)
+    (2, 6, 2, 130, 130, 64, True, [90, 130], 0.3),  # GQA, a key tile wholly past kv_lengths
+    (1, 3, 3, 200, 729, 72, False, None, 0.0),  # d 72 (the tower's width), ragged tiles, G = 1
+    (2, 4, 4, 37, 130, 32, False, [100, 130], -0.2),  # one query tile: 3 and 7 splits leave empty ranges
+])
+def test_dkv_forced_split(rn, b, H, KVH, Lq, Lk, d, causal, lens, bias, n_split):
+    q, k, v, do = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d), rn(b, H, Lq, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = flash_forward(q, k, v, kl, d**-0.5, bias, causal)
+    ops = backward_operands(q, k, v, kl, out, lse, do)
+    dk, dv = _launch_dkv(*ops, d**-0.5, bias, causal, n_split=n_split)
+    _, ref_dk, ref_dv = flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, bias, causal)
+    assert _worst(dk, ref_dk) <= 1 and _worst(dv, ref_dv) <= 1
+
+
+def test_dkv_sum_kernel_matches_its_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator("cuda").manual_seed(2)
+    dk_part, dv_part = (torch.randn(3, 2, 4, 100, 72, generator=gen, device="cuda") for _ in range(2))
+    dk, dv = _launch_part_sum((dk_part, 0.125), (dv_part, 1.0))
+    assert _worst(dk, sum_partials_reference(dk_part, 0.125, torch.bfloat16)) <= 1
+    assert _worst(dv, sum_partials_reference(dv_part, 1.0, torch.bfloat16)) <= 1
+
+
+def test_decoder_dkv_grid_fills_the_card():
+    assert -(-743 // DKV_BLOCK_K) * 2 * 4 * dkv_splits(2, 28, 4, 743, 743) >= 132
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("g", [1, 7, 8])
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_decode_chunks(rn, b, g, quantized):
+    """Valid slots ending inside a chunk, empty chunks after them, a last chunk
+    past S (1000 slots), and at b 2 a row whose bitmap is all clear; each row
+    held to the twin on its own."""
+    KVH, S, d = 4, 1000, 128
+    q = rn(b, KVH * g, 1, d)
+    slot = torch.arange(S, device="cuda")
+    mask = torch.stack([slot < 3 * DECODE_CHUNK + 11, torch.zeros_like(slot, dtype=torch.bool)])[:b]
+    if quantized:
+        k = torch.randint(-127, 128, (b, KVH, S, d), device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, KVH, S, d), device="cuda", dtype=torch.int8)
+        ks, vs = torch.rand(b, KVH, S, device="cuda") * 0.02, torch.rand(b, KVH, S, device="cuda") * 0.02
+    else:
+        k, v, ks, vs = rn(b, KVH, S, d), rn(b, KVH, S, d), None, None
+    before = flash_decode.launches
+    out = flash_decode(q, k, v, mask, k_scale=ks, v_scale=vs)
+    assert flash_decode.launches == before + 1
+    ref = decode_reference(q, k, v, mask, ks, vs, d**-0.5)
+    assert max(_worst(out[r], ref[r]) for r in range(b)) <= 1

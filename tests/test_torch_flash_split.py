@@ -120,7 +120,7 @@ def test_merge_weighs_empty_and_masked_chunks_zero():
     torch.testing.assert_close(out[0], o[0, 0] / 2.0)
     torch.testing.assert_close(out[1], (o[0, 1] + o[1, 1]) / 4.0)
     torch.testing.assert_close(lse[0], torch.tensor(0.5 + np.log(2.0), dtype=torch.float32))
-    torch.testing.assert_close(tfa.sum_dq_partials_reference(o, 0.5, torch.float32), o.sum(0) * 0.5)
+    torch.testing.assert_close(tfa.sum_partials_reference(o, 0.5, torch.float32), o.sum(0) * 0.5)
 
 
 @pytest.mark.parametrize("b", [1, 2])
