@@ -16,12 +16,15 @@ Phases:
      tower shapes, with each launch's grid, dK and dV also with forced splits
      of 1, 2 and 7 at the decoder shape and their sum pass alone; the decode
      kernel at b 2 and at b 1, with an int8 cache, and on a bitmap row with no
-     valid slot);
+     valid slot; the tile kernel at b 1 and b 2 in the main path's call form,
+     in the clip-scale form, and on the image tile);
   4. serving at the full width of the released HICom-7B (SigLIP-so400m,
      local43_global32 with direct guide, Qwen2.5-7B in bf16, weights from a seed
      on the card): 3 requests of a 32-frame 384x384 video through
      ``HICom.generate`` (a right-padded batch of 2, then one alone), greedy, 16
-     new tokens; every kernel's launch count must rise;
+     new tokens; every kernel's launch count must rise; then one projector
+     forward under torch.cuda.set_sync_debug_mode("error"), which fails on any
+     call that waits for the device;
   5. training at the same width: 3 stage-2 steps (projector and guide injectors
      trained, towers and decoder frozen) on a seeded batch of 2, with finite
      losses, frozen weights bit-identical, trained weights moved, 29 flash
@@ -266,18 +269,42 @@ def kernel_checks(card: str):
             raise AssertionError(f"flash_decode disagrees with its twin on an all-clear row ({label})")
     del kb, vb, ki, vi
 
-    # K4: local compressor, key/value (32, 27, 27, 1152), one query per 4x3x3 tile; the library
-    # call is SDPA over the tile-grouped view, the grouping copy of key and value (tile_thw) included
-    t, h, w, c = 32, 27, 27, 1152
-    key, val, qq = rn(t, h, w, c), rn(t, h, w, c), rn(t // 4, h // 3, w // 3, c)
-    scale = torch.tensor(c**-0.5, device=dev)
-    n_tiles = (t // 4) * (h // 3) * (w // 3)
-    record("fused_tile_attention[local 32f]", "K4",
-           lambda: fused_tile_attention(qq, key, val, (4, 3, 3), scale, 0.0),
-           lambda: tile_reference(qq, key, val, (4, 3, 3), scale, 0.0),
-           lambda: F.scaled_dot_product_attention(qq.reshape(n_tiles, 1, 1, c), tile_thw(key, (4, 3, 3))[:, None],
-                                                  tile_thw(val, (4, 3, 3))[:, None], scale=c**-0.5),
-           4 * n_tiles * 36 * c, 2 * t * h * w * c * 2 + 2 * n_tiles * c * 2)
+    # K4: local compressor, key/value (32 b, 27, 27, 1152), one query per 4x3x3 tile, in the main path's call
+    # form (Python-float scale, bias 0.0: both pass by value); b 1 serves one request, b 2 the batched one (the
+    # batch folds into the frame axis). The library call is SDPA over the tile-grouped view, the grouping copy of
+    # key and value (tile_thw) included. Then the clip-scale form (exp of a bf16 logit_scale and a bf16 bias,
+    # read on the card), whose uniform bias SDPA may leave out (it cancels in the softmax), and the image tile
+    # (1, 3, 3) at t = 1, checked and not timed.
+    c = 1152
+    for b in (1, 2):
+        t, h, w = 32 * b, 27, 27
+        key, val, qq = rn(t, h, w, c), rn(t, h, w, c), rn(t // 4, h // 3, w // 3, c)
+        n_tiles = (t // 4) * (h // 3) * (w // 3)
+        record(f"fused_tile_attention[local 32f b{b}]", "K4",
+               lambda: fused_tile_attention(qq, key, val, (4, 3, 3), c**-0.5, 0.0),
+               lambda: tile_reference(qq, key, val, (4, 3, 3), c**-0.5, 0.0),
+               lambda: F.scaled_dot_product_attention(qq.reshape(n_tiles, 1, 1, c), tile_thw(key, (4, 3, 3))[:, None],
+                                                      tile_thw(val, (4, 3, 3))[:, None], scale=c**-0.5),
+               4 * n_tiles * 36 * c, 2 * t * h * w * c * 2 + 2 * n_tiles * c * 2, grid=(min(n_tiles, sms),))
+        if b == 1:
+            logit_scale = torch.tensor(-3.0, device=dev, dtype=torch.bfloat16)
+            logit_bias = torch.tensor(0.4, device=dev, dtype=torch.bfloat16)
+            clip_scale = float(torch.exp(logit_scale))
+            record("fused_tile_attention[local 32f b1 clip-scale]", "K4",
+                   lambda: fused_tile_attention(qq, key, val, (4, 3, 3), torch.exp(logit_scale), logit_bias),
+                   lambda: tile_reference(qq, key, val, (4, 3, 3), torch.exp(logit_scale), logit_bias),
+                   lambda: F.scaled_dot_product_attention(qq.reshape(n_tiles, 1, 1, c),
+                                                          tile_thw(key, (4, 3, 3))[:, None],
+                                                          tile_thw(val, (4, 3, 3))[:, None], scale=clip_scale),
+                   4 * n_tiles * 36 * c, 2 * t * h * w * c * 2 + 2 * n_tiles * c * 2, grid=(min(n_tiles, sms),))
+        del key, val, qq
+    key, val, qq = rn(1, 27, 27, c), rn(1, 27, 27, c), rn(1, 9, 9, c)
+    err, ratio, rms, _ = agreement(fused_tile_attention(qq, key, val, (1, 3, 3), c**-0.5, 0.0),
+                                   tile_reference(qq, key, val, (1, 3, 3), c**-0.5, 0.0))
+    log(f"[kernel] fused_tile_attention[image 1x27x27, tile 1x3x3]: max_abs_err {err:.3g}, worst err/tol {ratio:.3f} "
+        f"(ref rms {rms:.3g}) | grid {min(81, sms)} blocks")
+    if not ratio <= 1:
+        raise AssertionError(f"the tile kernel disagrees with its plain version on the image tile ({ratio})")
     del key, val, qq
     backward_checks(rn, record)
     return records
@@ -514,12 +541,45 @@ def main_path(card: str):
         ttfts.append(time.perf_counter() - t0)
     ttft = min(ttfts)
     decode_tps = stage_breakdown(hc, single)
+    projector_sync_check(model, single)
     log(f"[slice] {card} | 3 requests (32 frames, 680 visual tokens, 16 new tokens): batch-of-2 request "
         f"{t_batch:.3f} s, single request {t_single:.3f} s | TTFT {ttft * 1e3:.1f} ms | decode "
         f"{decode_tps:.1f} tokens/s (single stream) | peak memory {peak_gb:.2f} GB")
     del model, hc
     torch.cuda.empty_cache()
     return launches
+
+
+def projector_sync_check(model, single):
+    """Phase 4b: one serving forward of the projector (``model.model.mm_projector``)
+    on the single request's tower features, under
+    ``torch.cuda.set_sync_debug_mode("error")``: a call that waits for the device
+    (a blocking copy from the host, a read of a device value) raises. The
+    forward must launch K4 once and give finite visual tokens."""
+    import torch
+
+    from hicom_tpu_torch.ops.local_attn import fused_tile_attention
+
+    dev = "cuda"
+    with torch.inference_mode():
+        frames = torch.as_tensor(single["frames"], device=dev, dtype=torch.bfloat16)
+        ge = model.encode_guide(torch.as_tensor(single["guide_ids"], device=dev))
+        b, t = frames.shape[:2]
+        feats, embeds = model.model.vision_tower.vision_tower(frames.reshape((b * t,) + frames.shape[2:]))
+        feats, embeds = feats.reshape((b, t) + feats.shape[1:]), embeds.reshape((b, t) + embeds.shape[1:])
+        torch.cuda.synchronize()
+        before = fused_tile_attention.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            vis = model.model.mm_projector(feats, embeds, ge, "video")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launched = fused_tile_attention.launches - before
+        finite = bool(torch.isfinite(vis).all())
+    log(f"[sync] projector forward {tuple(vis.shape)} under set_sync_debug_mode('error'): no synchronising call, "
+        f"K4 launches {launched}, finite {finite}")
+    if launched != 1 or not finite:
+        raise AssertionError(f"the projector forward launched K4 {launched} times (1 expected), finite {finite}")
 
 
 def stage_breakdown(hc, single, new_tokens: int = 16):

@@ -5,12 +5,14 @@ sample and ``nn.vmap``-ed over the batch; here every module takes a leading
 batch axis instead: volumes are (b, t, h, w, d), guides (b, d) or (b, Lg, d).
 State-dict names follow the reference (``local_compressor.readout.0.weight``).
 
-On the card the local compressor's divisible tile grid runs the K4 tile
-kernel (the batch folds into the frame axis, which tiles the same way) when
-grad mode is off; the overlapping grid, and every pass under grad mode (the
-train step, as the JAX train step runs it), stays on ``tile_thw`` + ``sdpa``
-(K4 has no backward). The global compressor's 32-query cross-attention
-reaches the K2 flash kernel, and its K5/K6 backward, through ``sdpa``.
+The local compressor runs ``fused_tile_attention`` (the K4 tile kernel on the
+card, its plain version on the CPU; the batch folds into the frame axis,
+which tiles the same way) wherever ``takes_tile_kernel`` holds and grad
+mode is off; the overlapping grid, and every pass under grad mode (the
+train step, as the JAX train step runs it), stays on ``tile_thw`` +
+``sdpa`` (K4 has no backward). The global compressor's 32-query
+cross-attention reaches the K2 flash kernel, and its K5/K6 backward,
+through ``sdpa``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from torch import nn
 from ..config import GlobalCompressorSpec, HIComConfig, LocalCompressorSpec
 from ..ops.attention import sdpa
 from ..ops.grouping import tile_thw
-from ..ops.local_attn import fused_tile_attention
+from ..ops.local_attn import fused_tile_attention, takes_tile_kernel
 from ..ops.pos_embed import sincos_pos_embed_3d
 from ..ops.resize import resize_thw
 from .layers import MultiheadAttention, TorchMLP, l2_normalize
@@ -150,9 +152,8 @@ class LocalCompressor(nn.Module):
             q = self.guide_injector(q, guide_embed)
 
         att_scale = torch.exp(logit_scale) if logit_scale is not None else 1.0 / math.sqrt(self.qk_dim)
-        divisible = t % kt == 0 and h % ks == 0 and w % ks == 0
         dv = value.shape[-1]
-        if divisible and q.is_cuda and not torch.is_grad_enabled():
+        if takes_tile_kernel((t, h, w), key.shape[-1], dv, (kt, ks, ks)) and not torch.is_grad_enabled():
             # tiles never cross frames, so the batch folds into the frame axis
             out = fused_tile_attention(q.reshape(b * down[0], *down[1:], q.shape[-1]),
                                        key.reshape(b * t, h, w, key.shape[-1]),

@@ -4,8 +4,10 @@ Matches the reference construction (``upstream hicom/model/projector.py:57-101``
 per axis, ``angle(pos, i) = pos / 10000^(2*(i//2)/d)`` with sin at even feature
 indices and cos at odd ones; the final embedding is the sum of the three
 broadcast (t,d)+(h,d)+(w,d) tables. The axis tables are computed on the host
-in float64 and cached; :func:`sincos_pos_embed_3d` sums them on the device, so
-a 32 x 27 x 27 x 1152 embedding is never built or copied on the host.
+in float64 and cached, and copied to each device once, from pinned memory
+without waiting; :func:`sincos_pos_embed_3d` sums them on the device, so a
+32 x 27 x 27 x 1152 embedding is never built on the host and a forward copies
+nothing from it.
 """
 
 from __future__ import annotations
@@ -35,7 +37,16 @@ def get_3d_sincos_pos_embed(t: int, h: int, w: int, d_model: int) -> np.ndarray:
     return pt + ph + pw
 
 
+@functools.lru_cache(maxsize=16)
+def _device_axis_table(n: int, d_model: int, device: torch.device) -> torch.Tensor:
+    """:func:`_axis_table` on ``device``: a copy from pinned memory that does not block the host."""
+    table = torch.from_numpy(_axis_table(n, d_model))
+    if device.type == "cuda":
+        return table.pin_memory().to(device, non_blocking=True)
+    return table.to(device)
+
+
 def sincos_pos_embed_3d(t: int, h: int, w: int, d_model: int, device) -> torch.Tensor:
     """:func:`get_3d_sincos_pos_embed` as a float32 tensor on ``device`` (same sums, same order)."""
-    pt, ph, pw = (torch.as_tensor(_axis_table(n, d_model), device=device) for n in (t, h, w))
+    pt, ph, pw = (_device_axis_table(n, d_model, torch.device(device)) for n in (t, h, w))
     return pt[:, None, None, :] + ph[None, :, None, :] + pw[None, None, :, :]

@@ -13,7 +13,8 @@ also holds launch gaps). The last line is the card's name and power limit.
 ``--root`` imports ``hicom_tpu_torch`` from another checkout (its kernels
 build into that checkout's ``build/``), so two versions can be timed in turns
 in one call on one card. ``--cases`` keeps the cases whose label contains one
-of the given words. Kernels build on first use, inside the warm-up.
+of the given words, and makes only their inputs. Kernels build on first use,
+inside the warm-up.
 """
 
 from __future__ import annotations
@@ -24,49 +25,64 @@ import subprocess
 import sys
 
 
-def cases(torch, fa, fd, la):
-    """(label, call) pairs at the shapes chip_smoke.py times."""
+def cases(torch, fa, fd, la, want):
+    """(label, call) pairs at the shapes chip_smoke.py times, for the labels
+    that ``want`` keeps; the inputs of the others are not made."""
     gen = torch.Generator("cuda").manual_seed(0)
 
     def rn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
 
+    def any_of(*labels):
+        return any(want(label) for label in labels)
+
     out = []
     for rows in (512, 1024):  # the tower: one 32-frame request, the train step's two
-        q, k, v = rn(rows, 729, 72), rn(rows, 729, 72), rn(rows, 729, 72)
-        out.append((f"K1 tower {rows} rows", lambda q=q, k=k, v=v: fa.fullblock_attention(q, k, v, 72**-0.5)))
-    q, k, v = rn(2, 28, 743, 128), rn(2, 4, 743, 128), rn(2, 4, 743, 128)
-    kl = torch.tensor([743, 700], device="cuda", dtype=torch.int32)
-    out.append(("K2 prefill", lambda: fa.flash_forward(q, k, v, kl, 128**-0.5, 0.0, True)))
-    do = rn(2, 28, 743, 128)
-    o, lse = fa.flash_forward(q, k, v, kl, 128**-0.5, 0.0, True)
-    ops_prefill = fa.backward_operands(q, k, v, kl, o, lse, do)
-    out.append(("K5 prefill", lambda: fa._launch_dq(*ops_prefill, 128**-0.5, 0.0, True)))
-    out.append(("K6 prefill", lambda: fa._launch_dkv(*ops_prefill, 128**-0.5, 0.0, True)))
-    for n in (1, 2, 4, 5, 6, 7):  # the decoder's K6 with other split counts than dkv_splits' 3
-        out.append((f"K6 prefill split {n}", lambda n=n: fa._launch_dkv(*ops_prefill, 128**-0.5, 0.0, True, n_split=n)))
+        if want(f"K1 tower {rows} rows"):
+            q, k, v = rn(rows, 729, 72), rn(rows, 729, 72), rn(rows, 729, 72)
+            out.append((f"K1 tower {rows} rows", lambda q=q, k=k, v=v: fa.fullblock_attention(q, k, v, 72**-0.5)))
+    splits = (1, 2, 4, 5, 6, 7)  # the decoder's K6 with other split counts than dkv_splits' 3
+    if any_of("K2 prefill", "K5 prefill", "K6 prefill", *(f"K6 prefill split {n}" for n in splits)):
+        q, k, v = rn(2, 28, 743, 128), rn(2, 4, 743, 128), rn(2, 4, 743, 128)
+        kl = torch.tensor([743, 700], device="cuda", dtype=torch.int32)
+        out.append(("K2 prefill", lambda: fa.flash_forward(q, k, v, kl, 128**-0.5, 0.0, True)))
+        do = rn(2, 28, 743, 128)
+        o, lse = fa.flash_forward(q, k, v, kl, 128**-0.5, 0.0, True)
+        ops_prefill = fa.backward_operands(q, k, v, kl, o, lse, do)
+        out.append(("K5 prefill", lambda: fa._launch_dq(*ops_prefill, 128**-0.5, 0.0, True)))
+        out.append(("K6 prefill", lambda: fa._launch_dkv(*ops_prefill, 128**-0.5, 0.0, True)))
+        for n in splits:
+            out.append((f"K6 prefill split {n}",
+                        lambda n=n: fa._launch_dkv(*ops_prefill, 128**-0.5, 0.0, True, n_split=n)))
+    if any_of("K2 global b1", "K2 global b2", "K5 global b2", "K6 global b2"):
+        for b in (1, 2):
+            qg, kg, vg = rn(b, 9, 32, 128), rn(b, 9, 23328, 128), rn(b, 9, 23328, 128)
+            out.append((f"K2 global b{b}", lambda qg=qg, kg=kg, vg=vg: fa.flash_forward(qg, kg, vg, None, 128**-0.5)))
+        dog = rn(2, 9, 32, 128)
+        og, lseg = fa.flash_forward(qg, kg, vg, None, 128**-0.5)
+        ops_global = fa.backward_operands(qg, kg, vg, None, og, lseg, dog)
+        out.append(("K5 global b2", lambda: fa._launch_dq(*ops_global, 128**-0.5, 0.0, False)))
+        out.append(("K6 global b2", lambda: fa._launch_dkv(*ops_global, 128**-0.5, 0.0, False)))
+    if want("K6 tower"):
+        qt, kt, vt, dot = (rn(512, 1, 729, 72) for _ in range(4))  # the tower's rows, off the stage-2 path
+        ot, lset = fa.fullblock_attention(qt[:, 0], kt[:, 0], vt[:, 0], 72**-0.5)
+        ops_tower = fa.backward_operands(qt, kt, vt, None, ot[:, None], lset[:, None], dot)
+        out.append(("K6 tower", lambda: fa._launch_dkv(*ops_tower, 72**-0.5, 0.0, False)))
+    if any_of("K3 decode b1", "K3 decode b2"):
+        # decode over a 4096-slot cache: the single request (b 1) and the batched one (b 2)
+        slot = torch.arange(4096, device="cuda")
+        bitmap = torch.stack([slot < 760, (slot < 700) | ((slot >= 743) & (slot < 760))])
+        qd, kd, vd = rn(2, 28, 1, 128), rn(2, 4, 4096, 128), rn(2, 4, 4096, 128)
+        for b in (1, 2):
+            out.append((f"K3 decode b{b}", lambda b=b: fd.flash_decode(qd[:b], kd[:b], vd[:b], bitmap[:b])))
+    # the local compressor's tiles in the main path's call form (Python-float scale and bias): one request
+    # (b 1) and the batched one (b 2, folded into the frame axis)
     for b in (1, 2):
-        qg, kg, vg = rn(b, 9, 32, 128), rn(b, 9, 23328, 128), rn(b, 9, 23328, 128)
-        out.append((f"K2 global b{b}", lambda qg=qg, kg=kg, vg=vg: fa.flash_forward(qg, kg, vg, None, 128**-0.5)))
-    dog = rn(2, 9, 32, 128)
-    og, lseg = fa.flash_forward(qg, kg, vg, None, 128**-0.5)
-    ops_global = fa.backward_operands(qg, kg, vg, None, og, lseg, dog)
-    out.append(("K5 global b2", lambda: fa._launch_dq(*ops_global, 128**-0.5, 0.0, False)))
-    out.append(("K6 global b2", lambda: fa._launch_dkv(*ops_global, 128**-0.5, 0.0, False)))
-    qt, kt, vt, dot = (rn(512, 1, 729, 72) for _ in range(4))  # the tower's rows, off the stage-2 path
-    ot, lset = fa.fullblock_attention(qt[:, 0], kt[:, 0], vt[:, 0], 72**-0.5)
-    ops_tower = fa.backward_operands(qt, kt, vt, None, ot[:, None], lset[:, None], dot)
-    out.append(("K6 tower", lambda: fa._launch_dkv(*ops_tower, 72**-0.5, 0.0, False)))
-    # decode over a 4096-slot cache: the single request (b 1) and the batched one (b 2)
-    slot = torch.arange(4096, device="cuda")
-    bitmap = torch.stack([slot < 760, (slot < 700) | ((slot >= 743) & (slot < 760))])
-    qd, kd, vd = rn(2, 28, 1, 128), rn(2, 4, 4096, 128), rn(2, 4, 4096, 128)
-    for b in (1, 2):
-        out.append((f"K3 decode b{b}", lambda b=b: fd.flash_decode(qd[:b], kd[:b], vd[:b], bitmap[:b])))
-    key, val, qq = rn(32, 27, 27, 1152), rn(32, 27, 27, 1152), rn(8, 9, 9, 1152)
-    scale = torch.tensor(1152**-0.5, device="cuda")
-    out.append(("K4 local", lambda: la.fused_tile_attention(qq, key, val, (4, 3, 3), scale, 0.0)))
-    return out
+        if want(f"K4 local b{b}"):
+            key, val, qq = rn(32 * b, 27, 27, 1152), rn(32 * b, 27, 27, 1152), rn(8 * b, 9, 9, 1152)
+            out.append((f"K4 local b{b}", lambda key=key, val=val, qq=qq:
+                        la.fused_tile_attention(qq, key, val, (4, 3, 3), 1152**-0.5, 0.0)))
+    return [(label, call) for label, call in out if want(label)]
 
 
 def main() -> int:
@@ -89,9 +105,7 @@ def main() -> int:
 
     print(f"[profile-flash] hicom_tpu_torch from {os.path.dirname(fa.__file__)}", flush=True)
     words = [w for w in args.cases.split(",") if w]
-    for label, call in cases(torch, fa, fd, la):
-        if words and not any(w in label for w in words):
-            continue
+    for label, call in cases(torch, fa, fd, la, lambda label: not words or any(w in label for w in words)):
         for _ in range(3):
             call()
         torch.cuda.synchronize()

@@ -20,7 +20,8 @@ from hicom_tpu_torch.ops.flash_attention import (DKV_BLOCK_K, _launch, _launch_d
                                                  flash_reference, forward_splits, fullblock_attention,
                                                  merge_partials_reference, sum_partials_reference)
 from hicom_tpu_torch.ops.flash_decode import DECODE_CHUNK, decode_reference, flash_decode
-from hicom_tpu_torch.ops.local_attn import fused_tile_attention, tile_reference
+from hicom_tpu_torch.ops.local_attn import chunked_tile_reference, fused_tile_attention, tile_reference
+from hicom_tpu_torch.ops.pos_embed import get_3d_sincos_pos_embed, sincos_pos_embed_3d
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +91,50 @@ def test_tile_attention(rn):
     scale = torch.tensor(1152**-0.5, device="cuda")  # a device scalar: no host sync
     out = fused_tile_attention(q, key, val, (4, 3, 3), scale, 0.0)
     assert _worst(out, tile_reference(q, key, val, (4, 3, 3), scale, 0.0)) <= 1
+
+
+@pytest.mark.parametrize("thw,kernel,qk,dv", [
+    ((32, 27, 27), (4, 3, 3), 1152, 1152),  # one 32-frame request
+    ((64, 27, 27), (4, 3, 3), 1152, 1152),  # the batched request, b 2 folded into the frames
+    ((1, 27, 27), (1, 3, 3), 1152, 1152),  # an image
+    ((8, 9, 12), (4, 3, 3), 64, 200),  # qk != dv, one consumer warp for the keys, 25 chunks for the values
+    ((4, 6, 8), (2, 2, 2), 1160, 8),  # a width that leaves the last warp's lanes idle
+])
+def test_tile_kernel_main_path_shapes(rn, thw, kernel, qk, dv):
+    t, h, w = thw
+    kt, kh, kw = kernel
+    key, val, q = rn(t, h, w, qk), rn(t, h, w, dv), rn(t // kt, h // kh, w // kw, qk)
+    before = fused_tile_attention.launches
+    out = fused_tile_attention(q, key, val, kernel, qk**-0.5, 0.0)
+    assert fused_tile_attention.launches == before + 1
+    assert _worst(out, tile_reference(q, key, val, kernel, qk**-0.5, 0.0)) <= 1
+    assert _worst(out, chunked_tile_reference(q, key, val, kernel, qk**-0.5, 0.0)) <= 1
+
+
+def test_tile_kernel_clip_scale_form(rn):
+    # the clip-scale path: exp of a bf16 logit_scale parameter and a bf16 logit_bias, read on the card
+    key, val, q = rn(8, 27, 27, 1152), rn(8, 27, 27, 1152), rn(2, 9, 9, 1152)
+    logit_scale = torch.nn.Parameter(torch.tensor(-3.0, device="cuda", dtype=torch.bfloat16))
+    logit_bias = torch.nn.Parameter(torch.tensor(0.4, device="cuda", dtype=torch.bfloat16))
+    with torch.no_grad():
+        scale = torch.exp(logit_scale)
+        out = fused_tile_attention(q, key, val, (4, 3, 3), scale, logit_bias)
+        assert _worst(out, tile_reference(q, key, val, (4, 3, 3), scale, logit_bias)) <= 1
+
+
+def test_tile_kernel_call_does_not_sync(rn):
+    # the main path's call form: Python-float scale and bias, passed by value
+    key, val, q = rn(32, 27, 27, 1152), rn(32, 27, 27, 1152), rn(8, 9, 9, 1152)
+    ref = fused_tile_attention(q, key, val, (4, 3, 3), 1152**-0.5, 0.0)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fused_tile_attention(q, key, val, (4, 3, 3), 1152**-0.5, 0.0)
+        pos = sincos_pos_embed_3d(5, 7, 9, 64, q.device)  # a first call: the tables' copy does not wait
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out, ref)
+    assert torch.equal(pos.cpu(), torch.from_numpy(get_3d_sincos_pos_embed(5, 7, 9, 64)))
 
 
 @pytest.mark.parametrize("quantized", [False, True])
