@@ -9,11 +9,12 @@ Phases:
   3. each kernel against its plain PyTorch version at the main paths' shapes, in
      bf16, with its time, the plain version's, a PyTorch library call's where one
      computes the same function, and the card's bound for the same work (the
-     global compressor's forward at b 1 and b 2 and its dQ split over the keys,
-     with each launch's grid; the forward at a small masked shape with forced
+     decoder prefill at the 7B and 1.5B widths; the global compressor's
+     forward at b 1 and b 2 and its dQ split over the keys, with each
+     launch's grid; the forward at a small masked shape with forced
      splits of 1, 2, 3 and 7; the split path's merge and dQ-sum kernels alone;
-     the flash backward's dQ, dK and dV at the decoder, global compressor and
-     tower shapes, with each launch's grid, dK and dV also with forced splits
+     the flash backward's dQ, dK and dV at the 7B and 1.5B decoder, global
+     compressor and tower shapes, with each launch's grid, dK and dV also with forced splits
      of 1, 2 and 7 at the decoder shape and their sum pass alone; the decode
      kernel at b 2 and at b 1, with an int8 cache, and on a bitmap row with no
      valid slot; the tile kernel at b 1 and b 2 in the main path's call form,
@@ -29,12 +30,26 @@ Phases:
      trained, towers and decoder frozen) on a seeded batch of 2, with finite
      losses, frozen weights bit-identical, trained weights moved, 29 flash
      backward launches per step and no tile-kernel launch; then one step split
-     into stages and one under torch.profiler;
+     into stages and one under torch.profiler (device time by kernel and by the
+     aten op that launched it);
+  5b. stage 3 through LoRA (r 128, alpha 256, remat) at the same width and
+     depth: 3 steps, the base bit-identical, every adapter moved, 28 flash
+     backward and 57 flash forward launches per step;
+  5c. full stage-3 SFT at the width and depth of the 1.5B configuration: 3
+     steps, the tower trunk bit-identical, every trained tensor (tower head,
+     guide encoder, projector, decoder) whose gradient reaches AdamW's eps
+     moved, 29 flash forward and 29 flash backward launches per step;
   6. with 2 decoder and 2 tower layers, the kernel path against the plain path:
-     last-token prefill logits, and the trained parameters' gradients.
+     last-token prefill logits, and the trained parameters' gradients;
+  7. the trainer's CLI from files at 7B width with 2 tower and 2 decoder
+     layers: stage 2, stage 3 LoRA and stage 3 SFT, each artifact loaded by
+     ``load_model`` in its own layout, held to the model that wrote it and
+     generating through K1-K4.
 
-Prints one line per check, then a JSON object with the kernels, then the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any
+Prints one line per check, then a JSON object with the kernels (each row at
+a shape of the main paths, its launches counted in the phase that runs that
+shape: serving, stage 2 or the 1.5B stage 3), then the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before that last line. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -66,6 +81,10 @@ KERNELS["K2-merge"] = KERNELS["K2"]
 KERNELS["K5-sum"] = KERNELS["K5"]
 KERNELS["K6-sum"] = KERNELS["K6"]
 TRAIN_STEPS = 3
+# the run whose launch counts a kernel row reports, by default: the serving
+# phase for the forward kernels, stage 2 for the backward
+DEFAULT_PHASE = {"fullblock_attention": "serve", "flash_forward": "serve", "flash_decode": "serve",
+                 "fused_tile_attention": "serve", "flash_backward": "train"}
 
 
 def log(*a):
@@ -110,7 +129,13 @@ def agreement(got, ref):
 
 
 def kernel_checks(card: str):
-    """Phase 3: returns {entry name: (kernel id, record)} for the JSON line."""
+    """Phase 3: returns {entry name: (kernel id, phase, record)} for the JSON
+    line, ``phase`` naming the run of the main paths that gives the kernel this
+    row's shape and whose launch count the row reports. Rows at a shape or call
+    form that no phase runs (forced split counts, the int8 cache, the
+    clip-scale form, the backward at the tower shape) are checks only: they
+    print their line and fail the run on a disagreement, and stay out of the
+    JSON line."""
     import torch
     import torch.nn.functional as F
 
@@ -134,11 +159,13 @@ def kernel_checks(card: str):
         return (-(-Lq // FWD_BLOCK_Q), b * H, n_split or forward_splits(b, H, Lq, Lk, sms))
 
     def record(name, kid, kernel_fn, plain_fn, library_fn, flops, nbytes, valid=None, outputs=1, grid=None,
-               flops_rate=None):
+               flops_rate=None, phase=""):
         """Hold the first ``outputs`` tensors of the kernel's result to the plain
         version's (or the one selected by ``outputs``, a tuple of indices).
         ``grid`` is the kernel launch's (x, y, z), printed with its blocks;
-        ``flops_rate`` the peak for ``flops`` when they are not bf16 products."""
+        ``flops_rate`` the peak for ``flops`` when they are not bf16 products;
+        ``phase`` the run that gives the kernel this shape (default
+        ``DEFAULT_PHASE``; None: a check only)."""
         got, ref = kernel_fn(), plain_fn()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -154,12 +181,14 @@ def kernel_checks(card: str):
                    launches=None, max_abs_err=err, ms=cuda_ms(kernel_fn), plain_ms=cuda_ms(plain_fn, iters=3),
                    bound_ms=max(bound_c, bound_b), bound_by="operations" if bound_c >= bound_b else "bytes",
                    library_ms=cuda_ms(library_fn) if library_fn is not None else None)
-        records[name] = (kid, rec)
+        phase = DEFAULT_PHASE[KERNELS[kid][0]] if phase == "" else phase
+        records[name] = (kid, phase, rec)
         log(f"[kernel] {name}: max_abs_err {err:.3g}, worst err/tol {ratio:.3f} (tol 2^-6|ref| + 2^-5 rms, "
             f"ref rms {rms:.3g}, max {top:.3g}) | kernel {rec['ms']:.4f} ms | plain "
             f"{rec['plain_ms']:.4f} ms | library {rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)} ms"
             f" | bound {rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']})"
-            + (f" | grid {'x'.join(map(str, grid))} = {int(np.prod(grid))} blocks" if grid else ""))
+            + (f" | grid {'x'.join(map(str, grid))} = {int(np.prod(grid))} blocks" if grid else "")
+            + (f" | launches from [{phase}]" if phase else " | a check only"))
         if not ratio <= 1:
             raise AssertionError(f"{name}: kernel disagrees with its plain version (worst err/tol {ratio})")
 
@@ -175,23 +204,24 @@ def kernel_checks(card: str):
            4 * bh * L * L * d, 4 * bh * L * d * 2 + bh * L * 4, grid=fwd_grid(bh, 1, L, L))
     del q, k, v
 
-    # K2 prefill: 28 q / 4 kv heads, L = 743 (64-token bucket - 1 + 680), causal,
-    # a right-padded row (kv_lengths 700) beside a full one
-    b, H, KVH, L, d = 2, 28, 4, 743, 128
-    lens = [743, 700]
-    q, k, v = rn(b, H, L, d), rn(b, KVH, L, d), rn(b, KVH, L, d)
-    kl = torch.tensor(lens, device=dev, dtype=torch.int32)
-    pos = torch.arange(L, device=dev)
-    mask = (pos[None, :] <= pos[:, None])[None, None] & (pos[None, None, None, :] < kl[:, None, None, None])
-    valid = (pos[None, :] < kl[:, None])[:, None, :].expand(b, H, L)
-    pairs = sum(int(np.minimum(n, np.arange(L) + 1).sum()) for n in lens)
-    record("flash_forward[prefill 7b]", "K2",
-           lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
-           lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
-           lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
-           4 * H * d * pairs, 2 * b * H * L * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * L * 4, valid,
-           grid=fwd_grid(b, H, L, L))
-    del q, k, v, mask
+    # K2 prefill: 28 q / 4 kv heads (7B) and 12 / 2 (1.5B), L = 743 (64-token bucket - 1 + 680),
+    # causal, a right-padded row (kv_lengths 700) beside a full one
+    for label, H, KVH in (("7b", 28, 4), ("1.5b", 12, 2)):
+        b, L, d = 2, 743, 128
+        lens = [743, 700]
+        q, k, v = rn(b, H, L, d), rn(b, KVH, L, d), rn(b, KVH, L, d)
+        kl = torch.tensor(lens, device=dev, dtype=torch.int32)
+        pos = torch.arange(L, device=dev)
+        mask = (pos[None, :] <= pos[:, None])[None, None] & (pos[None, None, None, :] < kl[:, None, None, None])
+        valid = (pos[None, :] < kl[:, None])[:, None, :].expand(b, H, L)
+        pairs = sum(int(np.minimum(n, np.arange(L) + 1).sum()) for n in lens)
+        record(f"flash_forward[prefill {label}]", "K2",
+               lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
+               lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
+               4 * H * d * pairs, 2 * b * H * L * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * L * 4, valid,
+               grid=fwd_grid(b, H, L, L), phase="stage3-sft" if label == "1.5b" else "")
+        del q, k, v, mask
 
     # K2 global compressor: 9 heads, 32 queries over 32 x 27 x 27 = 23,328 keys, d = 128, split
     # over the keys; b 1 serves one request, b 2 the batched request and the train step
@@ -224,7 +254,7 @@ def kernel_checks(card: str):
                    lambda: _launch(q, k, v, kl, d**-0.5, 0.1, causal, n_split=n_split),
                    lambda: flash_reference(q, k, v, kl, d**-0.5, 0.1, causal), None,
                    4 * H * d * pairs, 2 * b * H * Lq * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * Lq * 4,
-                   outputs=2, grid=fwd_grid(b, H, Lq, Lk, n_split))
+                   outputs=2, grid=fwd_grid(b, H, Lq, Lk, n_split), phase=None)
         del q, k, v
     split_pass_checks(rn, record)
 
@@ -250,11 +280,10 @@ def kernel_checks(card: str):
     vi = torch.randint(-127, 128, (b, KVH, S, d), generator=gen, device=dev, dtype=torch.int8)
     ks = torch.rand(b, KVH, S, generator=gen, device=dev) * 0.02
     vs = torch.rand(b, KVH, S, generator=gen, device=dev) * 0.02
-    record("flash_decode[int8 cache]", "K3",
+    record("flash_decode[int8 cache]", "K3",  # the main path's cache is bf16
            lambda: flash_decode(q, ki, vi, bitmap, k_scale=ks, v_scale=vs),
            lambda: decode_reference(q, ki, vi, bitmap, ks, vs, d**-0.5), None,
-           4 * H * d * n_valid, 2 * b * H * d * 2 + n_valid * KVH * (d * 2 + 8) + b * S)
-    records.pop("flash_decode[int8 cache]")  # the main path's cache is bf16; this line is the int8 check
+           4 * H * d * n_valid, 2 * b * H * d * 2 + n_valid * KVH * (d * 2 + 8) + b * S, phase=None)
     # a row whose bitmap has no valid slot: the uniform average of its values (the
     # TPU kernel's and the twin's answer), each row held to the twin on its own
     clear = bitmap.clone()
@@ -296,7 +325,8 @@ def kernel_checks(card: str):
                    lambda: F.scaled_dot_product_attention(qq.reshape(n_tiles, 1, 1, c),
                                                           tile_thw(key, (4, 3, 3))[:, None],
                                                           tile_thw(val, (4, 3, 3))[:, None], scale=clip_scale),
-                   4 * n_tiles * 36 * c, 2 * t * h * w * c * 2 + 2 * n_tiles * c * 2, grid=(min(n_tiles, sms),))
+                   4 * n_tiles * 36 * c, 2 * t * h * w * c * 2 + 2 * n_tiles * c * 2, grid=(min(n_tiles, sms),),
+                   phase=None)  # the 7B serving config has no clip scale
         del key, val, qq
     key, val, qq = rn(1, 27, 27, c), rn(1, 27, 27, c), rn(1, 9, 9, c)
     err, ratio, rms, _ = agreement(fused_tile_attention(qq, key, val, (1, 3, 3), c**-0.5, 0.0),
@@ -307,7 +337,7 @@ def kernel_checks(card: str):
         raise AssertionError(f"the tile kernel disagrees with its plain version on the image tile ({ratio})")
     del key, val, qq
     backward_checks(rn, record)
-    return records
+    return {name: r for name, r in records.items() if r[1] is not None}
 
 
 def split_pass_checks(rn, record):
@@ -339,7 +369,9 @@ def split_pass_checks(rn, record):
 
 def backward_checks(rn, record):
     """Phase 3, flash backward: K5 (dQ) and K6 (dK, dV) at the three shapes the
-    train step gives them, each held to the plain twin; the library call is the
+    train steps give them (the 7B and 1.5B decoders, the global compressor) and
+    at the tower's, which no phase runs yet (a check only), each held to the
+    plain twin; the library call is the
     backward of ``F.scaled_dot_product_attention`` at the same shape (dQ, dK and
     dV together), through ``torch.autograd.grad`` on a kept graph. At the
     decoder shape K6 also runs with forced splits of 1, 2 and 7 (the default is
@@ -354,12 +386,13 @@ def backward_checks(rn, record):
 
     dev = "cuda"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    shapes = [  # label, b, H, KVH, Lq, Lk, d, causal, kv lengths
-        ("prefill 7b", 2, 28, 4, 743, 743, 128, True, [743, 700]),  # decoder, right-padded row
-        ("global 32f b2", 2, 9, 9, 32, 23328, 128, False, None),  # global compressor
-        ("siglip 32f", 512, 1, 1, 729, 729, 72, False, None),  # tower rows (K1's route)
+    shapes = [  # label, b, H, KVH, Lq, Lk, d, causal, kv lengths, the phase that runs the shape
+        ("prefill 7b", 2, 28, 4, 743, 743, 128, True, [743, 700], "train"),  # decoder, right-padded row
+        ("prefill 1.5b", 2, 12, 2, 743, 743, 128, True, [743, 700], "stage3-sft"),  # the 1.5B decoder
+        ("global 32f b2", 2, 9, 9, 32, 23328, 128, False, None, "train"),  # global compressor
+        ("siglip 32f", 512, 1, 1, 729, 729, 72, False, None, None),  # tower rows (K1's route): no phase
     ]
-    for label, b, H, KVH, Lq, Lk, d, causal, lens in shapes:
+    for label, b, H, KVH, Lq, Lk, d, causal, lens, phase in shapes:
         q, k, v, do = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d), rn(b, H, Lq, d)
         kl = torch.tensor(lens, device=dev, dtype=torch.int32) if lens else None
         scale = d**-0.5
@@ -391,17 +424,18 @@ def backward_checks(rn, record):
         kv_bytes = 2 * b * KVH * Lk * d * 2  # k and v (read), or dk and dv (written)
         dq_grid = (-(-Lq // dq_block_q(Lq)), b * H, dq_splits(b, H, Lq, Lk, sms))
         record(f"flash_backward_dq[{label}]", "K5", lambda: (_launch_dq(*ops, scale, 0.0, causal),), plain, library,
-               6 * H * d * pairs, qd_bytes + kv_bytes + b * H * Lq * d * 2, outputs=(0,), grid=dq_grid)
+               6 * H * d * pairs, qd_bytes + kv_bytes + b * H * Lq * d * 2, outputs=(0,), grid=dq_grid, phase=phase)
         dkv_grid = (-(-Lk // DKV_BLOCK_K), b * KVH, dkv_splits(b, H, KVH, Lq, Lk, sms))
         record(f"flash_backward_dkv[{label}]", "K6", lambda: _launch_dkv(*ops, scale, 0.0, causal), plain, library,
-               8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid)
+               8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid, phase=phase)
         if label == "prefill 7b":
             if int(np.prod(dkv_grid)) < sms:
                 raise AssertionError(f"K6's grid {dkv_grid} at the decoder shape does not fill the card")
             for n_split in (1, 2, 7):
                 record(f"flash_backward_dkv[{label} split {n_split}]", "K6",
                        lambda: _launch_dkv(*ops, scale, 0.0, causal, n_split=n_split), plain, None,
-                       8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid[:2] + (n_split,))
+                       8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid[:2] + (n_split,),
+                       phase=None)
             gen = torch.Generator(dev).manual_seed(3)
             n, N = dkv_grid[2], b * KVH * Lk * d
             dk_part, dv_part = (torch.randn(n, N, generator=gen, device=dev) for _ in range(2))
@@ -650,6 +684,60 @@ def stage_breakdown(hc, single, new_tokens: int = 16):
     return decode_tps
 
 
+def run_steps(state, step, batch, n: int = TRAIN_STEPS):
+    """``n`` train steps, each timed on the host clock around a synchronised
+    step, with each step's flash forward and backward launches. Returns
+    (seconds, metrics, forward launches, backward launches), one per step."""
+    import torch
+
+    fns = counters(train=True)
+    times, metrics, fwd, bwd = [], [], [], []
+    for _ in range(n):
+        f0, b0 = fns["flash_forward"].launches, fns["flash_backward"].launches
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        fwd.append(fns["flash_forward"].launches - f0)
+        bwd.append(fns["flash_backward"].launches - b0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return times, metrics, fwd, bwd
+
+
+def reset_counts():
+    import torch
+
+    for f in counters(train=True).values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def log_steps(label: str, card: str, what: str, model, cfg, batch, times, metrics, fwd, bwd):
+    """The per-step lines and the phase's summary line: step ms (mean of
+    steps 2 on), target and spliced tokens/s, peak memory. Fails on a
+    non-finite loss."""
+    import torch
+
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: f.launches for name, f in counters(train=True).items()}
+    log(f"[{label}] launches over {len(times)} steps: {launches}; flash_forward per step {fwd}, "
+        f"flash_backward per step {bwd}")
+    for i, m in enumerate(metrics):
+        log(f"[{label}] step {i + 1}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()) + f", {times[i] * 1e3:.1f} ms")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"[{label}] non-finite metrics: {metrics}")
+    spliced = batch["input_ids"].shape[0] * (batch["input_ids"].shape[1] - 1 + model.visual_token_count(
+        cfg.num_frames, "video"))
+    steady = sum(times[1:]) / len(times[1:])
+    targets = metrics[-1]["target_tokens"]
+    log(f"[{label}] {card} | {what}, batch 2 x {cfg.num_frames} frames, {spliced} spliced tokens, {int(targets)} "
+        f"target tokens | step {steady * 1e3:.1f} ms (mean of steps 2-{len(times)}; step 1 {times[0] * 1e3:.1f} ms) | "
+        f"{targets / steady:.1f} target tokens/s | {spliced / steady:.1f} spliced tokens/s | peak memory "
+        f"{peak_gb:.2f} GB")
+    return launches
+
+
 def train_phase(card: str):
     """Phase 5: stage 2 of the reference's recipe (``--use-guide direct
     --mm-tunable-parts mm_projector --guide-injector-lr 1e-3``) at the full
@@ -678,31 +766,12 @@ def train_phase(card: str):
     batch = batch_to_device(make_train_batch(cfg), torch.device("cuda"), torch.bfloat16)
     step = make_train_step()
 
-    fns = counters(train=True)
-    for f in fns.values():
-        f.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times, metrics, per_step, with_grad = [], [], [], set()
-    for _ in range(TRAIN_STEPS):
-        before = fns["flash_backward"].launches
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        per_step.append(fns["flash_backward"].launches - before)
-        metrics.append({k: float(v) for k, v in m.items()})
-        with_grad |= {n for n in trained if params[n].grad is not None and bool(params[n].grad.any())}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {name: f.launches for name, f in fns.items()}
-    log(f"[train] launches over {TRAIN_STEPS} steps: {launches}; flash_backward per step {per_step}")
-    for i, m in enumerate(metrics):
-        log(f"[train] step {i + 1}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6g}, target tokens "
-            f"{int(m['target_tokens'])}, {times[i] * 1e3:.1f} ms")
+    reset_counts()
+    times, metrics, fwd, per_step = run_steps(state, step, batch)
+    with_grad = {n for n in trained if params[n].grad is not None and bool(params[n].grad.any())}
+    launches = log_steps("train", card, "HICom-7B stage 2", model, cfg, batch, times, metrics, fwd, per_step)
 
     n_layers = cfg.text_config.num_hidden_layers
-    if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
-        raise AssertionError(f"non-finite loss or grad norm: {metrics}")
     if per_step != [n_layers + 1] * TRAIN_STEPS:  # every decoder layer + the global compressor
         raise AssertionError(f"flash backward launched {per_step} times per step, not {n_layers + 1}")
     if launches["fused_tile_attention"] or launches["flash_decode"]:
@@ -717,27 +786,166 @@ def train_phase(card: str):
         raise AssertionError(f"trained parameters with a nonzero gradient did not move: {still[:5]}")
     log(f"[train] checks: {len(frozen_before)} frozen tensors bit-identical; {len(with_grad)} of {len(trained)} "
         f"trained tensors had a nonzero gradient and all moved")
-
-    spliced = batch["input_ids"].shape[0] * (batch["input_ids"].shape[1] - 1 + model.visual_token_count(
-        cfg.num_frames, "video"))
-    steady = sum(times[1:]) / len(times[1:])
-    targets = metrics[-1]["target_tokens"]
-    log(f"[train] {card} | HICom-7B stage 2, batch 2 x 32 frames, {spliced} spliced tokens, {int(targets)} target "
-        f"tokens | step {steady * 1e3:.1f} ms (mean of steps 2-{TRAIN_STEPS}; step 1 {times[0] * 1e3:.1f} ms) | "
-        f"{targets / steady:.1f} target tokens/s | {spliced / steady:.1f} spliced tokens/s | peak memory "
-        f"{peak_gb:.2f} GB")
-    train_profile(state, step, batch)
+    train_profile("train", state, step, batch, model.parameters(), lambda: state.optimizer.update(model))
     del model, state, opt, params, trained_before, batch
     torch.cuda.empty_cache()
     return launches
 
 
-def train_profile(state, step, batch, top: int = 12):
-    """Phase 5a: one more step split into stages (host clock around
-    synchronised stages: the frozen tower's forward alone, then the step's
-    forward, backward and update), then one under torch.profiler: device
-    kernel time by kernel and the device's idle share of the step's wall
-    time."""
+def stage3_lora_phase(card: str):
+    """Phase 5b: stage 3 through the JAX CLI's ``--lora-enable`` route (the
+    one stage 3 that fits one card at 7B) at the full width and depth of
+    HICom-7B: its defaults ``--lora-r 128 --lora-alpha 256`` on the decoder's
+    seven linears, ``--remat`` on the tower and decoder, lr 1e-5, 3 steps on
+    the stage-2 batch. The base stays bit-identical, every adapter's B moves,
+    each step launches the flash backward once per decoder layer (the
+    projector is frozen) and the flash forward twice per decoder layer (its
+    recompute) plus once for the global compressor. Returns the kernels'
+    launches over the 3 steps."""
+    import dataclasses
+
+    import torch
+
+    from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.train.lora import init_lora_params
+    from hicom_tpu_torch.train.train_step import batch_to_device, create_lora_state, make_lora_train_step
+
+    cfg = serving_config()  # with every decoder and tower layer checkpointed (the CLI's --remat)
+    cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, remat=True),
+                      vision_config=dataclasses.replace(cfg.vision_config, remat=True))
+    model = build_model(cfg, device="cuda", seed=0)
+    lora = init_lora_params(model, rank=128, generator=torch.Generator("cuda").manual_seed(0))
+    state = create_lora_state(model, lora, alpha=256.0, rank=128, learning_rate=1e-5, total_steps=TRAIN_STEPS + 2)
+    del lora
+    n_adapter = sum(p.numel() for p in state.lora.parameters())
+    log(f"[stage3-lora] HICom-7B, remat on: {len(state.lora.names)} adapted linears, {n_adapter / 1e6:.1f} M adapter "
+        f"parameters (fp32), {sum(p.numel() for p in model.parameters()) / 1e9:.2f} B frozen (bf16)")
+    base_before = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}  # host copies
+    b_before = {n: b.detach().clone() for n, b in state.lora.b.items()}
+    batch = batch_to_device(make_train_batch(cfg), torch.device("cuda"), torch.bfloat16)
+    step = make_lora_train_step()
+
+    reset_counts()
+    times, metrics, fwd, bwd = run_steps(state, step, batch)
+    launches = log_steps("stage3-lora", card, f"HICom-7B stage 3 LoRA r 128 ({n_adapter / 1e6:.1f} M adapter "
+                         "parameters), remat", model, cfg, batch, times, metrics, fwd, bwd)
+    n_layers = cfg.text_config.num_hidden_layers
+    if bwd != [n_layers] * TRAIN_STEPS:
+        raise AssertionError(f"[stage3-lora] flash backward launched {bwd} times per step, not {n_layers}")
+    if fwd != [2 * n_layers + 1] * TRAIN_STEPS:
+        raise AssertionError(f"[stage3-lora] flash forward launched {fwd} times per step, not {2 * n_layers + 1} "
+                             "(each decoder layer, its recompute, the global compressor)")
+    if launches["fused_tile_attention"] or launches["flash_decode"]:
+        raise AssertionError(f"[stage3-lora] a kernel without a backward ran in training: {launches}")
+    changed = [n for n, p in model.named_parameters() if not torch.equal(p.detach(), base_before[n].to(p.device))]
+    still = [n for n, b in state.lora.b.items() if torch.equal(b.detach(), b_before[n])]
+    if changed or still:
+        raise AssertionError(f"[stage3-lora] {len(changed)} base tensors changed (e.g. {changed[:3]}), "
+                             f"{len(still)} adapter B left unmoved (e.g. {still[:3]})")
+    log(f"[stage3-lora] checks: {len(base_before)} base tensors bit-identical; all {len(b_before)} adapter B moved")
+    train_profile("stage3-lora", state, step, batch, state.lora.parameters(), state.optimizer.step)
+    state.lora.detach()
+    del model, state, base_before, b_before, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+STAGE3_PARTS = "mm_projector,language_model,vision_model_head,guide_encoder"
+
+
+def config_1p5b():
+    """The repo's other supported width: SigLIP-so400m + a Qwen2.5-1.5B decoder
+    as ``bench.py:253-274`` shapes it (hidden 1536, 12/2 heads of 128,
+    intermediate 8960, 28 layers), bf16. It keeps the config's default
+    ``tie_word_embeddings=False``, so its 151,936-row embedding and head are
+    two tensors: the repo's untied variant of the 1.5B shape. The published
+    Qwen2.5-1.5B ties them, and has 233 M fewer parameters to train."""
+    from hicom_tpu_torch.config import Qwen2Config
+
+    return serving_config().replace(text_config=Qwen2Config(
+        vocab_size=151936, hidden_size=1536, intermediate_size=8960, num_hidden_layers=28, num_attention_heads=12,
+        num_key_value_heads=2, head_dim=128, rope_theta=1000000.0))
+
+
+def stage3_sft_phase(card: str):
+    """Phase 5c: full stage-3 SFT of the recipe (``--mm-tunable-parts
+    mm_projector,language_model,vision_model_head,guide_encoder``, lr 1e-5,
+    vision-tower lr 2e-6, guide-injector lr 1e-3) at the full width and depth
+    of the 1.5B configuration: 3 steps on a seeded batch of 2. The tower trunk
+    stays bit-identical; every trained tensor whose last gradient reaches
+    AdamW's eps in magnitude has a moved fp32 master (below eps a step is lr
+    |g| / eps, which may round away), and the tower head, guide encoder,
+    projector and decoder each have moved tensors; each step launches the
+    flash forward and backward once per decoder layer and once for the global
+    compressor. Returns the kernels' launches over the 3 steps."""
+    import torch
+
+    from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.train.optimizer import build_optimizer, trainable_param_count
+    from hicom_tpu_torch.train.train_step import batch_to_device, create_train_state, make_train_step
+
+    cfg = config_1p5b()
+    model = build_model(cfg, device="cuda", seed=0)
+    opt = build_optimizer(model, learning_rate=1e-5, vision_tower_lr=2e-6, guide_injector_lr=1e-3,
+                          total_steps=TRAIN_STEPS + 2, tunable_parts=STAGE3_PARTS, use_guide="direct")
+    state = create_train_state(model, opt)
+    params = dict(model.named_parameters())
+    trained = {n for n, p in params.items() if p.requires_grad}
+    log(f"[stage3-sft] 1.5B: {trainable_param_count(model, STAGE3_PARTS, 'direct') / 1e9:.3f} B trained parameters "
+        f"(fp32 masters + AdamW moments), {sum(p.numel() for n, p in params.items() if n not in trained) / 1e9:.3f} B "
+        "frozen (bf16)")
+    before = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}  # host copies
+    batch = batch_to_device(make_train_batch(cfg), torch.device("cuda"), torch.bfloat16)
+    step = make_train_step()
+
+    reset_counts()
+    times, metrics, fwd, bwd = run_steps(state, step, batch)
+    launches = log_steps("stage3-sft", card, "1.5B stage 3 full SFT", model, cfg, batch, times, metrics, fwd, bwd)
+    n_layers = cfg.text_config.num_hidden_layers
+    if bwd != [n_layers + 1] * TRAIN_STEPS or fwd != [n_layers + 1] * TRAIN_STEPS:
+        raise AssertionError(f"[stage3-sft] flash forward / backward launched {fwd} / {bwd} times per step, not "
+                             f"{n_layers + 1} (each decoder layer, the global compressor)")
+    if launches["fused_tile_attention"] or launches["flash_decode"]:
+        raise AssertionError(f"[stage3-sft] a kernel without a backward ran in training: {launches}")
+    changed = [n for n, p in params.items() if n not in trained and not torch.equal(p.detach(), before[n].to(p.device))]
+    if changed:
+        raise AssertionError(f"[stage3-sft] {len(changed)} frozen tensors changed, e.g. {changed[:3]}")
+    masters, eps = state.optimizer.masters, state.optimizer.eps
+    moved = {n for n in trained if not torch.equal(masters[n], before[n].to(masters[n].device).float())}
+    top = {n: float(params[n].grad.abs().max()) if params[n].grad is not None else 0.0 for n in trained}
+    parts = {"tower head": "vision_tower.vision_tower.", "guide encoder": "guide_encoder.",
+             "projector": "mm_projector.", "decoder": None}
+    summary, idle = [], []
+    for part, key in parts.items():
+        names = [n for n in trained if (key in n if key else not any(k and k in n for k in parts.values()))]
+        n_moved = sum(n in moved for n in names)
+        summary.append(f"{part} {n_moved}/{len(names)} moved, {sum(top[n] >= eps for n in names)} with max |grad| "
+                       f">= eps, max |grad| {max(top[n] for n in names):.3g}")
+        if not n_moved:
+            idle.append(part)
+    unmoved = sorted(n for n in trained if n not in moved)
+    trunk = [n for n in params if "vision_tower.vision_tower." in n and n not in trained]
+    log(f"[stage3-sft] checks: {len(trunk)} tower trunk tensors (of {len(params) - len(trained)} frozen) "
+        f"bit-identical; trained tensors (fp32 masters, last step's gradients, eps {eps:g}): " + "; ".join(summary))
+    log(f"[stage3-sft] {len(unmoved)} trained tensors unmoved, with their last max |grad|: "
+        + ", ".join(f"{n} {top[n]:.3g}" for n in unmoved))
+    stuck = [n for n in unmoved if top[n] >= eps]
+    if stuck or idle:
+        raise AssertionError(f"[stage3-sft] {len(stuck)} tensors with max |grad| >= eps did not move (e.g. "
+                             f"{stuck[:3]}); parts that did not move: {idle}")
+    train_profile("stage3-sft", state, step, batch, model.parameters(), lambda: state.optimizer.update(model))
+    del model, state, opt, params, before, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_profile(label: str, state, step, batch, trainable, update, top: int = 12):
+    """One more step split into stages (host clock around synchronised
+    stages: the frozen tower's forward alone, then the step's forward,
+    backward and update), then one under torch.profiler: device kernel time by
+    kernel, by the aten op that launched it, and the device's idle share of
+    the step's wall time. ``trainable`` are the parameters whose gradients a
+    step starts from zero, ``update`` the optimizer's step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -755,16 +963,16 @@ def train_profile(state, step, batch, top: int = 12):
         frames = batch["frames"]
         model.model.vision_tower.vision_tower(frames.reshape((-1,) + frames.shape[2:]))
     mark("vision tower forward (alone)")
-    for p in model.parameters():
+    for p in trainable:
         p.grad = None
     loss, _ = make_loss_fn(model)(batch)
     mark("forward + loss (tower included)")
     loss.backward()
     mark("backward")
-    state.optimizer.update(model)
-    mark("clip + AdamW + write-back")
-    log("[train-stages] " + " | ".join(f"{n} {1e3 * (t - stamps[i][1]):.1f} ms"
-                                       for i, (n, t) in enumerate(stamps[1:])))
+    update()
+    mark("optimizer update")
+    log(f"[{label}-stages] " + " | ".join(f"{n} {1e3 * (t - stamps[i][1]):.1f} ms"
+                                         for i, (n, t) in enumerate(stamps[1:])))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -772,16 +980,23 @@ def train_profile(state, step, batch, top: int = 12):
         step(state, batch)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
     dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(dev_time(e) for e in kernels)
     if busy_us <= 0:
-        log("[train-profile] the profiler saw no device time")
+        log(f"[{label}-profile] the profiler saw no device time")
         return
-    log(f"[train-profile] step wall {wall_us / 1e3:.1f} ms, device kernels {busy_us / 1e3:.1f} ms, "
+    log(f"[{label}-profile] step wall {wall_us / 1e3:.1f} ms, device kernels {busy_us / 1e3:.1f} ms, "
         f"idle share {1 - busy_us / wall_us:.3f}")
     for e in sorted(kernels, key=dev_time, reverse=True)[:top]:
-        log(f"[train-profile]   {dev_time(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+        log(f"[{label}-profile]   {dev_time(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    # the same device time by the aten op that launched each kernel (its self
+    # device time: kernels launched directly by the op, not by ops it calls)
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")
+           and dev_time(e) > 0]
+    log(f"[{label}-profile] by aten op: " + " | ".join(
+        f"{e.key} {dev_time(e) / 1e3:.2f} ms x{e.count}" for e in sorted(ops, key=dev_time, reverse=True)[:top]))
 
 
 def plain_vs_kernel_grads():
@@ -834,6 +1049,24 @@ def plain_vs_kernel_grads():
     torch.cuda.empty_cache()
 
 
+def last_logits(model, batch):
+    """The last prompt token's logits (fp32) of each row of a request batch:
+    the guide encoder, the tower and projector, the splice and the decoder
+    prefill, as ``generate`` runs them before its first token."""
+    import torch
+
+    dev, dt = model.model.norm.weight.device, model.model.norm.weight.dtype
+    with torch.inference_mode():
+        ids = torch.as_tensor(batch["input_ids"], device=dev)
+        mask = torch.as_tensor(batch["attention_mask"], device=dev)
+        ge = model.encode_guide(torch.as_tensor(batch["guide_ids"], device=dev))
+        vis = model.encode_visual(torch.as_tensor(batch["frames"], device=dev, dtype=dt), ge, "video")
+        sp = model.embed_and_splice(ids, vis, mask)
+        hidden = model.model(sp.embeds, sp.positions, padding_mask=sp.attention_mask)
+        last = sp.attention_mask.sum(dim=1) - 1
+        return model.logits(hidden[torch.arange(ids.shape[0], device=dev), last]).float()
+
+
 def plain_vs_kernel_logits():
     """Phase 6a: at 2 decoder and 2 tower layers, the kernel path's last-token
     prefill logits against the plain path's, on the batch-of-2 request."""
@@ -844,22 +1077,9 @@ def plain_vs_kernel_logits():
     cfg = serving_config(layers=2)
     model = build_model(cfg, device="cuda", seed=2)
     batch, _ = make_requests(cfg, seed=3)
-    dev, dt = "cuda", torch.bfloat16
-
-    @torch.inference_mode()
-    def last_logits():
-        ids = torch.as_tensor(batch["input_ids"], device=dev)
-        mask = torch.as_tensor(batch["attention_mask"], device=dev)
-        ge = model.encode_guide(torch.as_tensor(batch["guide_ids"], device=dev))
-        vis = model.encode_visual(torch.as_tensor(batch["frames"], device=dev, dtype=dt), ge, "video")
-        sp = model.embed_and_splice(ids, vis, mask)
-        hidden = model.model(sp.embeds, sp.positions, padding_mask=sp.attention_mask)
-        last = sp.attention_mask.sum(dim=1) - 1
-        return model.logits(hidden[torch.arange(2, device=dev), last]).float()
-
-    got = last_logits()
+    got = last_logits(model, batch)
     with plain_path():
-        ref = last_logits()
+        ref = last_logits(model, batch)
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     # bf16 activations round at other points on the two paths (flash tiles vs
@@ -870,6 +1090,210 @@ def plain_vs_kernel_logits():
         f"max |logit| {scale:.3g}), finite {bool(torch.isfinite(got).all())}")
     if not (torch.isfinite(got).all() and scale > 0 and err <= tol):
         raise AssertionError("kernel-path logits disagree with the plain path")
+
+
+class WordTokenizer:
+    """A word-level stand-in for the Qwen2 and SigLIP tokenizers (the card has
+    no ``transformers``): a word's id is a hash of its letters below
+    ``vocab``, the chat template is plain text, and a list of texts (the guide
+    encoder's call, padded to ``max_length``) gives ``input_ids`` alone, as
+    SigLIP's tokenizer does."""
+
+    pad_token_id = 0
+
+    def __init__(self, vocab: int, max_length: int = 64):
+        self.vocab, self.max_length = vocab, max_length
+
+    def ids(self, text: str):
+        return [sum(map(ord, w)) % (self.vocab - 3) + 3 for w in text.split()]
+
+    def __call__(self, text, add_special_tokens=False, padding=None, truncation=None, return_tensors=None):
+        if isinstance(text, str):
+            return type("Encoding", (), {"input_ids": self.ids(text)})()
+        out = np.full((len(text), self.max_length), self.pad_token_id, np.int64)
+        for i, t in enumerate(text):
+            row = self.ids(t)[: self.max_length]
+            out[i, : len(row)] = row
+        return {"input_ids": out}
+
+    def apply_chat_template(self, messages, tokenize=False, add_generation_prompt=False):
+        text = "".join(f"<|{m['role']}|> {m['content']} <|end|> " for m in messages)
+        return text + "<|assistant|> " if add_generation_prompt else text
+
+
+def write_cli_inputs(root: str, cfg, frames: int = 32, rows: int = 4) -> dict:
+    """The trainer's input files under ``root``, at ``cfg``'s widths with
+    seeded weights: the base LLM directory (``config.json`` of a Qwen2 model and
+    ``model.safetensors`` of its decoder), the SigLIP tower directory (both
+    towers, HF ``SiglipModel`` names), a stage-1 ``mm_projector.bin``, and
+    ``data.json``: ``rows`` video rows, each a directory of ``frames`` PNG
+    frames, with a question (the guide prompt) and an answer. Every file is
+    written by the port itself (its own safetensors writer)."""
+    import dataclasses
+    import os
+
+    import torch
+    from PIL import Image
+
+    from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.train.checkpoints import export_mm_projector_bin
+    from hicom_tpu_torch.weights import save_safetensors
+
+    paths = {k: os.path.join(root, v) for k, v in (("llm", "qwen2.5-7b-width"), ("tower", "siglip-so400m-width"),
+                                                   ("bin", "stage1/mm_projector.bin"), ("data", "data.json"))}
+    model = build_model(cfg, device="cuda", seed=7)
+    sd = model.state_dict()
+    os.makedirs(paths["llm"])
+    save_safetensors({k: v for k, v in sd.items() if not k.startswith(("model.mm_projector", "model.vision_tower"))},
+                     os.path.join(paths["llm"], "model.safetensors"))
+    with open(os.path.join(paths["llm"], "config.json"), "w") as f:
+        json.dump({"model_type": "qwen2", **dataclasses.asdict(cfg.text_config)}, f)
+    os.makedirs(paths["tower"])
+    hosts = ("model.vision_tower.vision_tower.", "model.vision_tower.guide_encoder.")
+    save_safetensors({k[len(h):]: v for k, v in sd.items() for h in hosts if k.startswith(h)},
+                     os.path.join(paths["tower"], "model.safetensors"))
+    with open(os.path.join(paths["tower"], "config.json"), "w") as f:
+        json.dump({"model_type": "siglip", "vision_config": dataclasses.asdict(cfg.vision_config),
+                   "text_config": dataclasses.asdict(cfg.guide_text_config)}, f)
+    export_mm_projector_bin(sd, paths["bin"])
+    del model, sd
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(8)
+    data = []
+    for r in range(rows):
+        folder = f"video{r}"
+        os.makedirs(os.path.join(root, folder))
+        for i in range(frames):
+            Image.fromarray(rng.integers(0, 255, (48, 64, 3), dtype=np.uint8)).save(
+                os.path.join(root, folder, f"{i:03d}.png"))
+        data.append({"video": folder, "conversations": [
+            {"from": "human", "value": f"<video>\nWhat does the cat do in clip {r}?"},
+            {"from": "gpt", "value": f"The cat sits on the red mat and looks at the door {r} times."}]})
+    with open(paths["data"], "w") as f:
+        json.dump(data, f)
+    return paths
+
+
+def exported_weights(name: str, state, args) -> dict:
+    """The weights ``load_model`` must read back from a ``[cli]`` stage's
+    artifact, from the state ``cli.run`` returned: the model's own, with what
+    the export writes in fp16 rounded through fp16 (the projector's fp32
+    masters for ``mm_projector.bin``; every parameter, the masters of the
+    trained ones, for ``hf_export``), or, for LoRA, with the adapters merged
+    into the decoder's bf16 weights."""
+    from hicom_tpu_torch.train.lora import apply_lora
+
+    sd = state.model.state_dict()
+    if name == "lora":
+        return apply_lora(sd, state.lora.adapters(), alpha=args.lora_alpha, rank=args.lora_r)
+    params = state.params()
+    rounded = [n for n in sd if n.startswith("model.mm_projector.")] if name == "stage2" else list(sd)
+    return {**sd, **{n: params[n].half().to(sd[n].dtype) for n in rounded}}
+
+
+def cli_phase(card: str):
+    """Phase 7: the trainer's CLI from files at the width of HICom-7B with 2
+    tower and 2 decoder layers: stage 2 (``--pretrain-weights``, 2 steps ->
+    ``mm_projector.bin``), stage 3 through LoRA (2 steps -> a peft adapter)
+    and stage 3 full SFT (2 steps -> ``hf_export/``), each by
+    ``hicom_tpu_torch.train.cli.run`` on the files ``write_cli_inputs``
+    writes, with ``WordTokenizer``. ``load_model`` then reads each artifact in
+    its own layout: every tensor must be bit-equal to the trained model's as
+    the export rounds it (``exported_weights``), its last-token logits on a
+    seeded request must equal that model's within a bf16 ulp of the largest
+    (their difference from the model as trained, bf16 copies of the masters
+    and LoRA's side path, is printed), and it generates 4 greedy tokens
+    through K1-K4."""
+    import os
+    import shutil
+
+    import torch
+
+    from hicom_tpu_torch.api import load_model
+    from hicom_tpu_torch.train import cli
+    from hicom_tpu_torch.train.dataset import normalize_modal_tag, preprocess_chat
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = serving_config(layers=2)
+    t0 = time.perf_counter()
+    paths = write_cli_inputs(root, cfg)
+    log(f"[cli] wrote the base LLM, the tower, a stage-1 projector and 4 rows of 32-frame videos in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tok = WordTokenizer(cfg.text_config.vocab_size)
+    guide_tok = WordTokenizer(cfg.guide_text_config.vocab_size, cfg.guide_text_config.max_position_embeddings)
+    common = ["--model-path", paths["llm"], "--vision-tower", paths["tower"], "--mm-projector-type",
+              "local43_global32", "--use-guide", "direct", "--data-path", paths["data"], "--data-folder", root,
+              "--num-frames", "32", "--per-device-train-batch-size", "2", "--logging-steps", "1", "--device", "cuda"]
+    stage2_bin = os.path.join(root, "stage2", "mm_projector.bin")
+    stages = {  # the recipe's flags (scripts/train_3stage_qwen25_7b.sh) per stage, in order
+        "stage2": ["--mm-tunable-parts", "mm_projector", "--learning-rate", "1e-4", "--guide-injector-lr", "1e-3",
+                   "--pretrain-weights", paths["bin"]],
+        "lora": ["--lora-enable", "--learning-rate", "1e-5", "--pretrain-weights", stage2_bin],
+        "sft": ["--mm-tunable-parts", STAGE3_PARTS, "--learning-rate", "1e-5", "--vision-tower-lr", "2e-6",
+                "--pretrain-weights", stage2_bin],
+    }
+    layouts = {"stage2": ("", paths["llm"]), "lora": ("", paths["llm"]), "sft": ("hf_export", None)}
+
+    # spliced tokens per step: 2 rows of the longest prompt rounded up to the
+    # collator's 64-token bucket, less the sentinel, plus the visual tokens
+    with open(paths["data"]) as f:
+        convs = [normalize_modal_tag([row["conversations"]], "<video>")[0] for row in json.load(f)]
+    prompt_ids, _ = preprocess_chat(convs, tok, "<video>", True)
+    bucket = -(-max(map(len, prompt_ids)) // 64) * 64
+    request, single = make_requests(cfg, seed=9)
+    for name, flags in stages.items():
+        out = os.path.join(root, name)
+        args = cli.build_parser().parse_args(common + flags + ["--output-dir", out])
+        reset_counts()
+        t0 = time.perf_counter()
+        state = cli.run(args, tok, guide_tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in rows]
+        step_s = rows[1]["time"] - rows[0]["time"]
+        spliced = 2 * (bucket - 1 + state.model.visual_token_count(32, "video"))
+        log(f"[cli] {card} | {name}: {len(rows)} steps in {wall:.1f} s (model set-up, data and export included), "
+            f"losses {losses} | step 2 {step_s * 1e3:.1f} ms (host clock between metrics rows, its batch read and "
+            f"collated) | {spliced / step_s:.1f} spliced tokens/s | peak memory {peak_gb:.2f} GB")
+        if len(losses) != 2 or not all(np.isfinite(losses)):
+            raise AssertionError(f"[cli] {name}: expected 2 finite losses, got {losses}")
+        raw = last_logits(state.model, request)
+        expected = exported_weights(name, state, args)
+        if name == "lora":
+            state.lora.detach()
+        state.model.load_state_dict(expected)
+        want = last_logits(state.model, request)
+        del state
+        torch.cuda.empty_cache()
+
+        sub, base = layouts[name]
+        hc = load_model(os.path.join(out, sub), model_base=base, device="cuda")
+        loaded = hc.model.state_dict()
+        differ = [n for n, v in expected.items() if not torch.equal(loaded[n], v.to(loaded[n].device))]
+        del expected, loaded
+        got = last_logits(hc.model, request)
+        scale = want.abs().max().item()
+        err, raw_err = (got - want).abs().max().item(), (got - raw).abs().max().item()
+        reset_counts()
+        ids = hc.generate(**single, max_new_tokens=4)
+        launches = {n: f.launches for n, f in counters().items()}
+        log(f"[cli] {name}: load_model({'/'.join(filter(None, (name, sub)))}{', model_base' if base else ''}): "
+            f"{len(differ)} tensors differ from the trained ones as exported; last-token logits vs that model's: "
+            f"max_abs_err {err:.3g} (tol {2**-8 * scale:.3g}, max |logit| {scale:.3g}), vs the model as trained "
+            f"(bf16 copies{', side-path adapters' if name == 'lora' else ''}): {raw_err:.3g}; 4 greedy ids "
+            f"{ids.tolist()}; launches {launches}")
+        if differ or not (torch.isfinite(got).all() and err <= 2**-8 * scale):
+            raise AssertionError(f"[cli] {name}: the loaded artifact is not the trained model (e.g. {differ[:3]})")
+        if min(launches.values()) <= 0 or ids.shape != (1, 4):
+            raise AssertionError(f"[cli] {name}: generation did not run through K1-K4 ({launches}, {ids.shape})")
+        del hc
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -901,14 +1325,18 @@ def main() -> int:
         + " ".join(f"{k}={v:.1f}s" for k, v in seconds.items()))
 
     records = kernel_checks(card)
-    launches = main_path(card)
-    launches["flash_backward"] = train_phase(card)["flash_backward"]
+    # each phase's launches by wrapper, counted from 0 just before it runs
+    launches = {"serve": main_path(card), "train": train_phase(card), "stage3-lora": stage3_lora_phase(card),
+                "stage3-sft": stage3_sft_phase(card)}
     plain_vs_kernel_logits()
     plain_vs_kernel_grads()
+    cli_phase(card)
 
     kernels = []
-    for name, (kid, rec) in records.items():
-        rec["launches"] = launches[KERNELS[kid][0]]
+    for name, (kid, phase, rec) in records.items():
+        rec["launches"] = launches[phase][KERNELS[kid][0]]
+        if rec["launches"] <= 0:
+            raise AssertionError(f"{name}: [{phase}] never launched {KERNELS[kid][0]}")
         kernels.append(rec)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

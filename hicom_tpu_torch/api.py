@@ -1,11 +1,14 @@
 """Public inference API of the port: ``load_model``, ``build_model``, ``HICom.generate``, ``mm_infer``.
 
-Port of the single-request surface of ``hicom_tpu/api.py`` for the SFT
-checkpoint layout (decoder, SigLIP towers, projector in one directory).
+Port of the single-request surface of ``hicom_tpu/api.py``. ``load_model``
+reads the reference's checkpoint layouts: SFT (decoder, SigLIP towers and
+projector in one directory, or the towers from ``config.mm_vision_tower``),
+pretrain (``model_base`` + ``mm_projector.bin``) and LoRA (``model_base`` +
+``non_lora_trainables.bin`` + a peft adapter, merged at load).
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``;
 without a card and without ``device`` they raise rather than fall back.
-``transformers`` and ``safetensors`` are imported inside the functions that
-need them.
+Weights are read by the port's own safetensors reader; ``transformers`` is
+imported only inside ``load_model``, for the guide tokenizer.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from . import weights as W
-from .config import HIComConfig, SiglipTextConfig, SiglipVisionConfig
+from .config import HIComConfig, tower_configs
 from .constants import DEFAULT_IMAGE_TOKEN, DEFAULT_VIDEO_TOKEN
 from .data.prompts import tokenizer_multimodal_token
 from .models.generate import generate_tokens, keyword_token_sequences
@@ -28,12 +31,12 @@ from .models.hicom import HIComModel
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else the CUDA device; raises when there is none."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``device`` as given, else the CUDA device; raises when a CUDA device is
+    asked for (or implied) and there is none."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
-    return torch.device("cuda")
+    return device
 
 
 def build_model(config: HIComConfig, device=None, seed: int = 0, std: float = 0.02) -> HIComModel:
@@ -102,53 +105,55 @@ class HICom:
         return out.cpu().numpy()
 
 
-def _tower_configs(tower_path: str):
-    """SigLIP vision/text configs from a local tower directory's config.json,
-    else the so400m defaults for a SigLIP tower name."""
-    if "clip" in tower_path and "siglip" not in tower_path:
-        raise NotImplementedError("the port carries SigLIP towers only")
-    if os.path.isdir(tower_path):
-        with open(os.path.join(tower_path, "config.json")) as f:
-            d = json.load(f)
-        vd = d.get("vision_config", d if d.get("model_type") == "siglip_vision_model" else {})
-        td = d.get("text_config", {})
-        vision = SiglipVisionConfig(
-            hidden_size=vd.get("hidden_size", 1152),
-            intermediate_size=vd.get("intermediate_size", 4304),
-            num_hidden_layers=vd.get("num_hidden_layers", 27),
-            num_attention_heads=vd.get("num_attention_heads", 16),
-            image_size=vd.get("image_size", 384),
-            patch_size=vd.get("patch_size", 14),
-        )
-        text = SiglipTextConfig(
-            hidden_size=td.get("hidden_size", vision.hidden_size),
-            intermediate_size=td.get("intermediate_size", vision.intermediate_size),
-            num_hidden_layers=td.get("num_hidden_layers", vision.num_hidden_layers),
-            num_attention_heads=td.get("num_attention_heads", vision.num_attention_heads),
-            vocab_size=td.get("vocab_size", 32000),
-            max_position_embeddings=td.get("max_position_embeddings", 64),
-            projection_size=td.get("projection_size", td.get("hidden_size", vision.hidden_size)),
-        )
-        return vision, text
-    if "siglip" in tower_path:
-        return SiglipVisionConfig(), SiglipTextConfig()
-    raise NotImplementedError(f"unknown vision tower: {tower_path}")
-
-
 def load_model(model_path: str, dtype: str = "bfloat16", cache_len: int = 4096, device=None,
-               kv_cache_int8: bool = False) -> HICom:
-    """Load an SFT checkpoint directory (config.json + safetensors) onto ``device``."""
+               kv_cache_int8: bool = False, model_base: Optional[str] = None) -> HICom:
+    """Load a checkpoint directory onto ``device``: an SFT checkpoint, or with
+    ``model_base`` (the base LLM directory) a pretrain artifact
+    (``mm_projector.bin``) or a LoRA artifact (``adapter_config.json``), the
+    towers of the last two read from ``config.mm_vision_tower``."""
     import dataclasses
 
     device = resolve_device(device)
     with open(os.path.join(model_path, "config.json")) as f:
         raw_cfg = json.load(f)
     cfg = HIComConfig.from_hf_dict(raw_cfg)
-    vision_cfg, guide_cfg = _tower_configs(cfg.mm_vision_tower)
+    vision_cfg, guide_cfg = tower_configs(cfg.mm_vision_tower)
     cfg = cfg.replace(vision_config=vision_cfg, guide_text_config=guide_cfg, dtype=dtype)
     if kv_cache_int8:
         cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, kv_cache_int8=True))
-    sd = W.load_hf_state_dict(model_path)
+
+    is_pretrain = os.path.exists(os.path.join(model_path, "mm_projector.bin"))
+    is_lora = os.path.exists(os.path.join(model_path, "adapter_config.json"))
+    tower_sd = {}
+    if is_pretrain or is_lora:
+        if model_base is None:
+            raise ValueError(f"{model_path} is a {'pretrain' if is_pretrain else 'LoRA'} artifact: pass "
+                             "model_base (the base LLM directory)")
+        sd = W.decoder_state(W.load_hf_state_dict(model_base))
+        if is_pretrain:
+            proj_sd = W.load_torch_bin(os.path.join(model_path, "mm_projector.bin"))
+        else:  # reference lora layout (model/__init__.py:91-138)
+            nlt = os.path.join(model_path, "non_lora_trainables.bin")
+            extra = W.load_torch_bin(nlt) if os.path.exists(nlt) else {}
+            extra = {k.replace("base_model.model.", "").replace("model.model.", "model."): v for k, v in extra.items()}
+            sd.update({k: v for k, v in extra.items() if "mm_projector" not in k and "vision_tower" not in k})
+            proj_sd = {k: v for k, v in extra.items() if "mm_projector" in k}
+        tower_sd = W.load_hf_state_dict(cfg.mm_vision_tower)
+        sd.update(W.tower_state(tower_sd, guide=cfg.guide_enabled()))
+        sd.update(W.convert_projector_state(proj_sd) if proj_sd else {})
+        if is_lora:
+            lora, alpha, rank = W.load_peft_adapter(model_path)
+            sd = W.apply_lora(sd, lora, alpha=alpha, rank=rank)
+    else:
+        sd = W.load_hf_state_dict(model_path)
+        if not any(k.startswith("model.vision_tower.") for k in sd):  # frozen tower: from its own directory
+            tower_sd = W.load_hf_state_dict(cfg.mm_vision_tower)
+            sd.update(W.tower_state(tower_sd, guide=cfg.guide_enabled()))
+    # a clip-scale projector without its own scale takes the SigLIP tower's (api.py:642-647)
+    for side in [s for s in (cfg.use_clip_scale or "").split(",") if s]:
+        if "logit_scale" in tower_sd and f"model.mm_projector.{side}_logit_scale" not in sd:
+            sd[f"model.mm_projector.{side}_logit_scale"] = tower_sd["logit_scale"].reshape(())
+            sd[f"model.mm_projector.{side}_logit_bias"] = tower_sd["logit_bias"].reshape(())
     with torch.device("meta"):
         model = HIComModel(cfg)
     model.load_state_dict(W.model_state_dict(model, sd), strict=True, assign=True)
@@ -160,8 +165,11 @@ def load_model(model_path: str, dtype: str = "bfloat16", cache_len: int = 4096, 
             from transformers import AutoTokenizer
 
             guide_tok = AutoTokenizer.from_pretrained(cfg.mm_vision_tower)
-        except (ImportError, OSError, ValueError):
-            guide_tok = None  # no tokenizer files or no transformers: callers pass guide_ids
+        except (ImportError, OSError, ValueError, TypeError):
+            # no transformers, or no tokenizer files (transformers 5 raises
+            # TypeError for a SigLIP directory without its sentencepiece
+            # model): callers pass guide_ids
+            guide_tok = None
     eos = raw_cfg.get("eos_token_id", cfg.text_config.eos_token_id)
     if isinstance(eos, list):
         eos = eos[0]
@@ -187,12 +195,15 @@ def _trim_at_keywords(text: str, keywords) -> str:
     return text.strip()
 
 
-def mm_infer(image_or_video, instruct, model: HICom, tokenizer, modal: str = "video", **kwargs) -> str:
+def mm_infer(image_or_video, instruct, model: HICom, tokenizer, modal: str = "video", image_size=None,
+             **kwargs) -> str:
     """Single-sample multimodal generation -> response string.
 
     ``image_or_video``: preprocessed (t, 3, H, W) or (3, H, W) pixels, None for
     ``modal="text"``. Guide-mode models take ``guide_ids`` (and ``guide_mask``)
-    or ``guide_instruct`` for the guide tokenizer.
+    or ``guide_instruct`` for the guide tokenizer. A multi-crop anyres image
+    (and any ``image_size``, which only the anyres merge reads) raises until
+    the anyres merge is ported.
     """
     if modal == "image":
         modal_token = DEFAULT_IMAGE_TOKEN
@@ -209,6 +220,10 @@ def mm_infer(image_or_video, instruct, model: HICom, tokenizer, modal: str = "vi
         if frames.ndim == 3:
             frames = frames[None]
         frames = frames[None]  # (1, t, 3, H, W)
+    anyres = frames is not None and modal == "image" and frames.shape[1] > 1 and "anyres" in (
+        model.config.image_aspect_ratio or "")
+    if anyres or image_size is not None:
+        raise NotImplementedError("multi-crop anyres images need encode_anyres (ROADMAP Queue 1 item 4)")
 
     if isinstance(instruct, str):
         message = [{"role": "user", "content": modal_token + "\n" + instruct}]

@@ -35,8 +35,9 @@ class SiglipVisionConfig:
     patch_size: int = 14
     layer_norm_eps: float = 1e-6
     hidden_act: str = "gelu_pytorch_tanh"
-    # The three fields below exist so configs round-trip with the JAX package;
-    # the port runs only remat=False, scan_layers=False, quantization=None.
+    # remat checkpoints each encoder layer under grad mode; scan_layers and
+    # quantization exist so configs round-trip with the JAX package, and the
+    # port runs only scan_layers=False, quantization=None.
     remat: bool = False
     scan_layers: bool = False
     quantization: Optional[str] = None
@@ -95,7 +96,8 @@ class Qwen2Config:
     pad_token_id: int = 151643
     bos_token_id: int = 151643
     # Kept for config round-trips with the JAX package; the port runs only
-    # quantization=None, scan_layers=False, remat=False, ring_axis=None.
+    # quantization=None, scan_layers=False, ring_axis=None. remat checkpoints
+    # each decoder layer of a cache-less forward under grad mode.
     quantization: Optional[str] = None
     scan_layers: bool = False
     # int8 KV cache: k/v stored as int8 + per-slot absmax scales, read by the
@@ -128,6 +130,39 @@ class LlamaConfig:
     scan_layers: bool = False
     kv_cache_int8: bool = False
     remat: bool = False
+
+
+def tower_configs(tower_path: str):
+    """SigLIP vision/text configs from a local tower directory's config.json,
+    else the so400m defaults for a SigLIP tower name."""
+    if "clip" in tower_path and "siglip" not in tower_path:
+        raise NotImplementedError("the port carries SigLIP towers only")
+    if os.path.isdir(tower_path):
+        with open(os.path.join(tower_path, "config.json")) as f:
+            d = json.load(f)
+        vd = d.get("vision_config", d if d.get("model_type") == "siglip_vision_model" else {})
+        td = d.get("text_config", {})
+        vision = SiglipVisionConfig(
+            hidden_size=vd.get("hidden_size", 1152),
+            intermediate_size=vd.get("intermediate_size", 4304),
+            num_hidden_layers=vd.get("num_hidden_layers", 27),
+            num_attention_heads=vd.get("num_attention_heads", 16),
+            image_size=vd.get("image_size", 384),
+            patch_size=vd.get("patch_size", 14),
+        )
+        text = SiglipTextConfig(
+            hidden_size=td.get("hidden_size", vision.hidden_size),
+            intermediate_size=td.get("intermediate_size", vision.intermediate_size),
+            num_hidden_layers=td.get("num_hidden_layers", vision.num_hidden_layers),
+            num_attention_heads=td.get("num_attention_heads", vision.num_attention_heads),
+            vocab_size=td.get("vocab_size", 32000),
+            max_position_embeddings=td.get("max_position_embeddings", 64),
+            projection_size=td.get("projection_size", td.get("hidden_size", vision.hidden_size)),
+        )
+        return vision, text
+    if "siglip" in tower_path:
+        return SiglipVisionConfig(), SiglipTextConfig()
+    raise NotImplementedError(f"unknown vision tower: {tower_path}")
 
 
 # --------------------------------------------------------------------------- #

@@ -13,7 +13,10 @@ SwiGLU MLP; tied embeddings optional. ``DecoderAttention`` has three modes:
 
 Unlike the JAX cache, :class:`KVCache` is updated in place: the tensors are
 written at the shared offset and ``length`` advances, which saves a copy of
-the whole cache per step.
+the whole cache per step. With ``remat=True`` in the config, each layer of a
+cache-less forward under grad mode runs inside
+``torch.utils.checkpoint.checkpoint`` (the JAX ``nn.remat`` of each block): its
+activations are recomputed in the backward instead of kept.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import sdpa
 from ..ops.flash_decode import flash_decode
@@ -207,8 +211,12 @@ class Qwen2Model(nn.Module):
                 # and s <= the current offset
                 S = cache.valid.shape[1]
                 slot_mask = cache.valid & (torch.arange(S, device=x.device)[None, :] <= cache.length)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, rope, cache, i, kv_lengths, prefill_from_empty, slot_mask)
+            if remat:
+                x = checkpoint(layer, x, rope, None, i, kv_lengths, use_reentrant=False)
+            else:
+                x = layer(x, rope, cache, i, kv_lengths, prefill_from_empty, slot_mask)
         if cache is not None:
             cache.length += L
         return self.norm(x)

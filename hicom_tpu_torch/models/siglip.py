@@ -11,6 +11,8 @@ Port of ``hicom_tpu/models/siglip.py`` (bf16/fp32 only):
 
 Attention goes through ``ops.attention``: on the card the tower's unmasked
 self-attention runs the K1 kernel, the text encoder's masked one the plain path.
+With ``remat=True`` in the vision config, each encoder layer run under grad
+mode is checkpointed (``torch.utils.checkpoint``, the JAX ``nn.remat``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import SiglipTextConfig, SiglipVisionConfig
 from ..ops.attention import multi_head_attention
@@ -68,8 +71,9 @@ class SiglipEncoderLayer(nn.Module):
 
 class SiglipEncoder(nn.Module):
     def __init__(self, num_layers: int, hidden: int, intermediate: int, num_heads: int, eps: float,
-                 dtype=None):
+                 dtype=None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             SiglipEncoderLayer(hidden, intermediate, num_heads, eps, dtype=dtype) for _ in range(num_layers))
 
@@ -83,10 +87,11 @@ class SiglipEncoder(nn.Module):
         if not 0 <= tap <= n:
             raise ValueError(f"tap layer {tap_layer} out of range")
         tapped = x if tap == 0 else None
+        remat = self.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if not run_all and i >= tap:
                 break
-            x = layer(x, mask)
+            x = checkpoint(layer, x, mask, use_reentrant=False) if remat else layer(x, mask)
             if i + 1 == tap:
                 tapped = x
         return (x if run_all else None), tapped
@@ -118,7 +123,7 @@ class SiglipVisionTransformer(nn.Module):
         super().__init__()
         self.embeddings = SiglipVisionEmbeddings(cfg, dtype=dtype)
         self.encoder = SiglipEncoder(cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size,
-                                     cfg.num_attention_heads, cfg.layer_norm_eps, dtype=dtype)
+                                     cfg.num_attention_heads, cfg.layer_norm_eps, dtype=dtype, remat=cfg.remat)
         if with_head:
             self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, dtype=dtype)
             self.head = SiglipVisionHead(cfg, dtype=dtype)

@@ -1,0 +1,123 @@
+"""LoRA adapters on the decoder's linears, without quantization.
+
+Port of ``hicom_tpu/train/lora.py`` (its unquantized part) onto the port's
+module names. An adapter set is ``{module name: {"a": (in, r), "b": (r, out)}}``,
+A drawn from N(0, 1/in) and B zeros, so a fresh adapter changes nothing (the
+peft convention). Two forms compute with it:
+
+* :class:`LoRA` (training): a module holding A and B as fp32 parameters,
+  attached to the model by forward hooks that add the side path
+  ``y = base(x) + (alpha/r) * (x @ A) @ B`` to each target linear, computed in
+  the activations' dtype. The base weights stay frozen and untouched; under
+  ``remat`` the hooks run again in each layer's recompute. This is the form
+  the JAX package's ``lora_interceptor`` computes;
+* :func:`apply_lora` (loading, in ``weights.py`` beside the other loaders and
+  re-exported here): the merged weight ``W + (alpha/r) * A @ B``, rounded
+  once to the weight's dtype, as the JAX ``apply_lora`` merges.
+
+In fp32 the two agree to rounding (``tests/test_torch_lora.py``). In bf16 they
+do not: a merged delta below half a bf16 ulp of its weight (at |W| = 0.02 the
+ulp is 1.2e-4) is rounded away, so the first updates of a fresh adapter,
+merged, change nothing; the side path adds them to the output at full size.
+Loading merges once, after training, where the delta has grown.
+
+Adapters export to and load from the peft layout (``export_peft_adapter``,
+``load_peft_adapter``, also in ``weights.py``): ``adapter_model.bin`` with
+``base_model.model.<module>.lora_A.weight`` (r, in) and ``lora_B.weight``
+(out, r) in fp32, beside ``adapter_config.json``.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..weights import TARGET_MODULES, Adapters, apply_lora, export_peft_adapter, load_peft_adapter  # noqa: F401
+
+Tensor = torch.Tensor
+
+# the peft default targets: the decoder's linears, never the projector, towers or embeddings
+DEFAULT_TARGET = r"^model\.layers\.\d+\.(self_attn\.(q_proj|k_proj|v_proj|o_proj)|mlp\.(gate_proj|up_proj|down_proj))$"
+
+
+def target_kernels(model: nn.Module, target_regex: str = DEFAULT_TARGET) -> Dict[str, Tuple[int, int]]:
+    """{module name: (in_features, out_features)} of the linears LoRA attaches to."""
+    return {name: (m.in_features, m.out_features) for name, m in model.named_modules()
+            if isinstance(m, nn.Linear) and re.search(target_regex, name)}
+
+
+def init_lora_params(model: nn.Module, rank: int = 8, generator: Optional[torch.Generator] = None,
+                     target_regex: str = DEFAULT_TARGET, dtype=torch.float32) -> Adapters:
+    """Fresh adapters for every target, in sorted name order: A ~ N(0, 1/in)
+    drawn from ``generator`` (default: a CPU generator seeded 0) on the
+    generator's device and moved to the target's, B zeros."""
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    targets = target_kernels(model, target_regex)
+    if not targets:
+        raise ValueError("no LoRA target linear matched")
+    modules = dict(model.named_modules())
+    out = {}
+    for name, (din, dout) in sorted(targets.items()):
+        dev = modules[name].weight.device
+        a = torch.randn((din, rank), generator=gen, device=gen.device, dtype=dtype) / math.sqrt(din)
+        out[name] = {"a": a.to(dev), "b": torch.zeros((rank, dout), dtype=dtype, device=dev)}
+    return out
+
+
+class LoRA(nn.Module):
+    """Trainable adapters as a side path on the target linears of a model.
+
+    ``attach(model)`` registers one forward hook per target; ``detach()``
+    removes them. ``adapters()`` gives the current A and B by module name."""
+
+    def __init__(self, lora: Adapters, alpha: float, rank: int):
+        super().__init__()
+        self.names = sorted(lora)
+        self.scaling = alpha / rank
+        self.a = nn.ParameterDict({_key(n): nn.Parameter(lora[n]["a"].detach().clone()) for n in self.names})
+        self.b = nn.ParameterDict({_key(n): nn.Parameter(lora[n]["b"].detach().clone()) for n in self.names})
+        self._handles = []
+
+    def attach(self, model: nn.Module) -> "LoRA":
+        modules = dict(model.named_modules())
+        for name in self.names:
+            a, b = self.a[_key(name)], self.b[_key(name)]
+            self._handles.append(modules[name].register_forward_hook(self._side_path(a, b)))
+        return self
+
+    def _side_path(self, a: Tensor, b: Tensor):
+        scaling = self.scaling
+
+        def hook(module, inputs, output):
+            x = inputs[0]
+            return output + ((x @ a.to(x.dtype)) @ b.to(x.dtype)) * scaling
+
+        return hook
+
+    def detach(self) -> None:
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+
+    def adapters(self) -> Adapters:
+        return {n: {"a": self.a[_key(n)].detach(), "b": self.b[_key(n)].detach()} for n in self.names}
+
+
+def _key(name: str) -> str:
+    return name.replace(".", "__")  # ParameterDict keys may not hold dots
+
+
+def lora_from_jax(lora: Mapping[str, Mapping[str, np.ndarray]]) -> Adapters:
+    """The JAX package's adapters (``language_model/model/layers_0/self_attn/
+    q_proj/kernel`` paths) under the port's module names."""
+    out = {}
+    for path, ab in lora.items():
+        name = path.replace("language_model/", "").replace("/kernel", "").replace("/", ".")
+        name = re.sub(r"layers_(\d+)", r"layers.\1", name)
+        out[name] = {k: torch.from_numpy(np.array(ab[k], dtype=np.float32)) for k in ("a", "b")}
+    return out

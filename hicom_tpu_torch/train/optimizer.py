@@ -17,6 +17,10 @@ reference's own, ``model.mm_projector.*``, ``model.vision_tower.*``):
   every update; frozen parameters get ``requires_grad=False`` and no state.
   One clip by the global norm of the trainable gradients comes before the
   per-group AdamW updates, as ``optax.clip_by_global_norm`` does in the chain.
+  With ``every_k`` > 1 it accumulates as ``optax.MultiSteps`` does (the JAX
+  CLI's ``--gradient-accumulation-steps``): the running mean of k
+  micro-batches' gradients, one clip and inner update per k calls, and the
+  schedule counting inner updates.
 """
 
 from __future__ import annotations
@@ -112,13 +116,17 @@ class GroupAdamW:
     the module's parameters hold."""
 
     def __init__(self, labels: Dict[str, str], decay: Dict[str, bool], schedules: Dict[str, Callable[[int], float]],
-                 *, weight_decay: float, b1: float, b2: float, eps: float, max_grad_norm: Optional[float]):
+                 *, weight_decay: float, b1: float, b2: float, eps: float, max_grad_norm: Optional[float],
+                 every_k: int = 1):
         self.labels, self.decay, self.schedules = labels, decay, schedules
         self.weight_decay, self.betas, self.eps = weight_decay, (b1, b2), eps
         self.max_grad_norm = max_grad_norm
+        self.every_k = every_k
         self.masters: Dict[str, Tensor] = {}
         self.adam: Optional[torch.optim.AdamW] = None
         self.count = 0  # updates taken; the schedule's argument
+        self.mini_step = 0  # micro-batches accumulated towards the next update
+        self.acc: Dict[str, Tensor] = {}
 
     def init(self, model: nn.Module) -> None:
         """Freeze what the labels freeze; fp32 masters and AdamW state for the rest."""
@@ -136,20 +144,31 @@ class GroupAdamW:
                     groups.append(dict(params=ps, lr=0.0, weight_decay=self.weight_decay if decayed else 0.0,
                                        lr_group=group))
         self.adam = torch.optim.AdamW(groups, betas=self.betas, eps=self.eps)
-        self.count = 0
+        self.count = self.mini_step = 0
+        self.acc = {}
 
     @torch.no_grad()
     def update(self, model: nn.Module) -> Tensor:
-        """Clip, step and write back; returns the unclipped global norm of the
-        trainable gradients (a parameter without a gradient counts as zeros)."""
+        """Clip, step and write back (with ``every_k`` > 1: accumulate, and do
+        so on every k-th call only); returns the unclipped global norm of this
+        call's trainable gradients (a parameter without a gradient counts as
+        zeros)."""
         params = dict(model.named_parameters())
         grads = {n: params[n].grad.float() if params[n].grad is not None else torch.zeros_like(m)
                  for n, m in self.masters.items()}
-        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
+        norm = _global_norm(grads)
+        if self.every_k > 1:
+            k = self.mini_step
+            self.acc = {n: g if k == 0 else self.acc[n] + (g - self.acc[n]) / (k + 1) for n, g in grads.items()}
+            self.mini_step = (k + 1) % self.every_k
+            if self.mini_step:
+                return norm
+            grads, self.acc = self.acc, {}
+        clip_norm = norm if self.every_k == 1 else _global_norm(grads)
         for n, m in self.masters.items():
-            g = grads[n]
+            g = grads.pop(n)  # the unclipped copy goes as its clipped one comes: one fp32 set at a time
             if self.max_grad_norm:
-                g = torch.where(norm < self.max_grad_norm, g, g / norm * self.max_grad_norm)
+                g = torch.where(clip_norm < self.max_grad_norm, g, g / clip_norm * self.max_grad_norm)
             m.grad = g
         for group in self.adam.param_groups:
             group["lr"] = self.schedules[group["lr_group"]](self.count)
@@ -161,7 +180,8 @@ class GroupAdamW:
         return norm
 
     def state_dict(self) -> dict:
-        return {"masters": self.masters, "adam": self.adam.state_dict(), "count": self.count}
+        return {"masters": self.masters, "adam": self.adam.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc": self.acc}
 
     def load_state_dict(self, state: dict, model: nn.Module) -> None:
         """Restore masters, moments and count, and write the masters back into ``model``."""
@@ -172,6 +192,11 @@ class GroupAdamW:
                 params[n].copy_(m)
         self.adam.load_state_dict(state["adam"])
         self.count = int(state["count"])
+        self.mini_step, self.acc = int(state.get("mini_step", 0)), dict(state.get("acc", {}))
+
+
+def _global_norm(grads: Dict[str, Tensor]) -> Tensor:
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
 
 
 def build_optimizer(
@@ -191,8 +216,10 @@ def build_optimizer(
     tunable_parts: str = "mm_projector,language_model",
     use_guide: Optional[str] = None,
     schedule_kind: str = "cosine",
+    gradient_accumulation_steps: int = 1,
 ) -> GroupAdamW:
-    """The JAX ``build_optimizer`` over ``model``'s parameter names."""
+    """The JAX ``build_optimizer`` over ``model``'s parameter names, wrapped
+    in ``optax.MultiSteps`` semantics when ``gradient_accumulation_steps`` > 1."""
     # reference fallback: guide lr set -> projector lr defaults to base lr
     if guide_injector_lr is not None and mm_projector_lr is None:
         mm_projector_lr = learning_rate
@@ -208,7 +235,7 @@ def build_optimizer(
               for n, _ in model.named_parameters()}
     schedules = {g: make_schedule(lr, total_steps, warmup_ratio, schedule_kind) for g, lr in group_lrs.items()}
     return GroupAdamW(labels, decay_mask(model), schedules, weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
-                      max_grad_norm=max_grad_norm)
+                      max_grad_norm=max_grad_norm, every_k=gradient_accumulation_steps)
 
 
 def trainable_param_count(model: nn.Module, tunable_parts: str, use_guide: Optional[str] = None) -> int:

@@ -13,19 +13,25 @@ parameter runs without a graph (``HIComModel.one_shot_forward``).
     state = create_train_state(model, opt)      # on the CUDA device by default
     step = make_train_step()
     state, metrics = step(state, batch)         # loss, target_tokens, grad_norm
+
+A LoRA step (:func:`create_lora_state`, :func:`make_lora_train_step`) trains
+only the adapters of ``train/lora.py`` with their own AdamW over
+``make_schedule``, the base model frozen whole, as the JAX CLI's
+``--lora-enable`` loop does.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
 from torch.nn import functional as F
 
 from ..constants import IGNORE_INDEX
-from .optimizer import GroupAdamW
+from .lora import LoRA, Adapters
+from .optimizer import GroupAdamW, make_schedule
 
 Tensor = torch.Tensor
 
@@ -95,13 +101,20 @@ def batch_to_device(batch: Mapping, device: torch.device, dtype: torch.dtype) ->
     return out
 
 
-def make_train_step(modal: str = "video", has_frames: bool = True):
+def _single_image(multi_image: bool) -> None:
+    if multi_image:
+        raise NotImplementedError("multi-image batches need the multi-sentinel splice (ROADMAP Queue 1 item 4)")
+
+
+def make_train_step(modal: str = "video", has_frames: bool = True, multi_image: bool = False):
     """``train_step(state, batch) -> (state, metrics)``: forward, backward,
-    one optimizer update. Metrics are device tensors: ``loss``,
-    ``target_tokens`` and ``grad_norm`` (the unclipped global norm of the
-    trainable gradients). A step leaves the gradients on the module until the
-    next one starts. Multi-image and anyres batches wait for the
-    multi-sentinel splice and the anyres plan (not ported yet)."""
+    one optimizer update (or one accumulated micro-batch). Metrics are device
+    tensors: ``loss``, ``target_tokens`` and ``grad_norm`` (the unclipped
+    global norm of the trainable gradients). A step leaves the gradients on
+    the module until the next one starts. The JAX CLI keys its compiled steps
+    by (modal, multi_image, has_frames); multi-image and anyres batches wait
+    for the multi-sentinel splice and the anyres plan (not ported yet)."""
+    _single_image(multi_image)
 
     def train_step(state: TrainState, batch: Mapping):
         model = state.model
@@ -116,3 +129,55 @@ def make_train_step(modal: str = "video", has_frames: bool = True):
         return state, metrics
 
     return train_step
+
+
+@dataclass
+class LoraState:
+    """A frozen model with LoRA adapters attached, their AdamW and schedule,
+    and the count of updates taken (the schedule's argument)."""
+
+    model: torch.nn.Module
+    lora: LoRA
+    optimizer: torch.optim.AdamW
+    schedule: Callable[[int], float]
+    step: int = 0
+
+
+def create_lora_state(model: torch.nn.Module, lora: Adapters, *, alpha: float, rank: int, learning_rate: float,
+                      total_steps: int, warmup_ratio: float = 0.03, schedule_kind: str = "cosine",
+                      weight_decay: float = 0.0, device=None) -> LoraState:
+    """``model`` on ``device`` (the CUDA device unless given), every base
+    parameter frozen, ``lora`` attached as trainable fp32 side paths with
+    ``optax.adamw(make_schedule(...), weight_decay=...)``'s update: b1 0.9,
+    b2 0.999, eps 1e-8, decay on every adapter, no clipping."""
+    from ..api import resolve_device
+
+    device = resolve_device(device)
+    model.to(device)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    module = LoRA(lora, alpha, rank).to(device).attach(model)
+    adam = torch.optim.AdamW(module.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    return LoraState(model, module, adam, make_schedule(learning_rate, total_steps, warmup_ratio, schedule_kind))
+
+
+def make_lora_train_step(modal: str = "video", has_frames: bool = True, multi_image: bool = False):
+    """``lora_step(state, batch) -> (state, metrics)``: the loss of the frozen
+    model with the side paths, its gradient in the adapters only, one AdamW
+    update. Metrics: ``loss`` and ``target_tokens`` (device tensors)."""
+    _single_image(multi_image)
+
+    def lora_step(state: LoraState, batch: Mapping):
+        model = state.model
+        weight = model.model.norm.weight
+        batch = batch_to_device(batch, weight.device, weight.dtype)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = make_loss_fn(model, modal, has_frames)(batch)
+        loss.backward()
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.schedule(state.step)
+        state.optimizer.step()
+        state.step += 1
+        return state, metrics
+
+    return lora_step

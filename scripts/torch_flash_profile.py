@@ -54,6 +54,14 @@ def cases(torch, fa, fd, la, want):
         for n in splits:
             out.append((f"K6 prefill split {n}",
                         lambda n=n: fa._launch_dkv(*ops_prefill, 128**-0.5, 0.0, True, n_split=n)))
+    if any_of("K2 1.5b prefill", "K5 1.5b prefill", "K6 1.5b prefill"):  # the 1.5B decoder: 12 / 2 heads
+        q5, k5, v5, do5 = rn(2, 12, 743, 128), rn(2, 2, 743, 128), rn(2, 2, 743, 128), rn(2, 12, 743, 128)
+        kl5 = torch.tensor([743, 700], device="cuda", dtype=torch.int32)
+        out.append(("K2 1.5b prefill", lambda: fa.flash_forward(q5, k5, v5, kl5, 128**-0.5, 0.0, True)))
+        o5, lse5 = fa.flash_forward(q5, k5, v5, kl5, 128**-0.5, 0.0, True)
+        ops_15b = fa.backward_operands(q5, k5, v5, kl5, o5, lse5, do5)
+        out.append(("K5 1.5b prefill", lambda: fa._launch_dq(*ops_15b, 128**-0.5, 0.0, True)))
+        out.append(("K6 1.5b prefill", lambda: fa._launch_dkv(*ops_15b, 128**-0.5, 0.0, True)))
     if any_of("K2 global b1", "K2 global b2", "K5 global b2", "K6 global b2"):
         for b in (1, 2):
             qg, kg, vg = rn(b, 9, 32, 128), rn(b, 9, 23328, 128), rn(b, 9, 23328, 128)

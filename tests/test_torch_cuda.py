@@ -316,3 +316,108 @@ def test_flash_decode_chunks(rn, b, g, quantized):
     assert flash_decode.launches == before + 1
     ref = decode_reference(q, k, v, mask, ks, vs, d**-0.5)
     assert max(_worst(out[r], ref[r]) for r in range(b)) <= 1
+
+
+def _small_decoder_model(rn):
+    """A small HICom model on the card whose decoder takes K2/K5/K6 (head_dim
+    64, GQA 4/2, causal, 150 prompt tokens with a right-padded row), and a
+    seeded batch for it."""
+    import dataclasses
+
+    import numpy as np
+
+    from hicom_tpu_torch import config as tcfg
+    from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.train.train_step import batch_to_device
+
+    cfg = tcfg.tiny_test_config(dtype="bfloat16")
+    cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, hidden_size=256, head_dim=64,
+                                                      num_attention_heads=4, num_key_value_heads=2))
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, cfg.text_config.vocab_size, (2, 150))
+    ids[:, 2] = -201
+    mask = np.ones((2, 150), bool)
+    mask[1, 120:] = False
+    labels = np.where(mask, ids, -100)
+    labels[:, :4] = -100
+    frames = rng.standard_normal((2, 4, 3, 56, 56)).astype(np.float32)
+    batch = batch_to_device(dict(input_ids=ids, attention_mask=mask, labels=labels, frames=frames),
+                            torch.device("cuda"), torch.bfloat16)
+    return cfg, build_model(cfg, device="cuda", seed=0), batch
+
+
+def test_remat_gradients_bit_equal_through_the_kernels(rn):
+    # the recompute must repeat the forward kernels exactly: K2's split grid
+    # and merge order do not depend on anything but the shapes
+    import dataclasses
+
+    from hicom_tpu_torch.train.optimizer import build_optimizer
+    from hicom_tpu_torch.train.train_step import make_loss_fn
+
+    cfg, model, batch = _small_decoder_model(rn)
+    build_optimizer(model, learning_rate=1e-3, tunable_parts="mm_projector,language_model").init(model)
+    decoder = model.model
+
+    def grads(remat):
+        decoder.config = dataclasses.replace(decoder.config, remat=remat)
+        for p in model.parameters():
+            p.grad = None
+        before = (flash_forward.launches, flash_backward.launches)
+        loss, _ = make_loss_fn(model)(batch)
+        loss.backward()
+        launched = (flash_forward.launches - before[0], flash_backward.launches - before[1])
+        return loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}, launched
+
+    loss0, g0, n0 = grads(False)
+    loss1, g1, n1 = grads(True)
+    layers = cfg.text_config.num_hidden_layers
+    assert n0 == (layers, layers) and n1 == (2 * layers, layers)  # remat runs each layer's forward again
+    assert torch.equal(loss0, loss1) and set(g0) == set(g1) and g0
+    assert all(torch.equal(g0[n], g1[n]) for n in g0)
+
+
+def test_lora_step_matches_the_plain_route(rn, monkeypatch):
+    from hicom_tpu_torch.ops import attention
+    from hicom_tpu_torch.train.lora import init_lora_params
+    from hicom_tpu_torch.train.train_step import create_lora_state, make_lora_train_step
+
+    cfg, model, batch = _small_decoder_model(rn)
+    lora = init_lora_params(model, rank=8, generator=torch.Generator("cuda").manual_seed(1))
+    gen = torch.Generator("cuda").manual_seed(2)
+    for ab in lora.values():  # B nonzero, so the adapters act on the forward too
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen, device="cuda") * 0.02
+    base = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def step():
+        for n, p in model.named_parameters():
+            p.data.copy_(base[n])
+        state = create_lora_state(model, lora, alpha=16.0, rank=8, learning_rate=1e-3, total_steps=10)
+        before = flash_backward.launches
+        state, metrics = make_lora_train_step()(state, batch)
+        state.lora.detach()
+        grads = {n: p.grad.float() for n, p in state.lora.named_parameters()}
+        return float(metrics["loss"]), grads, flash_backward.launches - before, state.lora.adapters()
+
+    loss_k, got, launched, moved = step()
+    monkeypatch.setattr(attention, "flash_route", lambda *a, **k: None)
+    loss_p, ref, launched_plain, _ = step()
+    assert launched == cfg.text_config.num_hidden_layers and launched_plain == 0
+    assert all(torch.equal(p, base[n]) for n, p in model.named_parameters())  # the base stays frozen
+    assert all(not torch.equal(moved[n]["b"], lora[n]["b"]) for n in lora)
+    # bf16 activations round at other points on the two routes (flash tiles
+    # against a whole-row fp32 softmax) through 2 tower, 2 guide and 2 decoder
+    # layers: chip_smoke.py's rule, 5% of the gradients' global norm
+    diff = sum((got[n] - ref[n]).square().sum() for n in ref).sqrt()
+    norm = sum(r.square().sum() for r in ref.values()).sqrt()
+    assert abs(loss_k - loss_p) <= 0.02 * abs(loss_p) and float(diff) <= 0.05 * float(norm) and float(norm) > 0
+
+
+def test_safetensors_round_trip_on_the_card(rn, tmp_path):
+    from hicom_tpu_torch.weights import load_safetensors, save_safetensors
+
+    want = {"w": rn(64, 72), "scale": rn(3).float(), "ids": torch.arange(7, device="cuda"),
+            "mask": torch.ones(5, device="cuda", dtype=torch.bool)}
+    save_safetensors(want, str(tmp_path / "m.safetensors"))
+    got = load_safetensors(str(tmp_path / "m.safetensors"), device="cuda")
+    assert set(got) == set(want)
+    assert all(got[k].is_cuda and got[k].dtype == v.dtype and torch.equal(got[k], v) for k, v in want.items())

@@ -36,7 +36,10 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 TRAIN_MODULES = ("hicom_tpu_torch.train.optimizer", "hicom_tpu_torch.train.train_step",
-                 "hicom_tpu_torch.train.checkpoints")
+                 "hicom_tpu_torch.train.checkpoints", "hicom_tpu_torch.train.lora", "hicom_tpu_torch.train.dataset",
+                 "hicom_tpu_torch.train.cli", "hicom_tpu_torch.data.image", "hicom_tpu_torch.data.native",
+                 "hicom_tpu_torch.data.native_video", "hicom_tpu_torch.data.processor",
+                 "hicom_tpu_torch.data.video", "hicom_tpu_torch.data.prompts", "hicom_tpu_torch.weights")
 
 
 def test_train_modules_import_no_jax():
@@ -48,10 +51,11 @@ def test_train_modules_import_no_jax():
     assert "BAD []" in out.stdout, out.stdout
 
 
-@pytest.mark.parametrize("entry", ["build_model", "load_model", "create_train_state"])
+@pytest.mark.parametrize("entry", ["build_model", "load_model", "create_train_state", "train_cli"])
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     import hicom_tpu_torch
     from hicom_tpu_torch.models.hicom import HIComModel
+    from hicom_tpu_torch.train import cli
     from hicom_tpu_torch.train.optimizer import build_optimizer
     from hicom_tpu_torch.train.train_step import create_train_state
 
@@ -61,6 +65,9 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
             hicom_tpu_torch.build_model(hicom_tpu_torch.tiny_test_config())
         elif entry == "load_model":
             hicom_tpu_torch.load_model(str(tmp_path))
+        elif entry == "train_cli":  # --device defaults to cuda
+            cli.run(cli.build_parser().parse_args(["--model-path", "x", "--data-path", "y", "--output-dir",
+                                                   str(tmp_path)]), tokenizer=None)
         else:
             model = HIComModel(hicom_tpu_torch.tiny_test_config())
             create_train_state(model, build_optimizer(model, learning_rate=1e-3, tunable_parts="mm_projector"))
