@@ -42,9 +42,26 @@ Phases:
   6. with 2 decoder and 2 tower layers, the kernel path against the plain path:
      last-token prefill logits, and the trained parameters' gradients;
   7. the trainer's CLI from files at 7B width with 2 tower and 2 decoder
-     layers: stage 2, stage 3 LoRA and stage 3 SFT, each artifact loaded by
-     ``load_model`` in its own layout, held to the model that wrote it and
-     generating through K1-K4.
+     layers: stage 2, stage 3 LoRA, stage 3 QLoRA over an int8 base
+     (``--bits 8``) and stage 3 SFT, each artifact loaded by ``load_model``
+     in its own layout, held to the model that wrote it (for ``--bits 8``,
+     the float stage-2 base with the trained adapters as a side path) and
+     generating through K1-K4;
+  8. the quantized serving configuration from raw frames (``models/quant.py``,
+     ``ops/preprocess.py``): [quant-ops] the int8 routes (``torch._int_mm``
+     bit-equal to the exact product at the tower MLP and decode shapes; the
+     int8 and NF4 linears against their dequantized products; the device
+     preprocess against the CPU's), each beside bf16 ``torch.matmul``;
+     [serve-int8] HICom-7B at full width and depth with bench.py's int8
+     weight-only decoder, fed 32 raw 360x640 uint8 frames per request through
+     ``process_video(processor=None)`` and ``DeviceSiglipPreprocessor``, for
+     the 3 requests of phase 4, with its logits beside the bf16 model's;
+     [serve-w8a8] the same with a ``w8a8s_mlp_qkv`` tower and a ``w8a8s``
+     decoder calibrating on their first request; both gated by a 2-layer
+     comparison with the plain CPU path on the same weights; [model-init]
+     ``model_init(..., device_preprocess=True)`` + ``mm_infer`` from an
+     exported checkpoint under each quantization flag, the card's string
+     equal to the CPU's; [stage3-qlora] 3 stage-3 steps over an NF4 base.
 
 Prints one line per check, then a JSON object with the kernels (each row at
 a shape of the main paths, its launches counted in the phase that runs that
@@ -81,6 +98,8 @@ KERNELS["K2-merge"] = KERNELS["K2"]
 KERNELS["K5-sum"] = KERNELS["K5"]
 KERNELS["K6-sum"] = KERNELS["K6"]
 TRAIN_STEPS = 3
+# what [slice] leaves for [serve-int8]: the bf16 model's logits and tower time
+BF16_REFERENCE = {}
 # the run whose launch counts a kernel row reports, by default: the serving
 # phase for the forward kernels, stage 2 for the backward
 DEFAULT_PHASE = {"fullblock_attention": "serve", "flash_forward": "serve", "flash_decode": "serve",
@@ -574,11 +593,13 @@ def main_path(card: str):
         hc.generate(**single, max_new_tokens=1)
         ttfts.append(time.perf_counter() - t0)
     ttft = min(ttfts)
-    decode_tps = stage_breakdown(hc, single)
+    decode_tps, stages = stage_breakdown(hc, single)
     projector_sync_check(model, single)
     log(f"[slice] {card} | 3 requests (32 frames, 680 visual tokens, 16 new tokens): batch-of-2 request "
         f"{t_batch:.3f} s, single request {t_single:.3f} s | TTFT {ttft * 1e3:.1f} ms | decode "
         f"{decode_tps:.1f} tokens/s (single stream) | peak memory {peak_gb:.2f} GB")
+    # the bf16 model's last-token logits of the single request, for [serve-int8]
+    BF16_REFERENCE.update(logits=last_logits(model, with_mask(single)).cpu(), tower_ms=stages["vision tower"])
     del model, hc
     torch.cuda.empty_cache()
     return launches
@@ -616,19 +637,21 @@ def projector_sync_check(model, single):
         raise AssertionError(f"the projector forward launched K4 {launched} times (1 expected), finite {finite}")
 
 
-def stage_breakdown(hc, single, new_tokens: int = 16):
+def stage_breakdown(hc, single, new_tokens: int = 16, frames_fn=None, label: str = "stages"):
     """Phase 4a: the single request again, stage by stage (host clock around
     synchronised stages), then under torch.profiler: device kernel time by
-    kernel and the device's idle share of the request's wall time. Returns the
-    decode rate of one request, (new_tokens - 1) over the time from its first
-    token to its last."""
+    kernel and the device's idle share of the request's wall time. With
+    ``frames_fn`` the first stage makes the frames with it (the uint8 upload
+    and the device preprocess) instead of uploading ``single["frames"]``.
+    Returns the decode rate of one request, (new_tokens - 1) over the time
+    from its first token to its last, and {stage: ms}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from hicom_tpu_torch.models.generate import sample_and_loop
     from hicom_tpu_torch.models.qwen2 import KVCache
 
-    model, cfg, dev = hc.model, hc.config, "cuda"
+    model, cfg, dev = hc.model, hc.config, hc.device
     tc = cfg.text_config
 
     @torch.inference_mode()
@@ -639,9 +662,12 @@ def stage_breakdown(hc, single, new_tokens: int = 16):
 
         mark("start")
         ids = torch.as_tensor(single["input_ids"], device=dev)
-        frames = torch.as_tensor(single["frames"], device=dev, dtype=torch.bfloat16)
+        if frames_fn is None:
+            frames = torch.as_tensor(single["frames"], device=dev, dtype=torch.bfloat16)
+        else:
+            frames = frames_fn()
         ge = model.encode_guide(torch.as_tensor(single["guide_ids"], device=dev))
-        mark("upload + guide encoder")
+        mark("upload + guide encoder" if frames_fn is None else "uint8 upload + preprocess + guide encoder")
         b, t = frames.shape[:2]
         feats, embeds = model.model.vision_tower.vision_tower(frames.reshape((b * t,) + frames.shape[2:]))
         mark("vision tower")
@@ -663,8 +689,8 @@ def stage_breakdown(hc, single, new_tokens: int = 16):
     request(stamps)
     stamps = []
     request(stamps)
-    parts = [f"{n} {1e3 * (t - stamps[i][1]):.1f} ms" for i, (n, t) in enumerate(stamps[1:])]
-    log("[stages] " + " | ".join(parts))
+    stages = {n: 1e3 * (t - stamps[i][1]) for i, (n, t) in enumerate(stamps[1:])}
+    log(f"[{label}] " + " | ".join(f"{n} {ms:.1f} ms" for n, ms in stages.items()))
     decode_tps = (new_tokens - 1) / (stamps[-1][1] - stamps[-2][1])
 
     stamps = []
@@ -674,14 +700,15 @@ def stage_breakdown(hc, single, new_tokens: int = 16):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     busy_us = sum(dev_time(e) for e in kernels)
+    tag = "profile" if label == "stages" else f"{label}-profile"
     if busy_us <= 0:
-        log("[profile] the profiler saw no device time")
-        return decode_tps
-    log(f"[profile] request wall {wall_us / 1e3:.1f} ms, device kernels {busy_us / 1e3:.1f} ms, "
+        log(f"[{tag}] the profiler saw no device time")
+        return decode_tps, stages
+    log(f"[{tag}] request wall {wall_us / 1e3:.1f} ms, device kernels {busy_us / 1e3:.1f} ms, "
         f"idle share {1 - busy_us / wall_us:.3f}")
     for e in sorted(kernels, key=dev_time, reverse=True)[:10]:
-        log(f"[profile]   {dev_time(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
-    return decode_tps
+        log(f"[{tag}]   {dev_time(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    return decode_tps, stages
 
 
 def run_steps(state, step, batch, n: int = TRAIN_STEPS):
@@ -1195,7 +1222,8 @@ def exported_weights(name: str, state, args) -> dict:
 def cli_phase(card: str):
     """Phase 7: the trainer's CLI from files at the width of HICom-7B with 2
     tower and 2 decoder layers: stage 2 (``--pretrain-weights``, 2 steps ->
-    ``mm_projector.bin``), stage 3 through LoRA (2 steps -> a peft adapter)
+    ``mm_projector.bin``), stage 3 through LoRA (2 steps -> a peft adapter),
+    stage 3 QLoRA over an int8 base (``--bits 8``, 2 steps -> a peft adapter)
     and stage 3 full SFT (2 steps -> ``hf_export/``), each by
     ``hicom_tpu_torch.train.cli.run`` on the files ``write_cli_inputs``
     writes, with ``WordTokenizer``. ``load_model`` then reads each artifact in
@@ -1204,7 +1232,12 @@ def cli_phase(card: str):
     seeded request must equal that model's within a bf16 ulp of the largest
     (their difference from the model as trained, bf16 copies of the masters
     and LoRA's side path, is printed), and it generates 4 greedy tokens
-    through K1-K4."""
+    through K1-K4. The ``--bits 8`` adapters were trained over the int8 base
+    and are merged into the float one, a model that never ran: its logits
+    are held to the float stage-2 base with the trained adapters as a side
+    path, within 2^-6 of the largest logit (at least two bf16 ulps: the merge
+    rounds the adapters' delta into bf16 weights, which the LoRA stage reads
+    as one ulp between the merged export and its side path)."""
     import os
     import shutil
 
@@ -1213,6 +1246,7 @@ def cli_phase(card: str):
     from hicom_tpu_torch.api import load_model
     from hicom_tpu_torch.train import cli
     from hicom_tpu_torch.train.dataset import normalize_modal_tag, preprocess_chat
+    from hicom_tpu_torch.train.lora import LoRA, apply_lora
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
     shutil.rmtree(root, ignore_errors=True)
@@ -1231,10 +1265,12 @@ def cli_phase(card: str):
         "stage2": ["--mm-tunable-parts", "mm_projector", "--learning-rate", "1e-4", "--guide-injector-lr", "1e-3",
                    "--pretrain-weights", paths["bin"]],
         "lora": ["--lora-enable", "--learning-rate", "1e-5", "--pretrain-weights", stage2_bin],
+        "qlora8": ["--lora-enable", "--bits", "8", "--learning-rate", "1e-5", "--pretrain-weights", stage2_bin],
         "sft": ["--mm-tunable-parts", STAGE3_PARTS, "--learning-rate", "1e-5", "--vision-tower-lr", "2e-6",
                 "--pretrain-weights", stage2_bin],
     }
-    layouts = {"stage2": ("", paths["llm"]), "lora": ("", paths["llm"]), "sft": ("hf_export", None)}
+    layouts = {"stage2": ("", paths["llm"]), "lora": ("", paths["llm"]), "qlora8": ("", paths["llm"]),
+               "sft": ("hf_export", None)}
 
     # spliced tokens per step: 2 rows of the longest prompt rounded up to the
     # collator's 64-token bucket, less the sentinel, plus the visual tokens
@@ -1263,11 +1299,24 @@ def cli_phase(card: str):
         if len(losses) != 2 or not all(np.isfinite(losses)):
             raise AssertionError(f"[cli] {name}: expected 2 finite losses, got {losses}")
         raw = last_logits(state.model, request)
-        expected = exported_weights(name, state, args)
-        if name == "lora":
+        if name == "qlora8":
+            # trained over the int8 base: the export merges into the float base
+            # (the stage-2 artifact), which is held to that base with the
+            # trained adapters as a side path
+            base = load_model(os.path.join(root, "stage2"), model_base=paths["llm"], device="cuda")
+            adapters = state.lora.adapters()
+            expected = apply_lora(base.model.state_dict(), adapters, alpha=args.lora_alpha, rank=args.lora_r)
+            side = LoRA(adapters, args.lora_alpha, args.lora_r).attach(base.model)
+            want = last_logits(base.model, request)
+            side.detach()
+            del base, side, adapters
+        else:
+            expected = exported_weights(name, state, args)
+        if name in ("lora", "qlora8"):
             state.lora.detach()
-        state.model.load_state_dict(expected)
-        want = last_logits(state.model, request)
+        if name != "qlora8":
+            state.model.load_state_dict(expected)
+            want = last_logits(state.model, request)
         del state
         torch.cuda.empty_cache()
 
@@ -1278,22 +1327,442 @@ def cli_phase(card: str):
         del expected, loaded
         got = last_logits(hc.model, request)
         scale = want.abs().max().item()
+        tol = (2**-6 if name == "qlora8" else 2**-8) * scale
         err, raw_err = (got - want).abs().max().item(), (got - raw).abs().max().item()
         reset_counts()
         ids = hc.generate(**single, max_new_tokens=4)
         launches = {n: f.launches for n, f in counters().items()}
+        held = "the float base with the side-path adapters" if name == "qlora8" else "that model's"
         log(f"[cli] {name}: load_model({'/'.join(filter(None, (name, sub)))}{', model_base' if base else ''}): "
-            f"{len(differ)} tensors differ from the trained ones as exported; last-token logits vs that model's: "
-            f"max_abs_err {err:.3g} (tol {2**-8 * scale:.3g}, max |logit| {scale:.3g}), vs the model as trained "
-            f"(bf16 copies{', side-path adapters' if name == 'lora' else ''}): {raw_err:.3g}; 4 greedy ids "
+            f"{len(differ)} tensors differ from the trained ones as exported; last-token logits vs {held}: "
+            f"max_abs_err {err:.3g} (tol {tol:.3g}, max |logit| {scale:.3g}), vs the model as trained "
+            f"(bf16 copies{', side-path adapters' if 'lora' in name else ''}{', int8 base' if name == 'qlora8' else ''}"
+            f"): {raw_err:.3g}; 4 greedy ids "
             f"{ids.tolist()}; launches {launches}")
-        if differ or not (torch.isfinite(got).all() and err <= 2**-8 * scale):
+        if differ or not (torch.isfinite(got).all() and err <= tol):
             raise AssertionError(f"[cli] {name}: the loaded artifact is not the trained model (e.g. {differ[:3]})")
         if min(launches.values()) <= 0 or ids.shape != (1, 4):
             raise AssertionError(f"[cli] {name}: generation did not run through K1-K4 ({launches}, {ids.shape})")
         del hc
         torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# The quantized serving configuration from raw frames, and QLoRA
+# ---------------------------------------------------------------------------
+
+DEVICE = "cuda"
+
+
+def with_mask(req):
+    """A request with an all-true attention mask when it has none."""
+    if "attention_mask" in req:
+        return req
+    return dict(req, attention_mask=np.ones(req["input_ids"].shape, bool))
+
+
+def raw_videos(n: int, frames: int = 32, hw=(360, 640), seed: int = 20):
+    """``n`` seeded uint8 videos of ``frames`` decoded frames each, as
+    ``process_video(processor=None)`` hands them over: (t, h, w, 3)."""
+    from hicom_tpu_torch.data.video import process_video
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        coarse = rng.integers(0, 256, (frames, hw[0] // 8, hw[1] // 8, 3)).astype(np.float32)
+        video = np.repeat(np.repeat(coarse, 8, axis=1), 8, axis=2)
+        video = np.clip(video + rng.normal(0, 10, video.shape), 0, 255).astype(np.uint8)
+        out.append(process_video(video, None, num_frames=None))
+    return out
+
+
+def quant_ops_checks(card: str):
+    """[quant-ops]: the int8 routes at the main paths' shapes. ``int8_matmul``
+    (``torch._int_mm``) at the tower MLP (23,328 x 1152 -> 4304) and at decode
+    (1 and 2 rows, padded to 17) is held bit-equal on the int32 sums to the
+    exact float64 product of the same codes on the card; ``QuantLinear`` and
+    ``QuantLinear4`` against ``F.linear`` over their dequantized weight (the
+    kernels' agreement rule); the device preprocess of 32 frames of 360x640
+    against the CPU's run of the same frames. Each line gives its time beside
+    ``torch.matmul`` in bf16 at the same shape."""
+    import torch
+    from torch.nn import functional as F
+
+    from hicom_tpu_torch.data.processor import SiglipImagePreprocessor
+    from hicom_tpu_torch.data.video import process_video
+    from hicom_tpu_torch.models import quant as Q
+    from hicom_tpu_torch.ops.preprocess import DeviceSiglipPreprocessor
+
+    dev = DEVICE
+    gen = torch.Generator(dev).manual_seed(30)
+    for rows, k, n, what in ((23328, 1152, 4304, "tower fc1"), (23328, 4304, 1152, "tower fc2"),
+                             (1, 3584, 18944, "decode gate/up, 1 row"), (2, 3584, 18944, "decode gate/up, 2 rows"),
+                             (2, 18944, 3584, "decode down, 2 rows")):
+        x = torch.randn(rows, k, generator=gen, device=dev, dtype=torch.bfloat16)
+        w = torch.randn(n, k, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
+        xq, sx = Q.quantize_rows(x)
+        wq, ws = Q.quantize_int8_weight(w)
+        acc = Q.int8_matmul(xq, wq)
+        exact = (xq.double() @ wq.double().t()).to(torch.int32)
+        equal = torch.equal(acc, exact)
+        lin = Q.W8A8Linear(k, n, False, torch.bfloat16).to(dev)
+        lin.weight_q, lin.weight_scale = wq, ws
+        ms_int, ms_bf16 = cuda_ms(lambda: Q.int8_matmul(xq, wq)), cuda_ms(lambda: torch.matmul(x, w.t()))
+        ms_lin = cuda_ms(lambda: lin(x))
+        log(f"[quant-ops] {card} | int8_matmul {what} ({rows} x {k} -> {n}): int32 sums bit-equal to the exact "
+            f"product {equal} | _int_mm {ms_int:.4f} ms, W8A8Linear (quantize + _int_mm + epilogue) {ms_lin:.4f} ms,"
+            f" bf16 torch.matmul {ms_bf16:.4f} ms")
+        if not equal:
+            raise AssertionError(f"[quant-ops] int8_matmul {what} differs from the exact product")
+        del x, w, xq, wq, acc, exact, lin
+    for cls, rows, k, n in ((Q.QuantLinear, 2, 3584, 18944), (Q.QuantLinear4, 2, 3584, 18944),
+                            (Q.QuantLinear, 743, 3584, 18944), (Q.QuantLinear4, 1486, 3584, 18944)):
+        lin = cls(k, n, False, torch.bfloat16).to(dev)
+        w = torch.randn(n, k, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
+        lin.set_weight(w)
+        x = torch.randn(rows, k, generator=gen, device=dev, dtype=torch.bfloat16)
+        if cls is Q.QuantLinear:
+            deq = lin.weight_q.to(torch.bfloat16)
+            ref = lambda: F.linear(x, deq) * lin.weight_scale.to(torch.bfloat16)  # noqa: E731
+        else:
+            deq = Q.nf4_dequant(lin.weight_nf4, lin.weight_scale, torch.bfloat16)
+            ref = lambda: F.linear(x, deq)  # noqa: E731
+        with torch.no_grad():
+            err, worst, _, _ = agreement(lin(x), ref())
+            ms, ms_bf16 = cuda_ms(lambda: lin(x)), cuda_ms(lambda: torch.matmul(x, w.t()))
+        log(f"[quant-ops] {card} | {cls.__name__} ({rows} x {k} -> {n}) vs F.linear over its dequantized weight: "
+            f"max_abs_err {err:.3g}, worst err/tol {worst:.3f} | {ms:.4f} ms (dequantize + bf16 product), bf16 "
+            f"torch.matmul {ms_bf16:.4f} ms")
+        if worst > 1:
+            raise AssertionError(f"[quant-ops] {cls.__name__} disagrees with its dequantized product")
+        del lin, w, x, deq
+    (video,) = raw_videos(1)
+    host = DeviceSiglipPreprocessor(device="cpu")(video)["pixel_values"]
+    proc = DeviceSiglipPreprocessor(device=dev)
+    got = proc(video)["pixel_values"]
+    diff = (got.cpu() - host).abs()
+    off = (diff > 1e-6).float().mean().item()
+    ms = cuda_ms(lambda: proc(video))
+    t0 = time.perf_counter()
+    process_video(video, SiglipImagePreprocessor(size=(384, 384)), num_frames=None)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"[quant-ops] {card} | device preprocess, 32 frames 360x640 uint8 -> (32, 3, 384, 384) fp32: "
+        f"max |diff| vs the CPU run {diff.max().item():.4g} (one uint8 level = {2 / 255:.4g}), pixels off "
+        f"{off:.2e} (tol 1e-3) | {ms:.3f} ms with the upload (TF32 allowed: "
+        f"{torch.backends.cuda.matmul.allow_tf32}); the host SiglipImagePreprocessor {host_ms:.1f} ms")
+    if diff.max().item() > 2 / 255 * 1.001 or off > 1e-3:
+        raise AssertionError("[quant-ops] the device preprocess disagrees with the CPU's")
+    torch.cuda.empty_cache()
+
+
+def quant_config(cfg, text=None, vision=None):
+    import dataclasses
+
+    return cfg.replace(text_config=dataclasses.replace(cfg.text_config, quantization=text),
+                       vision_config=dataclasses.replace(cfg.vision_config, quantization=vision))
+
+
+def cpu_copy(model):
+    """The model's weights (codes, scales, calibrated scales) in a CPU model."""
+    import torch
+
+    from hicom_tpu_torch.models.hicom import HIComModel
+
+    with torch.device("meta"):
+        cpu = HIComModel(model.hicom_config)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True, assign=True)
+    return cpu.eval()
+
+
+def quant_cpu_parity(label: str, text: str, vision=None):
+    """The gate of a quantized serving phase: at 7B width with 2 tower and 2
+    decoder layers, the card's last-token logits against the port's plain
+    CPU path on the same weights (a static model calibrated first, on the
+    card, by its first request): an 8-frame request, the rule of the 2-layer
+    kernel-vs-plain check (5% of the largest logit)."""
+    import torch
+
+    from hicom_tpu_torch.api import HICom, build_model
+
+    cfg = quant_config(serving_config(layers=2), text, vision)
+    model = build_model(cfg, device=DEVICE, seed=2)
+    _, single = make_requests(cfg, seed=3)
+    single = with_mask(dict(single, frames=single["frames"][:, :8]))
+    hc = HICom(config=cfg, model=model, eos_token_id=cfg.text_config.eos_token_id, cache_len=1024)
+    hc.generate(**{k: v for k, v in single.items() if k != "attention_mask"}, max_new_tokens=1)
+    got = last_logits(model, single)
+    t0 = time.perf_counter()
+    ref = last_logits(cpu_copy(model), single)
+    cpu_s = time.perf_counter() - t0
+    err = (got.cpu() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    log(f"[{label}] 2-layer last-token logits, card vs the plain CPU path on the same weights: max_abs_err "
+        f"{err:.3g} (tol {0.05 * scale:.3g}, max |logit| {scale:.3g}), top-1 {int(got.argmax())} vs "
+        f"{int(ref.argmax())}, CPU path {cpu_s:.1f} s")
+    if not (torch.isfinite(got).all() and scale > 0 and err <= 0.05 * scale):
+        raise AssertionError(f"[{label}] the card's quantized logits disagree with the CPU plain path")
+    del model, hc
+    torch.cuda.empty_cache()
+
+
+def decoder_bytes(model):
+    """(bytes of the decoder layers' tensors, bytes of embeddings + head)."""
+    layers = sum(t.numel() * t.element_size() for n, t in model.state_dict().items() if n.startswith("model.layers."))
+    ends = sum(t.numel() * t.element_size() for n, t in model.state_dict().items()
+               if n.startswith(("model.embed_tokens", "lm_head", "model.norm")))
+    return layers, ends
+
+
+def serve_quant_phase(card: str, label: str, text: str, vision=None):
+    """[serve-int8] / [serve-w8a8]: HICom-7B at full width and depth with the
+    decoder (and tower) quantized, built from the seeded float weights of
+    [slice], fed 3 raw uint8 videos of 32 frames of 360x640 through
+    ``process_video(processor=None)`` and ``DeviceSiglipPreprocessor`` for
+    [slice]'s 3 requests; a static model calibrates on its first request.
+    Prints the stage times, TTFT, decode rate, peak memory and decoder bytes,
+    and (int8) the bf16 model's logits beside these. Returns the launches."""
+    import torch
+
+    from hicom_tpu_torch.api import HICom, build_model
+    from hicom_tpu_torch.data.processor import SiglipImagePreprocessor
+    from hicom_tpu_torch.data.video import process_video
+    from hicom_tpu_torch.models import quant as Q
+    from hicom_tpu_torch.ops.preprocess import DeviceSiglipPreprocessor
+
+    cfg = quant_config(serving_config(), text, vision)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    layer_b, end_b = decoder_bytes(model)
+    log(f"[{label}] built HICom-7B, decoder {text}, tower {vision or 'bf16'}, from the seeded float weights in "
+        f"{time.perf_counter() - t0:.1f} s, peak {build_peak:.2f} GB while building | decoder layers "
+        f"{layer_b / 1e9:.3f} GB, embeddings + head {end_b / 1e9:.3f} GB")
+    hc = HICom(config=cfg, model=model, eos_token_id=cfg.text_config.eos_token_id, cache_len=4096)
+    pre = DeviceSiglipPreprocessor(out_dtype=torch.bfloat16, device=hc.device)
+    raws = raw_videos(3)
+    batch, single = make_requests(cfg)
+    pix = lambda i: pre(raws[i])["pixel_values"]  # noqa: E731
+    qbatch = dict(batch, frames=None)
+    qsingle = dict(single, frames=None)
+
+    def run(req, idx, n):
+        frames = torch.stack([pix(i) for i in idx]) if len(idx) > 1 else pix(idx[0])[None]
+        return hc.generate(**dict(req, frames=frames), max_new_tokens=n)
+
+    t0 = time.perf_counter()
+    run(qsingle, [2], 2)  # warm-up; a static model calibrates here
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out2 = run(qbatch, [0, 1], 16)
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out1 = run(qsingle, [2], 16)
+    t_single = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in fns.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{label}] launches over the 3 requests: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[{label}] the quantized path never launched a kernel: {launches}")
+    vocab = cfg.text_config.vocab_size
+    for out in (out2, out1):
+        if not (out.min() >= 0 and out.max() < vocab):
+            raise AssertionError(f"[{label}] generated ids out of range: {out}")
+    log(f"[{label}] batch of 2 ids: {out2.tolist()} | single ids: {out1.tolist()}")
+    ttfts = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run(qsingle, [2], 1)
+        ttfts.append(time.perf_counter() - t0)
+    decode_tps, stages = stage_breakdown(hc, single, frames_fn=lambda: pix(2)[None], label=f"{label}-stages")
+    t0 = time.perf_counter()
+    process_video(raws[2], SiglipImagePreprocessor(size=(384, 384)), num_frames=None)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"[{label}] {card} | 3 requests (32 raw frames of 360x640 each, 16 new tokens): first request "
+        f"{first_s:.2f} s{' (with the calibration)' if text.startswith('w8a8s') else ''}, batch-of-2 request "
+        f"{t_batch:.3f} s, single request {t_single:.3f} s | TTFT {min(ttfts) * 1e3:.1f} ms (from uint8 frames on "
+        f"the host) | decode {decode_tps:.1f} tokens/s (single stream) | peak memory {peak_gb:.2f} GB | host "
+        f"SiglipImagePreprocessor for the same 32 frames {host_ms:.1f} ms")
+    ref = BF16_REFERENCE.get("logits")
+    if ref is not None:
+        got = last_logits(model, with_mask(single)).cpu()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        log(f"[{label}] the single request's last-token logits vs the bf16 model's (the same float weights, "
+            f"float frames): top-1 {int(got.argmax())} vs {int(ref.argmax())} (agree "
+            f"{bool(got.argmax() == ref.argmax())}), max |diff| / max |logit| {rel:.4f} | vision tower "
+            f"{stages['vision tower']:.1f} ms vs bf16 {BF16_REFERENCE['tower_ms']:.1f} ms")
+    sites = Q.calibration_sites(model)
+    if sites:
+        smooth = [m.act_smooth for m in sites.values()]
+        folded = sum(int(bool((s != 1).any())) for s in smooth)
+        unit = sum(int(bool(m.act_scale == 1)) for m in sites.values())
+        log(f"[{label}] calibration: {len(sites)} static sites filled ({unit} left at act_scale 1), "
+            f"{folded} took the SmoothQuant fold | vision tower {stages['vision tower']:.1f} ms vs the bf16 "
+            f"tower's {BF16_REFERENCE.get('tower_ms', float('nan')):.1f} ms")
+        if unit or not (hc.tower_calibrated and hc.decoder_calibrated):
+            raise AssertionError(f"[{label}] the first request did not calibrate every static site")
+    del model, hc, pre
+    torch.cuda.empty_cache()
+    quant_cpu_parity(label, text, vision)
+    return launches
+
+
+def write_word_tokenizer(path: str, vocab: int, eos: int):
+    """A WordLevel tokenizer over the model's whole vocabulary (``w<id>``),
+    written with ``tokenizers`` for ``transformers.AutoTokenizer``."""
+    import os
+
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    words = {"<unk>": 0, "<pad>": 1}
+    words.update({f"w{i}": i for i in range(2, vocab)})
+    tk = Tokenizer(models.WordLevel(words, unk_token="<unk>"))
+    tk.pre_tokenizer = pre_tokenizers.Whitespace()
+    tk.save(os.path.join(path, "tokenizer.json"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "unk_token": "<unk>", "pad_token": "<pad>",
+                   "eos_token": f"w{eos}",
+                   "chat_template": "{% for m in messages %}w7 {{ m['content'] }} w8 {% endfor %}"
+                                    "{% if add_generation_prompt %}w9{% endif %}"}, f)
+
+
+MODEL_INIT_FLAGS = (("load_8bit", dict(load_8bit=True)), ("load_4bit", dict(load_4bit=True)),
+                    ("dec_quant=w8a8_mlp", dict(dec_quant="w8a8_mlp")), ("dec_quant=w8a8s", dict(dec_quant="w8a8s")),
+                    ("load_w8a8_tower=True", dict(load_w8a8_tower=True)),
+                    ("load_w8a8_tower=w8a8s_mlp", dict(load_w8a8_tower="w8a8s_mlp")))
+
+
+def model_init_phase(card: str):
+    """[model-init]: at 7B width with 2 tower and 2 decoder layers (8 frames),
+    the port exports a seeded checkpoint (fp16 safetensors, a tower directory
+    for its geometry) and a WordLevel tokenizer over its vocabulary, under
+    ``build/``; then ``model_init(..., device_preprocess=True)`` + ``mm_infer``
+    on raw uint8 frames runs under each quantization flag on the card and on
+    the CPU (``device="cpu"``, the plain path), and the two strings must be
+    equal. Returns the launches on the card."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from hicom_tpu_torch.api import build_model, mm_infer, model_init
+    from hicom_tpu_torch.weights import export_hf_checkpoint
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_model_init")
+    shutil.rmtree(root, ignore_errors=True)
+    tower, ckpt = os.path.join(root, "siglip-so400m-2-layers"), os.path.join(root, "hicom-7b-width-2-layers")
+    os.makedirs(tower)
+    cfg = serving_config(layers=2).replace(num_frames=8, mm_vision_tower=tower)
+    with open(os.path.join(tower, "config.json"), "w") as f:
+        json.dump({"model_type": "siglip", "vision_config": dataclasses.asdict(cfg.vision_config),
+                   "text_config": dataclasses.asdict(cfg.guide_text_config)}, f)
+    model = build_model(cfg, device=DEVICE, seed=11)
+    export_hf_checkpoint(model.state_dict(), cfg, ckpt)
+    del model
+    torch.cuda.empty_cache()
+    tc = cfg.text_config
+    write_word_tokenizer(ckpt, tc.vocab_size, tc.eos_token_id)
+    (video,) = raw_videos(1, frames=8, seed=21)
+    gids = np.random.default_rng(22).integers(0, cfg.guide_text_config.vocab_size, (1, 64))
+    question = "w100 w2000 w30000 w151000"
+    total = {}
+    for name, flags in MODEL_INIT_FLAGS:
+        strings = {}
+        for device in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            hc, proc, tok = model_init(ckpt, device_preprocess=True, device=device, **flags)
+            pixels = proc["video"](video)
+            if device == DEVICE:
+                reset_counts()
+            strings[device] = mm_infer(pixels, question, hc, tok, guide_ids=gids, max_new_tokens=6)
+            if device == DEVICE:
+                launches = {n: f.launches for n, f in counters().items()}
+                for n, v in launches.items():
+                    total[n] = total.get(n, 0) + v
+            strings[device + "_s"] = time.perf_counter() - t0
+            del hc, proc
+            torch.cuda.empty_cache()
+        log(f"[model-init] {name}: card {strings[DEVICE]!r} ({strings[DEVICE + '_s']:.1f} s with the load), CPU "
+            f"plain path {strings['cpu']!r} ({strings['cpu_s']:.1f} s), launches on the card {launches}")
+        if strings[DEVICE] != strings["cpu"] or not strings["cpu"]:
+            raise AssertionError(f"[model-init] {name}: the card's string differs from the CPU's (or is empty)")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"[model-init] {name}: mm_infer did not run through K1-K4: {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def stage3_qlora_phase(card: str):
+    """[stage3-qlora]: stage 3 with ``--bits 4`` semantics at the full width and
+    depth of HICom-7B: the NF4 decoder (quantized linear by linear as its
+    seeded float weights are drawn), LoRA r 128 alpha 256 on the seven
+    linears, remat, lr 1e-5, 3 steps on the stage-2 batch. The base stays
+    bit-identical; each adapter tensor whose last gradient reaches AdamW's
+    eps in magnitude moved; the flash backward runs once per decoder layer
+    and the forward twice per layer plus once. Prints the peak memory beside
+    ``estimate_qlora_memory``."""
+    import dataclasses
+
+    import torch
+
+    from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.train.lora import estimate_qlora_memory, init_lora_params
+    from hicom_tpu_torch.train.train_step import batch_to_device, create_lora_state, make_lora_train_step
+
+    cfg = serving_config()
+    cfg = quant_config(cfg.replace(text_config=dataclasses.replace(cfg.text_config, remat=True),
+                                   vision_config=dataclasses.replace(cfg.vision_config, remat=True)), "nf4")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=DEVICE, seed=0)
+    lora = init_lora_params(model, rank=128, generator=torch.Generator(DEVICE).manual_seed(0))
+    state = create_lora_state(model, lora, alpha=256.0, rank=128, learning_rate=1e-5, total_steps=TRAIN_STEPS + 2)
+    del lora
+    n_adapter = sum(p.numel() for p in state.lora.parameters())
+    base = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    base_bytes = sum(t.numel() * t.element_size() for t in base.values())
+    log(f"[stage3-qlora] HICom-7B, NF4 decoder, remat on: {len(state.lora.names)} adapted linears, "
+        f"{n_adapter / 1e6:.1f} M adapter parameters (fp32), frozen base {base_bytes / 1e9:.2f} GB")
+    base_before = {n: t.detach().to("cpu", copy=True) for n, t in base.items()}
+    before = {n: p.detach().clone() for n, p in state.lora.named_parameters()}
+    batch = batch_to_device(make_train_batch(cfg), torch.device(DEVICE), torch.bfloat16)
+    step = make_lora_train_step()
+    reset_counts()
+    times, metrics, fwd, bwd = run_steps(state, step, batch)
+    launches = log_steps("stage3-qlora", card, f"HICom-7B stage 3 QLoRA (NF4 base, r 128, {n_adapter / 1e6:.1f} M "
+                         "adapter parameters), remat", model, cfg, batch, times, metrics, fwd, bwd)
+    spliced = batch["input_ids"].shape[0] * (batch["input_ids"].shape[1] - 1 + model.visual_token_count(
+        cfg.num_frames, "video"))
+    est = estimate_qlora_memory(cfg.text_config, bits=4, rank=128, batch_tokens=spliced)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[stage3-qlora] peak memory {peak:.2f} GiB vs estimate_qlora_memory (bits 4, r 128, {spliced} tokens): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in est.items() if k.endswith("_gib"))
+        + " (the estimate leaves out the towers, the projector and the tower's activations)")
+    n_layers = cfg.text_config.num_hidden_layers
+    if bwd != [n_layers] * TRAIN_STEPS or fwd != [2 * n_layers + 1] * TRAIN_STEPS:
+        raise AssertionError(f"[stage3-qlora] flash backward {bwd}, forward {fwd} per step, not {n_layers} and "
+                             f"{2 * n_layers + 1}")
+    changed = [n for n, t in base.items() if not torch.equal(t.detach().cpu(), base_before[n])]
+    eps = state.optimizer.defaults["eps"]
+    params = dict(state.lora.named_parameters())
+    reach = [n for n, p in params.items() if p.grad is not None and p.grad.abs().max().item() >= eps]
+    still = [n for n in reach if torch.equal(params[n].detach(), before[n])]
+    if changed or still or not reach:
+        raise AssertionError(f"[stage3-qlora] {len(changed)} base tensors changed (e.g. {changed[:3]}), {len(still)} "
+                             f"adapter tensors with a gradient >= eps unmoved (e.g. {still[:3]})")
+    log(f"[stage3-qlora] checks: {len(base_before)} base tensors bit-identical; {len(reach)} of {len(params)} adapter "
+        f"tensors had a gradient >= eps ({eps}) and all moved")
+    state.lora.detach()
+    del model, state, base, base_before, before, batch, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1325,9 +1794,16 @@ def main() -> int:
         + " ".join(f"{k}={v:.1f}s" for k, v in seconds.items()))
 
     records = kernel_checks(card)
+    quant_ops_checks(card)
     # each phase's launches by wrapper, counted from 0 just before it runs
-    launches = {"serve": main_path(card), "train": train_phase(card), "stage3-lora": stage3_lora_phase(card),
-                "stage3-sft": stage3_sft_phase(card)}
+    launches = {"serve": main_path(card)}
+    launches["serve-int8"] = serve_quant_phase(card, "serve-int8", "int8")
+    launches["serve-w8a8"] = serve_quant_phase(card, "serve-w8a8", "w8a8s", "w8a8s_mlp_qkv")
+    launches["model-init"] = model_init_phase(card)
+    launches["train"] = train_phase(card)
+    launches["stage3-lora"] = stage3_lora_phase(card)
+    launches["stage3-qlora"] = stage3_qlora_phase(card)
+    launches["stage3-sft"] = stage3_sft_phase(card)
     plain_vs_kernel_logits()
     plain_vs_kernel_grads()
     cli_phase(card)

@@ -1,4 +1,4 @@
-"""Public inference API of the port: ``load_model``, ``build_model``, ``HICom.generate``, ``mm_infer``.
+"""Public inference API of the port: ``model_init``, ``load_model``, ``build_model``, ``HICom.generate``, ``mm_infer``.
 
 Port of the single-request surface of ``hicom_tpu/api.py``. ``load_model``
 reads the reference's checkpoint layouts: SFT (decoder, SigLIP towers and
@@ -8,7 +8,18 @@ pretrain (``model_base`` + ``mm_projector.bin``) and LoRA (``model_base`` +
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``;
 without a card and without ``device`` they raise rather than fall back.
 Weights are read by the port's own safetensors reader; ``transformers`` is
-imported only inside ``load_model``, for the guide tokenizer.
+imported only inside ``load_model`` and ``model_init``, for the tokenizers.
+
+Quantized serving (``models/quant.py``): ``load_model``'s ``load_8bit``,
+``load_4bit``, ``dec_quant`` and ``load_w8a8_tower`` quantize a float
+checkpoint at load, linear by linear on the model's device (codes bit-equal
+to the JAX package's host converters, without a float copy of the model on
+the card). Static ``w8a8s*`` modes keep fp16 host copies of the converted
+weights until their one-time calibration (``HICom.calibrate_tower`` /
+``calibrate_decoder``, run by ``generate`` on the first frames it sees), whose
+SmoothQuant refit starts from them. ``model_init(...,
+device_preprocess=True)`` preprocesses videos on the device
+(``ops/preprocess.py``): the host only decodes frames.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from . import weights as W
 from .config import HIComConfig, tower_configs
 from .constants import DEFAULT_IMAGE_TOKEN, DEFAULT_VIDEO_TOKEN
 from .data.prompts import tokenizer_multimodal_token
+from .models import quant as Q
 from .models.generate import generate_tokens, keyword_token_sequences
 from .models.hicom import HIComModel
 
@@ -41,16 +53,40 @@ def resolve_device(device=None) -> torch.device:
 
 def build_model(config: HIComConfig, device=None, seed: int = 0, std: float = 0.02) -> HIComModel:
     """A model with every weight drawn from N(0, std) by a seeded generator on
-    ``device`` (no host copy of the weights is ever made)."""
+    ``device`` (no host copy of the weights is ever made). A quantized config
+    draws the float model's weights in the float model's order, so the same
+    seed gives the same float weights, and quantizes each converted linear's
+    weight on ``device`` as it is drawn: no full float model is resident."""
+    import dataclasses
+
     device = resolve_device(device)
+    float_cfg = config.replace(
+        text_config=dataclasses.replace(config.text_config, quantization=None),
+        vision_config=dataclasses.replace(config.vision_config, quantization=None))
     with torch.device("meta"):
         model = HIComModel(config)
+        plain = HIComModel(float_cfg) if float_cfg != config else model
     model.to_empty(device=device)
     gen = torch.Generator(device).manual_seed(seed)
+    own = dict(model.named_parameters())
     with torch.no_grad():
-        for p in model.parameters():
-            p.normal_(0.0, std, generator=gen)
+        for name, p in plain.named_parameters():
+            if name in own:
+                own[name].normal_(0.0, std, generator=gen)
+            else:  # a converted linear's weight
+                w = torch.empty(p.shape, dtype=p.dtype, device=device).normal_(0.0, std, generator=gen)
+                model.get_submodule(name[: -len(".weight")]).set_weight(w)
+                del w
+        for m in model.modules():
+            for buf in ("act_scale", "act_smooth"):
+                if isinstance(getattr(m, buf, None), torch.Tensor):
+                    getattr(m, buf).fill_(1.0)
     return model.eval()
+
+
+def _as_frames(frames):
+    """Frames as given when a tensor (kept on its device), else a numpy array."""
+    return frames if isinstance(frames, torch.Tensor) else np.asarray(frames)
 
 
 @dataclass
@@ -62,15 +98,119 @@ class HICom:
     guide_tokenizer: Any = None
     eos_token_id: Optional[int] = None
     cache_len: int = 4096
+    # static-quant state: fp16 host copies of the converted weights by module
+    # name (freed by the calibration they feed) and whether each part is calibrated
+    fp_tower_weights: Optional[dict] = None
+    fp_decoder_weights: Optional[dict] = None
+    tower_calibrated: bool = False
+    decoder_calibrated: bool = False
 
     @property
     def device(self) -> torch.device:
         return self.model.model.norm.weight.device
 
+    def _to_dev(self, x, dt=None):
+        """numpy or host data -> a tensor on the model's device; a tensor
+        already there (and of ``dt``) is used as it is, without a copy."""
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, dtype=dt)
+        return torch.as_tensor(np.asarray(x), device=self.device, dtype=dt)
+
+    def _calibrate(self, prefix: str, run, fp_weights: Optional[dict]) -> None:
+        """Run ``run`` with the static sites under ``prefix`` in calibration
+        mode, then write the scales :func:`models.quant.fill_act_scales`
+        computes from what they recorded into the model."""
+        model = self.model
+        sites = Q.calibration_sites(model, prefix)
+        for m in sites.values():
+            m.reset_calibration()
+            m.calibrate = True
+        try:
+            with torch.inference_mode():
+                run()
+        finally:
+            for m in sites.values():
+                m.calibrate = False
+        calib = {}
+        for name, m in sites.items():
+            if m.act_amax is not None:
+                calib[f"{name}.act_amax"], calib[f"{name}.act_amax_ch"] = m.act_amax.clone(), m.act_amax_ch.clone()
+            m.reset_calibration()
+        keys = [k for k in model.state_dict() if k.startswith(prefix) and
+                k.endswith(("weight_q", "weight_scale", "act_scale", "act_smooth"))]
+        with torch.no_grad():
+            params = {k: model.get_buffer(k) for k in keys}
+            for k, v in Q.fill_act_scales(params, calib, fp_params=fp_weights).items():
+                if v is not params[k]:  # a site's new scales or refitted codes
+                    params[k].copy_(v)
+
+    def calibrate_tower(self, frames, guide_ids=None, modal: str = "video") -> None:
+        """Fill a static-quant tower's activation scales (``w8a8s*``) from one
+        calibration forward of the guide encoder, tower and projector over
+        ``frames`` (b, t, 3, H, W); frees the fp16 weight copies it refits from."""
+        model, dt = self.model, self.model.model.norm.weight.dtype
+        f = self._to_dev(frames, dt)
+        g = self._to_dev(guide_ids, torch.int64) if guide_ids is not None and self.config.guide_enabled() else None
+
+        def run():
+            ge = model.encode_guide(g) if g is not None else None
+            model.encode_visual(f, ge, modal)
+
+        self._calibrate(Q.TOWER_PREFIX, run, self.fp_tower_weights)
+        self.fp_tower_weights = None
+        self.tower_calibrated = True
+
+    def calibrate_decoder(self, input_ids, frames, guide_ids=None, modal: str = "video") -> None:
+        """Fill a static-quant decoder's activation scales (``w8a8s*``) from
+        one calibration prefill through the real pipeline: guide encoder,
+        tower and projector, splice, decoder and the last token's logits, as
+        the JAX package runs it (no padding mask). Run after the tower's, so
+        the visual tokens carry serving numerics."""
+        model, dt = self.model, self.model.model.norm.weight.dtype
+        ids = self._to_dev(input_ids, torch.int64)
+        f = self._to_dev(frames, dt)
+        g = self._to_dev(guide_ids, torch.int64) if guide_ids is not None and self.config.guide_enabled() else None
+
+        def run():
+            ge = model.encode_guide(g) if g is not None else None
+            sp = model.embed_and_splice(ids, model.encode_visual(f, ge, modal))
+            hidden = model.model(sp.embeds, sp.positions)
+            model.logits(hidden[:, -1:])
+
+        self._calibrate("model.layers.", run, self.fp_decoder_weights)
+        self.fp_decoder_weights = None
+        self.decoder_calibrated = True
+
+    def _calibration_slice(self, frames, guide_ids):
+        """The first 8 frames of the first row, and its guide ids."""
+        f = _as_frames(frames)
+        if f.ndim == 4:
+            f = f[None]
+        g = _as_frames(guide_ids)[:1] if guide_ids is not None else None
+        return f[:1, : min(8, f.shape[1])], g
+
+    def _maybe_autocalibrate(self, frames, guide_ids, modal: str) -> None:
+        """A static-quant tower calibrates once, on the first frames it sees."""
+        quant = self.config.vision_config.quantization
+        if self.tower_calibrated or frames is None or not (quant or "").startswith("w8a8s"):
+            return
+        self.calibrate_tower(*self._calibration_slice(frames, guide_ids), modal=modal)
+
+    def _maybe_autocalibrate_decoder(self, input_ids, frames, guide_ids, modal: str) -> None:
+        """A static-quant decoder calibrates once, on the first multimodal
+        prompt, after the tower."""
+        quant = self.config.text_config.quantization
+        if self.decoder_calibrated or frames is None or not (quant or "").startswith("w8a8s"):
+            return
+        f, g = self._calibration_slice(frames, guide_ids)
+        self.calibrate_decoder(_as_frames(input_ids)[:1], f, guide_ids=g, modal=modal)
+
     def generate(
         self,
         input_ids: np.ndarray,
-        frames: Optional[np.ndarray] = None,
+        frames=None,
         guide_ids: Optional[np.ndarray] = None,
         guide_mask: Optional[np.ndarray] = None,
         attention_mask: Optional[np.ndarray] = None,
@@ -82,9 +222,14 @@ class HICom:
         seed: int = 0,
         stop_sequences: tuple = (),
     ) -> np.ndarray:
-        """(b, L) prompt ids with one modal sentinel -> (b, max_new_tokens) ids."""
+        """(b, L) prompt ids with one modal sentinel -> (b, max_new_tokens) ids.
+        ``frames`` may be a tensor already on the model's device (the device
+        preprocessor's output): it is used as it is."""
         dev = self.device
         dtype = self.model.model.norm.weight.dtype
+        if frames is not None:
+            self._maybe_autocalibrate(frames, guide_ids, modal)
+            self._maybe_autocalibrate_decoder(input_ids, frames, guide_ids, modal)
         temp = float(temperature) if do_sample else 0.0
         L = input_ids.shape[1]
         V = self.model.visual_token_count(frames.shape[1], modal) if frames is not None else 0
@@ -92,9 +237,7 @@ class HICom:
         need = L + max(V - 1, 0) + max_new_tokens + 8
         cache_len = self.cache_len if need <= self.cache_len else ((need + 1023) // 1024) * 1024
 
-        def to_dev(x, dt=None):
-            return None if x is None else torch.as_tensor(np.asarray(x), device=dev, dtype=dt)
-
+        to_dev = self._to_dev
         gen = torch.Generator(dev).manual_seed(seed)
         out = generate_tokens(
             self.model, to_dev(input_ids, torch.int64), to_dev(frames, dtype), to_dev(guide_ids, torch.int64),
@@ -106,11 +249,19 @@ class HICom:
 
 
 def load_model(model_path: str, dtype: str = "bfloat16", cache_len: int = 4096, device=None,
-               kv_cache_int8: bool = False, model_base: Optional[str] = None) -> HICom:
+               kv_cache_int8: bool = False, model_base: Optional[str] = None, load_8bit: bool = False,
+               load_4bit: bool = False, dec_quant: Optional[str] = None, load_w8a8_tower=False) -> HICom:
     """Load a checkpoint directory onto ``device``: an SFT checkpoint, or with
     ``model_base`` (the base LLM directory) a pretrain artifact
     (``mm_projector.bin``) or a LoRA artifact (``adapter_config.json``), the
-    towers of the last two read from ``config.mm_vision_tower``."""
+    towers of the last two read from ``config.mm_vision_tower``.
+
+    Quantization, as the JAX package's ``load_model`` takes it: at most one of
+    ``load_8bit`` (``dec_quant="int8"``), ``load_4bit`` (``"nf4"``) and
+    ``dec_quant`` (``int8``, ``nf4``, ``w8a8``, ``w8a8_mlp``, ``w8a8s``,
+    ``w8a8s_mlp``); ``load_w8a8_tower`` True for the tower's ``w8a8`` or a
+    tower mode string. Static ``w8a8s*`` modes calibrate on the first frames
+    ``generate`` sees."""
     import dataclasses
 
     device = resolve_device(device)
@@ -119,8 +270,14 @@ def load_model(model_path: str, dtype: str = "bfloat16", cache_len: int = 4096, 
     cfg = HIComConfig.from_hf_dict(raw_cfg)
     vision_cfg, guide_cfg = tower_configs(cfg.mm_vision_tower)
     cfg = cfg.replace(vision_config=vision_cfg, guide_text_config=guide_cfg, dtype=dtype)
-    if kv_cache_int8:
-        cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, kv_cache_int8=True))
+    if sum(map(bool, (load_8bit, load_4bit, dec_quant))) > 1:
+        raise ValueError("pick one decoder quantization (load_8bit / load_4bit / dec_quant)")
+    dec_quant = "int8" if load_8bit else "nf4" if load_4bit else dec_quant
+    tower_quant = (load_w8a8_tower if isinstance(load_w8a8_tower, str) else "w8a8") if load_w8a8_tower else None
+    Q.check_modes(dec_quant, tower_quant)
+    cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, kv_cache_int8=kv_cache_int8,
+                                                      quantization=dec_quant),
+                      vision_config=dataclasses.replace(cfg.vision_config, quantization=tower_quant))
 
     is_pretrain = os.path.exists(os.path.join(model_path, "mm_projector.bin"))
     is_lora = os.path.exists(os.path.join(model_path, "adapter_config.json"))
@@ -154,9 +311,18 @@ def load_model(model_path: str, dtype: str = "bfloat16", cache_len: int = 4096, 
         if "logit_scale" in tower_sd and f"model.mm_projector.{side}_logit_scale" not in sd:
             sd[f"model.mm_projector.{side}_logit_scale"] = tower_sd["logit_scale"].reshape(())
             sd[f"model.mm_projector.{side}_logit_bias"] = tower_sd["logit_bias"].reshape(())
+    # quantize at load (after any LoRA merge), linear by linear on the model's device
+    fp_dec = fp_tower = None
+    if dec_quant:
+        fp_dec = Q.prune_fp_kernels(sd, dec_quant, targets=Q.decoder_quant_targets(dec_quant)) or None
+        sd = Q.quantize_decoder_params(sd, dec_quant, device=device)
+    if tower_quant:
+        fp_tower = Q.prune_fp_kernels(sd, tower_quant) or None
+        sd = Q.quantize_tower_params(sd, tower_quant, device=device)
     with torch.device("meta"):
         model = HIComModel(cfg)
     model.load_state_dict(W.model_state_dict(model, sd), strict=True, assign=True)
+    del sd
     model = model.to(device).eval()
 
     guide_tok = None
@@ -173,7 +339,55 @@ def load_model(model_path: str, dtype: str = "bfloat16", cache_len: int = 4096, 
     eos = raw_cfg.get("eos_token_id", cfg.text_config.eos_token_id)
     if isinstance(eos, list):
         eos = eos[0]
-    return HICom(config=cfg, model=model, guide_tokenizer=guide_tok, eos_token_id=eos, cache_len=cache_len)
+    return HICom(config=cfg, model=model, guide_tokenizer=guide_tok, eos_token_id=eos, cache_len=cache_len,
+                 fp_tower_weights=fp_tower, fp_decoder_weights=fp_dec)
+
+
+def model_init(model_path: str, model_base: Optional[str] = None, device_preprocess: Optional[bool] = None,
+               **kwargs):
+    """The reference-compatible entry: (model, processor dict, tokenizer).
+
+    ``kwargs`` go to :func:`load_model` (``device``, the quantization flags,
+    ...). The tokenizer is read with ``transformers.AutoTokenizer`` from
+    ``model_path`` when it holds one, else from ``model_base``.
+    ``device_preprocess`` (default: env ``HICOM_DEVICE_PREPROCESS == "1"``)
+    gives videos the device preprocessor (``ops/preprocess.py``; on the
+    model's device, in its dtype) when ``image_aspect_ratio == "pad"``: the
+    host only decodes frames and ``mm_infer`` takes the device tensor as it
+    is. Images keep the host path."""
+    from functools import partial
+
+    from transformers import AutoTokenizer
+
+    from .data.image import process_image
+    from .data.processor import SiglipImagePreprocessor
+    from .data.video import process_video
+    from .models.hicom import torch_dtype
+
+    model = load_model(model_path, model_base=model_base, **kwargs)
+    tok_path = model_path if os.path.exists(os.path.join(model_path, "tokenizer_config.json")) else model_base
+    tokenizer = AutoTokenizer.from_pretrained(tok_path)
+    if tokenizer.pad_token is None and tokenizer.unk_token is not None:
+        tokenizer.pad_token = tokenizer.unk_token
+
+    cfg = model.config
+    size = (cfg.vision_config.image_size, cfg.vision_config.image_size)
+    image_processor = SiglipImagePreprocessor(size=size)
+    if device_preprocess is None:
+        device_preprocess = os.environ.get("HICOM_DEVICE_PREPROCESS", "") == "1"
+    video_processor = image_processor
+    if device_preprocess and cfg.image_aspect_ratio == "pad":
+        from .ops.preprocess import DeviceSiglipPreprocessor
+
+        video_processor = DeviceSiglipPreprocessor(size=size, out_dtype=torch_dtype(cfg.dtype), device=model.device)
+    processor = {
+        "image": partial(process_image, processor=image_processor, aspect_ratio=cfg.image_aspect_ratio,
+                         image_grid_pinpoints=cfg.image_grid_pinpoints, image_crop_resolution=None,
+                         image_split_resolution=None),
+        "video": partial(process_video, processor=video_processor, aspect_ratio=cfg.image_aspect_ratio,
+                         num_frames=cfg.num_frames),
+    }
+    return model, processor, tokenizer
 
 
 def _pad_to_bucket(ids: np.ndarray, pad_id: int, bucket: int = 64):
@@ -199,7 +413,8 @@ def mm_infer(image_or_video, instruct, model: HICom, tokenizer, modal: str = "vi
              **kwargs) -> str:
     """Single-sample multimodal generation -> response string.
 
-    ``image_or_video``: preprocessed (t, 3, H, W) or (3, H, W) pixels, None for
+    ``image_or_video``: preprocessed (t, 3, H, W) or (3, H, W) pixels (a
+    tensor on the model's device is used as it is), None for
     ``modal="text"``. Guide-mode models take ``guide_ids`` (and ``guide_mask``)
     or ``guide_instruct`` for the guide tokenizer. A multi-crop anyres image
     (and any ``image_size``, which only the anyres merge reads) raises until
@@ -216,7 +431,7 @@ def mm_infer(image_or_video, instruct, model: HICom, tokenizer, modal: str = "vi
 
     frames = None
     if modal != "text":
-        frames = np.asarray(image_or_video)
+        frames = _as_frames(image_or_video)
         if frames.ndim == 3:
             frames = frames[None]
         frames = frames[None]  # (1, t, 3, H, W)

@@ -35,9 +35,9 @@ class SiglipVisionConfig:
     patch_size: int = 14
     layer_norm_eps: float = 1e-6
     hidden_act: str = "gelu_pytorch_tanh"
-    # remat checkpoints each encoder layer under grad mode; scan_layers and
-    # quantization exist so configs round-trip with the JAX package, and the
-    # port runs only scan_layers=False, quantization=None.
+    # remat checkpoints each encoder layer under grad mode; scan_layers exists
+    # so configs round-trip with the JAX package (the port runs it False).
+    # quantization: None or a serving mode of models/quant.TOWER_MODES.
     remat: bool = False
     scan_layers: bool = False
     quantization: Optional[str] = None
@@ -95,9 +95,10 @@ class Qwen2Config:
     eos_token_id: int = 151645
     pad_token_id: int = 151643
     bos_token_id: int = 151643
-    # Kept for config round-trips with the JAX package; the port runs only
-    # quantization=None, scan_layers=False, ring_axis=None. remat checkpoints
-    # each decoder layer of a cache-less forward under grad mode.
+    # quantization: None or a mode of models/quant.DECODER_MODES. Kept for
+    # config round-trips with the JAX package: the port runs only
+    # scan_layers=False, ring_axis=None. remat checkpoints each decoder layer
+    # of a cache-less forward under grad mode.
     quantization: Optional[str] = None
     scan_layers: bool = False
     # int8 KV cache: k/v stored as int8 + per-slot absmax scales, read by the

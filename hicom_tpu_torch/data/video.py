@@ -189,10 +189,12 @@ def process_video(
     video_data = video_data[:cap]
 
     if processor is None:
-        # raw ingest (decoded uint8 frames, preprocessed on the device) needs
-        # the device preprocessor, which is not ported yet
-        raise NotImplementedError("process_video(processor=None) needs ops/preprocess.py "
-                                  "(ROADMAP Queue 1 item 2)")
+        # raw ingest: decoded uint8 frames only (t, h, w, 3); the caller
+        # preprocesses them on the device (ops/preprocess.py), the pad to
+        # square included, so pad bytes never cross the host link
+        from ..ops.preprocess import stack_uint8_frames
+
+        return stack_uint8_frames(video_data)
     if aspect_ratio == "pad" and not getattr(processor, "pads_to_square", False):
         mean255 = tuple(int(x * 255) for x in processor.image_mean)
         video_data = [expand2square(f, mean255) for f in video_data]

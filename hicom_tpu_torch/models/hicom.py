@@ -25,6 +25,7 @@ from torch import nn
 from ..config import HIComConfig
 from .postprocess import num_visual_tokens
 from .projector import HIComProjector
+from .quant import check_modes
 from .qwen2 import Qwen2ForCausalLM, Qwen2Model
 from .siglip import SiglipTextEncoder, SiglipVisionTower
 from .splice import SplicedInputs, splice_visual_embeds
@@ -60,6 +61,8 @@ class HIComModel(Qwen2ForCausalLM):
     def __init__(self, config: HIComConfig):
         if "clip" in (config.mm_vision_tower or "") and "siglip" not in (config.mm_vision_tower or ""):
             raise NotImplementedError("the port carries SigLIP towers only")
+        # a quantization the port does not run raises here rather than build in float
+        check_modes(config.text_config.quantization, config.vision_config.quantization)
         self.hicom_config = config
         super().__init__(config.text_config, dtype=torch_dtype(config.dtype))
 

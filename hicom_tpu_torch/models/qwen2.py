@@ -1,8 +1,11 @@
 """Qwen2/2.5 decoder with a preallocated KV cache, HF state-dict names.
 
-Port of ``hicom_tpu/models/qwen2.py`` (unrolled layers, unquantized weights):
-RMSNorm pre-norm blocks, GQA attention with QKV bias, NeoX rotary embeddings,
-SwiGLU MLP; tied embeddings optional. ``DecoderAttention`` has three modes:
+Port of ``hicom_tpu/models/qwen2.py`` (unrolled layers): RMSNorm pre-norm
+blocks, GQA attention with QKV bias, NeoX rotary embeddings, SwiGLU MLP; tied
+embeddings optional. ``config.quantization`` picks the linears of every layer
+(``models/quant.py``: ``int8``, ``nf4``, ``w8a8``, ``w8a8_mlp``, ``w8a8s``,
+``w8a8s_mlp``); embeddings, norms and ``lm_head`` stay float.
+``DecoderAttention`` has three modes:
 
 * no cache: causal, right padding carried as ``kv_lengths``;
 * ``prefill_from_empty``: the same attention over the new tokens, which are
@@ -31,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import sdpa
 from ..ops.flash_decode import flash_decode
+from .quant import decoder_layer_modes, make_linear
 
 Tensor = torch.Tensor
 
@@ -103,15 +107,15 @@ def apply_rotary(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
 
 
 class DecoderAttention(nn.Module):
-    def __init__(self, cfg, dtype=None):
+    def __init__(self, cfg, dtype=None, quant: Optional[str] = None):
         super().__init__()
         H, KVH, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         self.num_heads, self.num_kv_heads, self.head_dim = H, KVH, hd
         bias = cfg.attention_bias
-        self.q_proj = nn.Linear(cfg.hidden_size, H * hd, bias=bias, dtype=dtype)
-        self.k_proj = nn.Linear(cfg.hidden_size, KVH * hd, bias=bias, dtype=dtype)
-        self.v_proj = nn.Linear(cfg.hidden_size, KVH * hd, bias=bias, dtype=dtype)
-        self.o_proj = nn.Linear(H * hd, cfg.hidden_size, bias=False, dtype=dtype)
+        self.q_proj = make_linear(quant, cfg.hidden_size, H * hd, bias, dtype)
+        self.k_proj = make_linear(quant, cfg.hidden_size, KVH * hd, bias, dtype)
+        self.v_proj = make_linear(quant, cfg.hidden_size, KVH * hd, bias, dtype)
+        self.o_proj = make_linear(quant, H * hd, cfg.hidden_size, False, dtype)
 
     def forward(self, x: Tensor, rope: Tuple[Tensor, Tensor], cache: Optional[KVCache] = None, layer: int = 0,
                 kv_lengths: Optional[Tensor] = None, prefill_from_empty: bool = False,
@@ -158,11 +162,11 @@ class DecoderAttention(nn.Module):
 
 
 class DecoderMLP(nn.Module):
-    def __init__(self, hidden: int, intermediate: int, dtype=None):
+    def __init__(self, hidden: int, intermediate: int, dtype=None, quant: Optional[str] = None):
         super().__init__()
-        self.gate_proj = nn.Linear(hidden, intermediate, bias=False, dtype=dtype)
-        self.up_proj = nn.Linear(hidden, intermediate, bias=False, dtype=dtype)
-        self.down_proj = nn.Linear(intermediate, hidden, bias=False, dtype=dtype)
+        self.gate_proj = make_linear(quant, hidden, intermediate, False, dtype)
+        self.up_proj = make_linear(quant, hidden, intermediate, False, dtype)
+        self.down_proj = make_linear(quant, intermediate, hidden, False, dtype)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -171,10 +175,11 @@ class DecoderMLP(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, cfg, dtype=None):
         super().__init__()
+        attn_q, mlp_q = decoder_layer_modes(cfg.quantization)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype=dtype)
-        self.self_attn = DecoderAttention(cfg, dtype=dtype)
+        self.self_attn = DecoderAttention(cfg, dtype=dtype, quant=attn_q)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype=dtype)
-        self.mlp = DecoderMLP(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
+        self.mlp = DecoderMLP(cfg.hidden_size, cfg.intermediate_size, dtype=dtype, quant=mlp_q)
 
     def forward(self, x, rope, cache=None, layer=0, kv_lengths=None, prefill_from_empty=False, slot_mask=None):
         x = x + self.self_attn(self.input_layernorm(x), rope, cache, layer, kv_lengths, prefill_from_empty,

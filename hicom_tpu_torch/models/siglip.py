@@ -9,6 +9,12 @@ Port of ``hicom_tpu/models/siglip.py`` (bf16/fp32 only):
 * text: token + position embeddings, encoder, final LN, ``head``; pooled =
   ``head`` of the last token, per-token = ``head`` of every token.
 
+``config.quantization`` of the vision tower picks its int8 sites
+(``models/quant.py``): fc1/fc2 of every encoder layer and of the pooling
+head's MLP under every mode, q/k/v over one shared activation quantization
+(``qkv_quant`` for the static modes) under ``w8a8``/``w8a8_mlp_qkv``, and
+out_proj under full ``w8a8``. The text encoder is never quantized.
+
 Attention goes through ``ops.attention``: on the card the tower's unmasked
 self-attention runs the K1 kernel, the text encoder's masked one the plain path.
 With ``remat=True`` in the vision config, each encoder layer run under grad
@@ -26,43 +32,57 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import SiglipTextConfig, SiglipVisionConfig
 from ..ops.attention import multi_head_attention
+from .quant import ActQuant, W8A8LinearQ, make_tower_linear, parse_tower_quant, quant_covers, quantize_rows
 
 Tensor = torch.Tensor
 
 
 class SiglipAttention(nn.Module):
-    def __init__(self, hidden: int, num_heads: int, dtype=None):
+    def __init__(self, hidden: int, num_heads: int, dtype=None, quant: Optional[str] = None):
         super().__init__()
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(hidden, hidden, dtype=dtype)
-        self.k_proj = nn.Linear(hidden, hidden, dtype=dtype)
-        self.v_proj = nn.Linear(hidden, hidden, dtype=dtype)
-        self.out_proj = nn.Linear(hidden, hidden, dtype=dtype)
+        base, static, _ = parse_tower_quant(quant)
+        self.shared_qkv = quant_covers(base, "qkv")
+        if self.shared_qkv:
+            # q/k/v share one quantized input (one activation pass, three int8 products)
+            self.qkv_quant = ActQuant(hidden) if static else None
+            self.q_proj, self.k_proj, self.v_proj = (W8A8LinearQ(hidden, hidden, True, dtype) for _ in range(3))
+        else:
+            self.q_proj, self.k_proj, self.v_proj = (nn.Linear(hidden, hidden, dtype=dtype) for _ in range(3))
+        out_q = ("w8a8s" if static else "w8a8") if quant_covers(base, "out") else None
+        self.out_proj = make_tower_linear(out_q, hidden, hidden, dtype)
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
         head_dim = x.shape[-1] // self.num_heads
-        out = multi_head_attention(self.q_proj(x), self.k_proj(x), self.v_proj(x), self.num_heads,
-                                   scale=head_dim**-0.5, mask=mask)
+        if self.shared_qkv:
+            xq, sx = self.qkv_quant(x) if self.qkv_quant is not None else quantize_rows(x)
+            q, k, v = (p.forward_q(xq, sx) for p in (self.q_proj, self.k_proj, self.v_proj))
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        out = multi_head_attention(q, k, v, self.num_heads, scale=head_dim**-0.5, mask=mask)
         return self.out_proj(out)
 
 
 class SiglipMLP(nn.Module):
-    def __init__(self, hidden: int, intermediate: int, dtype=None):
+    def __init__(self, hidden: int, intermediate: int, dtype=None, quant: Optional[str] = None):
         super().__init__()
-        self.fc1 = nn.Linear(hidden, intermediate, dtype=dtype)
-        self.fc2 = nn.Linear(intermediate, hidden, dtype=dtype)
+        base, static, _ = parse_tower_quant(quant)
+        mode = ("w8a8s" if static else "w8a8") if quant_covers(base, "mlp") else None
+        self.fc1 = make_tower_linear(mode, hidden, intermediate, dtype)
+        self.fc2 = make_tower_linear(mode, intermediate, hidden, dtype)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
 class SiglipEncoderLayer(nn.Module):
-    def __init__(self, hidden: int, intermediate: int, num_heads: int, eps: float, dtype=None):
+    def __init__(self, hidden: int, intermediate: int, num_heads: int, eps: float, dtype=None,
+                 quant: Optional[str] = None):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(hidden, eps=eps, dtype=dtype)
-        self.self_attn = SiglipAttention(hidden, num_heads, dtype=dtype)
+        self.self_attn = SiglipAttention(hidden, num_heads, dtype=dtype, quant=quant)
         self.layer_norm2 = nn.LayerNorm(hidden, eps=eps, dtype=dtype)
-        self.mlp = SiglipMLP(hidden, intermediate, dtype=dtype)
+        self.mlp = SiglipMLP(hidden, intermediate, dtype=dtype, quant=quant)
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
         x = x + self.self_attn(self.layer_norm1(x), mask)
@@ -71,11 +91,12 @@ class SiglipEncoderLayer(nn.Module):
 
 class SiglipEncoder(nn.Module):
     def __init__(self, num_layers: int, hidden: int, intermediate: int, num_heads: int, eps: float,
-                 dtype=None, remat: bool = False):
+                 dtype=None, remat: bool = False, quant: Optional[str] = None):
         super().__init__()
         self.remat = remat
         self.layers = nn.ModuleList(
-            SiglipEncoderLayer(hidden, intermediate, num_heads, eps, dtype=dtype) for _ in range(num_layers))
+            SiglipEncoderLayer(hidden, intermediate, num_heads, eps, dtype=dtype, quant=quant)
+            for _ in range(num_layers))
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None, tap_layer: int = -1,
                 run_all: bool = True) -> Tuple[Optional[Tensor], Tensor]:
@@ -115,7 +136,7 @@ class SiglipVisionHead(nn.Module):
     def __init__(self, cfg: SiglipVisionConfig, dtype=None):
         super().__init__()
         self.layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, dtype=dtype)
-        self.mlp = SiglipMLP(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
+        self.mlp = SiglipMLP(cfg.hidden_size, cfg.intermediate_size, dtype=dtype, quant=cfg.quantization)
 
 
 class SiglipVisionTransformer(nn.Module):
@@ -123,7 +144,8 @@ class SiglipVisionTransformer(nn.Module):
         super().__init__()
         self.embeddings = SiglipVisionEmbeddings(cfg, dtype=dtype)
         self.encoder = SiglipEncoder(cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size,
-                                     cfg.num_attention_heads, cfg.layer_norm_eps, dtype=dtype, remat=cfg.remat)
+                                     cfg.num_attention_heads, cfg.layer_norm_eps, dtype=dtype, remat=cfg.remat,
+                                     quant=cfg.quantization)
         if with_head:
             self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, dtype=dtype)
             self.head = SiglipVisionHead(cfg, dtype=dtype)

@@ -21,8 +21,14 @@ stage's export beside a ``config.json`` that ``load_model`` reads with
 adapter and ``non_lora_trainables.bin`` (the projector) for ``--lora-enable``,
 ``hf_export/`` (an SFT checkpoint) otherwise.
 
-One device runs it all: ``--dp``, ``--fsdp`` or ``--tp`` above 1, ``--bits 4/8``
-and ``--offload-optimizer`` exit with the ROADMAP item that brings them.
+``--bits 4`` / ``--bits 8`` with ``--lora-enable`` is QLoRA: the model is
+built with NF4 / int8 linears for the decoder's seven linears of every layer
+(``models/quant.py``), the base LLM's float weights are quantized as they are
+loaded, one linear at a time on the device, and LoRA trains on that frozen
+base, its side path in the compute dtype.
+
+One device runs it all: ``--dp``, ``--fsdp`` or ``--tp`` above 1 and
+``--offload-optimizer`` exit with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -88,7 +94,8 @@ def build_parser():
     p.add_argument("--lora-r", type=int, default=128)
     p.add_argument("--lora-alpha", type=int, default=256)
     p.add_argument("--offload-optimizer", action="store_true", help="not ported (exits)")
-    p.add_argument("--bits", type=int, default=16, choices=(4, 8, 16), help="4/8 (QLoRA): not ported (exits)")
+    p.add_argument("--bits", type=int, default=16, choices=(4, 8, 16),
+                   help="QLoRA: store the frozen decoder base in NF4 (4) or int8 (8); requires --lora-enable")
     # io
     p.add_argument("--output-dir", required=True)
     p.add_argument("--save-steps", type=int, default=500)
@@ -103,8 +110,8 @@ def check_supported(args) -> None:
     """Exit on a flag the port cannot honour yet, naming the ROADMAP item."""
     if max(args.dp or 1, args.fsdp, args.tp) > 1:
         raise SystemExit("--dp/--fsdp/--tp above 1 need the multi-GPU port (ROADMAP Queue 1 item 6)")
-    if args.bits != 16:
-        raise SystemExit("--bits 4/8 (QLoRA) needs the quantized decoder (ROADMAP Queue 1 item 3)")
+    if args.bits != 16 and not args.lora_enable:
+        raise SystemExit("--bits 4/8 is QLoRA (frozen quantized base + LoRA adapters); pass --lora-enable")
     if args.offload_optimizer:
         raise SystemExit("--offload-optimizer is not ported (ROADMAP Queue 1 item 9)")
 
@@ -218,8 +225,21 @@ def run(args, tokenizer, guide_tokenizer=None):
     total_steps = int(max(1, len(dataset) // (batch_size * accum)) * args.num_train_epochs)
     modal = dataset.modality_of(0)
 
-    model = init_model(cfg, device, args.seed)
-    W.load_into(model, pretrained_state(args, cfg))
+    state_dict = pretrained_state(args, cfg)
+    model_cfg = cfg
+    if args.bits != 16:
+        # QLoRA: the float decoder never reaches the device whole; each linear
+        # is quantized there once and the base keeps its codes
+        import dataclasses
+
+        from ..models.quant import quantize_decoder_params
+
+        qmode = "nf4" if args.bits == 4 else "int8"
+        state_dict = quantize_decoder_params(state_dict, qmode, device)
+        model_cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, quantization=qmode))
+    model = init_model(model_cfg, device, args.seed)
+    W.load_into(model, state_dict)
+    del state_dict
     with open(os.path.join(args.output_dir, "config.json"), "w") as f:
         json.dump(cfg.to_hf_dict(), f, indent=2)
 
@@ -249,8 +269,9 @@ def run(args, tokenizer, guide_tokenizer=None):
                                   learning_rate=args.learning_rate, total_steps=total_steps,
                                   warmup_ratio=args.warmup_ratio, schedule_kind=args.lr_scheduler_type,
                                   weight_decay=args.weight_decay, device=device)
-        print(f"total steps: {total_steps} | batch {batch_size} | LoRA r {args.lora_r} alpha {args.lora_alpha}: "
-              f"{sum(p.numel() for p in state.lora.parameters()) / 1e6:.1f}M adapter params | modal: {modal}")
+        print(f"total steps: {total_steps} | batch {batch_size} | {'Q' if args.bits != 16 else ''}LoRA r "
+              f"{args.lora_r} alpha {args.lora_alpha}: {sum(p.numel() for p in state.lora.parameters()) / 1e6:.1f}M "
+              f"adapter params | modal: {modal}")
         lora_steps: dict = {}
         step = 0
         while step < total_steps:

@@ -15,6 +15,11 @@ through one ``load_state_dict(strict=True)``:
   (a real SigLIP checkpoint also carries the pooling head's probe attention,
   which nothing uses).
 
+Quantized JAX trees carry over too: ``kernel_q`` / ``kernel_nf4`` /
+``kernel_scale`` become ``weight_q`` / ``weight_nf4`` / ``weight_scale`` in
+the (out, ...) orientation, and ``act_scale``, ``act_smooth`` and the towers'
+``qkv_quant`` keep their names (``models/quant.py``).
+
 The pieces of the other layouts: :func:`tower_state` (a SigLIP tower
 directory), :func:`convert_projector_state` (``mm_projector.bin``),
 :func:`load_torch_bin`, and LoRA's: :func:`load_peft_adapter` and
@@ -39,6 +44,10 @@ _TOWER_EXACT = {
 }
 
 
+# the JAX quantized linears' leaves (models/quant.py) and their port names
+_QUANT_LEAVES = {"kernel_q": "weight_q", "kernel_nf4": "weight_nf4", "kernel_scale": "weight_scale"}
+
+
 def flax_to_torch_state(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     """Flatten a flax parameter subtree into torch-style keys."""
     out: Dict[str, np.ndarray] = {}
@@ -53,6 +62,8 @@ def flax_to_torch_state(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray
         if leaf == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             out[f"{prefix}{name}.weight"] = np.ascontiguousarray(arr)
+        elif leaf in _QUANT_LEAVES:  # quantized linears: (in, out) layouts transposed
+            out[f"{prefix}{name}.{_QUANT_LEAVES[leaf]}"] = np.ascontiguousarray(arr.T)
         elif leaf in ("scale", "embedding"):
             out[f"{prefix}{name}.weight"] = arr
         elif leaf == "bias":

@@ -421,3 +421,93 @@ def test_safetensors_round_trip_on_the_card(rn, tmp_path):
     got = load_safetensors(str(tmp_path / "m.safetensors"), device="cuda")
     assert set(got) == set(want)
     assert all(got[k].is_cuda and got[k].dtype == v.dtype and torch.equal(got[k], v) for k, v in want.items())
+
+
+@pytest.mark.parametrize("rows", [1, 2, 17, 23328])
+def test_int8_matmul_on_the_card_is_exact(rows):
+    """``_int_mm`` (rows below 17 padded with zero codes) against the exact
+    product of the same codes on the CPU, at the tower MLP's K 1152 -> N 4304."""
+    from hicom_tpu_torch.models.quant import int8_matmul
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator("cuda").manual_seed(rows)
+    a = torch.randint(-127, 128, (rows, 1152), generator=gen, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (4304, 1152), generator=gen, device="cuda", dtype=torch.int8)
+    got = int8_matmul(a, w)
+    assert got.dtype == torch.int32 and got.shape == (rows, 4304)
+    assert torch.equal(got.cpu(), int8_matmul(a.cpu(), w.cpu()))
+
+
+def test_qlora_base_saves_codes_not_weights(rn):
+    """An NF4 linear under autograd keeps its packed codes and scales for the
+    backward (a few bytes a weight), never a dequantized bf16 copy."""
+    from hicom_tpu_torch.models.quant import QuantLinear4
+
+    lin = QuantLinear4(3584, 18944, False, torch.bfloat16).cuda()
+    lin.set_weight(rn(18944, 3584))
+    x = rn(2, 64, 3584).requires_grad_()
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        y = lin(x)
+    y.float().sum().backward()
+    big = [t for t in saved if t.numel() >= 18944 * 3584 // 2]
+    assert big and all(t.dtype == torch.uint8 for t in big), [(t.dtype, tuple(t.shape)) for t in saved]
+    assert sum(t.numel() * t.element_size() for t in saved) < 18944 * 3584  # < 1 byte a weight
+    assert x.grad is not None and torch.isfinite(x.grad.float()).all()
+
+
+def test_device_preprocess_exact_under_tf32_and_without_sync():
+    """The preprocess on the card with TF32 allowed: the CPU's pixels, up to
+    one uint8 level on at most 0.1% of them; a second call (tables cached)
+    makes no call that waits for the device."""
+    import numpy as np
+
+    from hicom_tpu_torch.ops.preprocess import DeviceSiglipPreprocessor
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    frames = np.random.default_rng(0).integers(0, 256, (8, 360, 640, 3), dtype=np.uint8)
+    ref = DeviceSiglipPreprocessor(device="cpu")(frames)["pixel_values"]
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        proc = DeviceSiglipPreprocessor(device="cuda")
+        proc(frames)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = proc(frames)["pixel_values"]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    diff = (got.cpu() - ref).abs()
+    assert diff.max().item() <= 2 / 255 * 1.001 and (diff > 1e-6).float().mean().item() <= 1e-3
+
+
+def test_mm_infer_takes_a_device_tensor_as_it_is(monkeypatch):
+    """Pixels already on the card reach the model without a trip through numpy."""
+    import numpy as np
+
+    from hicom_tpu_torch import api, tiny_test_config
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    cfg = tiny_test_config(dtype="bfloat16")  # K3 takes bf16 and head_dim 128
+    cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, head_dim=128))
+    hc = api.HICom(config=cfg, model=api.build_model(cfg, device="cuda"), eos_token_id=2, cache_len=256)
+    pix = torch.randn(4, 3, 56, 56, device="cuda", dtype=torch.bfloat16)
+    real = np.asarray
+
+    def no_tensors(x, *a, **k):
+        assert not isinstance(x, torch.Tensor), "a device tensor went through numpy"
+        return real(x, *a, **k)
+
+    monkeypatch.setattr(api.np, "asarray", no_tensors)
+    assert hc._to_dev(pix, torch.bfloat16) is pix
+    ids = hc.generate(np.array([[5, 6, -201, 7, 8]]), frames=pix[None], max_new_tokens=3)
+    assert ids.shape == (1, 3)

@@ -134,8 +134,11 @@ def test_process_video_matches_jax(tmp_path, kind):
 
 
 def test_process_video_raw_ingest_waits_for_device_preprocess():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tvideo.process_video(np.zeros((2, 8, 8, 3), np.uint8), None, num_frames=2)
+    # raw ingest hands the device preprocessor decoded uint8 frames (ops/preprocess.py), as JAX's does
+    frames = np.random.default_rng(6).integers(0, 256, (2, 8, 8, 3), dtype=np.uint8)
+    got = tvideo.process_video(frames, None, num_frames=2)
+    assert got.dtype == np.uint8 and got.shape == (2, 8, 8, 3)
+    _equal(jvideo.process_video(frames, None, num_frames=2), got)
 
 
 @pytest.mark.parametrize("mode,kw", [("uniform", dict(num_frames=8)), ("uniform", dict(num_frames=3)),

@@ -39,7 +39,8 @@ TRAIN_MODULES = ("hicom_tpu_torch.train.optimizer", "hicom_tpu_torch.train.train
                  "hicom_tpu_torch.train.checkpoints", "hicom_tpu_torch.train.lora", "hicom_tpu_torch.train.dataset",
                  "hicom_tpu_torch.train.cli", "hicom_tpu_torch.data.image", "hicom_tpu_torch.data.native",
                  "hicom_tpu_torch.data.native_video", "hicom_tpu_torch.data.processor",
-                 "hicom_tpu_torch.data.video", "hicom_tpu_torch.data.prompts", "hicom_tpu_torch.weights")
+                 "hicom_tpu_torch.data.video", "hicom_tpu_torch.data.prompts", "hicom_tpu_torch.weights",
+                 "hicom_tpu_torch.models.quant", "hicom_tpu_torch.ops.preprocess", "hicom_tpu_torch.api")
 
 
 def test_train_modules_import_no_jax():
@@ -51,7 +52,8 @@ def test_train_modules_import_no_jax():
     assert "BAD []" in out.stdout, out.stdout
 
 
-@pytest.mark.parametrize("entry", ["build_model", "load_model", "create_train_state", "train_cli"])
+@pytest.mark.parametrize("entry", ["build_model", "load_model", "create_train_state", "train_cli", "model_init",
+                                   "device_preprocessor"])
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     import hicom_tpu_torch
     from hicom_tpu_torch.models.hicom import HIComModel
@@ -65,6 +67,14 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
             hicom_tpu_torch.build_model(hicom_tpu_torch.tiny_test_config())
         elif entry == "load_model":
             hicom_tpu_torch.load_model(str(tmp_path))
+        elif entry == "model_init":
+            from hicom_tpu_torch.api import model_init
+
+            model_init(str(tmp_path), device_preprocess=True)
+        elif entry == "device_preprocessor":
+            from hicom_tpu_torch.ops.preprocess import DeviceSiglipPreprocessor
+
+            DeviceSiglipPreprocessor()
         elif entry == "train_cli":  # --device defaults to cuda
             cli.run(cli.build_parser().parse_args(["--model-path", "x", "--data-path", "y", "--output-dir",
                                                    str(tmp_path)]), tokenizer=None)
