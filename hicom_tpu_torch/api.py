@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from . import weights as W
-from .config import HIComConfig, tower_configs
+from .config import HIComConfig, is_clip_tower, projector_qk_dim, tower_configs
 from .constants import DEFAULT_IMAGE_TOKEN, DEFAULT_VIDEO_TOKEN
 from .data.prompts import tokenizer_multimodal_token
 from .models import quant as Q
@@ -221,10 +221,13 @@ class HICom:
         top_p: float = 0.9,
         seed: int = 0,
         stop_sequences: tuple = (),
+        visual_embeds=None,
     ) -> np.ndarray:
         """(b, L) prompt ids with one modal sentinel -> (b, max_new_tokens) ids.
         ``frames`` may be a tensor already on the model's device (the device
-        preprocessor's output): it is used as it is."""
+        preprocessor's output): it is used as it is. ``visual_embeds`` (b, V,
+        hidden), the tokens of an anyres image (:meth:`encode_anyres`), take
+        the place of ``frames``."""
         dev = self.device
         dtype = self.model.model.norm.weight.dtype
         if frames is not None:
@@ -232,20 +235,41 @@ class HICom:
             self._maybe_autocalibrate_decoder(input_ids, frames, guide_ids, modal)
         temp = float(temperature) if do_sample else 0.0
         L = input_ids.shape[1]
-        V = self.model.visual_token_count(frames.shape[1], modal) if frames is not None else 0
-        # grow the KV cache for long prompts: the spliced length is L - 1 + V
-        need = L + max(V - 1, 0) + max_new_tokens + 8
-        cache_len = self.cache_len if need <= self.cache_len else ((need + 1023) // 1024) * 1024
+        if visual_embeds is not None:
+            V = visual_embeds.shape[1]
+        else:
+            V = self.model.visual_token_count(frames.shape[1], modal) if frames is not None else 0
+        cache_len = self.cache_len_for(L, V, max_new_tokens)
 
         to_dev = self._to_dev
         gen = torch.Generator(dev).manual_seed(seed)
+        multimodal = frames is not None or visual_embeds is not None
         out = generate_tokens(
             self.model, to_dev(input_ids, torch.int64), to_dev(frames, dtype), to_dev(guide_ids, torch.int64),
-            to_dev(guide_mask), to_dev(attention_mask),
-            modal=modal if frames is not None else "text", max_new_tokens=max_new_tokens, temperature=temp,
+            to_dev(guide_mask), to_dev(attention_mask), to_dev(visual_embeds, dtype),
+            modal=modal if multimodal else "text", max_new_tokens=max_new_tokens, temperature=temp,
             top_p=float(top_p), eos_token_id=int(self.eos_token_id), cache_len=cache_len,
             stop_sequences=tuple(stop_sequences), generator=gen)
         return out.cpu().numpy()
+
+    def cache_len_for(self, prompt_len: int, visual_tokens: int, max_new_tokens: int) -> int:
+        """The KV cache ``generate`` takes: ``cache_len``, grown in steps of
+        1024 slots for a long prompt (the spliced length is L - 1 + V)."""
+        need = prompt_len + max(visual_tokens - 1, 0) + max_new_tokens + 8
+        return self.cache_len if need <= self.cache_len else ((need + 1023) // 1024) * 1024
+
+    def encode_anyres(self, crops, image_size, guide_ids=None, guide_mask=None) -> torch.Tensor:
+        """(n, 3, H, W) crops of one anyres image (crop 0 the base image) of
+        original ``image_size`` (width, height) -> (V, hidden) visual tokens
+        on the model's device. The merge plan is host arithmetic on
+        ``image_size``: nothing here waits for the device."""
+        model, dt = self.model, self.model.model.norm.weight.dtype
+        self._maybe_autocalibrate(_as_frames(crops)[:1][None], guide_ids, "image")
+        with torch.inference_mode():
+            ge = None
+            if self.config.guide_enabled() and guide_ids is not None:
+                ge = model.encode_guide(self._to_dev(guide_ids, torch.int64), self._to_dev(guide_mask))[0]
+            return model.encode_visual_anyres(self._to_dev(crops, dt), tuple(image_size), ge)
 
 
 def load_model(model_path: str, dtype: str = "bfloat16", cache_len: int = 4096, device=None,
@@ -269,7 +293,10 @@ def load_model(model_path: str, dtype: str = "bfloat16", cache_len: int = 4096, 
         raw_cfg = json.load(f)
     cfg = HIComConfig.from_hf_dict(raw_cfg)
     vision_cfg, guide_cfg = tower_configs(cfg.mm_vision_tower)
-    cfg = cfg.replace(vision_config=vision_cfg, guide_text_config=guide_cfg, dtype=dtype)
+    cfg = cfg.replace(vision_config=vision_cfg, guide_text_config=guide_cfg, dtype=dtype,
+                      projector_qk_dim=projector_qk_dim(vision_cfg))
+    if load_w8a8_tower and is_clip_tower(cfg.mm_vision_tower):
+        raise ValueError("load_w8a8_tower supports the SigLIP tower family")
     if sum(map(bool, (load_8bit, load_4bit, dec_quant))) > 1:
         raise ValueError("pick one decoder quantization (load_8bit / load_4bit / dec_quant)")
     dec_quant = "int8" if load_8bit else "nf4" if load_4bit else dec_quant
@@ -279,6 +306,7 @@ def load_model(model_path: str, dtype: str = "bfloat16", cache_len: int = 4096, 
                                                       quantization=dec_quant),
                       vision_config=dataclasses.replace(cfg.vision_config, quantization=tower_quant))
 
+    kind = cfg.projector.kind
     is_pretrain = os.path.exists(os.path.join(model_path, "mm_projector.bin"))
     is_lora = os.path.exists(os.path.join(model_path, "adapter_config.json"))
     tower_sd = {}
@@ -297,16 +325,22 @@ def load_model(model_path: str, dtype: str = "bfloat16", cache_len: int = 4096, 
             proj_sd = {k: v for k, v in extra.items() if "mm_projector" in k}
         tower_sd = W.load_hf_state_dict(cfg.mm_vision_tower)
         sd.update(W.tower_state(tower_sd, guide=cfg.guide_enabled()))
-        sd.update(W.convert_projector_state(proj_sd) if proj_sd else {})
+        sd.update(W.convert_projector_state(proj_sd, kind) if proj_sd else {})
+        if "model.image_newline" in proj_sd:  # an anyres projector's artifact carries the newline
+            sd["model.image_newline"] = proj_sd["model.image_newline"]
         if is_lora:
             lora, alpha, rank = W.load_peft_adapter(model_path)
             sd = W.apply_lora(sd, lora, alpha=alpha, rank=rank)
     else:
         sd = W.load_hf_state_dict(model_path)
+        if kind != "hicom":  # the reference's mean-pool keys (model.mm_projector.0.weight) move under layers.
+            proj_sd = {k: sd.pop(k) for k in [k for k in sd if "mm_projector" in k]}
+            sd.update(W.convert_projector_state(proj_sd, kind))
         if not any(k.startswith("model.vision_tower.") for k in sd):  # frozen tower: from its own directory
             tower_sd = W.load_hf_state_dict(cfg.mm_vision_tower)
             sd.update(W.tower_state(tower_sd, guide=cfg.guide_enabled()))
-    # a clip-scale projector without its own scale takes the SigLIP tower's (api.py:642-647)
+    # a clip-scale projector without its own scale takes the tower's (api.py:642-647); a CLIP
+    # tower has no logit_bias, so this raises a KeyError as the JAX package does
     for side in [s for s in (cfg.use_clip_scale or "").split(",") if s]:
         if "logit_scale" in tower_sd and f"model.mm_projector.{side}_logit_scale" not in sd:
             sd[f"model.mm_projector.{side}_logit_scale"] = tower_sd["logit_scale"].reshape(())
@@ -416,9 +450,9 @@ def mm_infer(image_or_video, instruct, model: HICom, tokenizer, modal: str = "vi
     ``image_or_video``: preprocessed (t, 3, H, W) or (3, H, W) pixels (a
     tensor on the model's device is used as it is), None for
     ``modal="text"``. Guide-mode models take ``guide_ids`` (and ``guide_mask``)
-    or ``guide_instruct`` for the guide tokenizer. A multi-crop anyres image
-    (and any ``image_size``, which only the anyres merge reads) raises until
-    the anyres merge is ported.
+    or ``guide_instruct`` for the guide tokenizer. A multi-crop image under an
+    anyres aspect ratio is merged by :meth:`HICom.encode_anyres`, which
+    needs the original ``image_size`` (width, height).
     """
     if modal == "image":
         modal_token = DEFAULT_IMAGE_TOKEN
@@ -435,11 +469,6 @@ def mm_infer(image_or_video, instruct, model: HICom, tokenizer, modal: str = "vi
         if frames.ndim == 3:
             frames = frames[None]
         frames = frames[None]  # (1, t, 3, H, W)
-    anyres = frames is not None and modal == "image" and frames.shape[1] > 1 and "anyres" in (
-        model.config.image_aspect_ratio or "")
-    if anyres or image_size is not None:
-        raise NotImplementedError("multi-crop anyres images need encode_anyres (ROADMAP Queue 1 item 4)")
-
     if isinstance(instruct, str):
         message = [{"role": "user", "content": modal_token + "\n" + instruct}]
     elif isinstance(instruct, list):
@@ -467,9 +496,17 @@ def mm_infer(image_or_video, instruct, model: HICom, tokenizer, modal: str = "vi
             guide_ids = enc["input_ids"]
             guide_mask = enc.get("attention_mask")
 
+    visual_embeds = None
+    if modal == "image" and frames is not None and frames.shape[1] > 1 and "anyres" in (
+            model.config.image_aspect_ratio or ""):
+        # a multi-crop anyres image: the merged tokens' count depends on image_size
+        visual_embeds = model.encode_anyres(frames[0], image_size, guide_ids, guide_mask)[None]
+        frames = None
+
     stop_strings = list(kwargs.get("stop_strings", ()))
     out = model.generate(
         ids, frames=frames, guide_ids=guide_ids, guide_mask=guide_mask, attention_mask=mask, modal=modal,
+        visual_embeds=visual_embeds,
         max_new_tokens=kwargs.get("max_new_tokens", 2048), do_sample=kwargs.get("do_sample", False),
         temperature=kwargs.get("temperature", 0.2), top_p=kwargs.get("top_p", 0.9),
         stop_sequences=keyword_token_sequences(stop_strings, tokenizer),

@@ -76,6 +76,47 @@ class SiglipTextConfig:
 
 
 @dataclass(frozen=True)
+class ClipVisionConfig:
+    """CLIP ViT config (defaults = openai/clip-vit-large-patch14-336)."""
+
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    image_size: int = 336
+    patch_size: int = 14
+    projection_dim: int = 768
+    layer_norm_eps: float = 1e-5
+    # remat as SiglipVisionConfig's; quantization stays None (the JAX
+    # package quantizes SigLIP towers only)
+    remat: bool = False
+    quantization: Optional[str] = None
+
+    @property
+    def num_patches_per_side(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.num_patches_per_side**2
+
+
+@dataclass(frozen=True)
+class ClipTextConfig:
+    """CLIP text encoder config (guide encoder; clip-vit-large-patch14-336 defaults)."""
+
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    vocab_size: int = 49408
+    max_position_embeddings: int = 77
+    projection_dim: int = 768
+    layer_norm_eps: float = 1e-5
+    eos_token_id: int = 49407
+
+
+@dataclass(frozen=True)
 class Qwen2Config:
     """Qwen2/2.5 decoder config (defaults = Qwen2.5-7B-Instruct)."""
 
@@ -133,11 +174,34 @@ class LlamaConfig:
     remat: bool = False
 
 
+def is_clip_tower(tower_path: Optional[str]) -> bool:
+    """Whether ``mm_vision_tower`` names a CLIP tower (the JAX package's rule)."""
+    return "clip" in (tower_path or "") and "siglip" not in (tower_path or "")
+
+
+def _clip_tower_configs(tower_path: str):
+    if not os.path.isdir(tower_path):
+        return ClipVisionConfig(), ClipTextConfig()
+    with open(os.path.join(tower_path, "config.json")) as f:
+        d = json.load(f)
+    vd, td = dict(d.get("vision_config", {})), dict(d.get("text_config", {}))
+    if "projection_dim" in d:
+        vd.setdefault("projection_dim", d["projection_dim"])
+        td.setdefault("projection_dim", d["projection_dim"])
+    vkeys = {f.name for f in dataclasses.fields(ClipVisionConfig)} - {"remat", "quantization"}
+    tkeys = {f.name for f in dataclasses.fields(ClipTextConfig)}
+    return (ClipVisionConfig(**{k: v for k, v in vd.items() if k in vkeys}),
+            ClipTextConfig(**{k: v for k, v in td.items() if k in tkeys}))
+
+
 def tower_configs(tower_path: str):
-    """SigLIP vision/text configs from a local tower directory's config.json,
-    else the so400m defaults for a SigLIP tower name."""
-    if "clip" in tower_path and "siglip" not in tower_path:
-        raise NotImplementedError("the port carries SigLIP towers only")
+    """Vision/text configs from a local tower directory's config.json, else
+    the defaults of a known tower name (SigLIP so400m, CLIP-L/336). A CLIP
+    tower's compression keys live in its projection space: callers set
+    ``HIComConfig.projector_qk_dim`` to :func:`projector_qk_dim` of the
+    vision config (the JAX ``load_model``'s override)."""
+    if is_clip_tower(tower_path):
+        return _clip_tower_configs(tower_path)
     if os.path.isdir(tower_path):
         with open(os.path.join(tower_path, "config.json")) as f:
             d = json.load(f)
@@ -164,6 +228,12 @@ def tower_configs(tower_path: str):
     if "siglip" in tower_path:
         return SiglipVisionConfig(), SiglipTextConfig()
     raise NotImplementedError(f"unknown vision tower: {tower_path}")
+
+
+def projector_qk_dim(vision_config) -> Optional[int]:
+    """The compression attention's key width a tower fixes: CLIP's projection
+    dim (reference ``projector.py:410-411``); None (the hidden size) for SigLIP."""
+    return getattr(vision_config, "projection_dim", None)
 
 
 # --------------------------------------------------------------------------- #

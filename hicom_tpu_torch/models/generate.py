@@ -53,6 +53,7 @@ def generate_tokens(
     guide_ids: Optional[Tensor],
     guide_mask: Optional[Tensor],
     attention_mask: Optional[Tensor] = None,  # (b, L) bool; None = all real
+    visual_embeds: Optional[Tensor] = None,  # (b, V, D) precomputed (the anyres path)
     *,
     modal: str = "video",
     max_new_tokens: int = 128,
@@ -66,8 +67,9 @@ def generate_tokens(
     """Returns (b, max_new_tokens) generated ids, eos-padded after a stop."""
     cfg = model.hicom_config
     b = input_ids.shape[0]
-    visual = None
-    if frames is not None:
+    visual = visual_embeds
+    has_frames = frames is not None or visual is not None
+    if frames is not None and visual is None:
         guide_embeds = model.encode_guide(guide_ids, guide_mask) if cfg.guide_enabled() else None
         visual = model.encode_visual(frames, guide_embeds, modal)
     spliced = model.embed_and_splice(input_ids, visual, attention_mask)
@@ -77,7 +79,7 @@ def generate_tokens(
     cache = KVCache.zeros(tc.num_hidden_layers, b, tc.num_key_value_heads, cache_len, tc.head_dim, dtype,
                           input_ids.device, quantized=getattr(tc, "kv_cache_int8", False))
     # b=1 unpadded multimodal prompts splice to an all-valid mask: plain causal prefill
-    prefill_pm = None if (attention_mask is None and b == 1 and frames is not None) else spliced.attention_mask
+    prefill_pm = None if (attention_mask is None and b == 1 and has_frames) else spliced.attention_mask
     hidden = model.model(spliced.embeds, spliced.positions, cache, padding_mask=prefill_pm,
                          prefill_from_empty=True)
     true_len = spliced.attention_mask.to(torch.int64).sum(dim=1)  # (b,)

@@ -12,7 +12,9 @@ mode is off; the overlapping grid, and every pass under grad mode (the
 train step, as the JAX train step runs it), stays on ``tile_thw`` +
 ``sdpa`` (K4 has no backward). The global compressor's 32-query
 cross-attention reaches the K2 flash kernel, and its K5/K6 backward,
-through ``sdpa``.
+through ``sdpa``. An anyres image reaches the projector as the merge's
+base and patch grid. ``MeanPoolProjector`` is the ``mlp2x_gelu`` /
+``linear`` baseline.
 """
 
 from __future__ import annotations
@@ -210,7 +212,7 @@ class HIComProjector(nn.Module):
         self.config = config
         spec = config.projector
         if spec.kind != "hicom":
-            raise ValueError("the port carries the hicom projector only")
+            raise ValueError(f"{config.mm_projector_type!r} is a mean-pool projector (MeanPoolProjector)")
         use_cs = [s for s in config.use_clip_scale.split(",") if s]
         self.local_use_clip_scale = "local" in use_cs
         self.global_use_clip_scale = "global" in use_cs
@@ -229,20 +231,52 @@ class HIComProjector(nn.Module):
                 spec.global_, config.qk_dim, config.mm_hidden_size, config.hidden_size,
                 _resolve_use_guide(config.use_guide, spec.global_.force_use_guide), dtype=dtype)
 
-    def forward(self, frames_feature: Tensor, frames_embed: Optional[Tensor] = None,
+    def forward(self, frames_feature: Union[Tensor, dict], frames_embed: Optional[Union[Tensor, dict]] = None,
                 guide_embed: Optional[Tensor] = None, modal: str = "video",
                 image_newline: Optional[Tensor] = None) -> Tensor:
-        """(b, t, h, w, d) volumes -> (b, V, D) visual tokens."""
+        """(b, t, h, w, d) volumes -> (b, V, D) visual tokens. An anyres image
+        comes as the merge's dict (``models/anyres.apply_anyres_plan``):
+        ``base`` (b, hw, hw, d) or None and ``patch`` (b, h, w, d), each a
+        one-frame volume; the local compressor takes both (the patch rows with
+        a newline column each) and the global compressor the patch grid."""
         from .postprocess import post_process_visual_feature
 
+        def volume(x, part):  # one anyres part as a (b, 1, h, w, d) volume
+            return None if x is None else x[part][:, None]
+
+        is_dict = isinstance(frames_feature, dict)
         parts = []
         if self.local_compressor is not None:
             ls = self.local_logit_scale if self.local_use_clip_scale else None
             lb = self.local_logit_bias if self.local_use_clip_scale else 0.0
-            local = self.local_compressor(frames_feature, frames_embed, guide_embed, modal, ls, lb)
-            parts.append(post_process_visual_feature(self.config, local, modal, image_newline, is_anyres=False))
+            if is_dict:
+                for part, anyres in (("base", False), ("patch", True)):
+                    if frames_feature[part] is None:
+                        continue
+                    local = self.local_compressor(volume(frames_feature, part), volume(frames_embed, part),
+                                                  guide_embed, modal, ls, lb)
+                    parts.append(post_process_visual_feature(self.config, local, modal, image_newline, anyres))
+            else:
+                local = self.local_compressor(frames_feature, frames_embed, guide_embed, modal, ls, lb)
+                parts.append(post_process_visual_feature(self.config, local, modal, image_newline, is_anyres=False))
         if self.global_compressor is not None:
             gs = self.global_logit_scale if self.global_use_clip_scale else None
             gb = self.global_logit_bias if self.global_use_clip_scale else 0.0
+            if is_dict:
+                frames_feature, frames_embed = volume(frames_feature, "patch"), volume(frames_embed, "patch")
             parts.append(self.global_compressor(frames_feature, frames_embed, guide_embed, modal, gs, gb))
         return torch.cat(parts, dim=-2) if len(parts) > 1 else parts[0]
+
+
+class MeanPoolProjector(nn.Module):
+    """The ``mlp<N>x_gelu`` / ``linear`` baseline: an MLP per token under
+    ``layers`` (the JAX package's name; the reference's ``mm_projector.bin``
+    keys ``0.weight`` / ``2.weight`` move there at load). The model applies
+    the 2x2 spatial downsample of video (``HIComModel._mean_pool_project``)."""
+
+    def __init__(self, in_dim: int, out_dim: int, depth: int = 2, dtype=None):
+        super().__init__()
+        self.layers = TorchMLP(in_dim, out_dim, depth, dtype=dtype)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.layers(x)

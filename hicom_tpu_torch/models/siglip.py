@@ -77,12 +77,12 @@ class SiglipMLP(nn.Module):
 
 class SiglipEncoderLayer(nn.Module):
     def __init__(self, hidden: int, intermediate: int, num_heads: int, eps: float, dtype=None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, mlp: Optional[nn.Module] = None):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(hidden, eps=eps, dtype=dtype)
         self.self_attn = SiglipAttention(hidden, num_heads, dtype=dtype, quant=quant)
         self.layer_norm2 = nn.LayerNorm(hidden, eps=eps, dtype=dtype)
-        self.mlp = SiglipMLP(hidden, intermediate, dtype=dtype, quant=quant)
+        self.mlp = mlp if mlp is not None else SiglipMLP(hidden, intermediate, dtype=dtype, quant=quant)
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
         x = x + self.self_attn(self.layer_norm1(x), mask)

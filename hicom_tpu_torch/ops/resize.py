@@ -2,7 +2,8 @@
 
 Port of ``hicom_tpu/ops/resize.py``: half-pixel-centred sampling without
 antialiasing, one gather + lerp per axis, computed in the input's dtype exactly
-as the JAX version does (so both packages round alike).
+as the JAX version does (so both packages round alike); and the anyres
+merge's 2x2 max pool.
 """
 
 from __future__ import annotations
@@ -45,3 +46,13 @@ def resize_thw(x: Tensor, out_thw: Sequence[int]) -> Tensor:
     """Trilinear resize of (..., t, h, w, d) volumes over their t, h, w axes."""
     n = x.ndim
     return interpolate_linear(x, (n - 4, n - 3, n - 2), tuple(out_thw))
+
+
+def max_pool2d(x: Tensor, window: int = 2) -> Tensor:
+    """Max pool with stride == window over the (h, w) axes of (..., h, w, d)
+    volumes: trailing remainder rows and columns are dropped, and the window's
+    identity is -inf, as ``jax.lax.reduce_window`` gives it in the JAX package."""
+    *lead, h, w, d = x.shape
+    ho, wo = h // window, w // window
+    x = x[..., : ho * window, : wo * window, :].reshape(*lead, ho, window, wo, window, d)
+    return x.amax(dim=(-4, -2))

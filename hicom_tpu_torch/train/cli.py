@@ -134,7 +134,7 @@ def build_config(args):
     """The model config from ``--model-path``'s config.json and the flags."""
     import dataclasses
 
-    from ..config import HIComConfig, tower_configs
+    from ..config import HIComConfig, projector_qk_dim, tower_configs
 
     with open(os.path.join(args.model_path, "config.json")) as f:
         base_cfg = json.load(f)
@@ -163,6 +163,7 @@ def build_config(args):
         max_num_frames=args.max_num_frames,
         model_max_length=args.model_max_length,
         dtype=args.dtype,
+        projector_qk_dim=projector_qk_dim(vision_cfg),
     )
 
 
@@ -175,7 +176,7 @@ def pretrained_state(args, cfg) -> dict:
     if os.path.isdir(args.vision_tower):
         sd.update(W.tower_state(W.load_hf_state_dict(args.vision_tower), guide=cfg.guide_enabled()))
     if args.pretrain_weights:
-        sd.update(W.convert_projector_state(W.load_torch_bin(args.pretrain_weights)))
+        sd.update(W.convert_projector_state(W.load_torch_bin(args.pretrain_weights), cfg.projector.kind))
     return sd
 
 
@@ -216,6 +217,8 @@ def run(args, tokenizer, guide_tokenizer=None):
         use_guide=args.use_guide,
         is_pretraining=args.is_pretraining,
         image_size=cfg.vision_config.image_size,
+        patch_size=cfg.vision_config.patch_size,
+        mm_patch_merge_type=args.mm_patch_merge_type,
         model_max_length=args.model_max_length,
     )
     dataset = SupervisedDataset(tokenizer, dargs, image_processor)
@@ -248,10 +251,12 @@ def run(args, tokenizer, guide_tokenizer=None):
                             group_by_modality=args.group_by_modality_length)
 
     def step_key(batch):
-        return batch.get("modal", modal), bool(batch.get("multi_image", False)), "frames" in batch
+        # one step per (modal, multi_image, has_frames, anyres plan), as the JAX CLI keys its compiled steps
+        return (batch.get("modal", modal), bool(batch.get("multi_image", False)), "frames" in batch,
+                batch.get("anyres_plan"))
 
     def tensors(batch):
-        return {k: v for k, v in batch.items() if not isinstance(v, (str, bool))}
+        return {k: v for k, v in batch.items() if not isinstance(v, (str, bool)) and k != "anyres_plan"}
 
     def log_row(row):
         with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as mf:
@@ -280,7 +285,8 @@ def run(args, tokenizer, guide_tokenizer=None):
                 advanced = True
                 key = step_key(batch)
                 if key not in lora_steps:
-                    lora_steps[key] = make_lora_train_step(modal=key[0], has_frames=key[2], multi_image=key[1])
+                    lora_steps[key] = make_lora_train_step(modal=key[0], has_frames=key[2], multi_image=key[1],
+                                                          anyres_plan=key[3])
                 state, metrics = lora_steps[key](state, tensors(batch))
                 step += 1
                 if step % args.logging_steps == 0:
@@ -334,7 +340,8 @@ def run(args, tokenizer, guide_tokenizer=None):
             made_progress = True
             key = step_key(batch)
             if key not in step_fns:
-                step_fns[key] = make_train_step(modal=key[0], has_frames=key[2], multi_image=key[1])
+                step_fns[key] = make_train_step(modal=key[0], has_frames=key[2], multi_image=key[1],
+                                                anyres_plan=key[3])
             state, metrics = step_fns[key](state, tensors(batch))
             step += 1
             losses.append(metrics["loss"])

@@ -12,10 +12,11 @@ A copy of ``hicom_tpu/train/dataset.py`` (the reference dataset/collator,
 * batches are grouped by modality and padded to a shared length bucket, in
   the JAX package's order for the same seed.
 
-One process reads the data: the multi-host slicing and fixed shapes of the JAX
-package are not carried over. Anyres and multi-image training data raise until
-the anyres merge and the multi-sentinel splice are ported (ROADMAP Queue 1
-item 4).
+Anyres images train in batches of one merge plan (:meth:`SupervisedDataset.
+batch_key`, the plan read from the image's header) and multi-image rows as
+(b, K, 3, H, W) frames, as in the JAX package. One process reads the data:
+the multi-host slicing and the fixed lengths, frame counts and multi-image
+flag of the JAX package (``Collator.fixed_*``) are not carried over.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import os
 import random
 import traceback
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -121,6 +123,8 @@ class DataArguments:
     is_pretraining: bool = False
     is_multimodal: bool = True
     image_size: int = 384
+    patch_size: int = 14  # tower patch size (anyres plan geometry)
+    mm_patch_merge_type: str = "flat"  # anyres merge (spatial_unpad etc.)
     model_max_length: int = 4096
     length_bucket: int = 64  # pad batches up to a multiple of this length
 
@@ -185,12 +189,7 @@ class SupervisedDataset:
         self.rows = load_mixture(data_args.data_path)
         if data_args.use_guide not in (None, "off"):
             self.rows = split_guide_format(self.rows)
-        images = [r for r in self.rows if "image" in r]
-        if images and "anyres" in (data_args.image_aspect_ratio or ""):
-            raise NotImplementedError("anyres training data needs the anyres merge (ROADMAP Queue 1 item 4)")
-        if any(isinstance(r["image"], list) and len(r["image"]) > 1 for r in images):
-            raise NotImplementedError("multi-image training data needs the multi-sentinel splice "
-                                      "(ROADMAP Queue 1 item 4)")
+        self._plan_cache: Dict[int, Any] = {}
 
     def __len__(self):
         return len(self.rows)
@@ -208,6 +207,40 @@ class SupervisedDataset:
     def modality_of(self, idx: int) -> str:
         row = self.rows[idx]
         return "image" if "image" in row else ("video" if "video" in row else "text")
+
+    @property
+    def _anyres_train(self) -> bool:
+        aspect = self.args.image_aspect_ratio or ""
+        return "anyres" in aspect and (self.args.mm_patch_merge_type or "flat").startswith("spatial")
+
+    def anyres_plan_of(self, idx: int):
+        """The merge plan of a single-image anyres sample (None otherwise),
+        from the image header alone (no pixel decode); memoized."""
+        if not self._anyres_train:
+            return None
+        if idx not in self._plan_cache:
+            self._plan_cache[idx] = self._compute_anyres_plan(idx)
+        return self._plan_cache[idx]
+
+    def _compute_anyres_plan(self, idx: int):
+        row = self.rows[idx]
+        if "image" not in row or isinstance(row["image"], list):
+            return None
+        from PIL import Image
+
+        path = row["image"]
+        if self.args.data_folder:
+            path = os.path.join(self.args.data_folder, path)
+        try:
+            with Image.open(path) as im:
+                size = im.size  # (width, height), header only
+        except Exception:
+            return None
+        return plan_for(size, self.args)
+
+    def batch_key(self, idx: int):
+        """Batches are uniform in (modality, anyres plan)."""
+        return (self.modality_of(idx), self.anyres_plan_of(idx))
 
     def __getitem__(self, i: int) -> Dict[str, Any]:
         sample = self.rows[i]
@@ -280,6 +313,15 @@ class SupervisedDataset:
 # --------------------------------------------------------------------------- #
 
 
+def plan_for(image_size, args: DataArguments):
+    """The anyres merge plan of an image of original ``image_size`` under the data arguments."""
+    from ..models.anyres import make_anyres_plan
+
+    cfg = SimpleNamespace(mm_patch_merge_type=args.mm_patch_merge_type, image_aspect_ratio=args.image_aspect_ratio,
+                          image_grid_pinpoints=args.image_grid_pinpoints)
+    return make_anyres_plan(image_size, cfg, args.image_size, hw=args.image_size // args.patch_size)
+
+
 @dataclass
 class Collator:
     tokenizer: Any
@@ -325,6 +367,14 @@ class Collator:
             # train.py:525-530); rows with fewer images zero-pad to K and the
             # K-sentinel splice drops the surplus embeds.
             batch["multi_image"] = multi
+            # anyres batches: the iterator grouped rows by plan; the plan keys the train step
+            args = self.data_args
+            if (modal == "image" and not multi and "anyres" in (args.image_aspect_ratio or "")
+                    and (args.mm_patch_merge_type or "flat").startswith("spatial")):
+                plans = {plan_for(inst["image_size"], args) for inst in instances if "image_size" in inst}
+                if len(plans) != 1:
+                    raise ValueError(f"an anyres batch mixes merge plans: {plans}")
+                batch["anyres_plan"] = plans.pop()
         if self.guide_tokenizer is not None:
             enc = self.guide_tokenizer(
                 [x["guided_prompt"] for x in instances],
@@ -389,6 +439,16 @@ def iter_batches(dataset: SupervisedDataset, collator: Collator, batch_size: int
         order = modality_length_grouped_indices(dataset.modality_lengths, batch_size, 1, seed)
     else:
         order = np.random.default_rng(seed).permutation(n).tolist()
+    if dataset._anyres_train:
+        # batches uniform in (modality, merge plan): a buffer per key, emitted
+        # when it fills; partial buffers drop at the epoch's end
+        pending: Dict[Any, List[int]] = {}
+        for idx in order:
+            k = dataset.batch_key(idx)
+            pending.setdefault(k, []).append(idx)
+            if len(pending[k]) == batch_size:
+                yield collator([dataset[i] for i in pending.pop(k)])
+        return
     # group contiguous same-modality indices into batches
     batch: List[int] = []
     for idx in order:

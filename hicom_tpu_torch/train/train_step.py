@@ -76,16 +76,20 @@ def causal_lm_loss(logits: Tensor, labels: Tensor):
     return torch.where(valid, ll, torch.zeros_like(ll)).sum() / n, n
 
 
-def make_loss_fn(model, modal: str = "video", has_frames: bool = True):
+def make_loss_fn(model, modal: str = "video", has_frames: bool = True, multi_image: bool = False,
+                 anyres_plan=None):
     """``loss_fn(batch) -> (loss, {"loss", "target_tokens"})`` over a batch of
     device tensors (``input_ids``, ``labels`` and optionally ``frames``,
-    ``attention_mask``, ``guide_ids``, ``guide_mask``)."""
+    ``attention_mask``, ``guide_ids``, ``guide_mask``). ``multi_image``:
+    frames (b, K, 3, H, W) are K images per row; ``anyres_plan``: frames are
+    each row's anyres crops, every row under this plan."""
 
     def loss_fn(batch: Mapping[str, Tensor]):
         logits, labels, _ = model.one_shot_forward(
             batch["input_ids"], batch.get("frames") if has_frames else None,
             attention_mask=batch.get("attention_mask"), labels=batch["labels"],
-            guide_ids=batch.get("guide_ids"), guide_mask=batch.get("guide_mask"), modal=modal)
+            guide_ids=batch.get("guide_ids"), guide_mask=batch.get("guide_mask"), modal=modal,
+            multi_image=multi_image, anyres_plan=anyres_plan)
         loss, n = causal_lm_loss(logits, labels)
         return loss, {"loss": loss.detach(), "target_tokens": n}
 
@@ -101,20 +105,14 @@ def batch_to_device(batch: Mapping, device: torch.device, dtype: torch.dtype) ->
     return out
 
 
-def _single_image(multi_image: bool) -> None:
-    if multi_image:
-        raise NotImplementedError("multi-image batches need the multi-sentinel splice (ROADMAP Queue 1 item 4)")
-
-
-def make_train_step(modal: str = "video", has_frames: bool = True, multi_image: bool = False):
+def make_train_step(modal: str = "video", has_frames: bool = True, multi_image: bool = False, anyres_plan=None):
     """``train_step(state, batch) -> (state, metrics)``: forward, backward,
     one optimizer update (or one accumulated micro-batch). Metrics are device
     tensors: ``loss``, ``target_tokens`` and ``grad_norm`` (the unclipped
     global norm of the trainable gradients). A step leaves the gradients on
-    the module until the next one starts. The JAX CLI keys its compiled steps
-    by (modal, multi_image, has_frames); multi-image and anyres batches wait
-    for the multi-sentinel splice and the anyres plan (not ported yet)."""
-    _single_image(multi_image)
+    the module until the next one starts. The CLI keeps one step per (modal,
+    multi_image, has_frames, anyres_plan), as the JAX CLI keys its compiled
+    steps."""
 
     def train_step(state: TrainState, batch: Mapping):
         model = state.model
@@ -122,7 +120,7 @@ def make_train_step(modal: str = "video", has_frames: bool = True, multi_image: 
         batch = batch_to_device(batch, weight.device, weight.dtype)
         for p in model.parameters():
             p.grad = None
-        loss, metrics = make_loss_fn(model, modal, has_frames)(batch)
+        loss, metrics = make_loss_fn(model, modal, has_frames, multi_image, anyres_plan)(batch)
         loss.backward()
         metrics["grad_norm"] = state.optimizer.update(model)
         state.step += 1
@@ -161,18 +159,18 @@ def create_lora_state(model: torch.nn.Module, lora: Adapters, *, alpha: float, r
     return LoraState(model, module, adam, make_schedule(learning_rate, total_steps, warmup_ratio, schedule_kind))
 
 
-def make_lora_train_step(modal: str = "video", has_frames: bool = True, multi_image: bool = False):
+def make_lora_train_step(modal: str = "video", has_frames: bool = True, multi_image: bool = False,
+                         anyres_plan=None):
     """``lora_step(state, batch) -> (state, metrics)``: the loss of the frozen
     model with the side paths, its gradient in the adapters only, one AdamW
     update. Metrics: ``loss`` and ``target_tokens`` (device tensors)."""
-    _single_image(multi_image)
 
     def lora_step(state: LoraState, batch: Mapping):
         model = state.model
         weight = model.model.norm.weight
         batch = batch_to_device(batch, weight.device, weight.dtype)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = make_loss_fn(model, modal, has_frames)(batch)
+        loss, metrics = make_loss_fn(model, modal, has_frames, multi_image, anyres_plan)(batch)
         loss.backward()
         for group in state.optimizer.param_groups:
             group["lr"] = state.schedule(state.step)

@@ -20,8 +20,8 @@ Quantized JAX trees carry over too: ``kernel_q`` / ``kernel_nf4`` /
 the (out, ...) orientation, and ``act_scale``, ``act_smooth`` and the towers'
 ``qkv_quant`` keep their names (``models/quant.py``).
 
-The pieces of the other layouts: :func:`tower_state` (a SigLIP tower
-directory), :func:`convert_projector_state` (``mm_projector.bin``),
+The pieces of the other layouts: :func:`tower_state` (a SigLIP or CLIP
+tower directory), :func:`convert_projector_state` (``mm_projector.bin``),
 :func:`load_torch_bin`, and LoRA's: :func:`load_peft_adapter` and
 :func:`apply_lora` (the merge at load); and the trainer's exports,
 :func:`export_hf_checkpoint` (fp16 safetensors + ``config.json``, written by
@@ -89,22 +89,58 @@ def _tower_keys(sd: Dict[str, np.ndarray], is_text: bool) -> Dict[str, np.ndarra
     return out
 
 
+_CLIP_ATTN = ("q_proj.", "k_proj.", "v_proj.", "out_proj.")
+
+
+def _clip_tower_keys(sd: Dict[str, np.ndarray], is_text: bool) -> Dict[str, np.ndarray]:
+    """The JAX CLIP modules' flat names (``layers_i.q_proj``, ``class_embedding``)
+    -> HF ``CLIP*ModelWithProjection`` names under the port's hosts (the JAX
+    export's ``fix_clip_tower_keys``)."""
+    root = "text_model" if is_text else "vision_model"
+    host = "guide_encoder" if is_text else "vision_tower"
+    out = {}
+    for k, v in sd.items():
+        if k in ("visual_projection.weight", "text_projection.weight"):
+            out[f"model.vision_tower.{host}.{k}"] = v
+            continue
+        if k == "class_embedding":
+            k = "embeddings.class_embedding"
+        elif k in ("position_embedding", "token_embedding"):
+            k = f"embeddings.{k}.weight"
+        elif k.startswith("patch_embedding."):
+            k = "embeddings." + k
+        m = re.match(r"layers_(\d+)\.(.+)", k)
+        if m:
+            mid = "self_attn." if m.group(2).startswith(_CLIP_ATTN) else ""
+            k = f"encoder.layers.{m.group(1)}.{mid}{m.group(2)}"
+        out[f"model.vision_tower.{host}.{root}.{k}"] = v
+    return out
+
+
+def _jax_tower_keys(tree: Mapping, is_text: bool) -> Dict[str, np.ndarray]:
+    """A JAX tower subtree under the port's names: SigLIP trees nest their
+    layers under ``encoder``, CLIP trees hold ``layers_i`` at the top."""
+    flat = flax_to_torch_state(tree)
+    return _tower_keys(flat, is_text) if "encoder" in tree else _clip_tower_keys(flat, is_text)
+
+
 def state_dict_from_jax(params: Mapping, config=None) -> Dict[str, torch.Tensor]:
     """The JAX package's parameter tree -> this package's state dict.
 
     ``params`` holds any of ``language_model``, ``vision_tower``,
-    ``guide_encoder``, ``mm_projector`` and ``image_newline``. ``config`` is
-    accepted for symmetry with the JAX export and not needed: the names alone
-    decide the layout.
+    ``guide_encoder``, ``mm_projector`` and ``image_newline``, with SigLIP or
+    CLIP towers and a hicom or mean-pool projector. ``config`` is accepted
+    for symmetry with the JAX export and not needed: the names alone decide
+    the layout.
     """
     sd: Dict[str, np.ndarray] = {}
     if "language_model" in params:
         for k, v in flax_to_torch_state(params["language_model"]).items():
             sd[re.sub(r"model\.layers_(\d+)\.", r"model.layers.\1.", k)] = v
     if "vision_tower" in params:
-        sd.update(_tower_keys(flax_to_torch_state(params["vision_tower"]), is_text=False))
+        sd.update(_jax_tower_keys(params["vision_tower"], is_text=False))
     if "guide_encoder" in params:
-        sd.update(_tower_keys(flax_to_torch_state(params["guide_encoder"]), is_text=True))
+        sd.update(_jax_tower_keys(params["guide_encoder"], is_text=True))
     if "mm_projector" in params:
         sd.update({f"model.{k}": v for k, v in flax_to_torch_state(params["mm_projector"], "mm_projector.").items()})
     if "image_newline" in params:
@@ -190,22 +226,31 @@ def load_hf_state_dict(model_path: str) -> Dict[str, torch.Tensor]:
     raise FileNotFoundError(f"no weights found under {model_path}")
 
 
-def convert_projector_state(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def convert_projector_state(state_dict: Mapping[str, torch.Tensor], projector_kind: str = "hicom"
+                            ) -> Dict[str, torch.Tensor]:
     """Projector weights under ``model.mm_projector.*``, from keys with that
     prefix, with ``mm_projector.``, with ``mm_projector`` nested deeper, or
-    (when no key names the projector) already stripped: the prefix rules of
-    the JAX package's ``convert_projector_state`` for the hicom projector."""
+    (when no key names the projector) already stripped: the rules of the JAX
+    package's ``convert_projector_state``. A mean-pool projector
+    (``projector_kind`` "mlp" or "linear") moves the reference's
+    ``nn.Sequential`` keys (``0.weight``, ``2.weight``) under ``layers.``."""
+
+    def name(key: str) -> str:
+        if projector_kind in ("mlp", "linear") and re.match(r"^\d+\.", key):
+            key = "layers." + key
+        return "model.mm_projector." + key
+
     if not any("mm_projector" in k for k in state_dict):
-        return {f"model.mm_projector.{k}": v for k, v in state_dict.items()}
+        return {name(k): v for k, v in state_dict.items()}
     out = {}
     for key, v in state_dict.items():
         for prefix in ("model.mm_projector.", "mm_projector."):
             if key.startswith(prefix):
-                out["model.mm_projector." + key[len(prefix):]] = v
+                out[name(key[len(prefix):])] = v
                 break
         else:
             if "mm_projector" in key:
-                out["model.mm_projector." + key.split("mm_projector.")[-1]] = v
+                out[name(key.split("mm_projector.")[-1])] = v
     return out
 
 
@@ -280,14 +325,17 @@ def decoder_state(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def tower_state(sd: Mapping[str, torch.Tensor], guide: bool) -> Dict[str, torch.Tensor]:
-    """A SigLIP checkpoint's vision (and, with ``guide``, text) weights under
-    the port's names. Takes HF ``SiglipModel`` / ``SiglipVisionModel`` keys
-    (``vision_model.*``, ``text_model.*``) or the SFT nesting
-    (``vision_tower.vision_model.*``, ``guide_encoder.text_model.*``); drops
-    the pooling head's probe attention, which nothing uses."""
+    """A SigLIP or CLIP checkpoint's vision (and, with ``guide``, text)
+    weights under the port's names. Takes HF ``SiglipModel`` /
+    ``CLIPModel`` keys (``vision_model.*``, ``text_model.*``, CLIP's
+    ``visual_projection`` / ``text_projection``) or the SFT nesting
+    (``vision_tower.``, ``guide_encoder.`` before them); drops SigLIP's
+    pooling-head probe attention, which nothing uses."""
     out = {}
     for key, v in sd.items():
-        for prefix, host, wanted in (("vision_model.", "vision_tower", True), ("text_model.", "guide_encoder", guide)):
+        for prefix, host, wanted in (("vision_model.", "vision_tower", True), ("text_model.", "guide_encoder", guide),
+                                     ("visual_projection.", "vision_tower", True),
+                                     ("text_projection.", "guide_encoder", guide)):
             for nest in ("", f"{host}."):
                 if key.startswith(nest + prefix) and wanted:
                     rest = key[len(nest + prefix):]

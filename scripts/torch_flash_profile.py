@@ -90,6 +90,38 @@ def cases(torch, fa, fd, la, want):
             key, val, qq = rn(32 * b, 27, 27, 1152), rn(32 * b, 27, 27, 1152), rn(8 * b, 9, 9, 1152)
             out.append((f"K4 local b{b}", lambda key=key, val=val, qq=qq:
                         la.fused_tile_attention(qq, key, val, (4, 3, 3), 1152**-0.5, 0.0)))
+    # the CLIP and anyres configurations: K1 over CLIP-L/336's 577 tokens (d 64) and so400m over an anyres
+    # image's 16 crops; K2 on the anyres prefill (7,333 tokens, 7,278 valid) and the CLIP global
+    # compressor; K3 over the anyres request's 8,192-slot cache; K4 at qk 768 / dv 1024; K5/K6 at the
+    # anyres train step (2 rows of 7,333 tokens, 7,333 and 7,310 valid)
+    if want("K1 clip"):
+        qc, kc, vc = rn(512, 577, 64), rn(512, 577, 64), rn(512, 577, 64)
+        out.append(("K1 clip", lambda: fa.fullblock_attention(qc, kc, vc, 64**-0.5)))
+    if want("K1 anyres crops"):
+        qa, ka, va = rn(256, 729, 72), rn(256, 729, 72), rn(256, 729, 72)
+        out.append(("K1 anyres crops", lambda: fa.fullblock_attention(qa, ka, va, 72**-0.5)))
+    if want("K2 anyres prefill"):
+        qp, kp, vp = rn(1, 28, 7333, 128), rn(1, 4, 7333, 128), rn(1, 4, 7333, 128)
+        klp = torch.tensor([7278], device="cuda", dtype=torch.int32)
+        out.append(("K2 anyres prefill", lambda: fa.flash_forward(qp, kp, vp, klp, 128**-0.5, 0.0, True)))
+    if want("K2 clip global"):
+        qcg, kcg, vcg = rn(1, 8, 32, 128), rn(1, 8, 18432, 128), rn(1, 8, 18432, 128)
+        out.append(("K2 clip global", lambda: fa.flash_forward(qcg, kcg, vcg, None, 128**-0.5)))
+    if want("K3 anyres decode"):
+        slot = torch.arange(8192, device="cuda")
+        bm = ((slot < 7278) | ((slot >= 7333) & (slot < 7341)))[None]
+        qx, kx, vx = rn(1, 28, 1, 128), rn(1, 4, 8192, 128), rn(1, 4, 8192, 128)
+        out.append(("K3 anyres decode", lambda: fd.flash_decode(qx, kx, vx, bm)))
+    if want("K4 clip"):
+        kc4, vc4, qc4 = rn(32, 24, 24, 768), rn(32, 24, 24, 1024), rn(8, 8, 8, 768)
+        out.append(("K4 clip", lambda: la.fused_tile_attention(qc4, kc4, vc4, (4, 3, 3), 768**-0.5, 0.0)))
+    if any_of("K5 anyres train", "K6 anyres train"):
+        qy, ky, vy, doy = rn(2, 28, 7333, 128), rn(2, 4, 7333, 128), rn(2, 4, 7333, 128), rn(2, 28, 7333, 128)
+        kly = torch.tensor([7333, 7310], device="cuda", dtype=torch.int32)
+        oy, lsey = fa.flash_forward(qy, ky, vy, kly, 128**-0.5, 0.0, True)
+        ops_anyres = fa.backward_operands(qy, ky, vy, kly, oy, lsey, doy)
+        out.append(("K5 anyres train", lambda: fa._launch_dq(*ops_anyres, 128**-0.5, 0.0, True)))
+        out.append(("K6 anyres train", lambda: fa._launch_dkv(*ops_anyres, 128**-0.5, 0.0, True)))
     return [(label, call) for label, call in out if want(label)]
 
 

@@ -94,21 +94,3 @@ def test_mm_infer_string_matches_jax(exported, modal):
                                    AutoTokenizer.from_pretrained(exported), **kw)
     assert ref and got == ref  # non-empty: the seeded model emits words before eos
     assert thc.guide_tokenizer is not None
-
-
-@pytest.mark.parametrize("case", ["multi_crop_anyres", "image_size"])
-def test_mm_infer_refuses_what_needs_the_anyres_merge(case):
-    # the JAX package merges an anyres image's crops through encode_anyres and
-    # reads image_size there; the port has no such merge yet and must not run
-    # the crops as video frames or drop image_size without a word
-    import hicom_tpu_torch
-    from hicom_tpu_torch import config as tcfg
-    from hicom_tpu_torch.api import HICom
-
-    aspect = "anyres" if case == "multi_crop_anyres" else "pad"
-    cfg = tcfg.tiny_test_config(image_aspect_ratio=aspect)
-    hc = HICom(config=cfg, model=hicom_tpu_torch.build_model(cfg, device="cpu"), eos_token_id=2)
-    crops = np.zeros((3 if case == "multi_crop_anyres" else 1, 3, 56, 56), np.float32)
-    kw = dict(image_size=(40, 30)) if case == "image_size" else {}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        hicom_tpu_torch.mm_infer(crops, "what is in the image ?", hc, tokenizer=None, modal="image", **kw)

@@ -41,7 +41,11 @@ def _worst(got, ref):
     return ((got - ref).abs() / tol).max().item()
 
 
-@pytest.mark.parametrize("bh,L,d", [(8, 729, 72), (4, 577, 64), (3, 200, 128)])
+@pytest.mark.parametrize("bh,L,d", [
+    (8, 729, 72), (4, 577, 64), (3, 200, 128),
+    (512, 577, 64),  # the CLIP-L/336 tower over 32 frames: 16 heads of 64, 577 tokens with CLS
+    (256, 729, 72),  # so400m over the 16 crops of an anyres image
+])
 def test_fullblock(rn, bh, L, d):
     q, k, v = rn(bh, L, d), rn(bh, L, d), rn(bh, L, d)
     before = fullblock_attention.launches
@@ -58,6 +62,8 @@ def test_fullblock(rn, bh, L, d):
     (2, 4, 2, 64, 192, 64, True, None),
     (2, 4, 4, 37, 130, 32, False, [100, 130]),
     (2, 9, 9, 32, 23328, 128, False, None),  # the global compressor at b 2, split over the keys
+    (1, 28, 4, 7333, 7333, 128, True, [7300]),  # the prefill of an anyres image's prompt
+    (1, 8, 8, 32, 18432, 128, False, None),  # the global compressor over 32 CLIP frames
 ])
 def test_flash_forward(rn, b, H, KVH, Lq, Lk, d, causal, lens):
     q, k, v = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d)
@@ -99,6 +105,8 @@ def test_tile_attention(rn):
     ((1, 27, 27), (1, 3, 3), 1152, 1152),  # an image
     ((8, 9, 12), (4, 3, 3), 64, 200),  # qk != dv, one consumer warp for the keys, 25 chunks for the values
     ((4, 6, 8), (2, 2, 2), 1160, 8),  # a width that leaves the last warp's lanes idle
+    ((32, 24, 24), (4, 3, 3), 768, 1024),  # CLIP: 768-wide projected keys, 1024-wide feature values
+    ((1, 60, 108), (1, 3, 3), 1152, 1152),  # the patch grid of an anyres image under the HICom projector
 ])
 def test_tile_kernel_main_path_shapes(rn, thw, kernel, qk, dv):
     t, h, w = thw

@@ -304,14 +304,3 @@ def test_grouped_indices_match_jax(seed):
     pos = [abs(x) for x in lengths]
     assert tds.modality_length_grouped_indices(pos, 4, 2, seed) == jds.modality_length_grouped_indices(pos, 4, 2, seed)
     assert tds.split_to_even_chunks(list(range(8)), pos, 4) == jds.split_to_even_chunks(list(range(8)), pos, 4)
-
-
-@pytest.mark.parametrize("case", ["anyres", "multi_image"])
-def test_dataset_refuses_anyres_and_multi_image(tmp_path, case):
-    rows = [{"image": ["0.png", "1.png"] if case == "multi_image" else "0.png",
-             "conversations": [{"from": "human", "value": "<image> hi"}, {"from": "gpt", "value": "a"}]}]
-    (tmp_path / "d.json").write_text(json.dumps(rows))
-    args = tds.DataArguments(data_path=[str(tmp_path / "d.json")],
-                             image_aspect_ratio="anyres" if case == "anyres" else "pad")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tds.SupervisedDataset(WordTokenizer(), args, _procs()[1])
