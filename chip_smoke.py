@@ -29,7 +29,21 @@ Phases:
      ``HICom.generate`` (a right-padded batch of 2, then one alone), greedy, 16
      new tokens; every kernel's launch count must rise; then one projector
      forward under torch.cuda.set_sync_debug_mode("error"), which fails on any
-     call that waits for the device;
+     call that waits for the device; then [serve-engine] on the same model:
+     ``mm_serve``'s continuous-batching engine (4 slots, a 4,096-slot cache,
+     16 steps a round, buckets 64-512) takes 8 requests (5 videos of 32
+     frames, an image, 2 text prompts; budgets 8-32; one stop sequence)
+     eagerly, with each round one CUDA graph, with graphed rounds and
+     spec_k=3 (adaptive and forced), and through ``mm_serve`` (the decoder's
+     norm weights set to 1 first, so that greedy streams vary): graphed
+     streams equal eager ones bit
+     for bit, speculative ones equal plain ones, each equals the request's
+     standalone ``HICom.generate`` but at near-ties (top-2 gap <= 2^-6 of the
+     top logit), one admission and one graphed round pass the sync check,
+     K1-K4 launch (K3 counted per replay); it prints aggregate tokens/s, ms
+     per round, submit-to-first-token per request, the speculative
+     acceptance, peak memory and the idle share of an eager and a graphed
+     round; K3 is also checked at the engine's shape (b 4, per-slot masks);
   4b. [clip]: the same 3 requests (336x336 frames) through HICom-7B on the
      CLIP-L/336 tower at its published widths (K1 at d 64, K4 with 768-wide
      keys and 1024-wide values); [anyres]: the reference's llava1.5 anyres
@@ -81,9 +95,8 @@ Phases:
 
 Prints one line per check, then a JSON object with the kernels (each row at
 a shape of the main paths, its launches counted in the phase that runs that
-shape: serving, stage 2, the 1.5B stage 3, [clip], [anyres] or [anyres-train]),
-then the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. Any
+shape: serving, [serve-engine], stage 2, the 1.5B stage 3, [clip], [anyres]
+or [anyres-train]), then the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before that last line. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -346,6 +359,19 @@ def kernel_checks(card: str):
                lambda: F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mr[:, None, None, :], enable_gqa=True),
                4 * H * d * nv, 2 * br * H * d * 2 + nv * KVH * d * 2 * 2 + br * S,
                grid=(-(-S // DECODE_CHUNK), br * KVH))
+    # the serving engine's shape: 4 slots at other offsets, each valid up to its
+    # true prompt length, then from its spliced (bucket-padded) length to its
+    # offset: rows of (true prompt, spliced prompt, tokens generated)
+    eng_rows = ((729, 743, 20), (735, 743, 5), (40, 64, 30), (721, 807, 12))
+    emask = torch.stack([(slot < t) | ((slot >= sp) & (slot <= sp + g)) for t, sp, g in eng_rows])
+    ne = int(emask.sum())
+    qe, ke, ve = rn(4, H, 1, d), rn(4, KVH, S, d), rn(4, KVH, S, d)
+    record("flash_decode[engine b4]", "K3", lambda: flash_decode(qe, ke, ve, emask),
+           lambda: decode_reference(qe, ke, ve, emask, None, None, d**-0.5),
+           lambda: F.scaled_dot_product_attention(qe, ke, ve, attn_mask=emask[:, None, None, :], enable_gqa=True),
+           4 * H * d * ne, 2 * 4 * H * d * 2 + ne * KVH * d * 2 * 2 + 4 * S, grid=(-(-S // DECODE_CHUNK), 4 * KVH),
+           phase="serve-engine")
+    del qe, ke, ve
     ki = torch.randint(-127, 128, (b, KVH, S, d), generator=gen, device=dev, dtype=torch.int8)
     vi = torch.randint(-127, 128, (b, KVH, S, d), generator=gen, device=dev, dtype=torch.int8)
     ks = torch.rand(b, KVH, S, generator=gen, device=dev) * 0.02
@@ -747,9 +773,10 @@ def counters(train: bool = False):
     return {f.__name__: f for f in fns}
 
 
-def main_path(card: str, cfg=None, label: str = "slice"):
+def main_path(card: str, cfg=None, label: str = "slice", then=None):
     """Phase 4: a 7B slice answering 3 requests (the released configuration,
-    or ``cfg``); returns launch counts."""
+    or ``cfg``); returns launch counts. ``then(hc)`` runs on the same model
+    before it is freed (``[serve-engine]``)."""
     import torch
 
     from hicom_tpu_torch.api import HICom, build_model
@@ -804,7 +831,338 @@ def main_path(card: str, cfg=None, label: str = "slice"):
         f"decode {decode_tps:.1f} tokens/s (single stream) | peak memory {peak_gb:.2f} GB")
     if label == "slice":  # the bf16 model's last-token logits of the single request, for [serve-int8]
         BF16_REFERENCE.update(logits=last_logits(model, with_mask(single)).cpu(), tower_ms=stages["vision tower"])
+    if then is not None:
+        then(hc)
     del model, hc
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The continuous-batching engine at HICom-7B: [serve-engine]
+# ---------------------------------------------------------------------------
+
+ENGINE = dict(n_slots=4, cache_len=4096, sync_steps=16, prompt_buckets=(64, 128, 256, 512))
+ENGINE_BUDGETS = (32, 8, 24, 16, 12, 28, 20, 10)  # max_new_tokens of the phase's 8 requests
+NEAR_TIE = 2**-6  # a divergence is allowed where the standalone run's top-2 gap is at most this of |top logit|
+
+
+def engine_samples(cfg, seed: int = 40):
+    """The phase's 8 ``mm_serve`` samples: 5 videos of ``cfg.num_frames``
+    frames, 1 single-frame image and 2 text prompts, each with a distinct
+    seeded instruction of 20-99 words (prompts in the 64 and 128 buckets),
+    full-length guide ids and a budget in 8-32."""
+    rng = np.random.default_rng(seed)
+    size, gcfg = cfg.vision_config.image_size, cfg.guide_text_config
+    samples = []
+    for i, budget in enumerate(ENGINE_BUDGETS):
+        words = " ".join(f"q{int(w)}" for w in rng.integers(0, 10**6, int(rng.integers(20, 100))))
+        s = dict(instruct=words, max_new_tokens=budget)
+        if i < 6:
+            t = cfg.num_frames if i < 5 else 1
+            s.update(tensor=rng.uniform(-1, 1, (t, 3, size, size)).astype(np.float32),
+                     modal="video" if i < 5 else "image",
+                     guide_ids=rng.integers(0, gcfg.vocab_size, gcfg.max_position_embeddings))
+        samples.append(s)
+    return samples
+
+
+def stop_word(tok, ids) -> str:
+    """A string the ``WordTokenizer`` turns into exactly ``ids``: one
+    character per word whose code point hashes to the id."""
+    words = []
+    for i in ids:
+        c = i - 3
+        while chr(c).isspace() or 0xD800 <= c <= 0xDFFF or c < 33:
+            c += tok.vocab - 3
+        words.append(chr(c))
+    return " ".join(words)
+
+
+def trim_stream(toks, eos, stops):
+    """A standalone ``generate`` row as the engine returns it: cut at eos and
+    before the first occurrence of a stop sequence."""
+    toks = list(toks)
+    toks = toks[:toks.index(eos)] if eos in toks else toks
+    for seq in stops:
+        for i in range(len(toks) - len(seq) + 1):
+            if tuple(toks[i:i + len(seq)]) == tuple(seq):
+                toks = toks[:i]
+                break
+    return toks
+
+
+def standalone(hc, eng, req):
+    """``HICom.generate`` of one request alone (greedy), its prompt padded to
+    the engine's bucket with a mask as the engine pads it; returns the stream
+    as the engine would return it and each step's top-2 logits (steps, 2)."""
+    import torch
+
+    L = len(req.input_ids)
+    bucket = eng._bucket_for(L)
+    ids = np.full((1, bucket), eng.pad_token_id, np.int64)
+    ids[0, :L] = req.input_ids
+    mask = np.zeros((1, bucket), bool)
+    mask[0, :L] = True
+    tops, logits = [], hc.model.logits
+
+    def recording(h):
+        out = logits(h)
+        tops.append(out[:, -1].float().topk(2, dim=-1).values[0])
+        return out
+
+    hc.model.logits = recording
+    try:
+        out = hc.generate(ids, frames=None if req.frames is None else req.frames[None],
+                          guide_ids=None if req.guide_ids is None else req.guide_ids[None], attention_mask=mask,
+                          modal=req.modal, max_new_tokens=req.max_new_tokens, stop_sequences=req.stop_sequences)
+    finally:
+        del hc.model.logits
+    return trim_stream(out[0].tolist(), hc.eos_token_id, req.stop_sequences), torch.stack(tops).cpu()
+
+
+def first_divergence(got, ref, tops):
+    """None where the streams are equal, else (position, top-2 gap over
+    |top logit| of the standalone run there)."""
+    if got == ref:
+        return None
+    j = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), min(len(got), len(ref)))
+    top1, top2 = tops[min(j, len(tops) - 1)].tolist()
+    return j, (top1 - top2) / abs(top1)
+
+
+def drive(eng, reqs):
+    """Submit ``reqs``, run the engine round by round. Returns (streams,
+    results, wall seconds, [(round seconds, admissions)])."""
+    import torch
+
+    torch.cuda.synchronize()
+    ids = [eng.submit(r) for r in reqs]
+    rounds = []
+    t0 = time.perf_counter()
+    while not eng.idle:
+        queued = len(eng._queue)
+        r0 = time.perf_counter()
+        eng.step_round()
+        rounds.append((time.perf_counter() - r0, queued - len(eng._queue)))
+    wall = time.perf_counter() - t0
+    res = eng.run()
+    return [res[i].tokens.tolist() for i in ids], [res[i] for i in ids], wall, rounds
+
+
+def engine_line(label, card, streams, results, wall, rounds):
+    n_tok = sum(map(len, streams))
+    ttft = " ".join(f"{1e3 * r.first_token_s:.0f}" for r in results)
+    log(f"[serve-engine] {label}: {card} | {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s aggregate | "
+        f"{len(rounds)} rounds, admissions in them {[adm for _, adm in rounds]} | submit-to-first-token ms per "
+        f"request: {ttft}")
+    return n_tok / wall
+
+
+def round_idle(eng, reqs):
+    """One decode round with every slot resident, timed on the host (the
+    third round of 4 requests: admissions and, graphed, the capture come
+    before it), then the device's idle share of the next one under
+    torch.profiler, with CUDA events around it. Returns (round ms, profiled
+    round ms, device kernel ms, event ms), or None when the requests ended
+    too soon."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in reqs:
+        eng.submit(r)
+    eng.step_round()
+    eng.step_round()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step_round()
+    round_ms = 1e3 * (time.perf_counter() - t0)
+    if eng.idle:
+        return None
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        eng.step_round()
+        end.record()
+        wall = time.perf_counter() - t0
+    end.synchronize()
+    eng.run()
+    busy_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return round_ms, 1e3 * wall, busy_ms, start.elapsed_time(end)
+
+
+def serve_engine_phase(card: str, hc):
+    """Phase 4c, on ``[slice]``'s HICom-7B (its decoder norms set to 1):
+    ``mm_serve``'s engine (4 slots, a 4,096-slot cache, 16 steps a round,
+    buckets 64-512) takes 8 requests (5 videos of 32 frames, an image, 2
+    text prompts; budgets 8-32, so slots free up and refill mid-run; every
+    request carries one stop sequence, which one standalone stream holds)
+    eagerly, with graphed rounds, with graphed rounds and ``spec_k=3``
+    (adaptive, and forced on every round), each graphed engine twice (the
+    first pass captures), and through ``mm_serve`` itself. Gates: graphed
+    streams equal eager ones bit for bit; speculative ones equal plain ones;
+    each stream equals the request's standalone ``HICom.generate``; a stream
+    may part from its reference only where the standalone run's top-2 logit
+    gap is at most 2^-6 of its top logit; one admission and one graphed
+    round under ``set_sync_debug_mode("error")``; K1-K4 launched (K3 counted
+    per replay). Returns the phase's launches by wrapper."""
+    import torch
+
+    from hicom_tpu_torch.api import _trim_at_keywords, mm_serve, serve_engine, serve_request
+    from hicom_tpu_torch.serve import ServeEngine
+
+    from hicom_tpu_torch.models.qwen2 import RMSNorm
+
+    cfg = hc.config
+    tok = WordTokenizer(cfg.text_config.vocab_size, cfg.guide_text_config.max_position_embeddings)
+    eos = hc.eos_token_id
+    # the decoder's norm weights at their usual initial value, 1: with
+    # build_model's N(0, 0.02) draw every request decodes one token over and
+    # over, which would leave the stream gates nothing to tell apart
+    with torch.no_grad():
+        for m in hc.model.model.modules():
+            if isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    cap0, rep0 = ServeEngine.k3_captured, ServeEngine.k3_replayed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    samples = engine_samples(cfg)
+    probe = serve_engine(hc, tok, cuda_graphs=False, **ENGINE)
+    reqs = [serve_request(s, hc, tok, guide_len=probe.guide_len) for s in samples]
+    # each request alone, greedy, without a stop; the stop sequence is the
+    # first pair of tokens, from a stream's 4th token on, that does not occur
+    # earlier in its stream (a pair no stream holds if there is none), and
+    # every request carries it, as mm_serve gives its stop strings to all.
+    # HICom.generate with a stop ends its row at the stop sequence, which the
+    # engine cuts off: trim_stream applies the same cut to each plain stream
+    plain = [standalone(hc, probe, r) for r in reqs]
+    pick = next(([t[j], t[j + 1]] for t, _ in plain for j in range(3, len(t) - 1)
+                 if all(t[i:i + 2] != t[j:j + 2] for i in range(j))), None)
+    if pick is None:
+        held = {x for t, _ in plain for x in t}
+        pick = [x for x in range(3, tok.vocab) if x not in held][:2]
+    stop = stop_word(tok, pick)
+    stops = (tuple(tok(stop).input_ids),)
+    for r in reqs:
+        r.stop_sequences = stops
+    alone = [(trim_stream(t, eos, stops), tops) for t, tops in plain]
+    shapes = [(r.modal, len(r.input_ids), r.max_new_tokens) for r in reqs]
+    log(f"[serve-engine] 8 requests (modal, prompt ids, budget): {shapes} | stop sequence {stops[0]} | standalone streams of {[len(t) for t, _ in plain]} tokens, "
+        f"{[len(a) for a, _ in alone]} after the stop; the first 12 of each: {[t[:12] for t, _ in plain]}")
+
+    eager, eres, ewall, erounds = drive(probe, reqs)
+    eager_tps = engine_line("eager", card, eager, eres, ewall, erounds)
+    graphed_eng = serve_engine(hc, tok, cuda_graphs=True, **ENGINE)
+    g1 = drive(graphed_eng, reqs)
+    graphed, gres, gwall, grounds = drive(graphed_eng, reqs)
+    engine_line("graphed, first pass (captures)", card, *g1)
+    graphed_tps = engine_line("graphed", card, graphed, gres, gwall, grounds)
+    spec_eng = serve_engine(hc, tok, spec_k=3, **ENGINE)
+    s1 = drive(spec_eng, reqs)
+    spec, sres, swall, srounds = drive(spec_eng, reqs)
+    engine_line("graphed, spec_k=3, first pass (captures)", card, *s1)
+    spec_tps = engine_line("graphed, spec_k=3", card, spec, sres, swall, srounds)
+    # the adaptive policy speculates only with one slot resident, which this
+    # set may never reach: the forced arm (JAX's spec_adaptive=False) runs
+    # every round speculatively, 4 slots x 4 tokens a verify step
+    forced_eng = ServeEngine(hc.model, spec_k=3, spec_adaptive=False, eos_token_id=eos, guide_len=probe.guide_len,
+                             device=hc.device, **ENGINE)
+    f1 = drive(forced_eng, reqs)
+    forced, fres, fwall, frounds = drive(forced_eng, reqs)
+    engine_line("graphed, spec_k=3 forced, first pass (captures)", card, *f1)
+    forced_tps = engine_line("graphed, spec_k=3 forced", card, forced, fres, fwall, frounds)
+    for label, eng in (("spec_k=3", spec_eng), ("spec_k=3 forced", forced_eng)):
+        log(f"[serve-engine] {label}: acceptance EMA {eng._accept_ema}, spec_rounds {eng.spec_rounds}, plain_rounds "
+            f"{eng.plain_rounds} over both passes | K3 launches a captured round {eng.graph_launches}, replays "
+            f"{eng.replays}")
+    log(f"[serve-engine] plain graphs: K3 launches a captured round {graphed_eng.graph_launches}, replays "
+        f"{graphed_eng.replays}")
+    texts = mm_serve(samples, hc, tok, stop_strings=[stop], **ENGINE)
+    eos_str = tok.decode([eos])
+    want = [_trim_at_keywords(tok.decode(e).strip(), [eos_str, stop]) for e in eager]
+
+    # gates 1-3
+    if graphed != eager or g1[0] != eager:
+        raise AssertionError(f"[serve-engine] graphed streams differ from eager ones: {graphed} vs {eager}")
+    if texts != want:
+        raise AssertionError(f"[serve-engine] mm_serve's strings differ from the engine's: {texts} vs {want}")
+    if s1[0] != spec or f1[0] != forced:
+        raise AssertionError("[serve-engine] a speculative engine's two passes differ")
+    for label, streams in (("spec_k=3 vs plain", spec), ("spec_k=3 forced vs plain", forced),
+                           ("engine vs standalone generate", graphed)):
+        for i, (got, (ref, tops)) in enumerate(zip(streams, alone)):
+            base = ref
+            if label.startswith("spec"):
+                # held to the plain stream; the standalone run's logits judge a
+                # tie where that stream still follows the standalone one
+                base = graphed[i]
+                j = next((k for k, (a, b) in enumerate(zip(got, base)) if a != b), min(len(got), len(base)))
+                if graphed[i][:j + 1] != ref[:j + 1]:
+                    base = ref
+            div = first_divergence(got, base, tops)
+            if div is None:
+                continue
+            j, gap = div
+            log(f"[serve-engine] {label}: request {i} parts at token {j}, standalone top-2 gap {gap:.3g} of "
+                f"|top logit| (allowed {NEAR_TIE:.3g})")
+            if not gap <= NEAR_TIE:
+                raise AssertionError(f"[serve-engine] {label}: request {i} diverges at token {j} off a near-tie")
+    log(f"[serve-engine] graphed == eager bit for bit (both graphed passes); mm_serve strings == the engine's; "
+        f"spec == plain for {sum(a == b for a, b in zip(spec, graphed))} of 8 requests, forced spec == plain for "
+        f"{sum(a == b for a, b in zip(forced, graphed))} of 8, engine == standalone for "
+        f"{sum(a == b for a, b in zip(graphed, (r for r, _ in alone)))} of 8")
+
+    # gate 4: one admission and one graphed round without a synchronising call
+    sync_eng = graphed_eng
+    sync_eng.submit(reqs[0])
+    torch.cuda.synchronize()
+    replays = dict(sync_eng.replays)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kind = sync_eng.dispatch_round()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if sync_eng.replays.get(kind) != replays.get(kind, -1) + 1:
+        raise AssertionError(f"[serve-engine] the checked round did not replay a graph ({kind})")
+    sync_eng.collect_round(kind)
+    sync_eng.run()
+    log(f"[sync] one admission (32-frame video: upload, guide encoder, tower, projector, prefill, first token, "
+        f"slot scatter) and one graphed {kind} round under set_sync_debug_mode('error'): no synchronising call")
+
+    # idle share of a decode round with 4 resident slots, eager and graphed
+    prof_reqs = [serve_request(dict(instruct=f"q{i} " * 30, max_new_tokens=80), hc, tok) for i in range(4)]
+    rounds = {}
+    for label, eng in (("eager", probe), ("graphed", graphed_eng)):
+        idle = round_idle(eng, prof_reqs)
+        if idle is None:
+            log(f"[serve-engine] {label} decode round: not measured (every request ended within three rounds)")
+            continue
+        round_ms, wall, busy, span = rounds[label] = idle
+        steps = ENGINE["sync_steps"]
+        log(f"[serve-engine] {label} decode round, 4 slots resident: {round_ms:.1f} ms ({round_ms / steps:.2f} ms a "
+            f"step, {4 * steps / round_ms * 1e3:.1f} tokens/s) | the next under torch.profiler: wall {wall:.1f} ms, "
+            f"device kernels {busy:.1f} ms, events {span:.1f} ms, idle share {1 - busy / wall:.3f}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    launches = {name: f.launches for name, f in fns.items()}
+    captured, replayed = ServeEngine.k3_captured - cap0, ServeEngine.k3_replayed - rep0
+    launches["flash_decode"] += replayed - captured
+    log(f"[serve-engine] launches: {launches} (K3: {replayed} by replays, {captured} capture calls taken out) | "
+        f"aggregate tokens/s eager {eager_tps:.1f}, graphed {graphed_tps:.1f}, spec {spec_tps:.1f}, forced spec "
+        f"{forced_tps:.1f} | decode round ms {({k: round(v[0], 1) for k, v in rounds.items()})} | peak memory "
+        f"{peak:.2f} GB | phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if min(launches.values()) <= 0 or replayed <= 0:
+        raise AssertionError(f"[serve-engine] K1-K4 not all launched: {launches}, K3 by replays {replayed}")
+    del probe, graphed_eng, spec_eng, forced_eng, sync_eng
     torch.cuda.empty_cache()
     return launches
 
@@ -1354,6 +1712,7 @@ class WordTokenizer:
     SigLIP's tokenizer does."""
 
     pad_token_id = 0
+    bos_token_id = None
 
     def __init__(self, vocab: int, max_length: int = 64):
         self.vocab, self.max_length = vocab, max_length
@@ -2399,7 +2758,10 @@ def main() -> int:
     records = kernel_checks(card)
     quant_ops_checks(card)
     # each phase's launches by wrapper, counted from 0 just before it runs
-    launches = {"serve": main_path(card)}
+    launches = {"serve-engine": {}}
+    # [serve-engine] runs on [slice]'s model before main_path frees it
+    launches["serve"] = main_path(card, then=lambda hc: launches["serve-engine"].update(
+        serve_engine_phase(card, hc)))
     launches["clip"] = main_path(card, clip_config(), "clip")
     launches["anyres"] = anyres_phase(card)
     launches["serve-int8"] = serve_quant_phase(card, "serve-int8", "int8")

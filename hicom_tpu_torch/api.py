@@ -1,6 +1,10 @@
-"""Public inference API of the port: ``model_init``, ``load_model``, ``build_model``, ``HICom.generate``, ``mm_infer``.
+"""Public inference API of the port: ``model_init``, ``load_model``, ``build_model``, ``HICom.generate``,
+``mm_infer``, ``mm_infer_batch``, ``mm_serve``.
 
-Port of the single-request surface of ``hicom_tpu/api.py``. ``load_model``
+Port of ``hicom_tpu/api.py`` on one device (its mesh and ring paths are not
+ported): ``mm_infer_batch`` runs same-shape videos or images as one
+right-padded batch; ``mm_serve`` streams mixed requests through the
+continuous-batching ``serve.ServeEngine``. ``load_model``
 reads the reference's checkpoint layouts: SFT (decoder, SigLIP towers and
 projector in one directory, or the towers from ``config.mm_vision_tower``),
 pretrain (``model_base`` + ``mm_projector.bin``) and LoRA (``model_base`` +
@@ -222,12 +226,17 @@ class HICom:
         seed: int = 0,
         stop_sequences: tuple = (),
         visual_embeds=None,
+        spec_decode: Optional[int] = None,
     ) -> np.ndarray:
         """(b, L) prompt ids with one modal sentinel -> (b, max_new_tokens) ids.
         ``frames`` may be a tensor already on the model's device (the device
         preprocessor's output): it is used as it is. ``visual_embeds`` (b, V,
         hidden), the tokens of an anyres image (:meth:`encode_anyres`), take
-        the place of ``frames``."""
+        the place of ``frames``. ``spec_decode`` (default: env
+        ``HICOM_SPEC_DECODE``, else 0) drafts that many prompt-lookup tokens
+        per decode step: greedy, unpadded b = 1 only, ignored otherwise."""
+        if spec_decode is None:
+            spec_decode = int(os.environ.get("HICOM_SPEC_DECODE", "0"))
         dev = self.device
         dtype = self.model.model.norm.weight.dtype
         if frames is not None:
@@ -249,7 +258,7 @@ class HICom:
             to_dev(guide_mask), to_dev(attention_mask), to_dev(visual_embeds, dtype),
             modal=modal if multimodal else "text", max_new_tokens=max_new_tokens, temperature=temp,
             top_p=float(top_p), eos_token_id=int(self.eos_token_id), cache_len=cache_len,
-            stop_sequences=tuple(stop_sequences), generator=gen)
+            stop_sequences=tuple(stop_sequences), generator=gen, spec_k=int(spec_decode))
         return out.cpu().numpy()
 
     def cache_len_for(self, prompt_len: int, visual_tokens: int, max_new_tokens: int) -> int:
@@ -424,14 +433,17 @@ def model_init(model_path: str, model_base: Optional[str] = None, device_preproc
     return model, processor, tokenizer
 
 
-def _pad_to_bucket(ids: np.ndarray, pad_id: int, bucket: int = 64):
-    """Right-pad (b, L) id rows to a multiple of ``bucket`` -> (ids, mask)."""
-    b, L = ids.shape
+def _pad_to_bucket(ids, pad_id: int, bucket: int = 64):
+    """Right-pad id rows, a (b, L) array or a list of ragged 1-D rows, to a
+    shared multiple of ``bucket`` -> (ids, mask)."""
+    rows = [np.asarray(r) for r in ids]
+    L = max(len(r) for r in rows)
     target = max(bucket, ((L + bucket - 1) // bucket) * bucket)
-    out = np.full((b, target), pad_id, dtype=np.int64)
-    out[:, :L] = ids
-    mask = np.zeros((b, target), dtype=bool)
-    mask[:, :L] = True
+    out = np.full((len(rows), target), pad_id, dtype=np.int64)
+    mask = np.zeros((len(rows), target), dtype=bool)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r
+        mask[i, : len(r)] = True
     return out, mask
 
 
@@ -514,3 +526,125 @@ def mm_infer(image_or_video, instruct, model: HICom, tokenizer, modal: str = "vi
     text = tokenizer.batch_decode(out, skip_special_tokens=True)[0].strip()
     eos_str = tokenizer.decode([model.eos_token_id], skip_special_tokens=False)
     return _trim_at_keywords(text, [eos_str] + stop_strings)
+
+
+def _chat_ids(instruct: str, tokenizer, modal_token: str) -> np.ndarray:
+    """One user turn (the modal token, a newline, the instruction) through the
+    chat template -> its prompt ids with the modal sentinel."""
+    content = (modal_token + "\n" if modal_token else "") + instruct
+    prompt = tokenizer.apply_chat_template([{"role": "user", "content": content}], tokenize=False,
+                                           add_generation_prompt=True)
+    return np.asarray(tokenizer_multimodal_token(prompt, tokenizer, modal_token, return_tensors="np"))
+
+
+def mm_infer_batch(tensors, instructs, model: HICom, tokenizer, modal: str = "video", guide_instructs=None,
+                   **kwargs) -> list:
+    """Batched multimodal generation: N same-shape videos or images (each
+    (t, 3, H, W) pixels) as one right-padded batch through one prefill and
+    decode -> N response strings. Guide-mode models take ``guide_instructs``
+    (or ``guide_ids`` / ``guide_mask``)."""
+    if modal not in ("image", "video"):
+        raise ValueError(f"mm_infer_batch takes images or videos, not {modal!r}")
+    modal_token = DEFAULT_IMAGE_TOKEN if modal == "image" else DEFAULT_VIDEO_TOKEN
+    if all(isinstance(t, torch.Tensor) for t in tensors):
+        frames = torch.stack(list(tensors))
+    else:
+        frames = np.stack([np.asarray(t) for t in tensors])  # (b, t, 3, H, W)
+    pad_id = tokenizer.pad_token_id if tokenizer.pad_token_id is not None else 0
+    ids, mask = _pad_to_bucket([_chat_ids(i, tokenizer, modal_token) for i in instructs], pad_id)
+
+    guide_ids = kwargs.pop("guide_ids", None)
+    guide_mask = kwargs.pop("guide_mask", None)
+    if model.config.guide_enabled() and guide_ids is None:
+        if guide_instructs is None or model.guide_tokenizer is None:
+            raise ValueError("a guide-mode model needs guide_instructs (and its guide tokenizer) or guide_ids")
+        enc = model.guide_tokenizer(list(guide_instructs), padding="max_length", truncation=True,
+                                    max_length=model.config.guide_text_config.max_position_embeddings,
+                                    return_tensors="np")
+        guide_ids = enc["input_ids"]
+        guide_mask = enc.get("attention_mask")
+
+    stop_strings = list(kwargs.get("stop_strings", ()))
+    out = model.generate(
+        ids, frames=frames, guide_ids=guide_ids, guide_mask=guide_mask, attention_mask=mask, modal=modal,
+        max_new_tokens=kwargs.get("max_new_tokens", 64), do_sample=kwargs.get("do_sample", False),
+        temperature=kwargs.get("temperature", 0.2), top_p=kwargs.get("top_p", 0.9),
+        stop_sequences=keyword_token_sequences(stop_strings, tokenizer))
+    texts = tokenizer.batch_decode(out, skip_special_tokens=True)
+    eos_str = tokenizer.decode([model.eos_token_id], skip_special_tokens=False)
+    return [_trim_at_keywords(t, [eos_str] + stop_strings) for t in texts]
+
+
+def serve_engine(model: HICom, tokenizer, n_slots: int = 4, cache_len: Optional[int] = None, sync_steps: int = 16,
+                 prompt_buckets=(64, 128, 256, 512), **kwargs):
+    """The :class:`serve.ServeEngine` that :func:`mm_serve` runs, on the
+    model's device, with the shared kwargs of :func:`mm_serve`."""
+    from .serve import ServeEngine
+
+    do_sample = kwargs.get("do_sample", False)
+    gcfg = model.config.guide_text_config
+    return ServeEngine(
+        model.model, n_slots=n_slots, cache_len=cache_len or model.cache_len, prompt_buckets=tuple(prompt_buckets),
+        guide_len=gcfg.max_position_embeddings if gcfg is not None else 32, sync_steps=sync_steps,
+        temperature=(kwargs.get("temperature", 0.2) if do_sample else 0.0), top_p=kwargs.get("top_p", 0.9),
+        eos_token_id=model.eos_token_id,
+        pad_token_id=tokenizer.pad_token_id if tokenizer.pad_token_id is not None else 0,
+        # speculative serving (greedy only): the kwarg wins, the environment is the default
+        spec_k=0 if do_sample else int(kwargs.get("spec_k", os.environ.get("HICOM_SPEC_DECODE", "0"))),
+        device=model.device, cuda_graphs=kwargs.get("cuda_graphs"))
+
+
+def serve_request(sample: dict, model: HICom, tokenizer, modal: str = "video", guide_len: int = 32,
+                  stop_sequences: tuple = (), max_new_tokens: int = 128):
+    """One :func:`mm_serve` sample -> its :class:`serve.GenRequest`: the chat
+    prompt's ids with the modal sentinel, the frames and the guide ids."""
+    from .serve import GenRequest
+
+    s_modal = sample.get("modal", modal)
+    tensor = sample.get("tensor")
+    if s_modal == "text" or tensor is None:
+        s_modal, modal_token, frames = "text", "", None
+    else:
+        modal_token = DEFAULT_IMAGE_TOKEN if s_modal == "image" else DEFAULT_VIDEO_TOKEN
+        frames = _as_frames(tensor)
+        if frames.ndim == 3:
+            frames = frames[None]
+    guide_ids = guide_mask = None
+    if model.config.guide_enabled() and frames is not None:
+        if "guide_ids" in sample:
+            guide_ids = np.asarray(sample["guide_ids"]).reshape(-1)
+        else:
+            if model.guide_tokenizer is None:
+                raise ValueError("guide tokenizer unavailable; pass guide_ids")
+            enc = model.guide_tokenizer(sample["guide_instruct"], padding="max_length", truncation=True,
+                                        max_length=guide_len, return_tensors="np")
+            guide_ids = enc["input_ids"][0]
+            am = enc.get("attention_mask")
+            guide_mask = am[0].astype(bool) if am is not None else None
+    return GenRequest(input_ids=_chat_ids(sample["instruct"], tokenizer, modal_token), frames=frames,
+                      guide_ids=guide_ids, guide_mask=guide_mask, modal=s_modal,
+                      max_new_tokens=sample.get("max_new_tokens", max_new_tokens), stop_sequences=stop_sequences)
+
+
+def mm_serve(samples, model: HICom, tokenizer, modal: str = "video", n_slots: int = 4, cache_len: Optional[int] = None,
+             sync_steps: int = 16, prompt_buckets=(64, 128, 256, 512), **kwargs) -> list:
+    """Continuous-batching generation over mixed requests -> response strings
+    in submission order: the requests stream through ``n_slots`` resident
+    sequences of one :class:`serve.ServeEngine` (:func:`serve_engine`), and
+    a finished slot is refilled from the queue at once.
+
+    ``samples``: dicts with ``instruct`` (str) and optionally ``tensor``
+    (preprocessed (t, 3, H, W) pixels, or a tensor on the model's device;
+    None or absent: text only), ``modal``, ``guide_instruct`` / ``guide_ids``,
+    ``max_new_tokens``. Shared kwargs: ``max_new_tokens``, ``do_sample``,
+    ``temperature``, ``top_p``, ``stop_strings``, ``spec_k`` (default: env
+    ``HICOM_SPEC_DECODE``; greedy only) and ``cuda_graphs`` (the engine's)."""
+    stop_strings = list(kwargs.get("stop_strings", ()))
+    stop_seqs = keyword_token_sequences(stop_strings, tokenizer)
+    engine = serve_engine(model, tokenizer, n_slots, cache_len, sync_steps, prompt_buckets, **kwargs)
+    order = [engine.submit(serve_request(s, model, tokenizer, modal, engine.guide_len, stop_seqs,
+                                         kwargs.get("max_new_tokens", 128))) for s in samples]
+    results = engine.run()
+    eos_str = tokenizer.decode([model.eos_token_id], skip_special_tokens=False)
+    return [_trim_at_keywords(tokenizer.decode(results[rid].tokens, skip_special_tokens=True).strip(),
+                              [eos_str] + stop_strings) for rid in order]

@@ -10,13 +10,25 @@ embeddings optional. ``config.quantization`` picks the linears of every layer
 * no cache: causal, right padding carried as ``kv_lengths``;
 * ``prefill_from_empty``: the same attention over the new tokens, which are
   also written to the cache;
-* a one-token step over the cache: slot-causal over the cache's validity
-  bitmap, through the K3 decode kernel on the card (its plain twin on the CPU)
-  over a bf16 or int8 cache.
+* a step over the cache: slot-causal over the cache's validity bitmap. One
+  token per row goes through the K3 decode kernel on the card (its plain twin
+  on the CPU) over a bf16 or int8 cache; a chunk of L > 1 tokens per row (a
+  speculative verify step) takes the plain masked ``sdpa``, as in JAX, where
+  a masked call takes XLA under the ``auto`` rule and no Pallas kernel
+  computes it.
+
+The step has two cache modes. By default every row shares the ``int`` write
+offset ``length``. With ``per_slot=True`` (the serving engine, ``serve.py``)
+each row is an independent serving slot with its own offset in the ``(b,)``
+device tensor ``lengths``: K/V (and int8 codes and scales) are scattered at
+each row's offset, each row's L new slots are set valid, and a row's token i
+sees the valid slots up to its offset + i. That mode never waits for the
+device, and it leaves ``lengths`` to the caller, who knows which rows
+advance and by how much.
 
 Unlike the JAX cache, :class:`KVCache` is updated in place: the tensors are
-written at the shared offset and ``length`` advances, which saves a copy of
-the whole cache per step. With ``remat=True`` in the config, each layer of a
+written at the offsets and ``length`` advances, which saves a copy of the
+whole cache per step. With ``remat=True`` in the config, each layer of a
 cache-less forward under grad mode runs inside
 ``torch.utils.checkpoint.checkpoint`` (the JAX ``nn.remat`` of each block): its
 activations are recomputed in the backward instead of kept.
@@ -42,9 +54,10 @@ Tensor = torch.Tensor
 @dataclass
 class KVCache:
     """k/v (num_layers, b, kv_heads, max_len, head_dim); ``valid`` (b, max_len)
-    marks real (non-padding) slots; ``length`` is the shared write offset.
-    int8 mode: k/v hold codes and ``k_scale``/``v_scale`` (num_layers, b,
-    kv_heads, max_len) per-slot absmax scales."""
+    marks real (non-padding) slots; ``length`` is the shared write offset and
+    ``lengths`` (b,) int64 on the device the per-slot offsets (``per_slot``
+    steps). int8 mode: k/v hold codes and ``k_scale``/``v_scale``
+    (num_layers, b, kv_heads, max_len) per-slot absmax scales."""
 
     k: Tensor
     v: Tensor
@@ -52,18 +65,26 @@ class KVCache:
     length: int = 0
     k_scale: Optional[Tensor] = None
     v_scale: Optional[Tensor] = None
+    lengths: Optional[Tensor] = None
 
     @classmethod
     def zeros(cls, num_layers, batch, kv_heads, max_len, head_dim, dtype, device, quantized: bool = False):
         shape = (num_layers, batch, kv_heads, max_len, head_dim)
         valid = torch.zeros((batch, max_len), dtype=torch.bool, device=device)
+        lengths = torch.zeros((batch,), dtype=torch.int64, device=device)
         if quantized:
             return cls(torch.zeros(shape, dtype=torch.int8, device=device),
                        torch.zeros(shape, dtype=torch.int8, device=device), valid, 0,
                        torch.ones(shape[:-1], dtype=torch.float32, device=device),
-                       torch.ones(shape[:-1], dtype=torch.float32, device=device))
+                       torch.ones(shape[:-1], dtype=torch.float32, device=device), lengths)
         return cls(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device),
-                   valid, 0)
+                   valid, 0, lengths=lengths)
+
+    def row(self, i: int) -> "KVCache":
+        """Row ``i`` as a 1-row cache of views (written in place), at offset 0."""
+        sl = slice(i, i + 1)
+        scales = (self.k_scale[:, sl], self.v_scale[:, sl]) if self.k_scale is not None else (None, None)
+        return KVCache(self.k[:, sl], self.v[:, sl], self.valid[sl], 0, *scales)
 
 
 def quantize_kv(x: Tensor) -> Tuple[Tensor, Tensor]:
@@ -119,10 +140,12 @@ class DecoderAttention(nn.Module):
 
     def forward(self, x: Tensor, rope: Tuple[Tensor, Tensor], cache: Optional[KVCache] = None, layer: int = 0,
                 kv_lengths: Optional[Tensor] = None, prefill_from_empty: bool = False,
-                slot_mask: Optional[Tensor] = None) -> Tensor:
+                slot_mask: Optional[Tensor] = None, offsets: Optional[Tensor] = None) -> Tensor:
         """``rope`` = the step's (cos, sin); ``kv_lengths`` the right-padded rows'
         lengths (cache-less or prefill modes); ``slot_mask`` the visible cache
-        slots of a one-token step. The decoder computes all three once per step."""
+        slots of a step, (b, S) for one token per row, (b, 1, L, S) for more;
+        ``offsets`` (b, L) the slots a per-slot step writes. The decoder
+        computes them once per step."""
         b, L, _ = x.shape
         H, KVH, hd = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(x).reshape(b, L, H, hd).transpose(1, 2)
@@ -136,18 +159,35 @@ class DecoderAttention(nn.Module):
                 self._write(cache, layer, k, v)
             out = sdpa(q, k, v, scale=hd**-0.5, is_causal=True, kv_lengths=kv_lengths)
         else:
-            if L != 1:
-                raise ValueError("a step over a filled cache takes one token per row")
-            self._write(cache, layer, k, v)
+            self._write(cache, layer, k, v, offsets)
             quant = cache.k_scale is not None
-            out = flash_decode(q, cache.k[layer], cache.v[layer], slot_mask,
-                               k_scale=cache.k_scale[layer] if quant else None,
-                               v_scale=cache.v_scale[layer] if quant else None, scale=hd**-0.5)
+            if L == 1:
+                out = flash_decode(q, cache.k[layer], cache.v[layer], slot_mask,
+                                   k_scale=cache.k_scale[layer] if quant else None,
+                                   v_scale=cache.v_scale[layer] if quant else None, scale=hd**-0.5)
+            else:  # a verify chunk: the plain masked path (JAX takes XLA here too; no kernel to port)
+                ck, cv = cache.k[layer], cache.v[layer]
+                if quant:
+                    ck, cv = dequantize_kv(ck, cache.k_scale[layer], q.dtype), dequantize_kv(cv, cache.v_scale[layer],
+                                                                                            q.dtype)
+                out = sdpa(q, ck, cv, scale=hd**-0.5, mask=slot_mask)
         out = out.transpose(1, 2).reshape(b, L, H * hd)
         return self.o_proj(out)
 
     @staticmethod
-    def _write(cache: KVCache, layer: int, k: Tensor, v: Tensor) -> None:
+    def _write(cache: KVCache, layer: int, k: Tensor, v: Tensor, offsets: Optional[Tensor] = None) -> None:
+        if offsets is not None:  # per-slot: each row at its own offset, by device scatters
+            b, KVH, L, d = k.shape
+            idx = offsets[:, None, :].expand(b, KVH, L)
+            pairs = [(cache.k, k), (cache.v, v)]
+            if cache.k_scale is not None:
+                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                pairs = [(cache.k, kq), (cache.v, vq)]
+                cache.k_scale[layer].scatter_(2, idx, ks)
+                cache.v_scale[layer].scatter_(2, idx, vs)
+            for dst, src in pairs:
+                dst[layer].scatter_(2, idx[..., None].expand(b, KVH, L, d), src)
+            return
         off, L = cache.length, k.shape[2]
         if cache.k_scale is not None:
             kq, ks = quantize_kv(k)
@@ -181,9 +221,10 @@ class DecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype=dtype)
         self.mlp = DecoderMLP(cfg.hidden_size, cfg.intermediate_size, dtype=dtype, quant=mlp_q)
 
-    def forward(self, x, rope, cache=None, layer=0, kv_lengths=None, prefill_from_empty=False, slot_mask=None):
+    def forward(self, x, rope, cache=None, layer=0, kv_lengths=None, prefill_from_empty=False, slot_mask=None,
+                offsets=None):
         x = x + self.self_attn(self.input_layernorm(x), rope, cache, layer, kv_lengths, prefill_from_empty,
-                               slot_mask)
+                               slot_mask, offsets)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -198,8 +239,11 @@ class Qwen2Model(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype=dtype)
 
     def forward(self, inputs_embeds: Tensor, positions: Tensor, cache: Optional[KVCache] = None,
-                padding_mask: Optional[Tensor] = None, prefill_from_empty: bool = False) -> Tensor:
-        """Returns the final-norm hidden states; a given cache is written in place."""
+                padding_mask: Optional[Tensor] = None, prefill_from_empty: bool = False,
+                per_slot: bool = False) -> Tensor:
+        """Returns the final-norm hidden states; a given cache is written in
+        place. ``per_slot``: a step over ``cache.lengths``' per-row offsets,
+        which it leaves as they are (see the module docstring)."""
         cfg = self.config
         x = inputs_embeds.to(self.norm.weight.dtype)
         b, L = x.shape[:2]
@@ -207,22 +251,36 @@ class Qwen2Model(nn.Module):
         # right-padded rows: the mask is a per-row length (padded queries emit
         # values nobody reads)
         kv_lengths = padding_mask.to(torch.int32).sum(dim=-1) if padding_mask is not None else None
-        slot_mask = None
+        slot_mask = offsets = None
         if cache is not None:
-            step_valid = padding_mask.to(torch.bool) if padding_mask is not None else True
-            cache.valid[:, cache.length:cache.length + L] = step_valid
+            if per_slot:  # each row's L new slots, at its own offset
+                offsets = cache.lengths[:, None] + torch.arange(L, device=x.device)
+                cache.valid.scatter_(1, offsets, True)
+            else:
+                step_valid = padding_mask.to(torch.bool) if padding_mask is not None else True
+                cache.valid[:, cache.length:cache.length + L] = step_valid
             if not prefill_from_empty:
-                # causality over cache SLOTS: slot s is visible if written (valid)
-                # and s <= the current offset
-                S = cache.valid.shape[1]
-                slot_mask = cache.valid & (torch.arange(S, device=x.device)[None, :] <= cache.length)
+                # causality over cache SLOTS: the row's token i sees slot s if it
+                # is written (valid) and s <= its offset + i; this also hides the
+                # unaccepted candidates a speculative step left valid beyond it
+                slots = torch.arange(cache.valid.shape[1], device=x.device)
+                if per_slot:
+                    last = offsets
+                elif L == 1:
+                    last = cache.length
+                else:
+                    last = (cache.length + torch.arange(L, device=x.device))[None, :]
+                if L == 1:
+                    slot_mask = cache.valid & (slots[None, :] <= last)
+                else:
+                    slot_mask = (cache.valid[:, None, :] & (slots[None, None, :] <= last[:, :, None]))[:, None]
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if remat:
                 x = checkpoint(layer, x, rope, None, i, kv_lengths, use_reentrant=False)
             else:
-                x = layer(x, rope, cache, i, kv_lengths, prefill_from_empty, slot_mask)
-        if cache is not None:
+                x = layer(x, rope, cache, i, kv_lengths, prefill_from_empty, slot_mask, offsets)
+        if cache is not None and not per_slot:
             cache.length += L
         return self.norm(x)
 

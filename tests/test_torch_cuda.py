@@ -519,3 +519,108 @@ def test_mm_infer_takes_a_device_tensor_as_it_is(monkeypatch):
     assert hc._to_dev(pix, torch.bfloat16) is pix
     ids = hc.generate(np.array([[5, 6, -201, 7, 8]]), frames=pix[None], max_new_tokens=3)
     assert ids.shape == (1, 3)
+
+
+def _engine_model():
+    """A 2-layer bf16 HICom model whose decoder steps take K3 (head_dim 128,
+    GQA 4/2), weights N(0, 0.2) from a seed, and 4 requests for it."""
+    import dataclasses
+
+    import numpy as np
+
+    from hicom_tpu_torch import api, tiny_test_config
+    from hicom_tpu_torch.serve import GenRequest
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = tiny_test_config(dtype="bfloat16")
+    cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, head_dim=128))
+    model = api.build_model(cfg, device="cuda", seed=0, std=0.2)
+    rng = np.random.default_rng(1)
+    reqs = []
+    for i, (L, budget) in enumerate(((10, 20), (7, 9), (14, 30), (5, 12))):
+        ids = rng.integers(5, cfg.text_config.vocab_size, (L,))
+        frames = None
+        if i % 2 == 0:
+            ids[3] = -201
+            frames = rng.standard_normal((4, 3, 56, 56)).astype(np.float32)
+        reqs.append(GenRequest(input_ids=ids, frames=frames, modal="video" if frames is not None else "text",
+                               max_new_tokens=budget))
+    return model, reqs
+
+
+@pytest.mark.parametrize("spec_k", [0, 3])
+def test_graphed_rounds_equal_eager_ones(spec_k):
+    """The engine's rounds captured as CUDA graphs and replayed give the eager
+    rounds' streams bit for bit (2 slots, so slots refill; with spec_k the
+    plain_hist and spec kinds both run), and K3 launches inside each captured
+    plain round, one per layer and step."""
+    from hicom_tpu_torch.serve import ServeEngine
+
+    model, reqs = _engine_model()
+
+    def run(graphs):
+        eng = ServeEngine(model, n_slots=2, cache_len=512, prompt_buckets=(16,), sync_steps=4, eos_token_id=2,
+                          spec_k=spec_k, spec_max_active=2, spec_min_accept=0.0, cuda_graphs=graphs)
+        ids = [eng.submit(r) for r in reqs]
+        res = eng.run()
+        return [res[i].tokens.tolist() for i in ids], eng
+
+    eager, _ = run(False)
+    graphed, eng = run(True)
+    assert graphed == eager
+    assert sum(eng.replays.values()) > 0
+    plain = "plain_hist" if spec_k else "plain"
+    if plain in eng.graph_launches:
+        assert eng.graph_launches[plain] == 2 * 4
+    assert eng.graph_launches.get("spec", 0) == 0  # a verify chunk takes the plain masked path
+
+
+def test_per_slot_step_hides_stale_candidates_on_the_card(rn, monkeypatch):
+    """A per-slot one-token step over rows at other offsets with pad holes and
+    stale valid slots past the offset: K3 takes valid & (slot <= offset), its
+    output equals the plain twin's on that mask, the layer's attention equals
+    the plain route's, and the stale slots would have changed the answer."""
+    from hicom_tpu_torch.models import qwen2
+    from hicom_tpu_torch.models.qwen2 import KVCache, rotary_tables
+
+    model, _ = _engine_model()
+    tc = model.hicom_config.text_config
+    b, S, KVH, d = 3, 512, tc.num_key_value_heads, tc.head_dim
+    slot = torch.arange(S, device="cuda")
+    lengths = torch.tensor([40, 200, 333], device="cuda")
+    valid = slot[None, :] < lengths[:, None]
+    valid[1, 60:90] = False  # a right-padded prompt's pad slots
+    valid[2, 333:337] = True  # an unaccepted speculative chunk past the offset
+
+    def cache():
+        gen = torch.Generator("cuda").manual_seed(3)
+        kv = [torch.randn(tc.num_hidden_layers, b, KVH, S, d, generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2)]
+        return KVCache(kv[0], kv[1], valid.clone(), 0, lengths=lengths.clone())
+
+    x = rn(b, 1, tc.hidden_size)
+    pos = (lengths - 3)[:, None]
+    rope = rotary_tables(pos, d, tc.rope_theta, torch.bfloat16)
+    attn = model.model.layers[0].self_attn
+    offsets = lengths[:, None]
+    outs, masks = [], []
+    for route in ("kernel", "plain"):
+        c = cache()
+        c.valid.scatter_(1, offsets, True)
+        mask = c.valid & (slot[None, :] <= offsets)
+        if route == "plain":
+            monkeypatch.setattr(qwen2, "flash_decode", lambda q, k, v, m, k_scale=None, v_scale=None, scale=None:
+                                decode_reference(q, k, v, m, k_scale, v_scale, scale))
+        before = flash_decode.launches
+        with torch.inference_mode():
+            outs.append(attn(x, rope, c, 0, None, False, mask, offsets))
+        assert flash_decode.launches == before + (route == "kernel")
+        masks.append((c, mask))
+    assert _worst(outs[0], outs[1]) <= 1
+    c, mask = masks[0]
+    q = rn(b, tc.num_attention_heads, 1, d)
+    got = flash_decode(q, c.k[0], c.v[0], mask)
+    assert _worst(got, decode_reference(q, c.k[0], c.v[0], mask, None, None, d**-0.5)) <= 1
+    stale = decode_reference(q, c.k[0], c.v[0], c.valid, None, None, d**-0.5)
+    assert (stale[2] - got[2]).abs().max().item() > 1e-2 and _worst(stale[:2], got[:2]) <= 1

@@ -40,7 +40,8 @@ TRAIN_MODULES = ("hicom_tpu_torch.train.optimizer", "hicom_tpu_torch.train.train
                  "hicom_tpu_torch.train.cli", "hicom_tpu_torch.data.image", "hicom_tpu_torch.data.native",
                  "hicom_tpu_torch.data.native_video", "hicom_tpu_torch.data.processor",
                  "hicom_tpu_torch.data.video", "hicom_tpu_torch.data.prompts", "hicom_tpu_torch.weights",
-                 "hicom_tpu_torch.models.quant", "hicom_tpu_torch.ops.preprocess", "hicom_tpu_torch.api")
+                 "hicom_tpu_torch.models.quant", "hicom_tpu_torch.ops.preprocess", "hicom_tpu_torch.api",
+                 "hicom_tpu_torch.serve")
 
 
 def test_train_modules_import_no_jax():
@@ -53,7 +54,7 @@ def test_train_modules_import_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["build_model", "load_model", "create_train_state", "train_cli", "model_init",
-                                   "device_preprocessor"])
+                                   "device_preprocessor", "serve_engine"])
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     import hicom_tpu_torch
     from hicom_tpu_torch.models.hicom import HIComModel
@@ -75,6 +76,10 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
             from hicom_tpu_torch.ops.preprocess import DeviceSiglipPreprocessor
 
             DeviceSiglipPreprocessor()
+        elif entry == "serve_engine":
+            from hicom_tpu_torch.serve import ServeEngine
+
+            ServeEngine(HIComModel(hicom_tpu_torch.tiny_test_config()))
         elif entry == "train_cli":  # --device defaults to cuda
             cli.run(cli.build_parser().parse_args(["--model-path", "x", "--data-path", "y", "--output-dir",
                                                    str(tmp_path)]), tokenizer=None)
