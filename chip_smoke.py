@@ -77,6 +77,13 @@ Phases:
      in its own layout, held to the model that wrote it (for ``--bits 8``,
      the float stage-2 base with the trained adapters as a side path) and
      generating through K1-K4;
+  7b. [closed-loop]: the port's selftest loop (train -> export -> reload ->
+     eval -> score) at the same width and depth, in bf16 with 8 frames:
+     stage 1 and stage 2 through ``train.cli.main`` on the selftest's images
+     and mp4s, the stage-2 export through the port's eval runner on a mini
+     Video-MME whose answer is always "B" (which stage 2 teaches), scored at
+     least 75.0 (chance 25.0), and again under the int8 weight-only and
+     ``serving_default`` quantization with the fp accuracy; K1-K6 all launch;
   8. the quantized serving configuration from raw frames (``models/quant.py``,
      ``ops/preprocess.py``): [quant-ops] the int8 routes (``torch._int_mm``
      bit-equal to the exact product at the tower MLP and decode shapes; the
@@ -1740,42 +1747,57 @@ class WordTokenizer:
         return [self.decode(r) for r in rows]
 
 
+def write_base_dirs(llm: str, tower: str, cfg, seed: int, norms_at_one: bool = False) -> dict:
+    """The base LLM directory ``llm`` (``config.json`` of a Qwen2 model and
+    ``model.safetensors`` of its decoder) and the SigLIP tower directory
+    ``tower`` (both towers, HF ``SiglipModel`` names), at ``cfg``'s widths
+    with weights drawn on the card from ``seed`` (with ``norms_at_one``, the
+    norms' weights 1 and biases 0, as ``transformers`` initialises them),
+    written by the port itself (its own safetensors writer). Returns the
+    model's state dict."""
+    import dataclasses
+    import os
+
+    from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.weights import save_safetensors
+
+    sd = build_model(cfg, device="cuda", seed=seed).state_dict()
+    for k, v in sd.items():
+        if norms_at_one and "norm" in k.split(".")[-2]:
+            v.fill_(1.0 if k.endswith(".weight") else 0.0)
+    os.makedirs(llm)
+    save_safetensors({k: v for k, v in sd.items() if not k.startswith(("model.mm_projector", "model.vision_tower"))},
+                     os.path.join(llm, "model.safetensors"))
+    with open(os.path.join(llm, "config.json"), "w") as f:
+        json.dump({"model_type": "qwen2", **dataclasses.asdict(cfg.text_config)}, f)
+    os.makedirs(tower)
+    hosts = ("model.vision_tower.vision_tower.", "model.vision_tower.guide_encoder.")
+    save_safetensors({k[len(h):]: v for k, v in sd.items() for h in hosts if k.startswith(h)},
+                     os.path.join(tower, "model.safetensors"))
+    with open(os.path.join(tower, "config.json"), "w") as f:
+        json.dump({"model_type": "siglip", "vision_config": dataclasses.asdict(cfg.vision_config),
+                   "text_config": dataclasses.asdict(cfg.guide_text_config)}, f)
+    return sd
+
+
 def write_cli_inputs(root: str, cfg, frames: int = 32, rows: int = 4) -> dict:
     """The trainer's input files under ``root``, at ``cfg``'s widths with
-    seeded weights: the base LLM directory (``config.json`` of a Qwen2 model and
-    ``model.safetensors`` of its decoder), the SigLIP tower directory (both
-    towers, HF ``SiglipModel`` names), a stage-1 ``mm_projector.bin``, and
-    ``data.json``: ``rows`` video rows, each a directory of ``frames`` PNG
-    frames, with a question (the guide prompt) and an answer. Every file is
-    written by the port itself (its own safetensors writer)."""
-    import dataclasses
+    seeded weights: the base LLM and tower directories (``write_base_dirs``),
+    a stage-1 ``mm_projector.bin``, and ``data.json``: ``rows`` video rows,
+    each a directory of ``frames`` PNG frames, with a question (the guide
+    prompt) and an answer. Every file is written by the port itself."""
     import os
 
     import torch
     from PIL import Image
 
-    from hicom_tpu_torch.api import build_model
     from hicom_tpu_torch.train.checkpoints import export_mm_projector_bin
-    from hicom_tpu_torch.weights import save_safetensors
 
     paths = {k: os.path.join(root, v) for k, v in (("llm", "qwen2.5-7b-width"), ("tower", "siglip-so400m-width"),
                                                    ("bin", "stage1/mm_projector.bin"), ("data", "data.json"))}
-    model = build_model(cfg, device="cuda", seed=7)
-    sd = model.state_dict()
-    os.makedirs(paths["llm"])
-    save_safetensors({k: v for k, v in sd.items() if not k.startswith(("model.mm_projector", "model.vision_tower"))},
-                     os.path.join(paths["llm"], "model.safetensors"))
-    with open(os.path.join(paths["llm"], "config.json"), "w") as f:
-        json.dump({"model_type": "qwen2", **dataclasses.asdict(cfg.text_config)}, f)
-    os.makedirs(paths["tower"])
-    hosts = ("model.vision_tower.vision_tower.", "model.vision_tower.guide_encoder.")
-    save_safetensors({k[len(h):]: v for k, v in sd.items() for h in hosts if k.startswith(h)},
-                     os.path.join(paths["tower"], "model.safetensors"))
-    with open(os.path.join(paths["tower"], "config.json"), "w") as f:
-        json.dump({"model_type": "siglip", "vision_config": dataclasses.asdict(cfg.vision_config),
-                   "text_config": dataclasses.asdict(cfg.guide_text_config)}, f)
+    sd = write_base_dirs(paths["llm"], paths["tower"], cfg, seed=7)
     export_mm_projector_bin(sd, paths["bin"])
-    del model, sd
+    del sd
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(8)
@@ -1938,6 +1960,83 @@ def cli_phase(card: str):
         del hc
         torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
+
+
+# both stages' learning rate in [closed-loop]: the reference recipe's for the
+# decoder (stage 3). With the norms at 1, stage 2's loss falls from about 13
+# to 0.03 in 3 steps at 1e-5, reaches 0.0000 after one step at 1e-4 and
+# above, and takes 7 steps at 3e-6 (on the H100; PERF.md)
+LOOP_LR = 1e-5
+LOOP_EPOCHS = 12  # stage 2's epochs (one step each: 12 rows at batch 8)
+LOOP_MODES = ["fp", "int8_weight_only", "serving_default"]
+
+
+def closed_loop_phase(card: str):
+    """[closed-loop]: the port's selftest loop (``hicom_tpu_torch.selftest.run``)
+    at the width of HICom-7B with 2 tower and 2 decoder layers, in bf16, 8
+    frames, on the card: the base LLM and tower directories written by the
+    port (``write_base_dirs``, seeded weights, the norms at 1), the selftest's WordLevel
+    vocabulary padded with filler words to the model's 152,064 ids (its eos
+    ``</s>``, id 2), the selftest's 8 images and 4 mp4s (cv2); stage 1
+    (projector, 2 steps) and stage 2 (projector and decoder, ``LOOP_EPOCHS``
+    steps, batch 8) through ``train.cli.main`` at ``LOOP_LR``; the stage-2
+    ``hf_export`` reloaded by ``model_init`` and run through the port's
+    eval runner on the mini Video-MME (parquet: the card has pyarrow; 2
+    videos, 4 questions, each with and without subtitles) and scored; then
+    the same under ``LOOP_MODES`` with each mode's greedy-token agreement
+    with fp. Fails unless the accuracy is at least 75.0 over at least 4
+    questions (chance 25.0), every mode scores the fp accuracy, stage 2's
+    last loss is below its first, and K1-K6 each launched in the phase.
+    Returns the phase's launches."""
+    import dataclasses
+    import os
+    import shutil
+
+    import pyarrow
+    import torch
+
+    from hicom_tpu_torch import selftest
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_loop")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = serving_config(layers=2)
+    cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, eos_token_id=2))
+    llm, tower = os.path.join(root, "qwen2.5-7b-width"), os.path.join(root, "siglip-so400m-width")
+    t0 = time.perf_counter()
+    reset_counts()
+    write_base_dirs(llm, tower, cfg, seed=13, norms_at_one=True)  # the state dict it returns is dropped here
+    torch.cuda.empty_cache()
+    selftest._write_wordlevel_tokenizer(llm, selftest.WORDS, vocab_size=cfg.text_config.vocab_size)
+    out = selftest.run(os.path.join(root, "loop"), epochs=LOOP_EPOCHS, num_frames=8, quant_modes=LOOP_MODES,
+                       device="cuda", dtype="bfloat16", learning_rate=LOOP_LR, logging_steps=1, assets=(llm, tower))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters(train=True).items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stages = {}
+    for name, rows in out["metrics"].items():
+        losses = [r["loss"] for r in rows]
+        step_ms = (rows[-1]["time"] - rows[0]["time"]) / (len(rows) - 1) * 1e3 if len(rows) > 1 else float("nan")
+        stages[name] = losses
+        log(f"[closed-loop] {card} | {name}: {len(rows)} steps, {step_ms:.1f} ms a step after the first (host "
+            f"clock between metrics rows), loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    sweep = out["quant_sweep"]
+    modes = " | ".join(f"{m} {r['videomme_accuracy']:.1f} (agreement {r['token_agreement']})" for m, r in sweep.items())
+    log("[closed-loop] loss curve: " + " | ".join(f"{n} " + " ".join(f"{x:.4f}" for x in v) for n, v in stages.items()))
+    log(f"[closed-loop] {card} | accuracy {out['videomme_accuracy']:.1f} over {out['n_questions']} questions "
+        f"(chance {out['chance']}), layout videomme parquet (pyarrow {pyarrow.__version__}) | modes: {modes} | "
+        f"lr {LOOP_LR}, {LOOP_EPOCHS} epochs | launches {launches} | peak memory {peak_gb:.2f} GB | "
+        f"{seconds:.1f} s")
+    if not (out["videomme_accuracy"] >= 75.0 and out["n_questions"] >= 4):
+        raise AssertionError(f"[closed-loop] the loop did not learn its answer: {out['report']}")
+    if any(r["videomme_accuracy"] != sweep["fp"]["videomme_accuracy"] for r in sweep.values()):
+        raise AssertionError(f"[closed-loop] a serving mode scored other than fp: {sweep}")
+    if not stages["stage2"][-1] < stages["stage2"][0]:
+        raise AssertionError(f"[closed-loop] stage 2's loss did not fall: {stages['stage2']}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[closed-loop] a kernel never launched in the loop: {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2777,6 +2876,7 @@ def main() -> int:
     plain_vs_kernel_grads()
     plain_vs_kernel_anyres_clip()
     cli_phase(card)
+    launches["closed-loop"] = closed_loop_phase(card)
 
     kernels = []
     for name, (kid, phase, rec) in records.items():

@@ -28,6 +28,12 @@ def load_model(model_path, **kwargs):
     return _load(model_path, **kwargs)
 
 
+def model_init(model_path, **kwargs):
+    from .api import model_init as _mi
+
+    return _mi(model_path, **kwargs)
+
+
 def build_model(config, **kwargs):
     from .api import build_model as _build
 

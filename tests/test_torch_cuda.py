@@ -624,3 +624,62 @@ def test_per_slot_step_hides_stale_candidates_on_the_card(rn, monkeypatch):
     assert _worst(got, decode_reference(q, c.k[0], c.v[0], mask, None, None, d**-0.5)) <= 1
     stale = decode_reference(q, c.k[0], c.v[0], c.valid, None, None, d**-0.5)
     assert (stale[2] - got[2]).abs().max().item() > 1e-2 and _worst(stale[:2], got[:2]) <= 1
+
+
+def test_device_time_times_a_k2_call_with_cuda_events(rn):
+    """``profiling.device_time`` on the card: each call of the chain launches
+    K2 once (the warm-up chain too), the output feeds the next call's query,
+    and the time comes from CUDA events."""
+    from hicom_tpu_torch.profiling import device_time
+
+    q, k, v = rn(1, 28, 512, 128), rn(1, 4, 512, 128), rn(1, 4, 512, 128)
+    before = flash_forward.launches
+    t = device_time(flash_forward, q, k, v, None, 128**-0.5, 0.0, True, iters=3, chain=2,
+                    feedback=lambda out, a: (out[0],) + a[1:])
+    assert flash_forward.launches - before == (3 + 1) * 2
+    assert 0 < t < 0.05
+
+
+def test_eval_runner_on_the_card_writes_the_cpus_answers(tmp_path, monkeypatch):
+    """The port's eval runner on a tiny bf16 export (text head_dim 128, so
+    that K2 and K3 take it; weights N(0, 0.2)) writes the same mini Video-MME
+    answer files with ``--device cuda`` as with ``--device cpu``, from the
+    same generated strings, and launches the kernels on the card."""
+    import dataclasses
+    import json
+
+    from hicom_tpu_torch import api, tiny_test_config
+    from hicom_tpu_torch.eval import runner
+    from hicom_tpu_torch.selftest import WORDS, _write_wordlevel_tokenizer, build_mini_videomme
+    from hicom_tpu_torch.weights import export_hf_checkpoint
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tower, ckpt = tmp_path / "siglip-so400m-patch14-384", tmp_path / "HICom_tiny_sft"
+    tower.mkdir()
+    cfg = tiny_test_config(dtype="bfloat16")
+    cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, head_dim=128, vocab_size=3 + len(WORDS),
+                                                      eos_token_id=2),
+                      mm_vision_tower=str(tower), use_guide=None, num_frames=4)
+    with open(tower / "config.json", "w") as f:
+        json.dump({"model_type": "siglip", "vision_config": dataclasses.asdict(cfg.vision_config),
+                   "text_config": dataclasses.asdict(cfg.guide_text_config)}, f)
+    model = api.build_model(cfg, device="cuda", seed=3, std=0.2)
+    export_hf_checkpoint(model.state_dict(), cfg, str(ckpt))
+    del model
+    _write_wordlevel_tokenizer(str(ckpt), WORDS)
+    qf, vids, subs = build_mini_videomme(str(tmp_path))
+    answers, launches, strings = {}, {}, []
+    mm_infer = runner.mm_infer
+    monkeypatch.setattr(runner, "mm_infer", lambda *a, **k: strings.append(mm_infer(*a, **k)) or strings[-1])
+    for device in ("cuda", "cpu"):
+        path = tmp_path / device / "preds.json"
+        before = flash_decode.launches, flash_forward.launches
+        runner.main(["--benchmark", "videomme", "--model-path", str(ckpt), "--question-file", qf, "--video-folder",
+                     vids, "--subtitle-folder", subs, "--answer-file", str(path), "--max-new-tokens", "4",
+                     "--device", device])
+        launches[device] = (flash_decode.launches - before[0], flash_forward.launches - before[1])
+        answers[device] = path.read_text() + (tmp_path / device / "preds_sub.json").read_text()
+    assert strings[:8] == strings[8:] and len(strings) == 16
+    assert answers["cuda"] == answers["cpu"] and answers["cpu"].count("\"response\"") == 8
+    assert min(launches["cuda"]) > 0 and launches["cpu"] == (0, 0)

@@ -44,8 +44,14 @@ TRAIN_MODULES = ("hicom_tpu_torch.train.optimizer", "hicom_tpu_torch.train.train
                  "hicom_tpu_torch.serve")
 
 
-def test_train_modules_import_no_jax():
-    code = f"import importlib, sys\nfor m in {TRAIN_MODULES!r}: importlib.import_module(m)\n" + \
+EVAL_MODULES = ("hicom_tpu_torch.eval", "hicom_tpu_torch.eval.common", "hicom_tpu_torch.eval.benchmarks",
+                "hicom_tpu_torch.eval.scorers", "hicom_tpu_torch.eval.score", "hicom_tpu_torch.eval.gpt_judge",
+                "hicom_tpu_torch.eval.runner", "hicom_tpu_torch.selftest", "hicom_tpu_torch.utils",
+                "hicom_tpu_torch.profiling", "hicom_tpu_torch.conversation")
+
+
+def _imports_no_jax(modules):
+    code = f"import importlib, sys\nfor m in {modules!r}: importlib.import_module(m)\n" + \
         "print('BAD', sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'hicom_tpu')))"
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": REPO})
@@ -53,8 +59,16 @@ def test_train_modules_import_no_jax():
     assert "BAD []" in out.stdout, out.stdout
 
 
+def test_train_modules_import_no_jax():
+    _imports_no_jax(TRAIN_MODULES)
+
+
+def test_eval_and_aux_modules_import_no_jax():
+    _imports_no_jax(EVAL_MODULES)
+
+
 @pytest.mark.parametrize("entry", ["build_model", "load_model", "create_train_state", "train_cli", "model_init",
-                                   "device_preprocessor", "serve_engine"])
+                                   "device_preprocessor", "serve_engine", "eval_runner", "selftest"])
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     import hicom_tpu_torch
     from hicom_tpu_torch.models.hicom import HIComModel
@@ -80,6 +94,15 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
             from hicom_tpu_torch.serve import ServeEngine
 
             ServeEngine(HIComModel(hicom_tpu_torch.tiny_test_config()))
+        elif entry == "eval_runner":  # --device defaults to cuda
+            from hicom_tpu_torch.eval import runner
+
+            runner.main(["--benchmark", "videomme", "--model-path", str(tmp_path), "--question-file", "q.parquet",
+                         "--answer-file", str(tmp_path / "a.json")])
+        elif entry == "selftest":
+            from hicom_tpu_torch.selftest import run
+
+            run(str(tmp_path / "loop"))
         elif entry == "train_cli":  # --device defaults to cuda
             cli.run(cli.build_parser().parse_args(["--model-path", "x", "--data-path", "y", "--output-dir",
                                                    str(tmp_path)]), tokenizer=None)
