@@ -63,7 +63,11 @@ Phases:
   5c. full stage-3 SFT at the width and depth of the 1.5B configuration: 3
      steps, the tower trunk bit-identical, every trained tensor (tower head,
      guide encoder, projector, decoder) whose gradient reaches AdamW's eps
-     moved, 29 flash forward and 29 flash backward launches per step;
+     moved, 29 flash forward and 29 flash backward launches per step; then
+     [stage3-sft-offload], the same steps with the AdamW moments in pinned
+     host memory (``offload_optimizer=True``): masters equal to the resident
+     run's (each element within one fp32 ulp), the same losses, the pinned
+     bytes within 10% of the moments';
   5d. [anyres-train]: 3 projector steps of the anyres configuration (remat)
      on 2 rows sharing the 1920x1080 plan; [multi-image]: 3 stage-2 steps of
      HICom-7B on rows of 2 images;
@@ -73,7 +77,9 @@ Phases:
      twin too), and the anyres projector's gradients;
   7. the trainer's CLI from files at 7B width with 2 tower and 2 decoder
      layers: stage 2, stage 3 LoRA, stage 3 QLoRA over an int8 base
-     (``--bits 8``) and stage 3 SFT, each artifact loaded by ``load_model``
+     (``--bits 8``) and stage 3 SFT, the last again with
+     ``--offload-optimizer`` (its losses and ``hf_export`` equal to the
+     flagless run's), each artifact loaded by ``load_model``
      in its own layout, held to the model that wrote it (for ``--bits 8``,
      the float stage-2 base with the trained adapters as a side path) and
      generating through K1-K4;
@@ -98,7 +104,14 @@ Phases:
      comparison with the plain CPU path on the same weights; [model-init]
      ``model_init(..., device_preprocess=True)`` + ``mm_infer`` from an
      exported checkpoint under each quantization flag, the card's string
-     equal to the CPU's; [stage3-qlora] 3 stage-3 steps over an NF4 base.
+     equal to the CPU's; [stage3-qlora] 3 stage-3 steps over an NF4 base;
+  9. [stage3-sft-7b-offload] (last): full stage-3 SFT of HICom-7B at full
+     width and depth with the AdamW moments in pinned host memory, remat,
+     batch 1, 3 steps: the link's own rate, the pinned bytes against the
+     moments', step ms split into forward + loss, backward and update, the
+     update against its link bound, the peak against the card's memory; the
+     frozen tensors' fingerprints, moved masters in every part, and a sample
+     of tensors' masters and moments against ``torch.optim.AdamW``'s step.
 
 Prints one line per check, then a JSON object with the kernels (each row at
 a shape of the main paths, its launches counted in the phase that runs that
@@ -1485,7 +1498,7 @@ def config_1p5b():
         num_key_value_heads=2, head_dim=128, rope_theta=1000000.0))
 
 
-def stage3_sft_phase(card: str):
+def stage3_sft_phase(card: str, resident=None):
     """Phase 5c: full stage-3 SFT of the recipe (``--mm-tunable-parts
     mm_projector,language_model,vision_model_head,guide_encoder``, lr 1e-5,
     vision-tower lr 2e-6, guide-injector lr 1e-3) at the full width and depth
@@ -1495,39 +1508,56 @@ def stage3_sft_phase(card: str):
     |g| / eps, which may round away), and the tower head, guide encoder,
     projector and decoder each have moved tensors; each step launches the
     flash forward and backward once per decoder layer and once for the global
-    compressor. Returns the kernels' launches over the 3 steps."""
+    compressor. Returns the kernels' launches over the 3 steps and the run's
+    reference: its flat fp32 masters and losses after the 3 steps.
+
+    With ``resident`` (that reference) it is ``[stage3-sft-offload]``: the
+    same steps from the same seed with the AdamW moments in pinned host
+    memory (``--offload-optimizer``). Every master must equal the resident
+    run's (an element that differs may do so by one fp32 ulp, printed), the
+    losses agree, and the pinned bytes stay within 10% of the moments'."""
     import torch
 
     from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.parallel.sharding import pinned_bytes
     from hicom_tpu_torch.train.optimizer import build_optimizer, trainable_param_count
     from hicom_tpu_torch.train.train_step import batch_to_device, create_train_state, make_train_step
 
+    offload = resident is not None
+    label = "stage3-sft-offload" if offload else "stage3-sft"
     cfg = config_1p5b()
     model = build_model(cfg, device="cuda", seed=0)
     opt = build_optimizer(model, learning_rate=1e-5, vision_tower_lr=2e-6, guide_injector_lr=1e-3,
                           total_steps=TRAIN_STEPS + 2, tunable_parts=STAGE3_PARTS, use_guide="direct")
-    state = create_train_state(model, opt)
+    pinned0 = pinned_bytes()
+    t0 = time.perf_counter()
+    state = create_train_state(model, opt, offload_optimizer=offload)
+    torch.cuda.synchronize()
+    init_s, pinned = time.perf_counter() - t0, pinned_bytes() - pinned0
     params = dict(model.named_parameters())
     trained = {n for n, p in params.items() if p.requires_grad}
-    log(f"[stage3-sft] 1.5B: {trainable_param_count(model, STAGE3_PARTS, 'direct') / 1e9:.3f} B trained parameters "
+    moment_bytes = 8 * opt.flat.numel()
+    log(f"[{label}] 1.5B: {trainable_param_count(model, STAGE3_PARTS, 'direct') / 1e9:.3f} B trained parameters "
         f"(fp32 masters + AdamW moments), {sum(p.numel() for n, p in params.items() if n not in trained) / 1e9:.3f} B "
-        "frozen (bf16)")
+        f"frozen (bf16); moments {moment_bytes / 1e9:.3f} GB {'in pinned host memory' if offload else 'on the card'}, "
+        f"pinned {pinned / 1e9:.3f} GB, state made in {init_s:.1f} s")
     before = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}  # host copies
     batch = batch_to_device(make_train_batch(cfg), torch.device("cuda"), torch.bfloat16)
     step = make_train_step()
 
     reset_counts()
     times, metrics, fwd, bwd = run_steps(state, step, batch)
-    launches = log_steps("stage3-sft", card, "1.5B stage 3 full SFT", model, cfg, batch, times, metrics, fwd, bwd)
+    launches = log_steps(label, card, "1.5B stage 3 full SFT" + (", AdamW moments offloaded" if offload else ""),
+                         model, cfg, batch, times, metrics, fwd, bwd)
     n_layers = cfg.text_config.num_hidden_layers
     if bwd != [n_layers + 1] * TRAIN_STEPS or fwd != [n_layers + 1] * TRAIN_STEPS:
-        raise AssertionError(f"[stage3-sft] flash forward / backward launched {fwd} / {bwd} times per step, not "
+        raise AssertionError(f"[{label}] flash forward / backward launched {fwd} / {bwd} times per step, not "
                              f"{n_layers + 1} (each decoder layer, the global compressor)")
     if launches["fused_tile_attention"] or launches["flash_decode"]:
-        raise AssertionError(f"[stage3-sft] a kernel without a backward ran in training: {launches}")
+        raise AssertionError(f"[{label}] a kernel without a backward ran in training: {launches}")
     changed = [n for n, p in params.items() if n not in trained and not torch.equal(p.detach(), before[n].to(p.device))]
     if changed:
-        raise AssertionError(f"[stage3-sft] {len(changed)} frozen tensors changed, e.g. {changed[:3]}")
+        raise AssertionError(f"[{label}] {len(changed)} frozen tensors changed, e.g. {changed[:3]}")
     masters, eps = state.optimizer.masters, state.optimizer.eps
     moved = {n for n in trained if not torch.equal(masters[n], before[n].to(masters[n].device).float())}
     top = {n: float(params[n].grad.abs().max()) if params[n].grad is not None else 0.0 for n in trained}
@@ -1543,18 +1573,290 @@ def stage3_sft_phase(card: str):
             idle.append(part)
     unmoved = sorted(n for n in trained if n not in moved)
     trunk = [n for n in params if "vision_tower.vision_tower." in n and n not in trained]
-    log(f"[stage3-sft] checks: {len(trunk)} tower trunk tensors (of {len(params) - len(trained)} frozen) "
+    log(f"[{label}] checks: {len(trunk)} tower trunk tensors (of {len(params) - len(trained)} frozen) "
         f"bit-identical; trained tensors (fp32 masters, last step's gradients, eps {eps:g}): " + "; ".join(summary))
-    log(f"[stage3-sft] {len(unmoved)} trained tensors unmoved, with their last max |grad|: "
+    log(f"[{label}] {len(unmoved)} trained tensors unmoved, with their last max |grad|: "
         + ", ".join(f"{n} {top[n]:.3g}" for n in unmoved))
     stuck = [n for n in unmoved if top[n] >= eps]
     if stuck or idle:
-        raise AssertionError(f"[stage3-sft] {len(stuck)} tensors with max |grad| >= eps did not move (e.g. "
+        raise AssertionError(f"[{label}] {len(stuck)} tensors with max |grad| >= eps did not move (e.g. "
                              f"{stuck[:3]}); parts that did not move: {idle}")
-    train_profile("stage3-sft", state, step, batch, model.parameters(), lambda: state.optimizer.update(model))
+    losses = [m["loss"] for m in metrics]
+    if offload:
+        same_masters(label, opt.flat, resident[0])
+        if max(abs(a - b) / abs(b) for a, b in zip(losses, resident[1])) > 1e-5:
+            raise AssertionError(f"[{label}] losses {losses} against the resident run's {resident[1]}")
+        if abs(pinned - moment_bytes) > 0.1 * moment_bytes:
+            raise AssertionError(f"[{label}] pinned {pinned} bytes for {moment_bytes} bytes of moments")
+        log(f"[{label}] losses {losses} equal the resident run's {resident[1]}; link per step {moment_bytes / 1e9:.3f} "
+            f"GB host -> device and {moment_bytes / 1e9:.3f} GB device -> host")
+    reference = None if offload else (opt.flat.clone(), losses)
+    train_profile(label, state, step, batch, model.parameters(), lambda: state.optimizer.update(model))
     del model, state, opt, params, before, batch
     torch.cuda.empty_cache()
+    return launches, reference
+
+
+def same_masters(label: str, got, want, chunk: int = 1 << 26):
+    """Fails unless the flat fp32 masters ``got`` equal ``want``, an element
+    allowed to differ by one fp32 ulp of ``want``'s value (the largest
+    difference in ulps and the count of differing elements are printed)."""
+    differ, worst = 0, 0.0
+    for a in range(0, want.numel(), chunk):
+        n, most = ulp_distance(got[a:a + chunk], want[a:a + chunk])
+        differ, worst = differ + n, max(worst, most)
+    log(f"[{label}] masters against the resident run's: {differ} of {want.numel()} elements differ, the largest by "
+        f"{worst:g} fp32 ulp")
+    if worst > 1:
+        raise AssertionError(f"[{label}] masters differ from the resident run's by up to {worst:g} ulp")
+
+
+def ulp_distance(got, want):
+    """(elements of ``got`` that differ from ``want``, the largest difference
+    in fp32 ulp of ``want``'s value)."""
+    import torch
+
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
+    return int((got != want).sum()), float(((got - want).abs() / ulp).max())
+
+
+def link_rates(pieces: int = 4, piece: int = 1 << 26, reps: int = 5) -> dict:
+    """The host link's own rate in GB/s: 1 GB of pinned fp32 (4 pieces of 256
+    MB, as the update walk streams them) host -> device, device -> host, and
+    both at once on two streams (their sum); the median of ``reps`` timed
+    rounds on the host clock around synchronised copies, after one warm-up."""
+    import torch
+
+    from hicom_tpu_torch.parallel.sharding import host_pieces
+
+    host = [host_pieces(pieces * piece, piece, "cuda") for _ in range(2)]
+    dev = [torch.empty(pieces * piece, device="cuda") for _ in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+
+    def h2d():
+        with torch.cuda.stream(streams[0]):
+            for i, p in enumerate(host[0]):
+                dev[0][i * piece:(i + 1) * piece].copy_(p, non_blocking=True)
+
+    def d2h():
+        with torch.cuda.stream(streams[1]):
+            for i, p in enumerate(host[1]):
+                p.copy_(dev[1][i * piece:(i + 1) * piece], non_blocking=True)
+
+    rates = {}
+    for name, fns in (("h2d", (h2d,)), ("d2h", (d2h,)), ("both", (h2d, d2h))):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in fns:
+                f()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rates[name] = len(fns) * 4 * pieces * piece / float(np.median(times[1:])) / 1e9
+    del host, dev
+    return rates
+
+
+def stage3_sft_7b_offload_phase(card: str):
+    """Phase 9, ``[stage3-sft-7b-offload]``: full stage-3 SFT of HICom-7B at
+    full width and depth on one card with the AdamW moments in pinned host
+    memory (``--offload-optimizer``): ``[stage3-sft]``'s parts and learning
+    rates, ``--remat`` on the tower and decoder as ``[stage3-lora]`` sets it,
+    batch 1 (the first row of the stage-2 batch, 32 frames), 3 steps, the
+    third split into forward + loss, backward and update on the host clock.
+    It prints the trained and frozen counts, the pinned bytes against the
+    moments', the peak against the card's memory, the link's bytes a step and
+    the rate reached beside the link's own rate (``link_rates``), and the
+    update's bound (the moments' bytes both ways over the both-at-once rate).
+    It checks: finite losses; the frozen tensors' fingerprints; moved masters
+    in each part; for a sample (decoder layer 0's seven linears, the
+    embedding's first 64 rows, the tower head), the third step's masters and
+    moments against ``torch.optim.AdamW``'s single-tensor step on the card
+    from a snapshot taken before that update (masters, moments read back
+    from pinned memory, the gradients), each element within one fp32 ulp; 57
+    flash forward (each decoder layer, its recompute, the global compressor)
+    and 29 flash backward launches a step. Out of memory, it prints the peak
+    and the allocator's summary and fails. Saves no checkpoint (masters and
+    moments are 97 GB). Returns the kernels' launches over the 3 steps."""
+    import dataclasses
+
+    import torch
+
+    from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.parallel.sharding import pinned_bytes
+    from hicom_tpu_torch.train.optimizer import build_optimizer
+    from hicom_tpu_torch.train.train_step import batch_to_device, create_train_state, make_loss_fn, make_train_step
+
+    label = "stage3-sft-7b-offload"
+    rates = link_rates()
+    log(f"[{label}] {card} | link, 1 GB of pinned fp32 in 256 MB pieces: host -> device {rates['h2d']:.2f} GB/s, "
+        f"device -> host {rates['d2h']:.2f} GB/s, both at once {rates['both']:.2f} GB/s in sum")
+    cfg = serving_config()
+    cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, remat=True),
+                      vision_config=dataclasses.replace(cfg.vision_config, remat=True))
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    opt = build_optimizer(model, learning_rate=1e-5, vision_tower_lr=2e-6, guide_injector_lr=1e-3,
+                          total_steps=TRAIN_STEPS + 2, tunable_parts=STAGE3_PARTS, use_guide="direct")
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    pinned0 = pinned_bytes()
+    t0 = time.perf_counter()
+    state = create_train_state(model, opt, offload_optimizer=True)
+    torch.cuda.synchronize()
+    init_s, pinned = time.perf_counter() - t0, pinned_bytes() - pinned0
+    params = dict(model.named_parameters())
+    trained = {n for n, p in params.items() if p.requires_grad}
+    n_trained = opt.flat.numel()
+    moment_bytes = 8 * n_trained
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    log(f"[{label}] HICom-7B, remat on: {n_trained / 1e9:.3f} B trained parameters, "
+        f"{sum(p.numel() for n, p in params.items() if n not in trained) / 1e9:.3f} B frozen; model built in "
+        f"{built_s:.1f} s, state in {init_s:.1f} s; moments {moment_bytes / 1e9:.3f} GB in pinned host memory, "
+        f"pinned {pinned / 1e9:.3f} GB ({pinned / moment_bytes:.4f} of the moments); on the card "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of {total_gb:.2f} GB before the first step")
+    if abs(pinned - moment_bytes) > 0.1 * moment_bytes:
+        raise AssertionError(f"[{label}] pinned {pinned} bytes for {moment_bytes} bytes of moments")
+    frozen_before = fingerprints((n, p) for n, p in params.items() if n not in trained)
+    heads = [n for n in trained if n.startswith("model.vision_tower.vision_tower.")]
+    layer0 = [n for n in trained if n.startswith("model.layers.0.") and n.endswith("_proj.weight")]
+    rows = 64
+    sample = {n: None for n in layer0 + heads}
+    sample["model.embed_tokens.weight"] = rows
+    if len(layer0) != 7 or not heads:
+        raise AssertionError(f"[{label}] sample: decoder layer 0's linears {layer0}, tower head {heads}")
+    prefix = {n: opt.masters[n].reshape(-1)[:4096].clone() for n in trained}
+    batch = batch_to_device({k: v[:1] for k, v in make_train_batch(cfg).items()}, torch.device("cuda"),
+                            torch.bfloat16)
+    step = make_train_step()
+    fns = counters(train=True)
+
+    reset_counts()
+    try:
+        times, metrics, fwd, bwd = run_steps(state, step, batch, n=TRAIN_STEPS - 1)
+        peak_steps = torch.cuda.max_memory_allocated() / 1e9
+        # the third step by hand, split into stages, with the snapshot of the sample before its update
+        f0, b0 = fns["flash_forward"].launches, fns["flash_backward"].launches
+        stamps = [time.perf_counter()]
+        for p in model.parameters():
+            p.grad = None
+        loss, m = make_loss_fn(model)(batch)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        loss.backward()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        snap = adam_snapshot(opt, params, sample)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        m["grad_norm"] = opt.update(model)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    except torch.cuda.OutOfMemoryError:
+        log(f"[{label}] out of memory: peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB of {total_gb:.2f} GB")
+        log(torch.cuda.memory_summary(abbreviated=True))
+        raise
+    state.step += 1
+    times.append(stamps[2] - stamps[0] + stamps[4] - stamps[3])
+    fwd.append(fns["flash_forward"].launches - f0)
+    bwd.append(fns["flash_backward"].launches - b0)
+    metrics.append({k: float(v) for k, v in m.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: f.launches for name, f in fns.items()}
+    for i, mt in enumerate(metrics):
+        log(f"[{label}] step {i + 1}: " + ", ".join(f"{k} {v:.6g}" for k, v in mt.items()) + f", {times[i] * 1e3:.1f} ms")
+    fwd_s, bwd_s, upd_s = stamps[1] - stamps[0], stamps[2] - stamps[1], stamps[4] - stamps[3]
+    link = 2 * moment_bytes  # the moments in and out each step
+    bound_s = link / (rates["both"] * 1e9)
+    spliced = model.visual_token_count(cfg.num_frames, "video") + batch["input_ids"].shape[1] - 1
+    log(f"[{label}] {card} | HICom-7B stage 3 full SFT, moments offloaded, remat, batch 1 x {cfg.num_frames} frames, "
+        f"{spliced} spliced tokens | step {times[1] * 1e3:.1f} ms (step 2; step 1 {times[0] * 1e3:.1f} ms), step 3 "
+        f"forward + loss {fwd_s * 1e3:.1f} ms, backward {bwd_s * 1e3:.1f} ms, update {upd_s * 1e3:.1f} ms | peak "
+        f"memory {peak_steps:.2f} GB of {total_gb:.2f} GB over steps 1-2 ({peak_gb:.2f} GB with step 3's sample "
+        f"snapshot) | link per step {moment_bytes / 1e9:.3f} GB host -> device "
+        f"and {moment_bytes / 1e9:.3f} GB device -> host, {link / upd_s / 1e9:.2f} GB/s reached in the update "
+        f"(both directions in sum) | update bound {bound_s * 1e3:.1f} ms (moments both ways at "
+        f"{rates['both']:.2f} GB/s), measured {upd_s / bound_s:.2f}x it")
+    log(f"[{label}] launches over {TRAIN_STEPS} steps: {launches}; flash_forward per step {fwd}, flash_backward per "
+        f"step {bwd}")
+    if not all(np.isfinite(v) for mt in metrics for v in mt.values()):
+        raise AssertionError(f"[{label}] non-finite metrics: {metrics}")
+    n_layers = cfg.text_config.num_hidden_layers
+    if fwd != [2 * n_layers + 1] * TRAIN_STEPS or bwd != [n_layers + 1] * TRAIN_STEPS:
+        raise AssertionError(f"[{label}] flash forward / backward launched {fwd} / {bwd} times per step, not "
+                             f"{2 * n_layers + 1} / {n_layers + 1}")
+    if launches["fused_tile_attention"] or launches["flash_decode"]:
+        raise AssertionError(f"[{label}] a kernel without a backward ran in training: {launches}")
+    after = fingerprints((n, params[n]) for n in frozen_before)
+    changed = [n for n in frozen_before if not torch.equal(after[n], frozen_before[n])]
+    parts = {"tower head": "vision_tower.vision_tower.", "guide encoder": "guide_encoder.",
+             "projector": "mm_projector.", "decoder": None}
+    summary, idle = [], []
+    for part, key in parts.items():
+        names = [n for n in trained if (key in n if key else not any(k and k in n for k in parts.values()))]
+        n_moved = sum(not torch.equal(opt.masters[n].reshape(-1)[:4096], prefix[n]) for n in names)
+        summary.append(f"{part} {n_moved}/{len(names)}")
+        if not n_moved:
+            idle.append(part)
+    worst = adam_check(opt, params, sample, snap, float(m["grad_norm"]), count=TRAIN_STEPS - 1)
+    log(f"[{label}] checks: {len(frozen_before)} frozen tensors kept their fingerprints ({len(changed)} changed); "
+        f"trained tensors whose first 4,096 master elements moved: {', '.join(summary)}; the sample's masters and "
+        f"moments against torch.optim.AdamW's step: " + ", ".join(f"{k} {v[0]} elements differ, the largest by "
+                                                                  f"{v[1]:g} ulp" for k, v in worst.items()))
+    if changed or idle or any(v[1] > 1 for v in worst.values()):
+        raise AssertionError(f"[{label}] frozen tensors changed {changed[:3]}, parts that did not move {idle}, "
+                             f"the sample against AdamW {worst}")
+    del model, state, opt, params, batch, snap, prefix
+    torch.cuda.empty_cache()
     return launches
+
+
+def adam_snapshot(opt, params, sample: dict) -> dict:
+    """{name: (master, exp_avg, exp_avg_sq, gradient)} of the sample on the
+    card before an update, the moments read back from their home (``sample``
+    maps a name to None for the whole tensor, or to its first rows)."""
+    snap = {}
+    for n, rows in sample.items():
+        o = opt.layout[n][0]
+        master = opt.masters[n] if rows is None else opt.masters[n][:rows]
+        size = master.numel()
+        moments = [opt.home.read(kind, o, o + size).view(master.shape).to(master.device) for kind in
+                   ("exp_avg", "exp_avg_sq")]
+        grad = params[n].grad if rows is None else params[n].grad[:rows]
+        snap[n] = (master.clone(), *moments, grad.clone())
+    return snap
+
+
+def adam_check(opt, params, sample: dict, snap: dict, grad_norm: float, count: int) -> dict:
+    """The update from ``snap`` recomputed by ``torch.optim.AdamW`` (single
+    tensor, decoupled decay) on the card: the gradient clipped by
+    ``grad_norm`` as the optimizer clips, the group's rate at ``count``.
+    Returns {"masters" / "exp_avg" / "exp_avg_sq": (elements that differ,
+    the largest difference in fp32 ulp)} over the sample."""
+    import torch
+
+    out = {k: [0, 0.0] for k in ("masters", "exp_avg", "exp_avg_sq")}
+    norm = torch.tensor(grad_norm, device=opt.flat.device)
+    for n, rows in sample.items():
+        master0, m0, v0, grad = snap[n]
+        p = master0.clone()
+        g = grad.float()
+        g = torch.where(norm < opt.max_grad_norm, g, g / norm * opt.max_grad_norm)
+        p.grad = g
+        ref = torch.optim.AdamW([p], lr=opt.schedules[opt.labels[n]](count), betas=opt.betas, eps=opt.eps,
+                                weight_decay=opt.weight_decay if opt.decay[n] else 0.0, foreach=False)
+        ref.state[p] = {"step": torch.tensor(float(count)), "exp_avg": m0.clone(), "exp_avg_sq": v0.clone()}
+        ref.step()
+        o = opt.layout[n][0]
+        got = {"masters": opt.masters[n] if rows is None else opt.masters[n][:rows]}
+        for kind in ("exp_avg", "exp_avg_sq"):
+            got[kind] = opt.home.read(kind, o, o + p.numel()).view(p.shape).to(p.device)
+        want = {"masters": p.detach(), "exp_avg": ref.state[p]["exp_avg"], "exp_avg_sq": ref.state[p]["exp_avg_sq"]}
+        for kind, w in want.items():
+            n, most = ulp_distance(got[kind], w)
+            out[kind] = [out[kind][0] + n, max(out[kind][1], most)]
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def train_profile(label: str, state, step, batch, trainable, update, top: int = 12, loss_fn=None):
@@ -1883,8 +2185,9 @@ def cli_phase(card: str):
         "sft": ["--mm-tunable-parts", STAGE3_PARTS, "--learning-rate", "1e-5", "--vision-tower-lr", "2e-6",
                 "--pretrain-weights", stage2_bin],
     }
+    stages["sft-offload"] = stages["sft"] + ["--offload-optimizer"]  # must equal "sft" bit for bit
     layouts = {"stage2": ("", paths["llm"]), "lora": ("", paths["llm"]), "qlora8": ("", paths["llm"]),
-               "sft": ("hf_export", None)}
+               "sft": ("hf_export", None), "sft-offload": ("hf_export", None)}
 
     # spliced tokens per step: 2 rows of the longest prompt rounded up to the
     # collator's 64-token bucket, less the sentinel, plus the visual tokens
@@ -1912,6 +2215,19 @@ def cli_phase(card: str):
             f"collated) | {spliced / step_s:.1f} spliced tokens/s | peak memory {peak_gb:.2f} GB")
         if len(losses) != 2 or not all(np.isfinite(losses)):
             raise AssertionError(f"[cli] {name}: expected 2 finite losses, got {losses}")
+        shutil.rmtree(os.path.join(out, "checkpoints"), ignore_errors=True)  # a full-SFT stage's: 19 GB
+        if name == "sft-offload":
+            from hicom_tpu_torch.weights import load_hf_state_dict
+
+            with open(os.path.join(root, "sft", "metrics.jsonl")) as f:
+                want_losses = [json.loads(line)["loss"] for line in f]
+            got_sd, want_sd = (load_hf_state_dict(os.path.join(root, d, "hf_export")) for d in (name, "sft"))
+            differ = [k for k in want_sd if not torch.equal(got_sd[k], want_sd[k])]
+            log(f"[cli] sft-offload against sft: losses {losses} / {want_losses}, {len(differ)} of {len(want_sd)} "
+                "hf_export tensors differ")
+            if losses != want_losses or differ or set(got_sd) != set(want_sd):
+                raise AssertionError(f"[cli] --offload-optimizer changed the stage: {differ[:3]}")
+            del got_sd, want_sd
         raw = last_logits(state.model, request)
         if name == "qlora8":
             # trained over the int8 base: the export merges into the float base
@@ -2869,7 +3185,9 @@ def main() -> int:
     launches["train"] = train_phase(card)
     launches["stage3-lora"] = stage3_lora_phase(card)
     launches["stage3-qlora"] = stage3_qlora_phase(card)
-    launches["stage3-sft"] = stage3_sft_phase(card)
+    launches["stage3-sft"], resident = stage3_sft_phase(card)
+    launches["stage3-sft-offload"], _ = stage3_sft_phase(card, resident=resident)
+    del resident
     launches["anyres-train"] = anyres_train_phase(card)
     launches["multi-image"] = multi_image_phase(card)
     plain_vs_kernel_logits()
@@ -2877,6 +3195,8 @@ def main() -> int:
     plain_vs_kernel_anyres_clip()
     cli_phase(card)
     launches["closed-loop"] = closed_loop_phase(card)
+    # last: its 65 GB of pinned moments stay in PyTorch's host cache once freed
+    launches["stage3-sft-7b-offload"] = stage3_sft_7b_offload_phase(card)
 
     kernels = []
     for name, (kid, phase, rec) in records.items():

@@ -181,7 +181,9 @@ def process_video(
         raise ValueError(f"unsupported video input type: {type(video_path)}")
 
     while num_frames is not None and len(video_data) < num_frames:
-        video_data.append(Image.fromarray(np.zeros((*video_data[-1].size, 3), dtype=np.uint8)))
+        # a black frame of the last frame's size: PIL's size is (w, h), an array's shape (h, w, 3)
+        w, h = video_data[-1].size
+        video_data.append(Image.fromarray(np.zeros((h, w, 3), dtype=np.uint8)))
 
     cap = MAX_FRAMES if max_frames is None else max_frames
     if num_frames is not None:

@@ -11,7 +11,7 @@ Port of ``hicom_tpu/eval/runner.py`` on one device: the model loads once
 ``--device`` defaults to ``cuda`` and raises without a card. The JAX flags
 keep their meaning where one device can honour them: ``--data-parallel``
 replicates over the one device and exits when more than one card is visible
-(the multi-GPU port, ROADMAP Queue 1 item 6); ``--scan-layers`` is accepted
+(the multi-GPU port, ROADMAP Queue 1 item 5); ``--scan-layers`` is accepted
 and has no numeric effect.
 """
 
@@ -64,7 +64,7 @@ def build_parser():
                         "numeric effect")
     p.add_argument("--data-parallel", action="store_true",
                    help="one device: replicated over it; more than one visible card exits (multi-GPU "
-                        "port, ROADMAP Queue 1 item 6)")
+                        "port, ROADMAP Queue 1 item 5, multi-GPU slice C)")
     p.add_argument("--max-new-tokens", type=int, default=1024)
     p.add_argument("--batch-size", type=int, default=1,
                    help="videos per batched generate (MCQA benchmarks)")
@@ -74,26 +74,43 @@ def build_parser():
     return p
 
 
+CALIB_QUESTION = "what is in the video ?"
+
+
+def calibration_guide_ids(model):
+    """The guide ids of the calibration question, encoded as ``mm_infer``
+    encodes ``guide_instruct``; None for a model without the guide."""
+    if not model.config.guide_enabled():
+        return None
+    if model.guide_tokenizer is None:
+        raise ValueError("guide tokenizer unavailable: a guide-mode model calibrates with guide ids")
+    return model.guide_tokenizer(CALIB_QUESTION, padding="max_length", truncation=True,
+                                 max_length=model.config.guide_text_config.max_position_embeddings,
+                                 return_tensors="np")["input_ids"]
+
+
 def calibrate(model, processor, tokenizer, calib_video: str) -> None:
     """Static activation scales (``w8a8s*`` tower and decoder) from one clip
     that is not part of the benchmark: the tower's from its frames, the
-    decoder's through a representative chat prompt over them."""
+    decoder's through a representative chat prompt over them; a guide-mode
+    model's projector takes the question's guide ids."""
     import numpy as np
 
     quant = getattr(model.config.vision_config, "quantization", None) or ""
     dec_q = getattr(model.config.text_config, "quantization", None) or ""
     frames = _as_frames(processor["video"](calib_video))[None]
+    guide_ids = calibration_guide_ids(model) if quant.startswith("w8a8s") or dec_q.startswith("w8a8s") else None
     if quant.startswith("w8a8s"):
-        model.calibrate_tower(frames)
+        model.calibrate_tower(frames, guide_ids=guide_ids)
     if dec_q.startswith("w8a8s"):
         # the splice is dominated by visual tokens, so per-tensor amax is prompt-insensitive
         from ..constants import DEFAULT_VIDEO_TOKEN
         from ..data.prompts import tokenizer_multimodal_token
 
-        msg = [{"role": "user", "content": DEFAULT_VIDEO_TOKEN + "\nwhat is in the video ?"}]
+        msg = [{"role": "user", "content": DEFAULT_VIDEO_TOKEN + "\n" + CALIB_QUESTION}]
         prompt = tokenizer.apply_chat_template(msg, tokenize=False, add_generation_prompt=True)
         ids = np.asarray(tokenizer_multimodal_token(prompt, tokenizer, DEFAULT_VIDEO_TOKEN, return_tensors="np"))[None]
-        model.calibrate_decoder(ids, frames)
+        model.calibrate_decoder(ids, frames, guide_ids=guide_ids)
     if not quant.startswith("w8a8s") and not dec_q.startswith("w8a8s"):
         print(f"--calib-video ignored: neither tower ({quant!r}) nor decoder ({dec_q!r}) has static activation "
               f"scales to calibrate", file=sys.stderr)
@@ -109,7 +126,7 @@ def main(argv=None):
         return
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise SystemExit(f"--data-parallel over {torch.cuda.device_count()} cards needs the multi-GPU port "
-                         f"(ROADMAP Queue 1 item 6)")
+                         f"(ROADMAP Queue 1 item 5, multi-GPU slice C)")
     model, processor, tokenizer = model_init(
         args.model_path, model_base=args.model_base, dtype=args.dtype, device=device,
         load_8bit=args.load_8bit, load_4bit=args.load_4bit, load_w8a8_tower=args.tower_quant or False,

@@ -5,8 +5,9 @@ directories become one ``torch.save`` file per step,
 ``<output_dir>/checkpoints/<step>.pt``, written under a temporary name and
 renamed into place, so a file with a step's name is always complete. A
 checkpoint holds what a resume needs: the trainable parameters' fp32 masters,
-the AdamW moments and counts, and the step (frozen weights come from the
-model's own source). :func:`export_mm_projector_bin` writes the reference's
+the AdamW moments and counts by parameter name, and the step (frozen weights
+come from the model's own source); a run saved with ``--offload-optimizer``
+resumes without it and the other way round. :func:`export_mm_projector_bin` writes the reference's
 ``mm_projector.bin``.
 """
 
@@ -29,7 +30,9 @@ def _ckpt_dir(output_dir: str) -> str:
 
 def save_checkpoint(output_dir: str, state: TrainState, step: Optional[int] = None, max_to_keep: int = 3) -> str:
     """Write ``state`` as step ``step`` (default ``state.step``) and keep the
-    newest ``max_to_keep`` checkpoints; returns the file's path."""
+    newest ``max_to_keep`` checkpoints; returns the file's path. Offloaded
+    moments are read after the update's last copy to the host has landed
+    (``GroupAdamW.state_dict``); the file is the same for both homes."""
     root = _ckpt_dir(output_dir)
     os.makedirs(root, exist_ok=True)
     step = state.step if step is None else int(step)
@@ -72,8 +75,8 @@ def restore_checkpoint(output_dir: str, state: TrainState, step: Optional[int] =
         step = latest_valid_step(output_dir)
     if step is None:
         return None
-    device = next(iter(state.optimizer.masters.values())).device
-    payload = torch.load(os.path.join(_ckpt_dir(output_dir), f"{step}.pt"), map_location=device, weights_only=True)
+    # on the host: the masters go to their device, the moments back to their home (device or pinned host memory)
+    payload = torch.load(os.path.join(_ckpt_dir(output_dir), f"{step}.pt"), map_location="cpu", weights_only=True)
     state.optimizer.load_state_dict(payload["optimizer"], state.model)
     state.step = int(payload["step"])
     return state

@@ -20,11 +20,15 @@ reference's own, ``model.mm_projector.*``, ``model.vision_tower.*``):
   With ``every_k`` > 1 it accumulates as ``optax.MultiSteps`` does (the JAX
   CLI's ``--gradient-accumulation-steps``): the running mean of k
   micro-batches' gradients, one clip and inner update per k calls, and the
-  schedule counting inner updates.
+  schedule counting inner updates. With ``init(..., offload=True)`` (the CLI's
+  ``--offload-optimizer``) the moments and that mean rest in pinned host
+  memory and are streamed through the device chunk by chunk, as the JAX
+  package rests its optimizer state in ``pinned_host`` memory.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional
 
@@ -107,13 +111,28 @@ def make_schedule(lr: float, total_steps: int, warmup_ratio: float = 0.03,
     return cosine
 
 
+CHUNK = 1 << 26  # elements of one step of the update walk: 256 MB of fp32, a power of two (host pieces)
+MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
 class GroupAdamW:
     """Per-group AdamW over fp32 masters of the trainable parameters.
 
     Built by :func:`build_optimizer` from the labels alone; :meth:`init` then
     freezes the module and makes the masters and moments (the JAX
     ``optimizer.init``), and :meth:`update` takes one step from the gradients
-    the module's parameters hold."""
+    the module's parameters hold.
+
+    The masters are one flat fp32 buffer on the module's device, the trained
+    tensors in order of (group, decayed), so that a stretch of it shares one
+    learning rate and decay. The moments (and the accumulated mean) are flat
+    buffers of the same layout in their home: the device, or host memory
+    with ``init(..., offload=True)``. :meth:`update` walks the flat space in
+    chunks of ``chunk`` elements (set before :meth:`init`); a chunk's
+    gradient is cast to fp32 only there, so no fp32 copy of the whole
+    gradient set exists. The per-element
+    arithmetic is PyTorch's single-tensor AdamW with decoupled decay, written
+    once for both homes, so the home changes no bit of the result."""
 
     def __init__(self, labels: Dict[str, str], decay: Dict[str, bool], schedules: Dict[str, Callable[[int], float]],
                  *, weight_decay: float, b1: float, b2: float, eps: float, max_grad_norm: Optional[float],
@@ -122,30 +141,61 @@ class GroupAdamW:
         self.weight_decay, self.betas, self.eps = weight_decay, (b1, b2), eps
         self.max_grad_norm = max_grad_norm
         self.every_k = every_k
+        self.chunk = CHUNK
         self.masters: Dict[str, Tensor] = {}
-        self.adam: Optional[torch.optim.AdamW] = None
         self.count = 0  # updates taken; the schedule's argument
         self.mini_step = 0  # micro-batches accumulated towards the next update
-        self.acc: Dict[str, Tensor] = {}
 
-    def init(self, model: nn.Module) -> None:
-        """Freeze what the labels freeze; fp32 masters and AdamW state for the rest."""
+    def init(self, model: nn.Module, offload: bool = False) -> None:
+        """Freeze what the labels freeze; fp32 masters on the module's device
+        and zeroed moments in their home: the device, or with ``offload`` host
+        memory (pinned for a CUDA device, ``parallel/sharding.py``)."""
         params = dict(model.named_parameters())
         if set(params) != set(self.labels):
             raise ValueError("the optimizer was built for another model")
         for name, p in params.items():
             p.requires_grad_(self.labels[name] != "frozen")
-        self.masters = {n: p.detach().float().clone() for n, p in params.items() if p.requires_grad}
-        groups = []
-        for group in GROUPS:
-            for decayed in (True, False):
-                ps = [m for n, m in self.masters.items() if self.labels[n] == group and self.decay[n] == decayed]
-                if ps:
-                    groups.append(dict(params=ps, lr=0.0, weight_decay=self.weight_decay if decayed else 0.0,
-                                       lr_group=group))
-        self.adam = torch.optim.AdamW(groups, betas=self.betas, eps=self.eps)
+        names = sorted((n for n, p in params.items() if p.requires_grad),
+                       key=lambda n: (GROUPS.index(self.labels[n]), not self.decay[n]))
+        device = next(iter(params.values())).device
+        self.layout, total = {}, 0
+        for n in names:
+            self.layout[n] = (total, params[n].shape)
+            total += params[n].numel()
+        self.flat = torch.empty(total, dtype=torch.float32, device=device)
+        self.masters = {n: self.flat[o:o + s.numel()].view(s) for n, (o, s) in self.layout.items()}
+        for n, m in self.masters.items():
+            m.copy_(params[n].detach())
+        self.bounds = [(a, min(a + self.chunk, total)) for a in range(0, total, self.chunk)]
+        # per chunk: the stretches of each tensor in it, and the runs of one (group, decayed)
+        self.segments = [[(n, max(a, o), min(b, o + s.numel())) for n, (o, s) in self.layout.items()
+                          if o < b and o + s.numel() > a] for a, b in self.bounds]
+        self.runs = []
+        for segs in self.segments:
+            runs = []
+            for n, lo, hi in segs:
+                key = (self.labels[n], self.decay[n])
+                if runs and runs[-1][2:] == key and runs[-1][1] == lo:
+                    runs[-1] = (runs[-1][0], hi) + key
+                else:
+                    runs.append((lo, hi) + key)
+            self.runs.append(runs)
+        kinds = MOMENTS + (("acc",) if self.every_k > 1 else ())
+        self.home = (HostHome if offload else DeviceHome)(total, self.chunk, device, kinds)
+        self.gbuf = torch.empty(min(self.chunk, total), dtype=torch.float32, device=device)
         self.count = self.mini_step = 0
-        self.acc = {}
+
+    def _gather(self, grads: Dict[str, Optional[Tensor]], i: int) -> Tensor:
+        """Chunk ``i`` of the flat gradient in fp32 (zeros where a parameter has none)."""
+        a, b = self.bounds[i]
+        out = self.gbuf[:b - a]
+        for n, lo, hi in self.segments[i]:
+            o, g = self.layout[n][0], grads[n]
+            if g is None:
+                out[lo - a:hi - a].zero_()
+            else:
+                out[lo - a:hi - a].copy_(g.reshape(-1)[lo - o:hi - o])
+        return out
 
     @torch.no_grad()
     def update(self, model: nn.Module) -> Tensor:
@@ -154,49 +204,195 @@ class GroupAdamW:
         call's trainable gradients (a parameter without a gradient counts as
         zeros)."""
         params = dict(model.named_parameters())
-        grads = {n: params[n].grad.float() if params[n].grad is not None else torch.zeros_like(m)
-                 for n, m in self.masters.items()}
-        norm = _global_norm(grads)
-        if self.every_k > 1:
+        grads = {n: params[n].grad for n in self.masters}
+        norm = _global_norm([torch.linalg.vector_norm(g, dtype=torch.float32)
+                             for g in grads.values() if g is not None], self.flat.device)
+        accumulating = self.every_k > 1
+        if accumulating:
             k = self.mini_step
-            self.acc = {n: g if k == 0 else self.acc[n] + (g - self.acc[n]) / (k + 1) for n, g in grads.items()}
             self.mini_step = (k + 1) % self.every_k
+            acc_norms = []
+            for i, chunk in self.home.walk(self.bounds, ("acc",) if k else (), ("acc",)):
+                g, acc = self._gather(grads, i), chunk["acc"]
+                if k:
+                    acc.add_((g - acc) / (k + 1))
+                else:
+                    acc.copy_(g)
+                if not self.mini_step:
+                    acc_norms.append(torch.linalg.vector_norm(acc))
             if self.mini_step:
                 return norm
-            grads, self.acc = self.acc, {}
-        clip_norm = norm if self.every_k == 1 else _global_norm(grads)
-        for n, m in self.masters.items():
-            g = grads.pop(n)  # the unclipped copy goes as its clipped one comes: one fp32 set at a time
+            clip_norm = _global_norm(acc_norms, self.flat.device)
+        else:
+            clip_norm = norm
+        lrs = {g: self.schedules[g](self.count) for g in GROUPS}
+        b1, b2 = self.betas
+        step = float(self.count + 1)
+        bias_correction1, bias_correction2_sqrt = 1 - b1**step, (1 - b2**step) ** 0.5
+        load = MOMENTS + (("acc",) if accumulating else ())
+        for i, chunk in self.home.walk(self.bounds, load, MOMENTS):
+            g = chunk["acc"] if accumulating else self._gather(grads, i)
             if self.max_grad_norm:
                 g = torch.where(clip_norm < self.max_grad_norm, g, g / clip_norm * self.max_grad_norm)
-            m.grad = g
-        for group in self.adam.param_groups:
-            group["lr"] = self.schedules[group["lr_group"]](self.count)
-        self.adam.step()
+            exp_avg, exp_avg_sq = chunk["exp_avg"], chunk["exp_avg_sq"]
+            exp_avg.lerp_(g, 1 - b1)
+            exp_avg_sq.mul_(b2).addcmul_(g, g, value=1 - b2)
+            denom = (exp_avg_sq.sqrt() / bias_correction2_sqrt).add_(self.eps)
+            a = self.bounds[i][0]
+            for lo, hi, group, decayed in self.runs[i]:
+                master, lr = self.flat[lo:hi], lrs[group]
+                if decayed and self.weight_decay:
+                    master.mul_(1 - lr * self.weight_decay)
+                master.addcdiv_(exp_avg[lo - a:hi - a], denom[lo - a:hi - a], value=-(lr / bias_correction1))
+            for n, lo, hi in self.segments[i]:
+                o = self.layout[n][0]
+                params[n].detach().view(-1)[lo - o:hi - o].copy_(self.flat[lo:hi])
         self.count += 1
-        for n, m in self.masters.items():
-            m.grad = None
-            params[n].copy_(m)
         return norm
 
+    def _by_name(self, kind: str) -> Dict[str, Tensor]:
+        return {n: self.home.read(kind, o, o + s.numel()).view(s) for n, (o, s) in self.layout.items()}
+
     def state_dict(self) -> dict:
-        return {"masters": self.masters, "adam": self.adam.state_dict(), "count": self.count,
-                "mini_step": self.mini_step, "acc": self.acc}
+        """Masters, moments, counts and the accumulated mean by parameter
+        name: one format whatever the moments' home (it waits for the walk's
+        last copy to host memory)."""
+        return {"masters": dict(self.masters), **{kind: self._by_name(kind) for kind in MOMENTS},
+                "count": self.count, "mini_step": self.mini_step,
+                "acc": self._by_name("acc") if self.mini_step else {}}
 
     def load_state_dict(self, state: dict, model: nn.Module) -> None:
-        """Restore masters, moments and count, and write the masters back into ``model``."""
+        """Restore masters, moments, counts and the accumulated mean (the
+        moments into their home), and write the masters back into ``model``."""
         params = dict(model.named_parameters())
+        acc = state.get("acc") or {}
         with torch.no_grad():
             for n, m in self.masters.items():
                 m.copy_(state["masters"][n])
                 params[n].copy_(m)
-        self.adam.load_state_dict(state["adam"])
+                for kind in MOMENTS + (("acc",) if acc else ()):
+                    self.home.write(kind, self.layout[n][0], state[kind][n])
         self.count = int(state["count"])
-        self.mini_step, self.acc = int(state.get("mini_step", 0)), dict(state.get("acc", {}))
+        self.mini_step = int(state.get("mini_step", 0))
 
 
-def _global_norm(grads: Dict[str, Tensor]) -> Tensor:
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
+class DeviceHome:
+    """Flat fp32 optimizer state on the device: a chunk of the walk is a view
+    of it, updated in place."""
+
+    def __init__(self, numel: int, chunk: int, device: torch.device, kinds):
+        self.bufs = {k: torch.zeros(numel, dtype=torch.float32, device=device) for k in kinds}
+
+    def walk(self, bounds, load, store):
+        """Yields (i, {kind: chunk i}) in order; ``load`` and ``store`` (the
+        kinds the caller reads and writes) need no copy here."""
+        for i, (a, b) in enumerate(bounds):
+            yield i, {k: buf[a:b] for k, buf in self.bufs.items()}
+
+    def read(self, kind: str, a: int, b: int) -> Tensor:
+        return self.bufs[kind][a:b]
+
+    def write(self, kind: str, a: int, values: Tensor) -> None:
+        values = values.reshape(-1)
+        self.bufs[kind][a:a + values.numel()].copy_(values)
+
+
+class HostHome:
+    """Flat fp32 optimizer state in host memory, one piece per chunk (pinned
+    for a CUDA device, ``parallel/sharding.host_pieces``); the walk streams
+    each piece through one of two device slots.
+
+    Chunk i goes host -> device on a copy stream, is updated on the compute
+    stream, and goes device -> host on a second copy stream, so both
+    directions of the link run at once. Events order them: a slot is loaded
+    only after the compute and the copy out of the chunk it held before are
+    done, and computed on only after its load. The host reads or writes a
+    piece only after :meth:`settle`. On a CPU device the copies are plain."""
+
+    def __init__(self, numel: int, chunk: int, device: torch.device, kinds):
+        from ..parallel.sharding import host_pieces
+
+        self.pieces = {k: host_pieces(numel, chunk, device) for k in kinds}
+        self.chunk, self.device = chunk, device
+        width = min(chunk, numel)
+        self.slots = [{k: torch.empty(width, dtype=torch.float32, device=device) for k in kinds} for _ in range(2)]
+        self.cuda = device.type == "cuda"
+        self.h2d = self.d2h = None
+        if self.cuda:
+            self.h2d, self.d2h = torch.cuda.Stream(device), torch.cuda.Stream(device)
+            for slot in self.slots:
+                for t in slot.values():  # the allocator waits for both copy streams before reusing a slot
+                    t.record_stream(self.h2d)
+                    t.record_stream(self.d2h)
+            self.loaded, self.computed, self.stored = ([torch.cuda.Event() for _ in range(2)] for _ in range(3))
+
+    def _on(self, stream):
+        return torch.cuda.stream(stream) if self.cuda else contextlib.nullcontext()
+
+    def _load(self, i: int, n: int, load) -> None:
+        s = i % 2
+        with self._on(self.h2d):
+            if self.cuda:
+                self.h2d.wait_event(self.computed[s])
+                self.h2d.wait_event(self.stored[s])
+            for k in load:
+                self.slots[s][k][:n].copy_(self.pieces[k][i], non_blocking=True)
+            if self.cuda:
+                self.loaded[s].record(self.h2d)
+
+    def walk(self, bounds, load, store):
+        """Yields (i, {kind: chunk i on the device}) in order: the ``load``
+        kinds hold their rested values, and the ``store`` kinds go back to
+        their pieces once the caller's work on the chunk is enqueued."""
+        sizes = [b - a for a, b in bounds]
+        if sizes:
+            self._load(0, sizes[0], load)
+        for i, n in enumerate(sizes):
+            if i + 1 < len(sizes):
+                self._load(i + 1, sizes[i + 1], load)
+            s = i % 2
+            if self.cuda:
+                torch.cuda.current_stream(self.device).wait_event(self.loaded[s])
+            yield i, {k: t[:n] for k, t in self.slots[s].items()}
+            if self.cuda:
+                self.computed[s].record(torch.cuda.current_stream(self.device))
+            with self._on(self.d2h):
+                if self.cuda:
+                    self.d2h.wait_event(self.computed[s])
+                for k in store:
+                    self.pieces[k][i].copy_(self.slots[s][k][:n], non_blocking=True)
+                if self.cuda:
+                    self.stored[s].record(self.d2h)
+
+    def settle(self) -> None:
+        """Wait until no copy reads or writes a piece."""
+        if self.cuda:
+            self.h2d.synchronize()
+            self.d2h.synchronize()
+
+    def _spans(self, a: int, b: int):
+        for i in range(a // self.chunk, (b - 1) // self.chunk + 1):
+            lo, hi = max(a, i * self.chunk), min(b, (i + 1) * self.chunk)
+            yield i, lo - i * self.chunk, hi - i * self.chunk, lo - a, hi - a
+
+    def read(self, kind: str, a: int, b: int) -> Tensor:
+        """Elements [a, b) of a buffer, copied out of its pieces."""
+        self.settle()
+        out = torch.empty(b - a, dtype=torch.float32)
+        for i, lo, hi, olo, ohi in self._spans(a, b):
+            out[olo:ohi].copy_(self.pieces[kind][i][lo:hi])
+        return out
+
+    def write(self, kind: str, a: int, values: Tensor) -> None:
+        self.settle()
+        values = values.reshape(-1)
+        for i, lo, hi, vlo, vhi in self._spans(a, a + values.numel()):
+            self.pieces[kind][i][lo:hi].copy_(values[vlo:vhi])
+
+
+def _global_norm(norms, device) -> Tensor:
+    """The norm of a set of tensors from their norms."""
+    return torch.linalg.vector_norm(torch.stack(norms)) if norms else torch.zeros((), device=device)
 
 
 def build_optimizer(

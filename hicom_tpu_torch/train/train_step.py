@@ -11,6 +11,7 @@ parameter runs without a graph (``HIComModel.one_shot_forward``).
     opt = build_optimizer(model, learning_rate=1e-3, guide_injector_lr=1e-3,
                           tunable_parts="mm_projector", use_guide="direct")
     state = create_train_state(model, opt)      # on the CUDA device by default
+                                                # (offload_optimizer=True: moments in pinned host memory)
     step = make_train_step()
     state, metrics = step(state, batch)         # loss, target_tokens, grad_norm
 
@@ -52,14 +53,19 @@ class TrainState:
         return {**own, **self.optimizer.masters}
 
 
-def create_train_state(model: torch.nn.Module, optimizer: GroupAdamW, device=None) -> TrainState:
+def create_train_state(model: torch.nn.Module, optimizer: GroupAdamW, device=None,
+                       offload_optimizer: bool = False) -> TrainState:
     """``model`` on ``device`` (the CUDA device unless given; raises without a
     card), frozen and with the optimizer's masters: the one-device counterpart
-    of ``create_sharded_state``."""
+    of ``create_sharded_state``. ``offload_optimizer`` rests the AdamW moments
+    (and an accumulated mean) in pinned host memory, streamed through the
+    device at each update (the JAX package's ``pinned_host`` placement, the
+    reference's ``scripts/zero3_offload.json``); a CUDA device that cannot
+    pin them raises."""
     from ..api import resolve_device
 
     model.to(resolve_device(device))
-    optimizer.init(model)
+    optimizer.init(model, offload=offload_optimizer)
     return TrainState(model, optimizer, 0)
 
 

@@ -55,7 +55,7 @@ def test_resume_continues_from_the_last_checkpoint(setup, port_stage2):  # noqa:
     assert _losses(out) == _losses(port_stage2)
 
 
-@pytest.mark.parametrize("flag", [["--bits", "4"], ["--fsdp", "2"], ["--dp", "2"], ["--offload-optimizer"]])
+@pytest.mark.parametrize("flag", [["--bits", "4"], ["--fsdp", "2"], ["--dp", "2"]])
 def test_unported_flags_exit(flag):
     from hicom_tpu_torch.train.cli import main
 

@@ -683,3 +683,36 @@ def test_eval_runner_on_the_card_writes_the_cpus_answers(tmp_path, monkeypatch):
     assert strings[:8] == strings[8:] and len(strings) == 16
     assert answers["cuda"] == answers["cpu"] and answers["cpu"].count("\"response\"") == 8
     assert min(launches["cuda"]) > 0 and launches["cpu"] == (0, 0)
+
+
+def test_offloaded_moments_rest_in_pinned_memory(rn):
+    # chunks far below the model's size, so that the walk streams many pieces
+    # through its two slots; the same steps with the moments on the card give
+    # the same masters and moments, bit for bit
+    import copy
+
+    from hicom_tpu_torch.train.optimizer import build_optimizer
+    from hicom_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    _, model, batch = _small_decoder_model(rn)
+    states = []
+    for offload in (True, False):
+        m = copy.deepcopy(model)
+        opt = build_optimizer(m, learning_rate=1e-3, weight_decay=0.05, total_steps=4,
+                              tunable_parts="mm_projector,language_model", gradient_accumulation_steps=2)
+        opt.chunk = 1 << 14
+        states.append(create_train_state(m, opt, offload_optimizer=offload))
+    offloaded, resident = states
+    assert len(offloaded.optimizer.bounds) > 8
+    step = make_train_step()
+    for _ in range(4):
+        for state in states:
+            step(state, batch)
+    home = offloaded.optimizer.home
+    assert all(p.is_pinned() for pieces in home.pieces.values() for p in pieces)
+    got, want = offloaded.optimizer.state_dict(), resident.optimizer.state_dict()
+    assert offloaded.optimizer.count == 2 and got["exp_avg"]
+    for kind in ("masters", "exp_avg", "exp_avg_sq"):
+        for n, t in want[kind].items():
+            assert got[kind][n].device == (t.device if kind == "masters" else torch.device("cpu")), n
+            assert torch.equal(got[kind][n].to(t.device), t), (kind, n)

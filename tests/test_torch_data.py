@@ -130,7 +130,12 @@ def _video_inputs(tmp_path, kind):
 def test_process_video_matches_jax(tmp_path, kind):
     src, kw = _video_inputs(tmp_path, kind)
     jp, tp = _procs()
-    _equal(jvideo.process_video(src, jp, **kw), tvideo.process_video(src, tp, **kw))
+    ref = src
+    if kind == "pad_short":
+        # JAX pads a non-square clip with (w, h, 3) black frames (ROADMAP Queue 3 item 1), the port with
+        # (h, w, 3) ones: JAX gets the clip already padded to the port's shape
+        ref = np.concatenate([src, np.zeros((kw["num_frames"] - len(src),) + src.shape[1:], np.uint8)])
+    _equal(jvideo.process_video(ref, jp, **kw), tvideo.process_video(src, tp, **kw))
 
 
 def test_process_video_raw_ingest_waits_for_device_preprocess():

@@ -9,9 +9,12 @@ real mp4s: a mini Video-MME (parquet, batch 1, with and without subtitles),
 an MVBench-layout shard at ``--batch-size 2`` (``mm_infer_batch``), and the
 mini Video-MME again under a static-quant tower (``--tower-quant
 w8a8s_mlp_qkv``) calibrated on a separate clip (``--calib-video``), on an
-export without the guide: both packages' runners calibrate the tower without
-guide ids, which a guide-mode projector cannot take (ROADMAP Queue 3). The
-answer files must be equal line for line.
+export without the guide. The answer files must be equal line for line.
+
+On the guide-mode export, JAX's runner calibrates the tower without guide ids
+and raises ``AttributeError``; the port's encodes the calibration question
+with the guide tokenizer (ROADMAP Queue 3 item 2, repaired in the port only),
+and its scales equal those of ``calibrate_tower`` given those ids.
 """
 
 import json
@@ -21,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from hicom_tpu import config as jcfg
 from hicom_tpu.models.hicom import HIComModel as JModel
@@ -138,3 +142,44 @@ def test_static_tower_with_calib_video_matches_jax(assets):
         "--question-file", assets["qf"], "--video-folder", assets["vids"], "--subtitle-folder", assets["subs"],
         "--tower-quant", "w8a8s_mlp_qkv", "--calib-video", assets["calib"]], ckpt="ckpt_noguide")
     assert got == got_jax and len(got) == 4
+
+
+class _Calibrated(Exception):
+    pass
+
+
+def test_calib_video_on_a_guide_export_uses_its_guide_ids(assets, monkeypatch):
+    from hicom_tpu.eval import runner as jax_runner
+    from hicom_tpu_torch.api import model_init
+    from hicom_tpu_torch.eval import runner
+
+    argv = ["--benchmark", "videomme", "--model-path", assets["ckpt"], "--question-file", assets["qf"],
+            "--video-folder", assets["vids"], "--answer-file", str(assets["root"] / "calib_guide" / "preds.json"),
+            "--dtype", "float32", "--tower-quant", "w8a8s_mlp_qkv", "--calib-video", assets["calib"]]
+    with pytest.raises(AttributeError, match="'NoneType' object has no attribute 'shape'"):  # the projector's guide
+        jax_runner.main(argv)
+
+    calibrated = []
+    orig = runner.calibrate
+
+    def stop_after(model, *a):  # the benchmark itself is test_torch_eval_runner's
+        orig(model, *a)
+        calibrated.append(model)
+        raise _Calibrated
+
+    monkeypatch.setattr(runner, "calibrate", stop_after)
+    with pytest.raises(_Calibrated):
+        runner.main(argv + ["--device", "cpu"])
+    got = calibrated[0]
+    assert got.tower_calibrated and got.config.guide_enabled()
+
+    model, processor, _ = model_init(assets["ckpt"], dtype="float32", device="cpu",
+                                     load_w8a8_tower="w8a8s_mlp_qkv")
+    ids = model.guide_tokenizer("what is in the video ?", padding="max_length", truncation=True,
+                                max_length=model.config.guide_text_config.max_position_embeddings,
+                                return_tensors="np")["input_ids"]
+    frames = runner._as_frames(processor["video"](assets["calib"]))[None]
+    model.calibrate_tower(frames, guide_ids=ids)
+    want, have = model.model.state_dict(), got.model.state_dict()
+    scales = [k for k in want if k.endswith("act_scale")]
+    assert scales and all(torch.equal(have[k], want[k]) for k in want)
