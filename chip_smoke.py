@@ -105,6 +105,12 @@ Phases:
      ``model_init(..., device_preprocess=True)`` + ``mm_infer`` from an
      exported checkpoint under each quantization flag, the card's string
      equal to the CPU's; [stage3-qlora] 3 stage-3 steps over an NF4 base;
+  8b. [bench]: ``python3 -m hicom_tpu_torch.bench`` at full width, one
+     subprocess per mode: the default (w8a8s_mlp_qkv tower and w8a8 decoder,
+     then the bf16 arm; 8 and 4 timed iterations), ``--decode``, ``--train``
+     and ``--from-disk`` (4 each); each last JSON line names the card, has a
+     positive value, MFU in (0, 100], both arms in the default, and positive
+     launches of K1, K2 and K4 (prefill modes), K3 (decode) or K5/K6 (train);
   9. [stage3-sft-7b-offload] (last): full stage-3 SFT of HICom-7B at full
      width and depth with the AdamW moments in pinned host memory, remat,
      batch 1, 3 steps: the link's own rate, the pinned bytes against the
@@ -2278,6 +2284,60 @@ def cli_phase(card: str):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# [bench]: each mode of ``python3 -m hicom_tpu_torch.bench`` the phase runs, its flags, and the kernel
+# wrappers whose launches must be positive over its timed groups
+PREFILL_KERNELS = ("fullblock_attention", "flash_forward", "fused_tile_attention")
+BENCH_MODES = (
+    ("default", ["--iters", "8", "--iters-bf16", "4"], PREFILL_KERNELS),
+    ("decode", ["--decode"], ("flash_decode",)),
+    ("train", ["--train", "--iters", "4"], ("flash_backward",)),
+    ("from-disk", ["--from-disk", "--iters", "4"], PREFILL_KERNELS),
+)
+
+
+def bench_phase(card: str):
+    """[bench]: the port's bench (``hicom_tpu_torch/bench.py``) at full width
+    in a subprocess per mode (the kernels already built under
+    ``build/kernels/``): its last JSON line must name this card, carry a
+    positive value, every MFU in (0, 100], a finite train loss, both arms in
+    the default mode, and positive launch counts of the mode's kernels."""
+    import os
+
+    import torch
+
+    torch.cuda.empty_cache()
+    kind = torch.cuda.get_device_name(0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    for label, flags, kernels in BENCH_MODES:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "hicom_tpu_torch.bench"] + flags, cwd=root, capture_output=True,
+                             text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"[bench] {label} exited {out.returncode}: {out.stderr[-4000:]}")
+        line = [ln for ln in out.stdout.splitlines() if ln.startswith("{")][-1]
+        log(f"[bench] {card} | {label} ({' '.join(flags)}), {seconds:.1f} s: {line}")
+        res = json.loads(line)
+        detail = res["detail"]
+        mfus = [detail[k] for k in ("mfu_pct", "bf16_mfu_pct") if k in detail]
+        faults = []
+        if detail["device"]["kind"] != kind:
+            faults.append(f"device {detail['device']['kind']!r}")
+        if res["value"] is None or res["value"] <= 0:
+            faults.append(f"value {res['value']}")
+        if not all(m is not None and 0 < m <= 100 for m in mfus):
+            faults.append(f"MFU {mfus}")
+        if not np.isfinite(detail.get("loss", 0.0)):
+            faults.append(f"loss {detail['loss']}")
+        if label == "default" and "bf16_frames_per_sec" not in detail:
+            faults.append("no bf16 arm")
+        for arm in ("kernel_launches", "bf16_kernel_launches"):
+            if arm in detail and min(detail[arm][k] for k in kernels) <= 0:
+                faults.append(f"{arm} {detail[arm]}")
+        if faults:
+            raise AssertionError(f"[bench] {label}: " + "; ".join(faults))
+
+
 # both stages' learning rate in [closed-loop]: the reference recipe's for the
 # decoder (stage 3). With the norms at 1, stage 2's loss falls from about 13
 # to 0.03 in 3 steps at 1e-5, reaches 0.0000 after one step at 1e-4 and
@@ -3195,6 +3255,7 @@ def main() -> int:
     plain_vs_kernel_anyres_clip()
     cli_phase(card)
     launches["closed-loop"] = closed_loop_phase(card)
+    bench_phase(card)
     # last: its 65 GB of pinned moments stay in PyTorch's host cache once freed
     launches["stage3-sft-7b-offload"] = stage3_sft_7b_offload_phase(card)
 

@@ -47,7 +47,7 @@ TRAIN_MODULES = ("hicom_tpu_torch.train.optimizer", "hicom_tpu_torch.train.train
 EVAL_MODULES = ("hicom_tpu_torch.eval", "hicom_tpu_torch.eval.common", "hicom_tpu_torch.eval.benchmarks",
                 "hicom_tpu_torch.eval.scorers", "hicom_tpu_torch.eval.score", "hicom_tpu_torch.eval.gpt_judge",
                 "hicom_tpu_torch.eval.runner", "hicom_tpu_torch.selftest", "hicom_tpu_torch.utils",
-                "hicom_tpu_torch.profiling", "hicom_tpu_torch.conversation")
+                "hicom_tpu_torch.profiling", "hicom_tpu_torch.conversation", "hicom_tpu_torch.bench")
 
 
 def _imports_no_jax(modules):
