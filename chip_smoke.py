@@ -56,7 +56,12 @@ Phases:
      losses, frozen weights bit-identical, trained weights moved, 29 flash
      backward launches per step and no tile-kernel launch; then one step split
      into stages and one under torch.profiler (device time by kernel and by the
-     aten op that launched it);
+     aten op that launched it); then [mesh-train], the same 3 steps through
+     the mesh path in a one-rank NCCL group (``init_distributed``,
+     ``create_mesh(1, 1, 1)``, ``create_sharded_state``: the rules' tp plan
+     and FSDP2 ``fully_shard``), losses, target tokens and grad norms
+     bit-equal to [train]'s, 29 flash backward launches per step, frozen
+     tensors unmoved, the step time beside [train]'s;
   5b. stage 3 through LoRA (r 128, alpha 256, remat) at the same width and
      depth: 3 steps, the base bit-identical, every adapter moved, 28 flash
      backward and 57 flash forward launches per step;
@@ -82,7 +87,10 @@ Phases:
      flagless run's), each artifact loaded by ``load_model``
      in its own layout, held to the model that wrote it (for ``--bits 8``,
      the float stage-2 base with the trained adapters as a side path) and
-     generating through K1-K4;
+     generating through K1-K4; then [mesh-cli]: stage 2 again through
+     ``python -m torch.distributed.run --nproc_per_node 1 -m
+     hicom_tpu_torch.train.cli ... --dp 1 --fsdp 1 --tp 1`` (NCCL), its
+     losses and ``mm_projector.bin`` equal to [cli]'s;
   7b. [closed-loop]: the port's selftest loop (train -> export -> reload ->
      eval -> score) at the same width and depth, in bf16 with 8 frames:
      stage 1 and stage 2 through ``train.cli.main`` on the selftest's images
@@ -1426,6 +1434,115 @@ def train_phase(card: str):
     train_profile("train", state, step, batch, model.parameters(), lambda: state.optimizer.update(model))
     del model, state, opt, params, trained_before, batch
     torch.cuda.empty_cache()
+    return launches, {"metrics": metrics, "step_ms": sum(times[1:]) / len(times[1:]) * 1e3}
+
+
+def mesh_env(port: int):
+    """``torchrun``'s environment for a one-rank group on ``port``: set while
+    inside, the caller's restored after."""
+    import os
+
+    keys = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+
+    @contextmanager
+    def env():
+        saved = {k: os.environ.get(k) for k in keys}
+        os.environ.update(keys)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    return env()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_train_phase(card: str, want: dict):
+    """[mesh-train]: [train]'s 3 stage-2 steps of HICom-7B (full width and
+    depth, the same seeded weights and batch) through the mesh path in a
+    one-rank NCCL group: ``init_distributed`` (from torchrun's environment),
+    ``create_mesh(1, 1, 1)``, ``create_sharded_state`` (the rules' tp plan by
+    ``parallelize_module`` over a one-rank tp mesh, FSDP2 ``fully_shard`` of
+    every layer and the root, the optimizer over the local shards). At world
+    size 1 the collectives copy and the DTensor layers run the plain layers'
+    local ops, so the losses, target tokens and grad norms must equal
+    [train]'s bit for bit. The attention must reach K1/K2/K5/K6 as plain
+    local tensors (a DTensor raises in the wrappers): flash_backward once per
+    decoder layer and the global compressor each step, as in [train]; the
+    frozen tensors keep their fingerprints. The step time beside [train]'s is
+    the cost of the DTensor/FSDP2 machinery at world size 1, not a claim."""
+    import torch
+    import torch.distributed as dist
+
+    from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.parallel.mesh import create_mesh, init_distributed
+    from hicom_tpu_torch.parallel.sharding import local
+    from hicom_tpu_torch.train.optimizer import build_optimizer
+    from hicom_tpu_torch.train.train_step import batch_to_device, create_sharded_state, make_train_step
+
+    cfg = serving_config()
+    with mesh_env(free_port()):
+        device = init_distributed("cuda", 1, 1, 1)
+        try:
+            mesh = create_mesh(1, 1, 1)
+            log(f"[mesh-train] {dist.get_backend()} group of {dist.get_world_size()} on {device}, mesh "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+            model = build_model(cfg, device="cuda", seed=0)
+            opt = build_optimizer(model, learning_rate=1e-3, guide_injector_lr=1e-3, total_steps=TRAIN_STEPS + 2,
+                                  tunable_parts="mm_projector", use_guide="direct")
+            trained = {n for n, lab in opt.labels.items() if lab != "frozen"}
+            frozen_before = fingerprints((n, p) for n, p in model.named_parameters() if n not in trained)
+            t0 = time.perf_counter()
+            state = create_sharded_state(model, opt, mesh, device)
+            torch.cuda.synchronize()
+            shard_s = time.perf_counter() - t0
+            params = dict(model.named_parameters())
+            kinds = {type(p).__name__ for p in params.values()}
+            split = sorted({n.rsplit(".", 1)[0].split(".")[-1] for n, p in params.items()
+                            if any(pl.is_shard() for pl in getattr(p, "placements", ())[2:])})
+            batch = batch_to_device(make_train_batch(cfg), device, torch.bfloat16)
+            reset_counts()
+            times, metrics, fwd, per_step = run_steps(state, make_train_step(), batch)
+            launches = log_steps("mesh-train", card, "HICom-7B stage 2 through the (1, 1, 1) mesh", model, cfg,
+                                 batch, times, metrics, fwd, per_step)
+            after = fingerprints((n, local(params[n])) for n in frozen_before)
+            moved = [n for n in frozen_before if not torch.equal(after[n], frozen_before[n])]
+            step_ms = sum(times[1:]) / len(times[1:]) * 1e3
+            keys = ("loss", "target_tokens", "grad_norm")
+            diff = {k: [abs(m[k] - w[k]) for m, w in zip(metrics, want["metrics"])] for k in keys}
+            log(f"[mesh-train] {card} | parameters {sorted(kinds)}, tp-planned modules {split}, sharded in "
+                f"{shard_s:.1f} s | step {step_ms:.1f} ms against [train]'s {want['step_ms']:.1f} ms "
+                f"({step_ms / want['step_ms']:.3f}x: the DTensor/FSDP2 machinery at world size 1) | |mesh - train| "
+                f"per step: {diff}")
+            n_layers = cfg.text_config.num_hidden_layers
+            if per_step != [n_layers + 1] * TRAIN_STEPS or not (launches["fullblock_attention"]
+                                                                and launches["flash_forward"]):
+                raise AssertionError(f"[mesh-train] kernels: flash_backward per step {per_step}, launches {launches}")
+            if kinds != {"DTensor"}:
+                raise AssertionError(f"[mesh-train] the model was not sharded: parameter types {kinds}")
+            if any(d for v in diff.values() for d in v):
+                raise AssertionError(f"[mesh-train] the mesh path's steps differ from [train]'s: {diff}")
+            if moved:
+                raise AssertionError(f"[mesh-train] {len(moved)} frozen tensors moved, e.g. {moved[:3]}")
+            log(f"[mesh-train] checks: losses, target tokens and grad norms of {TRAIN_STEPS} steps bit-equal to "
+                f"[train]'s; {len(frozen_before)} frozen tensors kept their fingerprints")
+            # where the extra time goes: the sharded tower has no forward of its own outside the step
+            train_profile("mesh-train", state, make_train_step(), batch, model.parameters(), None, stages=False)
+            del model, state, opt, params, batch
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1865,14 +1982,16 @@ def adam_check(opt, params, sample: dict, snap: dict, grad_norm: float, count: i
     return {k: tuple(v) for k, v in out.items()}
 
 
-def train_profile(label: str, state, step, batch, trainable, update, top: int = 12, loss_fn=None):
+def train_profile(label: str, state, step, batch, trainable, update, top: int = 12, loss_fn=None,
+                  stages: bool = True):
     """One more step split into stages (host clock around synchronised
     stages: the frozen tower's forward alone, then the step's forward,
-    backward and update), then one under torch.profiler: device kernel time by
-    kernel, by the aten op that launched it, and the device's idle share of
-    the step's wall time. ``trainable`` are the parameters whose gradients a
-    step starts from zero, ``update`` the optimizer's step, ``loss_fn`` the
-    step's loss (default: a video batch's)."""
+    backward and update; without ``stages`` none), then one under
+    torch.profiler: device kernel time by kernel, by the aten op that
+    launched it, and the device's idle share of the step's wall time.
+    ``trainable`` are the parameters whose gradients a step starts from
+    zero, ``update`` the optimizer's step, ``loss_fn`` the step's loss
+    (default: a video batch's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1885,21 +2004,22 @@ def train_profile(label: str, state, step, batch, trainable, update, top: int = 
         torch.cuda.synchronize()
         stamps.append((name, time.perf_counter()))
 
-    mark("start")
-    with torch.no_grad():
-        frames = batch["frames"]
-        model.model.vision_tower.vision_tower(frames.reshape((-1,) + frames.shape[2:]))
-    mark("vision tower forward (alone)")
-    for p in trainable:
-        p.grad = None
-    loss, _ = (loss_fn or make_loss_fn(model))(batch)
-    mark("forward + loss (tower included)")
-    loss.backward()
-    mark("backward")
-    update()
-    mark("optimizer update")
-    log(f"[{label}-stages] " + " | ".join(f"{n} {1e3 * (t - stamps[i][1]):.1f} ms"
-                                         for i, (n, t) in enumerate(stamps[1:])))
+    if stages:
+        mark("start")
+        with torch.no_grad():
+            frames = batch["frames"]
+            model.model.vision_tower.vision_tower(frames.reshape((-1,) + frames.shape[2:]))
+        mark("vision tower forward (alone)")
+        for p in trainable:
+            p.grad = None
+        loss, _ = (loss_fn or make_loss_fn(model))(batch)
+        mark("forward + loss (tower included)")
+        loss.backward()
+        mark("backward")
+        update()
+        mark("optimizer update")
+        log(f"[{label}-stages] " + " | ".join(f"{n} {1e3 * (t - stamps[i][1]):.1f} ms"
+                                             for i, (n, t) in enumerate(stamps[1:])))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -2202,6 +2322,7 @@ def cli_phase(card: str):
     prompt_ids, _ = preprocess_chat(convs, tok, "<video>", True)
     bucket = -(-max(map(len, prompt_ids)) // 64) * 64
     request, single = make_requests(cfg, seed=9)
+    kept = {}
     for name, flags in stages.items():
         out = os.path.join(root, name)
         args = cli.build_parser().parse_args(common + flags + ["--output-dir", out])
@@ -2221,6 +2342,7 @@ def cli_phase(card: str):
             f"collated) | {spliced / step_s:.1f} spliced tokens/s | peak memory {peak_gb:.2f} GB")
         if len(losses) != 2 or not all(np.isfinite(losses)):
             raise AssertionError(f"[cli] {name}: expected 2 finite losses, got {losses}")
+        kept[name] = losses
         shutil.rmtree(os.path.join(out, "checkpoints"), ignore_errors=True)  # a full-SFT stage's: 19 GB
         if name == "sft-offload":
             from hicom_tpu_torch.weights import load_hf_state_dict
@@ -2281,7 +2403,112 @@ def cli_phase(card: str):
             raise AssertionError(f"[cli] {name}: generation did not run through K1-K4 ({launches}, {ids.shape})")
         del hc
         torch.cuda.empty_cache()
-    shutil.rmtree(root, ignore_errors=True)
+    # [mesh-cli] trains stage 2 again on these files, then removes them
+    return dict(root=root, paths=paths, cfg=cfg, flags=common + stages["stage2"], losses=kept["stage2"])
+
+
+def write_hf_tokenizer(path: str, tok, texts):
+    """A WordLevel tokenizer for ``transformers.AutoTokenizer`` that gives
+    ``tok``'s (a ``WordTokenizer``'s) ids for every whitespace-separated word
+    of ``texts``, with its chat template, padding id 0 and, for a guide
+    tokenizer, its padded length and no attention mask (``tok`` returns
+    none)."""
+    import os
+
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    words = {"<pad>": 0}
+    for text in texts:
+        for w in text.split():
+            words.setdefault(w, tok.ids(w)[0])
+    words.setdefault("<unk>", 1)
+    used = set(words.values())
+    words.update({f"<unused{i}>": i for i in range(max(used) + 1) if i not in used})  # a vocabulary without holes
+    tk = Tokenizer(models.WordLevel(words, unk_token="<unk>"))
+    tk.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    tk.save(os.path.join(path, "tokenizer.json"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "unk_token": "<unk>", "pad_token": "<pad>",
+                   "model_max_length": tok.max_length, "model_input_names": ["input_ids"],
+                   "chat_template": "{% for m in messages %}<|{{ m['role'] }}|> {{ m['content'] }} <|end|> {% endfor %}"
+                                    "{% if add_generation_prompt %}<|assistant|> {% endif %}"}, f)
+
+
+def mesh_cli_phase(card: str, cli: dict):
+    """[mesh-cli]: [cli]'s stage 2 again, on its files, through ``python -m
+    torch.distributed.run --standalone --nproc_per_node 1 -m
+    hicom_tpu_torch.train.cli ... --dp 1 --fsdp 1 --tp 1`` (a one-rank NCCL
+    group, the mesh path). The CLI reads its tokenizers with
+    ``transformers.AutoTokenizer``, so the phase first writes, beside the
+    base LLM and the tower, WordLevel tokenizers that give [cli]'s
+    ``WordTokenizer`` ids, and holds the port's collated batches from both to
+    each other. The run's ``metrics.jsonl`` losses must equal [cli]'s stage-2
+    losses bit for bit, and its ``mm_projector.bin`` must load through
+    ``load_model`` with the tensors of [cli]'s. The kernels launch in the
+    rank process, whose counts this process cannot read ([mesh-train] counts
+    the mesh path's)."""
+    import os
+    import shutil
+
+    import torch
+
+    from hicom_tpu_torch.api import load_model
+    from hicom_tpu_torch.data.processor import SiglipImagePreprocessor
+    from hicom_tpu_torch.train import cli as train_cli
+    from hicom_tpu_torch.train.dataset import Collator, SupervisedDataset, iter_batches
+
+    root, paths, cfg = cli["root"], cli["paths"], cli["cfg"]
+    try:
+        from transformers import AutoTokenizer
+
+        tok = WordTokenizer(cfg.text_config.vocab_size)
+        guide_tok = WordTokenizer(cfg.guide_text_config.vocab_size, cfg.guide_text_config.max_position_embeddings)
+        with open(paths["data"]) as f:
+            rows = json.load(f)
+        texts = [m["value"].replace("<video>", " ") for r in rows for m in r["conversations"]]
+        write_hf_tokenizer(paths["llm"], tok, texts + ["<|user|> <|assistant|> <|end|> <|system|>"])
+        write_hf_tokenizer(paths["tower"], guide_tok, texts)
+        hf, hf_guide = AutoTokenizer.from_pretrained(paths["llm"]), AutoTokenizer.from_pretrained(paths["tower"])
+        args = train_cli.build_parser().parse_args(cli["flags"] + ["--output-dir", os.path.join(root, "unused")])
+        dargs = train_cli.data_arguments(args, train_cli.build_config(args))
+        proc = SiglipImagePreprocessor(size=(cfg.vision_config.image_size,) * 2)
+        batches = [list(iter_batches(SupervisedDataset(t, dargs, proc), Collator(t, dargs, g), 2, seed=args.seed))
+                   for t, g in ((tok, guide_tok), (hf, hf_guide))]
+        same = len(batches[0]) == len(batches[1]) > 0 and all(
+            a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a if isinstance(a[k], np.ndarray))
+            for a, b in zip(*batches))
+        if not same:
+            raise AssertionError("[mesh-cli] the written tokenizers do not give WordTokenizer's batches")
+        out = os.path.join(root, "mesh-stage2")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+               "-m", "hicom_tpu_torch.train.cli", *cli["flags"], "--output-dir", out, "--dp", "1", "--fsdp", "1",
+               "--tp", "1"]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                             timeout=600)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"[mesh-cli] torchrun exited {run.returncode}: {run.stderr[-3000:]}")
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        said = [line for line in run.stdout.splitlines() if line.startswith(("total steps", "step "))]
+        got = torch.load(os.path.join(out, "mm_projector.bin"), weights_only=True)
+        want = torch.load(os.path.join(root, "stage2", "mm_projector.bin"), weights_only=True)
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        hc = load_model(out, model_base=paths["llm"], device="cuda")
+        loaded = hc.model.state_dict()
+        not_loaded = [k for k, v in got.items() if not torch.equal(loaded[k].cpu(), v.to(loaded[k].dtype))]
+        log(f"[mesh-cli] {card} | torchrun --nproc_per_node 1, --dp 1 --fsdp 1 --tp 1 (NCCL): stage 2 in {wall:.1f} s "
+            f"(process start, model set-up, data and export included); rank 0 printed {said}; losses {losses} "
+            f"against [cli]'s {cli['losses']}; mm_projector.bin: {len(differ)} of {len(want)} tensors differ from "
+            f"[cli]'s, {len(not_loaded)} differ after load_model")
+        if losses != cli["losses"] or differ or set(got) != set(want) or not_loaded:
+            raise AssertionError(f"[mesh-cli] the mesh path's stage 2 differs from [cli]'s: losses {losses}, "
+                                 f"tensors {differ[:3]}, {not_loaded[:3]}")
+        del hc, loaded
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # [bench]: each mode of ``python3 -m hicom_tpu_torch.bench`` the phase runs, its flags, and the kernel
@@ -3242,7 +3469,8 @@ def main() -> int:
     launches["serve-int8"] = serve_quant_phase(card, "serve-int8", "int8")
     launches["serve-w8a8"] = serve_quant_phase(card, "serve-w8a8", "w8a8s", "w8a8s_mlp_qkv")
     launches["model-init"] = model_init_phase(card)
-    launches["train"] = train_phase(card)
+    launches["train"], train_record = train_phase(card)
+    launches["mesh-train"] = mesh_train_phase(card, train_record)
     launches["stage3-lora"] = stage3_lora_phase(card)
     launches["stage3-qlora"] = stage3_qlora_phase(card)
     launches["stage3-sft"], resident = stage3_sft_phase(card)
@@ -3253,7 +3481,7 @@ def main() -> int:
     plain_vs_kernel_logits()
     plain_vs_kernel_grads()
     plain_vs_kernel_anyres_clip()
-    cli_phase(card)
+    mesh_cli_phase(card, cli_phase(card))
     launches["closed-loop"] = closed_loop_phase(card)
     bench_phase(card)
     # last: its 65 GB of pinned moments stay in PyTorch's host cache once freed

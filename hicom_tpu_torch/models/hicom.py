@@ -257,8 +257,10 @@ class HIComModel(Qwen2ForCausalLM):
             else:
                 visual = self.encode_visual(frames, guide_embeds, modal)
         spliced = self.embed_and_splice(input_ids, visual, attention_mask, labels)
-        logits, _ = self.decode(spliced.embeds, spliced.positions, padding_mask=spliced.attention_mask)
-        return logits, spliced.labels, spliced.attention_mask
+        # the decoder and head without this module's own forward: a sharded model
+        # (parallel/sharding.shard_model) gathers its tensors around this method
+        hidden = self.model(spliced.embeds, spliced.positions, padding_mask=spliced.attention_mask)
+        return self.logits(hidden), spliced.labels, spliced.attention_mask
 
 
 def _unless_frozen(module: nn.Module):

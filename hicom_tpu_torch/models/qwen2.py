@@ -147,10 +147,11 @@ class DecoderAttention(nn.Module):
         ``offsets`` (b, L) the slots a per-slot step writes. The decoder
         computes them once per step."""
         b, L, _ = x.shape
-        H, KVH, hd = self.num_heads, self.num_kv_heads, self.head_dim
-        q = self.q_proj(x).reshape(b, L, H, hd).transpose(1, 2)
-        k = self.k_proj(x).reshape(b, L, KVH, hd).transpose(1, 2)
-        v = self.v_proj(x).reshape(b, L, KVH, hd).transpose(1, 2)
+        hd = self.head_dim
+        # head counts from the projections' widths: a tensor-parallel rank holds H/tp and KVH/tp heads
+        q = self.q_proj(x).reshape(b, L, -1, hd).transpose(1, 2)
+        k = self.k_proj(x).reshape(b, L, -1, hd).transpose(1, 2)
+        v = self.v_proj(x).reshape(b, L, -1, hd).transpose(1, 2)
         q = apply_rotary(q, *rope)
         k = apply_rotary(k, *rope)
 
@@ -171,7 +172,7 @@ class DecoderAttention(nn.Module):
                     ck, cv = dequantize_kv(ck, cache.k_scale[layer], q.dtype), dequantize_kv(cv, cache.v_scale[layer],
                                                                                             q.dtype)
                 out = sdpa(q, ck, cv, scale=hd**-0.5, mask=slot_mask)
-        out = out.transpose(1, 2).reshape(b, L, H * hd)
+        out = out.transpose(1, 2).reshape(b, L, -1)
         return self.o_proj(out)
 
     @staticmethod

@@ -40,7 +40,7 @@ Tensor = torch.Tensor
 class SiglipAttention(nn.Module):
     def __init__(self, hidden: int, num_heads: int, dtype=None, quant: Optional[str] = None):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim = num_heads, hidden // num_heads
         base, static, _ = parse_tower_quant(quant)
         self.shared_qkv = quant_covers(base, "qkv")
         if self.shared_qkv:
@@ -53,13 +53,13 @@ class SiglipAttention(nn.Module):
         self.out_proj = make_tower_linear(out_q, hidden, hidden, dtype)
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
-        head_dim = x.shape[-1] // self.num_heads
         if self.shared_qkv:
             xq, sx = self.qkv_quant(x) if self.qkv_quant is not None else quantize_rows(x)
             q, k, v = (p.forward_q(xq, sx) for p in (self.q_proj, self.k_proj, self.v_proj))
         else:
             q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        out = multi_head_attention(q, k, v, self.num_heads, scale=head_dim**-0.5, mask=mask)
+        # heads from q's width: a tensor-parallel rank holds num_heads/tp of them
+        out = multi_head_attention(q, k, v, q.shape[-1] // self.head_dim, scale=self.head_dim**-0.5, mask=mask)
         return self.out_proj(out)
 
 

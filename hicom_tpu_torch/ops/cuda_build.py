@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "local_attn")
@@ -111,6 +113,23 @@ def c_function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     if fn.argtypes is None:
         fn.argtypes, fn.restype = list(argtypes), restype
     return fn
+
+
+_PLAIN = (torch.Tensor, torch.nn.Parameter, type(None), float, int)
+
+
+def plain_operands(what: str, *operands) -> None:
+    """Raise if a DTensor reaches a kernel wrapper: a launch takes raw pointers
+    and shapes, and a DTensor's are its wrapper's, not its local shard's. A
+    sharded model hands its kernels local tensors (``parallel/sharding.py``).
+    A plain tensor, a parameter or a number passes on its type alone, so a
+    launch pays no import and no ``isinstance`` walk for it."""
+    for t in operands:
+        if type(t) not in _PLAIN and isinstance(t, torch.Tensor):
+            from torch.distributed.tensor import DTensor
+
+            if isinstance(t, DTensor):
+                raise TypeError(f"{what} takes plain local tensors, not DTensors")
 
 
 def check(status: int, what: str) -> None:

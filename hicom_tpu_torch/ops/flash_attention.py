@@ -49,7 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .cuda_build import c_function, check
+from .cuda_build import c_function, check, plain_operands
 
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 256
@@ -406,6 +406,7 @@ def _launch_merge(o_part: Tensor, m_part: Tensor, l_part: Tensor) -> Tuple[Tenso
 def fullblock_attention(q: Tensor, k: Tensor, v: Tensor, scale: float, logit_bias: float = 0.0
                         ) -> Tuple[Tensor, Tensor]:
     """K1: unmasked attention over (bh, L, d) rows (``_fullblock_fwd``)."""
+    plain_operands("K1", q, k, v)
     if q.device.type == "cpu":
         out, lse = flash_reference(q[:, None], k[:, None], v[:, None], None, scale, logit_bias, False)
         return out[:, 0], lse[:, 0]
@@ -420,6 +421,7 @@ fullblock_attention.launches = 0
 def flash_forward(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float,
                   logit_bias: float = 0.0, causal: bool = False) -> Tuple[Tensor, Tensor]:
     """K2: masked / grouped attention, q (b, H, Lq, d), k/v (b, KVH, Lk, d)."""
+    plain_operands("K2", q, k, v, kv_lengths)
     if q.device.type == "cpu":
         return flash_reference(q, k, v, kv_lengths, scale, logit_bias, causal)
     out = _launch(q, k, v, kv_lengths, scale, logit_bias, causal)
@@ -519,6 +521,7 @@ def flash_backward(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor]
                    ) -> Tuple[Tensor, Tensor, Tensor]:
     """K5 + K6: (dq, dk, dv) of the attention whose forward gave ``out`` and
     ``lse``; shapes as :func:`flash_forward`, dO like ``out``."""
+    plain_operands("K5/K6", q, k, v, kv_lengths, out, lse, do)
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, kv_lengths, out, lse, do, scale, logit_bias, causal)
     ops = backward_operands(q, k, v, kv_lengths, out, lse, do)

@@ -17,7 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .cuda_build import c_function, check
+from .cuda_build import c_function, check, plain_operands
 
 NEG_INF = -1e30
 DECODE_CHUNK = 32  # the kernel's slots per block
@@ -103,6 +103,7 @@ def flash_decode(
     scale: Optional[float] = None,
 ) -> Tensor:
     """One-token decode attention; returns (b, H, 1, d) in q's dtype."""
+    plain_operands("K3", q, k, v, slot_mask, k_scale, v_scale)
     b, H, L, d = q.shape
     if L != 1:
         raise ValueError("flash_decode takes one query token per row")

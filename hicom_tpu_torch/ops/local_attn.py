@@ -19,7 +19,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from .cuda_build import c_function, check
+from .cuda_build import c_function, check, plain_operands
 from .flash_attention import _sm_count
 
 Tensor = torch.Tensor
@@ -97,6 +97,7 @@ def fused_tile_attention(
     logit_bias: Union[float, Tensor] = 0.0,
 ) -> Tensor:
     """softmax(q·K_tileᵀ·scale + bias)·V_tile per (kt, kh, kw) tile."""
+    plain_operands("K4", q, key, value, scale, logit_bias)
     t, h, w, qk = key.shape
     kt, kh, kw = kernel
     if (t % kt, h % kh, w % kw) != (0, 0, 0):

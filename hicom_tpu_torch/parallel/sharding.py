@@ -1,13 +1,51 @@
-"""Where training state rests.
+"""Where training state rests: the sharding rules, the sharded model, each
+rank's slice of the batch, and the host offload of the optimizer state.
 
-Port of ``hicom_tpu/parallel/sharding.py``. This first part is the host
-offload of the optimizer state, the counterpart of ``supports_host_offload``
-and ``host_offload_shardings`` (``hicom_tpu/parallel/sharding.py:106-132``):
-JAX gives the optimizer-state subtree a ``pinned_host`` memory kind and XLA
-streams it around each update; here the optimizer's flat fp32 state is held
-in host pieces that its update walk copies in and out
-(``train/optimizer.py``).
+Port of ``hicom_tpu/parallel/sharding.py``.
 
+**Rules.** :data:`DEFAULT_RULES` are JAX's (path regex -> spec), first match
+wins, on this package's state-dict names (``model.layers.N.self_attn.q_proj.
+weight``, ``model.vision_tower.…``, ``model.mm_projector.…``) and in torch's
+layouts: a Linear weight is (out, in), so JAX's kernel spec ``P("fsdp",
+"tp")`` on (in, out) reads ``("tp", "fsdp")`` here, a split of the output
+rows on tp. A spec whose axis sizes do not divide the tensor falls back to
+replication (:func:`spec_for_path`), as in JAX.
+
+**The sharded model** (:func:`shard_model`). On the ``tp`` sub-mesh,
+``parallelize_module`` makes a Linear whose rule splits its rows on tp
+column-parallel (q/k/v, gate/up, fc1, ``lm_head``) and one whose rule splits
+its inputs row-parallel (o, down, out_proj, fc2); the decoder's token
+embedding splits its hidden dim. Every parallel layer hands its neighbours
+plain local tensors (``use_local_output``), so the attention kernels see
+``H/tp`` query and ``KVH/tp`` key heads of plain memory, never a DTensor.
+Where the port departs from XLA's placements (:func:`param_shardings`):
+
+* a kernel cannot take half a head, so an attention block whose query or
+  key/value head count does not divide by tp stays replicated whole (q, k,
+  v and o), where XLA splits any divisible column count: Qwen2.5-7B's 28
+  query and 4 KV heads at tp 8;
+* a column-parallel Linear's bias is split with its rows; JAX's rules
+  replicate every bias;
+* the token embedding of a model with tied embeddings stays replicated
+  (its transpose is the output head);
+* the vocab-parallel logits are gathered to a replicated tensor before the
+  loss, where XLA keeps them split on tp.
+
+On the ``(dp, fsdp)`` sub-mesh FSDP2's ``fully_shard`` wraps every decoder,
+tower and guide-encoder layer and the root (HSDP: replicated over dp,
+sharded over fsdp). FSDP2 shards dim 0 of every tensor of a unit (ZeRO-3),
+where XLA shards only the dim a rule names and replicates the rest; the
+arithmetic is the same.
+
+**The batch.** Each rank reads its contiguous slice of the global batch,
+indexed by its data coordinate (dp x fsdp, ``parallel/mesh.py``); the tp
+ranks of a data group read the same rows (:func:`shard_batch_tree`).
+
+**Host offload** of the optimizer state, the counterpart of
+``supports_host_offload`` and ``host_offload_shardings``: JAX gives the
+optimizer-state subtree a ``pinned_host`` memory kind and XLA streams it
+around each update; here the optimizer's flat fp32 state is held in host
+pieces that its update walk copies in and out (``train/optimizer.py``).
 PyTorch's pinned (caching host) allocator rounds a request up to the next
 power of two, so a moment pinned as one tensor can take nearly twice its
 bytes (a 2.18 GB embedding moment takes 4.29 GB). The pieces here are a
@@ -16,9 +54,201 @@ power of two each, and only the last piece of a buffer is rounded.
 
 from __future__ import annotations
 
-from typing import List
+import re
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
+
+from .mesh import MESH_AXES, data_coordinate, data_rows
+
+Spec = Tuple[Optional[str], ...]
+
+# Order matters: first match wins. Specs are per dim of the torch tensor.
+_LM = r"^(?:lm_head|model\.(?:embed_tokens|layers\.\d+|norm))\."
+DEFAULT_RULES: List[Tuple[str, Spec]] = [
+    # --- decoder (Qwen2 / Llama) ---
+    # hidden-sharded (not vocab-sharded), as in JAX: the lookup's output is tp-split on D
+    (r"^model\.embed_tokens\.weight$", ("fsdp", "tp")),
+    (r"^model\.layers\.\d+\..*(?:q_proj|k_proj|v_proj|gate_proj|up_proj)\.weight$", ("tp", "fsdp")),
+    (r"^model\.layers\.\d+\..*(?:o_proj|down_proj)\.weight$", ("fsdp", "tp")),
+    (r"^lm_head\.weight$", ("tp", "fsdp")),
+    (_LM + r"(?:.*\.)?(?:layernorm|norm)\.weight$", ()),
+    (_LM + r".*bias$", ()),
+    # --- vision tower / guide encoder: fsdp-shard the big matrices ---
+    (r"^model\.vision_tower\..*(?:q_proj|k_proj|v_proj|fc1)\.weight$", ("tp", "fsdp")),
+    (r"^model\.vision_tower\..*(?:out_proj|fc2)\.weight$", ("fsdp", "tp")),
+    # tower embeddings replicate (JAX: a d-sharded table collides with the batch-sharded layers)
+    (r"^model\.vision_tower\..*embedding\.weight$", ()),
+    (r"^model\.vision_tower\..*head\.weight$", (None, "fsdp")),
+    # --- projector: small; shard readout rows (JAX kernels' input dim) on fsdp ---
+    (r"^model\.mm_projector\..*(?<!norm)\.weight$", (None, "fsdp")),
+    # everything else replicated
+    (r".*", ()),
+]
+
+
+def _sizes(mesh) -> Mapping[str, int]:
+    """{axis: size} of a DeviceMesh or of a mapping already."""
+    if isinstance(mesh, Mapping):
+        return mesh
+    return {a: mesh[a].size() for a in MESH_AXES}
+
+
+def _spec_fits(spec: Spec, shape: Sequence[int], mesh) -> bool:
+    sizes = _sizes(mesh)
+    if len(spec) > len(shape):
+        return False
+    for dim, axis in zip(shape, spec):
+        if axis is None:
+            continue
+        size = 1
+        for a in (axis,) if isinstance(axis, str) else axis:
+            size *= sizes[a]
+        if dim % size:
+            return False
+    return True
+
+
+def spec_for_path(name: str, shape: Sequence[int], mesh, rules=None) -> Spec:
+    """The first rule matching the state-dict ``name``; replication when its
+    axis sizes do not divide ``shape``. ``mesh``: a DeviceMesh or {axis: size}."""
+    for pattern, spec in rules or DEFAULT_RULES:
+        if re.search(pattern, name):
+            return spec if _spec_fits(spec, shape, mesh) else ()
+    return ()
+
+
+def _drop_tp(spec: Spec) -> Spec:
+    return tuple(None if a == "tp" else a for a in spec)
+
+
+def _undivided_heads(model: nn.Module, tp: int) -> set:
+    """The attention modules whose heads do not divide by tp: the decoder's
+    query or KV head count, a tower attention's head count."""
+    from ..models.qwen2 import DecoderAttention
+    from ..models.siglip import SiglipAttention
+
+    return {name for name, mod in model.named_modules()
+            if isinstance(mod, DecoderAttention) and (mod.num_heads % tp or mod.num_kv_heads % tp)
+            or isinstance(mod, SiglipAttention) and mod.num_heads % tp}
+
+
+def param_shardings(model: nn.Module, mesh, rules=None) -> Dict[str, Spec]:
+    """{parameter name: spec} as the port places it: :func:`spec_for_path`
+    with the port's departures from XLA (module docstring): the tp split of
+    an attention block whose heads do not divide by tp dropped from all of
+    its projections, the tp split of a tied embedding dropped, and a
+    column-parallel Linear's bias split on tp with its rows. ``mesh``: a
+    DeviceMesh or {axis: size}."""
+    tp = _sizes(mesh)["tp"]
+    params = dict(model.named_parameters())
+    specs = {n: spec_for_path(n, tuple(p.shape), mesh, rules) for n, p in params.items()}
+    whole = _undivided_heads(model, tp)
+    tied = getattr(getattr(model, "config", None), "tie_word_embeddings", False)
+    for n in specs:
+        owner = n.rsplit(".", 2)[0]
+        if owner in whole or (tied and n == "model.embed_tokens.weight"):
+            specs[n] = _drop_tp(specs[n])
+    for n, spec in list(specs.items()):
+        if n.endswith(".weight") and spec[:1] == ("tp",) and n[:-len("weight")] + "bias" in specs:
+            specs[n[:-len("weight")] + "bias"] = ("tp",)
+    return specs
+
+
+def tp_plan(model: nn.Module, mesh, rules=None) -> Dict[str, str]:
+    """{module name: "colwise" | "rowwise"} for ``parallelize_module``: every
+    module whose weight :func:`param_shardings` splits on tp. Raises on a tp
+    split of a module other than ``nn.Linear``/``nn.Embedding`` (a quantized
+    linear has no parallel style)."""
+    plan = {}
+    for n, spec in param_shardings(model, mesh, rules).items():
+        if "tp" not in spec or not n.endswith(".weight") or len(spec) != 2:
+            continue
+        name = n[:-len(".weight")]
+        mod = model.get_submodule(name)
+        if isinstance(mod, nn.Embedding):
+            plan[name] = "colwise"  # torch's Colwise splits an embedding's dim 1, the rule's tp dim
+        elif isinstance(mod, nn.Linear):
+            plan[name] = "colwise" if spec[0] == "tp" else "rowwise"
+        else:
+            raise TypeError(f"{name}: a {type(mod).__name__} cannot be split on tp")
+    return plan
+
+
+def fsdp_units(model: nn.Module) -> List[nn.Module]:
+    """The modules FSDP2 wraps before the root: every decoder, tower and guide-encoder layer."""
+    from ..models.qwen2 import DecoderLayer
+    from ..models.siglip import SiglipEncoderLayer
+
+    return [m for m in model.modules() if isinstance(m, (DecoderLayer, SiglipEncoderLayer))]
+
+
+def shard_model(model: nn.Module, mesh, rules=None) -> nn.Module:
+    """Shard ``model`` in place over the (dp, fsdp, tp) ``mesh`` (module
+    docstring): the tp plan of the rules, then FSDP2 over (dp, fsdp) per
+    :func:`fsdp_units` and on the root, whose ``one_shot_forward`` gathers
+    the root's own tensors (embeddings, norms, head, projector). Freeze what
+    stays frozen first: FSDP2 reads ``requires_grad`` when it wraps."""
+    from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
+
+    plan = {}
+    for name, style in tp_plan(model, mesh, rules).items():
+        if style == "rowwise":
+            plan[name] = RowwiseParallel()
+        elif name in ("lm_head", "model.embed_tokens"):
+            plan[name] = ColwiseParallel(output_layouts=Replicate())  # gathered: the loss takes whole rows
+        else:
+            plan[name] = ColwiseParallel()
+    if plan:
+        parallelize_module(model, mesh["tp"], plan)
+    data = mesh["dp", "fsdp"]
+    for unit in fsdp_units(model):
+        fully_shard(unit, mesh=data)
+    fully_shard(model, mesh=data)
+    register_fsdp_forward_method(model, "one_shot_forward")
+    return model
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (sharing its storage), or ``t`` itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def host_whole(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """The whole tensor of DTensor ``t`` copied into host memory on rank 0,
+    None on the other ranks; every rank takes part in the gather, and the
+    gathered copy leaves the device at once, so a walk over many tensors
+    holds at most one whole tensor there. A plain tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor
+
+    from ..utils import is_main_process
+
+    if not isinstance(t, DTensor):
+        return t
+    whole = t.full_tensor()
+    return whole.to("cpu", copy=True) if is_main_process() else None
+
+
+def shard_batch_tree(batch: Mapping[str, Any], mesh) -> Dict[str, Any]:
+    """This rank's slice of every array leaf of a global batch (leading axis =
+    batch; JAX ``batch_sharding``, ``P(("dp", "fsdp"))``), the rows
+    ``data_rows`` gives its data coordinate, as ``iter_batches`` collates
+    them; other leaves (``modal``, flags, the anyres plan) as they are."""
+    rows = next(len(v) for v in batch.values() if hasattr(v, "shape") and len(v.shape))
+    sl = data_rows(rows, *data_coordinate(mesh))
+    return {k: v[sl] if hasattr(v, "shape") and len(v.shape) else v for k, v in batch.items()}
+
+
+def constrain_batch_activation(x: torch.Tensor) -> torch.Tensor:
+    """The JAX package pins an activation's batch axis to (dp, fsdp) with
+    ``with_sharding_constraint``, an XLA layout hint; a rank here holds its
+    rows as a plain tensor already, so this returns ``x``."""
+    return x
 
 
 def supports_host_offload(device) -> bool:

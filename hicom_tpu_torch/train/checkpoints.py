@@ -9,6 +9,13 @@ the AdamW moments and counts by parameter name, and the step (frozen weights
 come from the model's own source); a run saved with ``--offload-optimizer``
 resumes without it and the other way round. :func:`export_mm_projector_bin` writes the reference's
 ``mm_projector.bin``.
+
+A sharded state (``TrainState.mesh``) is saved in the same one-process
+format: every rank takes part in gathering the whole tensors, one at a time
+into rank 0's host memory, and rank 0 writes them; every rank maps the file
+(``mmap``: the ranks of a node share its pages) and cuts its shards, one
+tensor at a time. A run saved at one world size resumes at another, as orbax
+resumes JAX's.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Mapping, Optional
 
 import torch
 
+from ..utils import is_main_process, synchronize
 from .train_step import TrainState
 
 _STEP_FILE = re.compile(r"(\d+)\.pt")
@@ -34,15 +42,18 @@ def save_checkpoint(output_dir: str, state: TrainState, step: Optional[int] = No
     moments are read after the update's last copy to the host has landed
     (``GroupAdamW.state_dict``); the file is the same for both homes."""
     root = _ckpt_dir(output_dir)
-    os.makedirs(root, exist_ok=True)
     step = state.step if step is None else int(step)
     path = os.path.join(root, f"{step}.pt")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"step": state.step, "optimizer": state.optimizer.state_dict()}, tmp)
-    os.replace(tmp, path)
-    steps = sorted(_steps(root))
-    for old in steps[:max(0, len(steps) - max_to_keep)]:
-        os.remove(os.path.join(root, f"{old}.pt"))
+    payload = {"step": state.step, "optimizer": state.optimizer.state_dict()}  # gathered: every rank calls
+    if is_main_process():
+        os.makedirs(root, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        steps = sorted(_steps(root))
+        for old in steps[:max(0, len(steps) - max_to_keep)]:
+            os.remove(os.path.join(root, f"{old}.pt"))
+    synchronize()
     return path
 
 
@@ -58,10 +69,12 @@ def latest_valid_step(output_dir: str) -> Optional[int]:
     root = _ckpt_dir(output_dir)
     if not os.path.isdir(root):
         return None
-    for name in os.listdir(root):
-        path = os.path.join(root, name)
-        if name.endswith(".tmp") or (_STEP_FILE.fullmatch(name) and os.path.getsize(path) == 0):
-            os.remove(path)
+    if is_main_process():  # rank 0 alone deletes
+        for name in os.listdir(root):
+            path = os.path.join(root, name)
+            if name.endswith(".tmp") or (_STEP_FILE.fullmatch(name) and os.path.getsize(path) == 0):
+                os.remove(path)
+    synchronize()
     steps = _steps(root)
     return max(steps) if steps else None
 
@@ -75,8 +88,9 @@ def restore_checkpoint(output_dir: str, state: TrainState, step: Optional[int] =
         step = latest_valid_step(output_dir)
     if step is None:
         return None
-    # on the host: the masters go to their device, the moments back to their home (device or pinned host memory)
-    payload = torch.load(os.path.join(_ckpt_dir(output_dir), f"{step}.pt"), map_location="cpu", weights_only=True)
+    # mapped on the host: each tensor's master (or shard) goes to the device, its moments back to their home
+    payload = torch.load(os.path.join(_ckpt_dir(output_dir), f"{step}.pt"), map_location="cpu", weights_only=True,
+                         mmap=True)
     state.optimizer.load_state_dict(payload["optimizer"], state.model)
     state.step = int(payload["step"])
     return state

@@ -34,8 +34,29 @@ in ``pinned_host`` memory: full stage-3 SFT of HICom-7B then fits one 80 GB
 card, with about 65 GB of pinned host RAM. Under ``--lora-enable`` it has no
 effect, as in the JAX CLI (the adapters' AdamW is its own).
 
-One device runs it all: ``--dp``, ``--fsdp`` or ``--tp`` above 1 exit with the
-ROADMAP item that brings them.
+``--dp/--fsdp/--tp`` lay a (dp, fsdp, tp) mesh over the ranks that
+``torchrun`` starts, one device each (``parallel/mesh.py``): the batch is
+split over dp x fsdp, the parameters and optimizer state sharded over fsdp
+(FSDP2) and the heads and MLP columns over tp (DTensor), by the JAX
+package's rules (``parallel/sharding.py``). As in the JAX CLI, ``dp``
+defaults to the ranks that fsdp x tp leave, and the global batch is
+``--per-device-train-batch-size`` x dp x fsdp x tp, so the same flags give
+the same global batch and the same step losses:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m hicom_tpu_torch.train.cli ... --dp 2 --fsdp 2 --tp 2
+
+Under ``torchrun`` the mesh path is taken even at world size 1; a mesh
+larger than the world (``--dp 2`` without ``torchrun``) exits. Rank 0 alone
+prints, writes ``metrics.jsonl`` and the exports (from gathered whole
+tensors); checkpoints keep the one-process format. ``HICOM_MULTIHOST=1``
+(the JAX CLI's multi-host switch) is accepted: several nodes join through
+``torchrun``'s own rendezvous (``--nnodes``, ``--rdzv-endpoint``), and the
+collator then pads every batch to the run's fixed shapes
+(``--model-max-length``, ``--num-frames``, the dataset's crop budget), as
+the JAX CLI does across hosts. LoRA and QLoRA over a mesh are data
+parallel (replicated base and adapters, summed adapter gradients); QLoRA
+above dp exits, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -49,6 +70,7 @@ import torch
 
 from .. import weights as W
 
+PROJECTOR_EXPORT = ("model.mm_projector.", "model.image_newline")  # what mm_projector.bin holds
 SCAN_LAYERS_HELP = ("accepted and ignored: a compile-time layer layout of the JAX package "
                     "(lax.scan over stacked layers) with no numeric effect")
 
@@ -92,7 +114,7 @@ def build_parser():
     p.add_argument("--per-device-train-batch-size", type=int, default=1)
     p.add_argument("--gradient-accumulation-steps", type=int, default=1)
     p.add_argument("--group-by-modality-length", action="store_true", default=True)
-    # parallelism (one device: values above 1 exit)
+    # parallelism: a (dp, fsdp, tp) mesh over torchrun's ranks
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--fsdp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
@@ -117,12 +139,19 @@ def build_parser():
 
 
 def check_supported(args) -> None:
-    """Exit on a flag the port cannot honour yet, naming the ROADMAP item."""
-    if max(args.dp or 1, args.fsdp, args.tp) > 1:
-        raise SystemExit("--dp/--fsdp/--tp above 1 need the multi-GPU port (ROADMAP Queue 1 item 3, "
-                         "multi-GPU slice A)")
+    """Exit on flags the JAX CLI refuses too, and on a mesh larger than the
+    world (more ranks than ``torchrun`` started)."""
+    from ..parallel.mesh import check_world
+
     if args.bits != 16 and not args.lora_enable:
         raise SystemExit("--bits 4/8 is QLoRA (frozen quantized base + LoRA adapters); pass --lora-enable")
+    if args.bits != 16 and args.fsdp * args.tp > 1:
+        raise SystemExit("--bits 4/8 (QLoRA) supports dp-only meshes (replicated quantized decoder + sharded "
+                         "batch); use bf16 LoRA/full training for fsdp/tp > 1")
+    try:
+        check_world(args.dp, args.fsdp, args.tp)
+    except ValueError as e:
+        raise SystemExit(f"--dp {args.dp} --fsdp {args.fsdp} --tp {args.tp}: {e}") from None
 
 
 def main(argv=None):
@@ -136,7 +165,24 @@ def main(argv=None):
     guide_tokenizer = None
     if args.use_guide not in (None, "off"):
         guide_tokenizer = AutoTokenizer.from_pretrained(args.vision_tower)
-    run(args, tokenizer, guide_tokenizer)
+    try:
+        run(args, tokenizer, guide_tokenizer)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def setup_mesh(args):
+    """(device, mesh): this rank's device and the (dp, fsdp, tp) mesh when
+    ``torchrun`` started the process, else the one device and None
+    (:func:`check_supported` has refused a larger mesh)."""
+    from ..api import resolve_device
+    from ..parallel.mesh import create_mesh, init_distributed, under_torchrun
+
+    if not under_torchrun():
+        return resolve_device(args.device), None
+    device = init_distributed(args.device, args.dp, args.fsdp, args.tp)
+    return device, create_mesh(args.dp, args.fsdp, args.tp, device.type)
 
 
 def build_config(args):
@@ -176,6 +222,25 @@ def build_config(args):
     )
 
 
+def data_arguments(args, cfg):
+    """The dataset's arguments from the flags and the model config."""
+    from .dataset import DataArguments
+
+    return DataArguments(
+        data_path=args.data_path,
+        data_folder=args.data_folder,
+        image_aspect_ratio=args.image_aspect_ratio,
+        image_grid_pinpoints=args.image_grid_pinpoints,
+        num_frames=args.num_frames,
+        use_guide=args.use_guide,
+        is_pretraining=args.is_pretraining,
+        image_size=cfg.vision_config.image_size,
+        patch_size=cfg.vision_config.patch_size,
+        mm_patch_merge_type=args.mm_patch_merge_type,
+        model_max_length=args.model_max_length,
+    )
+
+
 def pretrained_state(args, cfg) -> dict:
     """The weights the flags name, under the port's names: the base LLM from
     ``--model-path``, the towers from ``--vision-tower`` when it is a
@@ -204,35 +269,34 @@ def run(args, tokenizer, guide_tokenizer=None):
     when ``--use-guide`` is on); returns the final state on its device: a
     ``TrainState`` (the model and the optimizer's fp32 masters), or with
     ``--lora-enable`` a ``LoraState`` (the frozen base with the adapters
-    attached)."""
-    from ..api import resolve_device
+    attached). Over a mesh each rank returns its own state, sharded."""
     from ..data.processor import SiglipImagePreprocessor
+    from ..parallel.mesh import data_coordinate
+    from ..utils import is_main_process, rank0_print
     from .checkpoints import export_mm_projector_bin, restore_checkpoint, save_checkpoint
-    from .dataset import Collator, DataArguments, SupervisedDataset, iter_batches
+    from .dataset import Collator, SupervisedDataset, iter_batches
     from .optimizer import build_optimizer, trainable_param_count
 
     check_supported(args)
-    device = resolve_device(args.device)
+    device, mesh = setup_mesh(args)
+    main_rank = is_main_process()
     os.makedirs(args.output_dir, exist_ok=True)
     cfg = build_config(args)
 
     image_processor = SiglipImagePreprocessor(size=(cfg.vision_config.image_size,) * 2)
-    dargs = DataArguments(
-        data_path=args.data_path,
-        data_folder=args.data_folder,
-        image_aspect_ratio=args.image_aspect_ratio,
-        image_grid_pinpoints=args.image_grid_pinpoints,
-        num_frames=args.num_frames,
-        use_guide=args.use_guide,
-        is_pretraining=args.is_pretraining,
-        image_size=cfg.vision_config.image_size,
-        patch_size=cfg.vision_config.patch_size,
-        mm_patch_merge_type=args.mm_patch_merge_type,
-        model_max_length=args.model_max_length,
-    )
+    dargs = data_arguments(args, cfg)
     dataset = SupervisedDataset(tokenizer, dargs, image_processor)
     collator = Collator(tokenizer, dargs, guide_tokenizer)
-    batch_size = args.per_device_train_batch_size
+    if os.environ.get("HICOM_MULTIHOST") == "1":
+        # across nodes every rank collates one shape, as every JAX host must;
+        # image batches pad to the crop budget, not the video frame budget
+        collator.fixed_length = args.model_max_length
+        collator.fixed_frames = {"video": max(args.num_frames, 1), "image": dataset.max_image_crops}
+        collator.fixed_multi_image = dataset.has_multi_image
+    # the global batch: per device x every rank of the mesh, as the JAX CLI's x mesh.devices.size
+    world = mesh.size() if mesh is not None else 1
+    batch_size = args.per_device_train_batch_size * world
+    proc_idx, n_proc = data_coordinate(mesh)
     accum = args.gradient_accumulation_steps
     total_steps = int(max(1, len(dataset) // (batch_size * accum)) * args.num_train_epochs)
     modal = dataset.modality_of(0)
@@ -252,12 +316,14 @@ def run(args, tokenizer, guide_tokenizer=None):
     model = init_model(model_cfg, device, args.seed)
     W.load_into(model, state_dict)
     del state_dict
-    with open(os.path.join(args.output_dir, "config.json"), "w") as f:
-        json.dump(cfg.to_hf_dict(), f, indent=2)
+    if main_rank:
+        with open(os.path.join(args.output_dir, "config.json"), "w") as f:
+            json.dump(cfg.to_hf_dict(), f, indent=2)
 
-    def batches(step):
+    def batches(step):  # this rank's slice of each global batch
         return iter_batches(dataset, collator, batch_size, seed=args.seed + step,
-                            group_by_modality=args.group_by_modality_length)
+                            group_by_modality=args.group_by_modality_length,
+                            process_index=proc_idx, process_count=n_proc)
 
     def step_key(batch):
         # one step per (modal, multi_image, has_frames, anyres plan), as the JAX CLI keys its compiled steps
@@ -268,8 +334,9 @@ def run(args, tokenizer, guide_tokenizer=None):
         return {k: v for k, v in batch.items() if not isinstance(v, (str, bool)) and k != "anyres_plan"}
 
     def log_row(row):
-        with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as mf:
-            mf.write(json.dumps(row) + "\n")
+        if main_rank:
+            with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as mf:
+                mf.write(json.dumps(row) + "\n")
 
     if args.lora_enable:
         # LoRA: decoder adapters are the only trainable tensors; the base stays
@@ -282,10 +349,10 @@ def run(args, tokenizer, guide_tokenizer=None):
         state = create_lora_state(model, lora, alpha=args.lora_alpha, rank=args.lora_r,
                                   learning_rate=args.learning_rate, total_steps=total_steps,
                                   warmup_ratio=args.warmup_ratio, schedule_kind=args.lr_scheduler_type,
-                                  weight_decay=args.weight_decay, device=device)
-        print(f"total steps: {total_steps} | batch {batch_size} | {'Q' if args.bits != 16 else ''}LoRA r "
-              f"{args.lora_r} alpha {args.lora_alpha}: {sum(p.numel() for p in state.lora.parameters()) / 1e6:.1f}M "
-              f"adapter params | modal: {modal}")
+                                  weight_decay=args.weight_decay, device=device, mesh=mesh)
+        rank0_print(f"total steps: {total_steps} | batch {batch_size} | {'Q' if args.bits != 16 else ''}LoRA r "
+                    f"{args.lora_r} alpha {args.lora_alpha}: "
+                    f"{sum(p.numel() for p in state.lora.parameters()) / 1e6:.1f}M adapter params | modal: {modal}")
         lora_steps: dict = {}
         step = 0
         while step < total_steps:
@@ -300,22 +367,24 @@ def run(args, tokenizer, guide_tokenizer=None):
                 step += 1
                 if step % args.logging_steps == 0:
                     loss = float(metrics["loss"])
-                    print(f"[lora] step {step}/{total_steps} loss {loss:.4f}")
+                    rank0_print(f"[lora] step {step}/{total_steps} loss {loss:.4f}")
                     log_row({"step": step, "loss": loss, "time": time.time()})
                 if step >= total_steps:
                     break
             if not advanced:
                 raise RuntimeError("no full batches; reduce batch size")
+        if not main_rank:  # the adapters are replicated; rank 0 writes
+            return state
         export_peft_adapter(state.lora.adapters(), args.output_dir, alpha=args.lora_alpha, rank=args.lora_r)
         # the reference LoRA layout carries the weights neither the base LLM
         # nor the tower holds (the projector) in non_lora_trainables.bin
         torch.save({f"base_model.model.{k}": v.detach().cpu() for k, v in model.state_dict().items()
-                    if k.startswith(("model.mm_projector.", "model.image_newline"))},
+                    if k.startswith(PROJECTOR_EXPORT)},
                    os.path.join(args.output_dir, "non_lora_trainables.bin"))
         print(f"exported LoRA adapter to {args.output_dir}")
         return state
 
-    from .train_step import create_train_state, make_train_step
+    from .train_step import create_sharded_state, create_train_state, make_train_step
 
     optimizer = build_optimizer(
         model,
@@ -332,12 +401,15 @@ def run(args, tokenizer, guide_tokenizer=None):
         schedule_kind=args.lr_scheduler_type,
         gradient_accumulation_steps=accum,
     )
-    state = create_train_state(model, optimizer, device, offload_optimizer=args.offload_optimizer)
+    if mesh is not None:
+        state = create_sharded_state(model, optimizer, mesh, device, offload_optimizer=args.offload_optimizer)
+    else:
+        state = create_train_state(model, optimizer, device, offload_optimizer=args.offload_optimizer)
     n_trainable = trainable_param_count(model, args.mm_tunable_parts, args.use_guide)
-    print(f"total steps: {total_steps} | batch {batch_size} x accum {accum} "
-          f"| trainable params: {n_trainable / 1e6:.1f}M | modal: {modal}")
+    rank0_print(f"total steps: {total_steps} | batch {batch_size} x accum {accum} "
+                f"| trainable params: {n_trainable / 1e6:.1f}M | modal: {modal}")
     if args.resume and restore_checkpoint(args.output_dir, state) is not None:
-        print(f"resumed from step {state.step}")
+        rank0_print(f"resumed from step {state.step}")
 
     step_fns: dict = {}
     t0 = time.time()
@@ -358,7 +430,7 @@ def run(args, tokenizer, guide_tokenizer=None):
                 loss = float(torch.stack(losses).mean())
                 losses.clear()
                 rate = step / max(time.time() - t0, 1e-9)
-                print(f"step {step}/{total_steps} loss {loss:.4f} ({rate:.2f} it/s)")
+                rank0_print(f"step {step}/{total_steps} loss {loss:.4f} ({rate:.2f} it/s)")
                 log_row({"step": step, "loss": loss, "it_per_s": rate, "time": time.time()})
             if step % args.save_steps == 0:
                 save_checkpoint(args.output_dir, state, step)
@@ -369,8 +441,12 @@ def run(args, tokenizer, guide_tokenizer=None):
                                "reduce batch size")
 
     save_checkpoint(args.output_dir, state, step)
-    params = state.params()
-    if set(args.mm_tunable_parts.split(",")) <= {"mm_projector", "attn_scale"}:
+    projector_only = set(args.mm_tunable_parts.split(",")) <= {"mm_projector", "attn_scale"}
+    # whole tensors, gathered over the mesh: the projector's alone for a projector-only export
+    params = state.params((lambda n: n.startswith(PROJECTOR_EXPORT)) if projector_only else (lambda n: True))
+    if not main_rank:
+        return state
+    if projector_only:
         # projector-only stages export the reference's mm_projector.bin
         export_mm_projector_bin(params, os.path.join(args.output_dir, "mm_projector.bin"))
         print(f"exported projector-only weights to {args.output_dir}/mm_projector.bin")

@@ -14,9 +14,11 @@ A copy of ``hicom_tpu/train/dataset.py`` (the reference dataset/collator,
 
 Anyres images train in batches of one merge plan (:meth:`SupervisedDataset.
 batch_key`, the plan read from the image's header) and multi-image rows as
-(b, K, 3, H, W) frames, as in the JAX package. One process reads the data:
-the multi-host slicing and the fixed lengths, frame counts and multi-image
-flag of the JAX package (``Collator.fixed_*``) are not carried over.
+(b, K, 3, H, W) frames, as in the JAX package. Over a mesh every rank
+walks the same seeded order and collates only its data coordinate's slice of
+each global batch (``iter_batches(..., process_index, process_count)``);
+``Collator.fixed_*`` pin the padded length, the frame or crop count and the
+multi-image flag, so that ranks collate one shape.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import json
 import math
 import os
 import random
+import re
 import traceback
 from dataclasses import dataclass, field
 from types import SimpleNamespace
@@ -204,6 +207,30 @@ class SupervisedDataset:
             out.append(n if "image" in sample else -n)
         return out
 
+    @property
+    def has_multi_image(self) -> bool:
+        """True if any sample carries a K>1 image list (multi-host mode pins
+        the collator's multi_image flag to this so all hosts agree)."""
+        return any(isinstance(r.get("image"), list) and len(r["image"]) > 1 for r in self.rows)
+
+    @property
+    def max_image_crops(self) -> int:
+        """Host-independent bound on crops/images per image sample: the longest
+        image list, and for anyres/highres modes the largest pinpoint grid + 1
+        (base crop) — computable from metadata without decoding any image."""
+        n = 1
+        for r in self.rows:
+            if isinstance(r.get("image"), list):
+                n = max(n, len(r["image"]))
+        aspect = self.args.image_aspect_ratio or ""
+        if "anyres" in aspect or aspect in ("highres", "crop_split"):
+            grids = re.findall(r"\((\d+)x(\d+)\)", self.args.image_grid_pinpoints or "")
+            if grids:
+                n = max(n, 1 + max(int(a) * int(b) for a, b in grids))
+            else:
+                n = max(n, 1 + 4)  # reference's 2x2 fallback
+        return n
+
     def modality_of(self, idx: int) -> str:
         row = self.rows[idx]
         return "image" if "image" in row else ("video" if "video" in row else "text")
@@ -327,12 +354,21 @@ class Collator:
     tokenizer: Any
     data_args: DataArguments
     guide_tokenizer: Any = None
+    # shapes that do not depend on a rank's slice of the batch: the padded
+    # length, the frame (or crop) count and the multi-image flag
+    fixed_length: Optional[int] = None
+    # int (all modalities) or {"video": n, "image": m}: image batches are not
+    # padded to, or checked against, the video frame budget
+    fixed_frames: Any = None
+    fixed_multi_image: Optional[bool] = None
 
     def __call__(self, instances: Sequence[Dict]) -> Dict[str, np.ndarray]:
         pad_id = self.tokenizer.pad_token_id or 0
         bucket = self.data_args.length_bucket
         max_len = max(len(x["input_ids"]) for x in instances)
         max_len = min(math.ceil(max_len / bucket) * bucket, self.data_args.model_max_length)
+        if self.fixed_length is not None:
+            max_len = self.fixed_length
 
         b = len(instances)
         input_ids = np.full((b, max_len), pad_id, dtype=np.int64)
@@ -354,7 +390,14 @@ class Collator:
         if frames:
             modal = next(x["modal"] for x in instances if x["modal"] != "text")
             multi = modal == "image" and any(x.get("num_images", 1) > 1 for x in instances)
+            if self.fixed_multi_image is not None and modal == "image":
+                multi = self.fixed_multi_image
             t = max(f.shape[0] for f in frames)
+            if self.fixed_frames is not None:
+                ff = self.fixed_frames[modal] if isinstance(self.fixed_frames, dict) else self.fixed_frames
+                if t > ff:
+                    raise ValueError(f"sample has {t} frames/crops > fixed_frames={ff} ({modal})")
+                t = ff
             stacked = np.zeros((b, t) + frames[0].shape[1:], dtype=np.float32)
             for i, inst in enumerate(instances):
                 f = inst["frames"]
@@ -431,10 +474,16 @@ def modality_length_grouped_indices(lengths: List[int], batch_size: int, world_s
 
 
 def iter_batches(dataset: SupervisedDataset, collator: Collator, batch_size: int, seed: int = 0,
-                 group_by_modality: bool = True):
+                 group_by_modality: bool = True, process_index: int = 0, process_count: int = 1):
     """Epoch iterator producing uniform-modality numpy batches, in the JAX
-    package's order for the same seed (its one-process case)."""
+    package's order for the same seed. ``batch_size`` is the global batch;
+    every process walks the same seeded order and collates only its
+    contiguous 1/``process_count`` slice of each batch (over a mesh, the
+    rank's data coordinate, ``parallel/mesh.data_coordinate``)."""
+    from ..parallel.mesh import data_rows
+
     n = len(dataset)
+    rows = data_rows(batch_size, process_index, process_count)
     if group_by_modality:
         order = modality_length_grouped_indices(dataset.modality_lengths, batch_size, 1, seed)
     else:
@@ -447,16 +496,16 @@ def iter_batches(dataset: SupervisedDataset, collator: Collator, batch_size: int
             k = dataset.batch_key(idx)
             pending.setdefault(k, []).append(idx)
             if len(pending[k]) == batch_size:
-                yield collator([dataset[i] for i in pending.pop(k)])
+                yield collator([dataset[i] for i in pending.pop(k)[rows]])
         return
     # group contiguous same-modality indices into batches
     batch: List[int] = []
     for idx in order:
         if batch and dataset.modality_of(idx) != dataset.modality_of(batch[0]):
             if len(batch) == batch_size:
-                yield collator([dataset[i] for i in batch])
+                yield collator([dataset[i] for i in batch[rows]])
             batch = []
         batch.append(idx)
         if len(batch) == batch_size:
-            yield collator([dataset[i] for i in batch])
+            yield collator([dataset[i] for i in batch[rows]])
             batch = []

@@ -24,6 +24,17 @@ reference's own, ``model.mm_projector.*``, ``model.vision_tower.*``):
   ``--offload-optimizer``) the moments and that mean rest in pinned host
   memory and are streamed through the device chunk by chunk, as the JAX
   package rests its optimizer state in ``pinned_host`` memory.
+
+Over a sharded model (``parallel/sharding.shard_model``) the parameters and
+gradients are DTensors: :class:`GroupAdamW` lays its flat state over each
+rank's local shards, so the masters and moments are sharded as the
+parameters are (JAX's optimizer state inherits its parameter's sharding).
+The clip's global norm sums each tensor's squared local norm over the mesh
+dims that shard it, so a tp-replicated tensor counts once. ``state_dict`` and
+``load_state_dict`` keep the one-process format, full tensors by name,
+whatever the mesh: a checkpoint resumes at another world size. They move one
+whole tensor at a time through the device: ``state_dict`` gathers each into
+rank 0's host memory, ``load_state_dict`` cuts each rank's shard from it.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import torch
 from torch import nn
 
 from ..models.qwen2 import RMSNorm
+from ..parallel.sharding import host_whole, local
 
 Tensor = torch.Tensor
 GROUPS = ("base", "projector", "guide", "vision")
@@ -146,26 +158,38 @@ class GroupAdamW:
         self.count = 0  # updates taken; the schedule's argument
         self.mini_step = 0  # micro-batches accumulated towards the next update
 
-    def init(self, model: nn.Module, offload: bool = False) -> None:
-        """Freeze what the labels freeze; fp32 masters on the module's device
-        and zeroed moments in their home: the device, or with ``offload`` host
-        memory (pinned for a CUDA device, ``parallel/sharding.py``)."""
+    def freeze(self, model: nn.Module) -> Dict[str, nn.Parameter]:
+        """Set ``requires_grad`` as the labels say; returns the parameters by
+        name. A sharded model is frozen before it is sharded."""
         params = dict(model.named_parameters())
         if set(params) != set(self.labels):
             raise ValueError("the optimizer was built for another model")
         for name, p in params.items():
             p.requires_grad_(self.labels[name] != "frozen")
+        return params
+
+    def init(self, model: nn.Module, offload: bool = False) -> None:
+        """Freeze what the labels freeze; fp32 masters on the module's device
+        and zeroed moments in their home: the device, or with ``offload`` host
+        memory (pinned for a CUDA device, ``parallel/sharding.py``). Over
+        DTensor parameters the state covers each one's local shard."""
+        params = self.freeze(model)
         names = sorted((n for n, p in params.items() if p.requires_grad),
                        key=lambda n: (GROUPS.index(self.labels[n]), not self.decay[n]))
-        device = next(iter(params.values())).device
+        device = local(next(iter(params.values()))).device
+        # a DTensor's mesh, placements and global shape, for the norm's reductions and state_dict's gathers
+        self.sharded = {n: (params[n].device_mesh, params[n].placements, params[n].shape, params[n].stride())
+                        for n in names if local(params[n]) is not params[n]}
+        self.reduce_over = {n: _shard_groups(*self.sharded[n][:2]) if n in self.sharded else () for n in names}
         self.layout, total = {}, 0
         for n in names:
-            self.layout[n] = (total, params[n].shape)
-            total += params[n].numel()
+            shape = local(params[n]).shape
+            self.layout[n] = (total, shape)
+            total += shape.numel()
         self.flat = torch.empty(total, dtype=torch.float32, device=device)
         self.masters = {n: self.flat[o:o + s.numel()].view(s) for n, (o, s) in self.layout.items()}
         for n, m in self.masters.items():
-            m.copy_(params[n].detach())
+            m.copy_(local(params[n]).detach())
         self.bounds = [(a, min(a + self.chunk, total)) for a in range(0, total, self.chunk)]
         # per chunk: the stretches of each tensor in it, and the runs of one (group, decayed)
         self.segments = [[(n, max(a, o), min(b, o + s.numel())) for n, (o, s) in self.layout.items()
@@ -194,8 +218,23 @@ class GroupAdamW:
             if g is None:
                 out[lo - a:hi - a].zero_()
             else:
-                out[lo - a:hi - a].copy_(g.reshape(-1)[lo - o:hi - o])
+                out[lo - a:hi - a].copy_(local(g).reshape(-1)[lo - o:hi - o])
         return out
+
+    def _norm(self, parts) -> Tensor:
+        """The global norm from (name, norm of a local part of its tensor)
+        pairs: the squared norms summed, those of a sharded tensor first over
+        the mesh dims that split it (a replicated one counts once)."""
+        by_groups: Dict[tuple, list] = {}
+        for n, x in parts:
+            by_groups.setdefault(self.reduce_over[n], []).append(x)
+        total = torch.zeros((), dtype=torch.float32, device=self.flat.device)
+        for groups, xs in by_groups.items():
+            sq = torch.stack(xs).square().sum()
+            for group in groups:
+                torch.distributed.all_reduce(sq, group=group)
+            total = total + sq
+        return total.sqrt()
 
     @torch.no_grad()
     def update(self, model: nn.Module) -> Tensor:
@@ -205,8 +244,8 @@ class GroupAdamW:
         zeros)."""
         params = dict(model.named_parameters())
         grads = {n: params[n].grad for n in self.masters}
-        norm = _global_norm([torch.linalg.vector_norm(g, dtype=torch.float32)
-                             for g in grads.values() if g is not None], self.flat.device)
+        norm = self._norm([(n, torch.linalg.vector_norm(local(g), dtype=torch.float32))
+                           for n, g in grads.items() if g is not None])
         accumulating = self.every_k > 1
         if accumulating:
             k = self.mini_step
@@ -219,10 +258,11 @@ class GroupAdamW:
                 else:
                     acc.copy_(g)
                 if not self.mini_step:
-                    acc_norms.append(torch.linalg.vector_norm(acc))
+                    a = self.bounds[i][0]
+                    acc_norms += [(n, torch.linalg.vector_norm(acc[lo - a:hi - a])) for n, lo, hi in self.segments[i]]
             if self.mini_step:
                 return norm
-            clip_norm = _global_norm(acc_norms, self.flat.device)
+            clip_norm = self._norm(acc_norms)
         else:
             clip_norm = norm
         lrs = {g: self.schedules[g](self.count) for g in GROUPS}
@@ -246,32 +286,62 @@ class GroupAdamW:
                 master.addcdiv_(exp_avg[lo - a:hi - a], denom[lo - a:hi - a], value=-(lr / bias_correction1))
             for n, lo, hi in self.segments[i]:
                 o = self.layout[n][0]
-                params[n].detach().view(-1)[lo - o:hi - o].copy_(self.flat[lo:hi])
+                local(params[n]).detach().view(-1)[lo - o:hi - o].copy_(self.flat[lo:hi])
         self.count += 1
         return norm
 
+    def whole(self, name: str, part: Tensor) -> Optional[Tensor]:
+        """The whole tensor of which ``part`` is parameter ``name``'s local
+        shard, in host memory of rank 0 and None on the other ranks (every
+        rank takes part in the gather: ``parallel/sharding.host_whole``); or
+        ``part`` itself where the parameter is not sharded."""
+        if name not in self.sharded:
+            return part
+        from torch.distributed.tensor import DTensor
+
+        mesh, placements, shape, stride = self.sharded[name]
+        return host_whole(DTensor.from_local(part.to(self.flat.device), mesh, placements, shape=shape, stride=stride))
+
+    def part(self, name: str, whole: Tensor) -> Tensor:
+        """This rank's shard of parameter ``name``'s whole tensor ``whole``,
+        which every rank holds (cut locally, no collective)."""
+        if name not in self.sharded:
+            return whole
+        from torch.distributed.tensor import distribute_tensor
+
+        mesh, placements, _, _ = self.sharded[name]
+        return distribute_tensor(whole.to(self.flat.device, torch.float32), mesh, placements,
+                                 src_data_rank=None).to_local()
+
     def _by_name(self, kind: str) -> Dict[str, Tensor]:
-        return {n: self.home.read(kind, o, o + s.numel()).view(s) for n, (o, s) in self.layout.items()}
+        out = {n: self.whole(n, self.home.read(kind, o, o + s.numel()).view(s)) for n, (o, s) in self.layout.items()}
+        return {n: t for n, t in out.items() if t is not None}
 
     def state_dict(self) -> dict:
         """Masters, moments, counts and the accumulated mean by parameter
-        name: one format whatever the moments' home (it waits for the walk's
-        last copy to host memory)."""
-        return {"masters": dict(self.masters), **{kind: self._by_name(kind) for kind in MOMENTS},
+        name, whole tensors: one format whatever the moments' home (it waits
+        for the walk's last copy to host memory) and the mesh. A sharded
+        state is gathered one tensor at a time into rank 0's host memory
+        (every rank calls it; the other ranks' maps are empty), so the
+        device never holds more than one whole tensor."""
+        masters = {n: self.whole(n, m) for n, m in self.masters.items()}
+        return {"masters": {n: t for n, t in masters.items() if t is not None},
+                **{kind: self._by_name(kind) for kind in MOMENTS},
                 "count": self.count, "mini_step": self.mini_step,
                 "acc": self._by_name("acc") if self.mini_step else {}}
 
     def load_state_dict(self, state: dict, model: nn.Module) -> None:
         """Restore masters, moments, counts and the accumulated mean (the
-        moments into their home), and write the masters back into ``model``."""
+        moments into their home; each rank its shards of the whole tensors,
+        one tensor at a time), and write the masters back into ``model``."""
         params = dict(model.named_parameters())
         acc = state.get("acc") or {}
         with torch.no_grad():
             for n, m in self.masters.items():
-                m.copy_(state["masters"][n])
-                params[n].copy_(m)
+                m.copy_(self.part(n, state["masters"][n]))
+                local(params[n]).copy_(m)
                 for kind in MOMENTS + (("acc",) if acc else ()):
-                    self.home.write(kind, self.layout[n][0], state[kind][n])
+                    self.home.write(kind, self.layout[n][0], self.part(n, state[kind][n]))
         self.count = int(state["count"])
         self.mini_step = int(state.get("mini_step", 0))
 
@@ -390,9 +460,11 @@ class HostHome:
             self.pieces[kind][i][lo:hi].copy_(values[vlo:vhi])
 
 
-def _global_norm(norms, device) -> Tensor:
-    """The norm of a set of tensors from their norms."""
-    return torch.linalg.vector_norm(torch.stack(norms)) if norms else torch.zeros((), device=device)
+def _shard_groups(mesh, placements) -> tuple:
+    """The process groups of the mesh dims that split a DTensor (more than one
+    rank each): every placement but replication (FSDP2 over a tp-split dim
+    places a strided shard, which is not a ``Shard``)."""
+    return tuple(mesh.get_group(i) for i, pl in enumerate(placements) if not pl.is_replicate() and mesh.size(i) > 1)
 
 
 def build_optimizer(

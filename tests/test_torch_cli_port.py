@@ -59,8 +59,9 @@ def test_resume_continues_from_the_last_checkpoint(setup, port_stage2):  # noqa:
 def test_unported_flags_exit(flag):
     from hicom_tpu_torch.train.cli import main
 
-    # --bits 4/8 is ported (QLoRA) and exits only without --lora-enable, as the JAX CLI does
-    match = "--lora-enable" if flag[0] == "--bits" else "ROADMAP"
+    # --bits 4/8 is ported (QLoRA) and exits only without --lora-enable, as the JAX CLI does;
+    # a mesh of more than one rank exits without torchrun's ranks
+    match = "--lora-enable" if flag[0] == "--bits" else "torch.distributed.run"
     with pytest.raises(SystemExit, match=match):
         main(["--model-path", "x", "--data-path", "y", "--output-dir", "z", "--device", "cpu"] + flag)
 

@@ -1,6 +1,7 @@
-"""Hygiene of the port: it imports neither JAX nor the JAX package, its entry
-points refuse to fall back to the CPU silently, and CPU tensors never count as
-kernel launches."""
+"""Hygiene of the port: it imports neither JAX nor the JAX package (nor does
+a gloo rank process after a sharded step), its entry points refuse to fall
+back to the CPU silently, CPU tensors never count as kernel launches, and a
+DTensor never reaches a kernel."""
 
 import os
 import subprocess
@@ -35,7 +36,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert n_modules >= 20, out.stdout
 
 
-TRAIN_MODULES = ("hicom_tpu_torch.train.optimizer", "hicom_tpu_torch.train.train_step",
+TRAIN_MODULES = ("hicom_tpu_torch.parallel.mesh", "hicom_tpu_torch.parallel.sharding",
+                 "hicom_tpu_torch.train.optimizer", "hicom_tpu_torch.train.train_step",
                  "hicom_tpu_torch.train.checkpoints", "hicom_tpu_torch.train.lora", "hicom_tpu_torch.train.dataset",
                  "hicom_tpu_torch.train.cli", "hicom_tpu_torch.data.image", "hicom_tpu_torch.data.native",
                  "hicom_tpu_torch.data.native_video", "hicom_tpu_torch.data.processor",
@@ -109,6 +111,20 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
         else:
             model = HIComModel(hicom_tpu_torch.tiny_test_config())
             create_train_state(model, build_optimizer(model, learning_rate=1e-3, tunable_parts="mm_projector"))
+
+
+def test_rank_processes_hold_no_jax_and_wrappers_refuse_dtensors(tmp_path):
+    """Two gloo rank processes take a sharded step; neither imports JAX or the
+    JAX package, and every kernel wrapper raises on a DTensor operand (its
+    pointer and shape are the wrapper's, not the local shard's)."""
+    import torch_ranks as R
+
+    R.spawn(R.hygiene_worker, 2, str(tmp_path / "out.pt"))
+    out = torch.load(tmp_path / "out.pt")
+    assert out["bad"] == []
+    assert set(out["raised"]) == {"K1", "K2", "K3", "K4", "K5/K6"}
+    for kid, msg in out["raised"].items():
+        assert msg and "DTensor" in msg, (kid, msg)
 
 
 def test_cpu_tensors_take_plain_twins_without_counting():

@@ -1,0 +1,292 @@
+"""Rank processes for the port's mesh tests: gloo groups on the CPU.
+
+``spawn(fn, world, *args)`` starts ``world`` fresh interpreters (the spawn
+start method, one torch thread each), joins them into a gloo group on a free
+localhost port and calls ``fn(rank, *args)`` in each; a rank that raises
+fails the call. This module imports neither JAX nor the JAX package, so a
+rank process holds only the port (``test_torch_hygiene`` checks it).
+
+``train_worker`` takes the port's sharded train steps on the tiny model that
+:func:`build` makes, for the cases ``tests/test_torch_mesh_train.py`` holds
+to the unsharded step. :class:`Torchrun` starts the port's CLI under
+``python -m torch.distributed.run`` in the background.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+import weakref
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+VIDEO, IGNORE = -201, -100
+TUNABLE = "mm_projector,language_model"  # a trained decoder (tp-split) beside a frozen tower and guide encoder
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _entry(rank, fn, world, port, args):
+    torch.set_num_threads(1)
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    dist.init_process_group("gloo", rank=rank, world_size=world)
+    try:
+        fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world: int, *args) -> None:
+    """Run ``fn(rank, *args)`` in ``world`` gloo rank processes; raises if any fails."""
+    import torch.multiprocessing as mp
+
+    for path in (REPO, os.path.dirname(os.path.abspath(__file__))):
+        if path not in sys.path:
+            sys.path.insert(0, path)
+    mp.start_processes(_entry, args=(fn, world, free_port(), args), nprocs=world, join=True, start_method="spawn")
+
+
+def batches(cfg, steps: int = 2, rows: int = 4, seed: int = 0):
+    """``steps`` global batches of ``rows`` video rows: 12 ids with a <video>
+    sentinel, right padding and ignored labels that leave each row a different
+    number of targets (the second half of a batch far fewer), guide ids."""
+    rng = np.random.default_rng(seed)
+    out = []
+    size = cfg.vision_config.image_size
+    for _ in range(steps):
+        ids = rng.integers(3, cfg.text_config.vocab_size, (rows, 12))
+        ids[:, 2] = VIDEO
+        mask = np.ones((rows, 12), bool)
+        for r in range(rows):
+            mask[r, 12 - 2 * (r % 4):] = False
+        ids[~mask] = 0
+        labels = np.where(mask, ids, IGNORE)
+        labels[:, :3] = IGNORE
+        labels[rows // 2:, 3:6] = IGNORE
+        b = dict(input_ids=ids, attention_mask=mask, labels=labels,
+                 frames=rng.standard_normal((rows, 4, 3, size, size)).astype(np.float32))
+        if cfg.guide_enabled():
+            b["guide_ids"] = rng.integers(1, cfg.guide_text_config.vocab_size, (rows, 16))
+        out.append(b)
+    return out
+
+
+def build(remat: bool = False, max_grad_norm: float = 1.0, seed: int = 0):
+    """(model, optimizer, batches): the tiny guide-mode model in fp32 from
+    ``seed``, its decoder and projector trained."""
+    import dataclasses
+
+    from hicom_tpu_torch.config import tiny_test_config
+    from hicom_tpu_torch.models.hicom import HIComModel
+    from hicom_tpu_torch.train.optimizer import build_optimizer
+
+    cfg = tiny_test_config(use_guide="direct")
+    if remat:
+        cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, remat=True))
+    torch.manual_seed(seed)
+    model = HIComModel(cfg)
+    opt = build_optimizer(model, learning_rate=1e-3, total_steps=10, warmup_ratio=0.0, schedule_kind="constant",
+                          tunable_parts=TUNABLE, use_guide="direct", max_grad_norm=max_grad_norm, weight_decay=0.1)
+    return model, opt, batches(cfg)
+
+
+def run_steps(state, batch_list, mesh=None, save_to=None):
+    """Train ``batch_list`` (each rank on its slice over ``mesh``); returns the
+    per-step loss, grad norm and target tokens. ``save_to``: checkpoint there
+    after the first step."""
+    from hicom_tpu_torch.parallel.sharding import shard_batch_tree
+    from hicom_tpu_torch.train.checkpoints import save_checkpoint
+    from hicom_tpu_torch.train.train_step import make_train_step
+
+    step = make_train_step(modal="video")
+    out = {"loss": [], "grad_norm": [], "target_tokens": []}
+    for i, b in enumerate(batch_list):
+        state, m = step(state, shard_batch_tree(b, mesh) if mesh is not None else b)
+        for k in out:
+            out[k].append(float(m[k]))
+        if save_to is not None and i == 0:
+            save_checkpoint(save_to, state)
+    return out
+
+
+def sharded_case(case: dict) -> dict:
+    """One case of ``train_worker``: the steps' metrics, the whole masters,
+    the frozen tensors that moved, q_proj's local and whole sizes."""
+    from hicom_tpu_torch.parallel.mesh import create_mesh
+    from hicom_tpu_torch.parallel.sharding import local
+    from hicom_tpu_torch.train.train_step import create_sharded_state
+
+    mesh = create_mesh(*case["shape"], device_type="cpu")
+    model, opt, batch_list = build(case.get("remat", False), case.get("max_grad_norm", 1.0))
+    trained = {n for n, lab in opt.labels.items() if lab != "frozen"}
+    frozen_before = {n: p.detach().clone() for n, p in model.named_parameters() if n not in trained}
+    state = create_sharded_state(model, opt, mesh, "cpu")
+    q = dict(model.named_parameters())["model.layers.0.self_attn.q_proj.weight"]
+    out = run_steps(state, batch_list, mesh, case.get("save_to"))
+    out["q_proj_numel"] = (local(q).numel(), q.numel())
+    out["q_proj_master_numel"] = opt.masters["model.layers.0.self_attn.q_proj.weight"].numel()
+    out["masters"] = opt.state_dict()["masters"]
+    params = dict(model.named_parameters())
+    out["frozen_moved"] = [n for n, before in frozen_before.items()
+                           if not torch.equal(params[n].detach().full_tensor(), before)]
+    out["frozen_count"] = len(frozen_before)
+    out["no_jax"] = not any(m.split(".")[0] in ("jax", "jaxlib", "hicom_tpu") for m in sys.modules)
+    if case.get("roundtrip"):
+        out["roundtrip"] = roundtrip(state, case["roundtrip"])
+    return out
+
+
+class DeviceWholes(TorchDispatchMode):
+    """The most storages of a whole tensor's size (``whole_bytes``) that ops
+    made under the watch and that were alive at once. A rank's device is the
+    CPU here, so a copy to the CPU (``aten._to_copy`` with ``device=cpu``)
+    stands for a copy off the device and is not counted."""
+
+    def __init__(self, whole_bytes):
+        super().__init__()
+        self.whole_bytes, self.made, self.most = set(whole_bytes), [], 0
+        self.host = set()  # storage addresses on the host: a loaded checkpoint's
+        self.loading = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        to_host = func is torch.ops.aten._to_copy.default and (kwargs or {}).get("device") == torch.device("cpu")
+        if not (to_host or self.loading):  # (tensor, its storage's address) of each whole-sized output; a wrapper's inner tensor is one
+            self.made += [(weakref.ref(t), t.untyped_storage().data_ptr()) for t in pytree.tree_leaves(out)
+                          if type(t) is torch.Tensor and t.untyped_storage().nbytes() in self.whole_bytes]
+        self.made = [(r, ptr) for r, ptr in self.made if r() is not None and ptr not in self.host]
+        self.most = max(self.most, len({ptr for _, ptr in self.made}))
+        return out
+
+    def load(self, real_load):
+        """``torch.load`` for the watch: the file's tensors are host memory
+        (mapped: the call must pass ``mmap=True``), and so are their views."""
+
+        def load(*args, **kwargs):
+            self.mapped = kwargs.get("mmap", False)
+            self.loading = True
+            try:
+                payload = real_load(*args, **kwargs)
+            finally:
+                self.loading = False
+            self.host |= {t.untyped_storage().data_ptr() for t in pytree.tree_leaves(payload)
+                          if isinstance(t, torch.Tensor)}
+            return payload
+
+        return load
+
+
+def roundtrip(state, root: str) -> dict:
+    """Save ``state`` (sharded) and gather its parameters under a
+    :class:`DeviceWholes` watch, restore the checkpoint into a fresh sharded
+    state under another, and compare the two states' local parts."""
+    from hicom_tpu_torch.parallel.sharding import local
+    from hicom_tpu_torch.train.checkpoints import restore_checkpoint, save_checkpoint
+    from hicom_tpu_torch.train.train_step import create_sharded_state
+
+    opt = state.optimizer
+    params = dict(state.model.named_parameters())
+    sharded = [n for n in params if local(params[n]).numel() < params[n].numel()]
+    # the byte sizes of whole tensors that no shard or partial gather (1/k of a whole) shares, so that
+    # only a whole tensor counts as one
+    world = dist.get_world_size()
+    parts = {params[n].numel() * 4 // k for n in sharded for k in range(2, world + 1)}
+    whole_bytes = {params[n].numel() * 4 for n in sharded} - parts - {local(p).numel() * 4 for p in params.values()}
+    watched = sum(params[n].numel() * 4 in whole_bytes for n in sharded)
+    save = DeviceWholes(whole_bytes)
+    with save:
+        save_checkpoint(root, state)
+        gathered = state.params()
+        sd = opt.state_dict()
+    model, fresh, _ = build()
+    again = create_sharded_state(model, fresh, state.mesh, "cpu")
+    restore, real_load = DeviceWholes(whole_bytes), torch.load
+    torch.load = restore.load(real_load)
+    try:
+        with restore:
+            restore_checkpoint(root, again)
+    finally:
+        torch.load = real_load
+    same = (fresh.count == opt.count and torch.equal(fresh.flat, opt.flat)
+            and all(torch.equal(fresh.home.bufs[k], opt.home.bufs[k]) for k in opt.home.bufs)
+            and all(torch.equal(local(p), local(params[n])) for n, p in model.named_parameters()))
+    mine = dict(save_most=save.most, restore_most=restore.most, mapped=restore.mapped, same=same,
+                maps=(len(gathered), len(sd["masters"]), len(sd["exp_avg"])))
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return dict(ranks=ranks, sharded=len(sharded), watched=watched, params=len(params), trained=len(opt.masters))
+
+
+def train_worker(rank: int, cases: list, out_path: str) -> None:
+    results = {case["name"]: sharded_case(case) for case in cases}
+    if rank == 0:
+        torch.save(results, out_path)
+
+
+class Torchrun:
+    """``python -m torch.distributed.run --standalone`` of the port's CLI with
+    ``flags`` in ``nproc`` gloo ranks (one torch thread each), started in the
+    background with its output in ``log``; :meth:`wait` returns its exit code
+    and output."""
+
+    def __init__(self, nproc: int, flags, log: str):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+               "-m", "hicom_tpu_torch.train.cli", *flags]
+        env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+        self.log = open(log, "w+")
+        # a session of its own: torchrun's signals to its workers never reach this process
+        self.proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=self.log, stderr=subprocess.STDOUT, text=True,
+                                     start_new_session=True)
+
+    def wait(self, timeout: float = 600):
+        rc = self.proc.wait(timeout=timeout)
+        self.log.seek(0)
+        return rc, self.log.read()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def hygiene_worker(rank: int, out_path: str) -> None:
+    """One sharded step at (1, 2, 1), then: the modules this rank process has
+    imported from JAX or its package, and what each kernel wrapper does with
+    a DTensor operand."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from hicom_tpu_torch.ops.flash_attention import flash_backward, flash_forward, fullblock_attention
+    from hicom_tpu_torch.ops.flash_decode import flash_decode
+    from hicom_tpu_torch.ops.local_attn import fused_tile_attention
+    from hicom_tpu_torch.parallel.mesh import create_mesh
+
+    sharded_case(dict(name="hygiene", shape=(1, 2, 1)))
+    mesh = create_mesh(1, 2, 1, device_type="cpu")
+    x = torch.ones(1, 2, 16, 8)
+    d = distribute_tensor(x, mesh["fsdp"], [Replicate()])
+    calls = {"K1": lambda: fullblock_attention(d[0], x[0], x[0], 0.3),
+             "K2": lambda: flash_forward(x, d, x, None, 0.3),
+             "K5/K6": lambda: flash_backward(x, x, x, None, d, torch.zeros(1, 2, 16), x, 0.3),
+             "K3": lambda: flash_decode(x[:, :, :1], x, x, d[:, 0, :, 0] > 0),
+             "K4": lambda: fused_tile_attention(torch.ones(1, 1, 1, 8), d[0, :1, :4].reshape(4, 1, 1, 8),
+                                                x[0, :1, :4].reshape(4, 1, 1, 8), (4, 1, 1), 0.3)}
+    raised = {}
+    for kid, call in calls.items():
+        try:
+            call()
+            raised[kid] = None
+        except TypeError as e:
+            raised[kid] = str(e)
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hicom_tpu"))
+    if rank == 0:
+        torch.save({"bad": bad, "raised": raised}, out_path)
