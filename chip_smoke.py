@@ -44,6 +44,18 @@ Phases:
      per round, submit-to-first-token per request, the speculative
      acceptance, peak memory and the idle share of an eager and a graphed
      round; K3 is also checked at the engine's shape (b 4, per-slot masks);
+     then [seq-parallel] on the same model in a one-rank NCCL group:
+     [long-video] (a 128-frame video through ``HICom.encode_long_video``,
+     and a 4-rank run's shares taken in turn with their global compressor's
+     fp32 partials merged once, against ``encode_visual``), [ring-prefill]
+     (16,384 seeded embeddings through ``ring_prefill`` over 28 layers
+     against the direct prefill; one layer split as an 8-rank ring splits
+     it, 36 K2 blocks and 8 merges, against one causal K2;
+     ``HICom._generate_ring`` of the 128-frame prompt against ``generate``)
+     and [pipeline] (``pipeline_prefill`` at pp 1 against the decoder
+     forward); K2's partials are also checked at the ring's block shape
+     (2,048 x 2,048, causal and full), and the merge wrapper at the 8-rank
+     ring's;
   4b. [clip]: the same 3 requests (336x336 frames) through HICom-7B on the
      CLIP-L/336 tower at its published widths (K1 at d 64, K4 with 768-wide
      keys and 1024-wide values); [anyres]: the reference's llava1.5 anyres
@@ -112,7 +124,11 @@ Phases:
      comparison with the plain CPU path on the same weights; [model-init]
      ``model_init(..., device_preprocess=True)`` + ``mm_infer`` from an
      exported checkpoint under each quantization flag, the card's string
-     equal to the CPU's; [stage3-qlora] 3 stage-3 steps over an NF4 base;
+     equal to the CPU's for the NF4 decoder, the dynamic W8A8 decoder and
+     both W8A8 towers (``load_8bit`` and ``dec_quant=w8a8s`` on the card
+     only: their decoder modes are held to the CPU by [serve-int8] and
+     [serve-w8a8] on models built there, their loader path is not);
+     [stage3-qlora] 3 stage-3 steps over an NF4 base;
   8b. [bench]: ``python3 -m hicom_tpu_torch.bench`` at full width, one
      subprocess per mode: the default (w8a8s_mlp_qkv tower and w8a8 decoder,
      then the bf16 arm; 8 and 4 timed iterations), ``--decode``, ``--train``
@@ -129,8 +145,9 @@ Phases:
 
 Prints one line per check, then a JSON object with the kernels (each row at
 a shape of the main paths, its launches counted in the phase that runs that
-shape: serving, [serve-engine], stage 2, the 1.5B stage 3, [clip], [anyres]
-or [anyres-train]), then the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any
+shape: serving, [serve-engine], [ring-prefill], stage 2, the 1.5B stage 3,
+[clip], [anyres] or [anyres-train]), then the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before that last line. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -159,6 +176,8 @@ KERNELS = {
 }
 # the split path's second passes run inside the K2 and K5 wrappers and count with them
 KERNELS["K2-merge"] = KERNELS["K2"]
+# the merge kernel alone over ranks' or ring blocks' partials counts in its own wrapper
+KERNELS["K2-merge-ranks"] = ("merge_partials",) + KERNELS["K2"][1:]
 KERNELS["K5-sum"] = KERNELS["K5"]
 KERNELS["K6-sum"] = KERNELS["K6"]
 TRAIN_STEPS = 3
@@ -241,8 +260,9 @@ def kernel_checks(card: str):
     import torch
     import torch.nn.functional as F
 
-    from hicom_tpu_torch.ops.flash_attention import (FWD_BLOCK_Q, _launch, flash_forward, flash_reference,
-                                                     forward_splits, fullblock_attention)
+    from hicom_tpu_torch.ops.flash_attention import (FWD_BLOCK_Q, _launch, flash_forward, flash_forward_partials,
+                                                     flash_partials_reference, flash_reference, forward_splits,
+                                                     fullblock_attention)
     from hicom_tpu_torch.ops.flash_decode import DECODE_CHUNK, decode_reference, flash_decode
     from hicom_tpu_torch.ops.grouping import tile_thw
     from hicom_tpu_torch.ops.local_attn import fused_tile_attention, tile_reference
@@ -339,6 +359,23 @@ def kernel_checks(card: str):
                4 * H * d * pairs, 2 * b * H * L * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * L * 4, valid,
                grid=fwd_grid(b, H, L, L), phase="stage3-sft" if label == "1.5b" else "")
         del q, k, v, mask
+
+    # K2 at the ring block shape: one rank's 2,048-token chunk of a 16,384-token prompt split over 8 ranks
+    # ([ring-prefill] runs them): the diagonal block, causal, and a block below it, full; the ring takes
+    # K2's fp32 partials (unnormalised output, max, denominator), held to the plain version's
+    b, H, KVH, L, d = 1, 28, 4, 2048, 128
+    if forward_splits(b, H, L, L) != 1:
+        raise AssertionError("the ring block's K2 was to run unsplit")
+    q, k, v = rn(b, H, L, d), rn(b, KVH, L, d), rn(b, KVH, L, d)
+    for label, causal in (("causal", True), ("full", False)):
+        pairs = L * (L + 1) // 2 if causal else L * L
+        record(f"flash_forward_partials[ring block {label}]", "K2",
+               lambda: flash_forward_partials(q, k, v, None, d**-0.5, 0.0, causal),
+               lambda: flash_partials_reference(q, k, v, None, d**-0.5, 0.0, causal),
+               lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=d**-0.5, enable_gqa=True),
+               4 * H * d * pairs, b * H * L * d * (2 + 4) + 2 * b * KVH * L * d * 2 + 2 * b * H * L * 4, outputs=3,
+               grid=fwd_grid(b, H, L, L), phase="ring-prefill")
+    del q, k, v
 
     # K2 global compressor: 9 heads, 32 queries over 32 x 27 x 27 = 23,328 keys, d = 128, split
     # over the keys; b 1 serves one request, b 2 the batched request and the train step
@@ -583,11 +620,14 @@ def split_pass_checks(rn, record):
     """Phase 3, the split path's second passes alone, at the global
     compressor's shapes: the forward's merge of 29 chunk partials (b 1) with
     chunks that walked no tile (max -inf) and chunks all masked for their rows
-    (max -1e30), and K5's sum of 14 dQ partials (b 2)."""
+    (max -1e30), and K5's sum of 14 dQ partials (b 2); and the merge kernel
+    through its own wrapper ``merge_partials`` at the 8-rank ring's shape, the
+    last rank's 8 block partials of 28 heads x 2,048 rows, half the blocks
+    with no valid key for a quarter of the rows (max -1e30)."""
     import torch
 
-    from hicom_tpu_torch.ops.flash_attention import (_launch_merge, _launch_part_sum, merge_partials_reference,
-                                                     sum_partials_reference)
+    from hicom_tpu_torch.ops.flash_attention import (_launch_merge, _launch_part_sum, merge_partials,
+                                                     merge_partials_reference, sum_partials_reference)
 
     gen = torch.Generator("cuda").manual_seed(2)
     n, rows, d = 29, 9 * 32, 128
@@ -599,6 +639,16 @@ def split_pass_checks(rn, record):
            lambda: merge_partials_reference(o, m, l, torch.bfloat16), None,
            4 * n * rows * d, n * rows * (d + 2) * 4 + rows * (d * 2 + 4), outputs=2, grid=(-(-rows // 4),),
            flops_rate=FP32_PEAK)
+    n, rows, d = 8, 28 * 2048, 128
+    o = torch.randn(n, rows, d, generator=gen, device="cuda") * 50
+    m = torch.randn(n, rows, generator=gen, device="cuda") * 3
+    m[4:, : rows // 4] = -1e30  # blocks with no valid key for these rows
+    l = torch.rand(n, rows, generator=gen, device="cuda") * 2048 + 1
+    record("merge_partials[ring 8 ranks, 28 x 2048 rows]", "K2-merge-ranks",
+           lambda: merge_partials(o, m, l, torch.bfloat16), lambda: merge_partials_reference(o, m, l, torch.bfloat16),
+           None, 4 * n * rows * d, n * rows * (d + 2) * 4 + rows * (d * 2 + 4), outputs=2, grid=(-(-rows // 4),),
+           flops_rate=FP32_PEAK, phase="ring-prefill")
+    del o, m, l
     n, N = 14, 2 * 9 * 32 * 128
     part = torch.randn(n, N, generator=gen, device="cuda")
     record("flash_dq_sum[global 32f b2, 14 chunks]", "K5-sum", lambda: _launch_part_sum((part, 128**-0.5)),
@@ -1028,6 +1078,20 @@ def round_idle(eng, reqs):
     return round_ms, 1e3 * wall, busy_ms, start.elapsed_time(end)
 
 
+def norms_at_one(model):
+    """The decoder's norm weights at their usual initial value, 1: with
+    build_model's N(0, 0.02) draw every request decodes one token over and
+    over, which would leave a comparison of streams nothing to tell apart."""
+    import torch
+
+    from hicom_tpu_torch.models.qwen2 import RMSNorm
+
+    with torch.no_grad():
+        for m in model.model.modules():
+            if isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
+
+
 def serve_engine_phase(card: str, hc):
     """Phase 4c, on ``[slice]``'s HICom-7B (its decoder norms set to 1):
     ``mm_serve``'s engine (4 slots, a 4,096-slot cache, 16 steps a round,
@@ -1048,18 +1112,10 @@ def serve_engine_phase(card: str, hc):
     from hicom_tpu_torch.api import _trim_at_keywords, mm_serve, serve_engine, serve_request
     from hicom_tpu_torch.serve import ServeEngine
 
-    from hicom_tpu_torch.models.qwen2 import RMSNorm
-
     cfg = hc.config
     tok = WordTokenizer(cfg.text_config.vocab_size, cfg.guide_text_config.max_position_embeddings)
     eos = hc.eos_token_id
-    # the decoder's norm weights at their usual initial value, 1: with
-    # build_model's N(0, 0.02) draw every request decodes one token over and
-    # over, which would leave the stream gates nothing to tell apart
-    with torch.no_grad():
-        for m in hc.model.model.modules():
-            if isinstance(m, RMSNorm):
-                m.weight.fill_(1.0)
+    norms_at_one(hc.model)
     fns = counters()
     for f in fns.values():
         f.launches = 0
@@ -1544,6 +1600,313 @@ def mesh_train_phase(card: str, want: dict):
             dist.destroy_process_group()
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel inference at HICom-7B: [seq-parallel]
+# ---------------------------------------------------------------------------
+
+LONG_VIDEO_FRAMES = 128  # beyond the reference's 32-frame cap
+LONG_VIDEO_RANKS = 4  # the run whose ranks' shares [long-video] runs in turn
+RING_TOKENS = 16384  # HICOM_RING_PREFILL_MIN's default
+RING_RANKS = 8  # the ring whose ranks' blocks [ring-prefill] runs in turn
+
+
+def seq_counters():
+    """The kernel wrappers of the sequence-parallel paths, the merge kernel's too."""
+    from hicom_tpu_torch.ops.flash_attention import merge_partials
+
+    return {**counters(), "merge_partials": merge_partials}
+
+
+def zero_counts(fns):
+    for f in fns.values():
+        f.launches = 0
+
+
+def long_video(cfg, seed: int = 50):
+    """A seeded 128-frame video at the tower's size and full-length guide ids."""
+    rng = np.random.default_rng(seed)
+    size, gcfg = cfg.vision_config.image_size, cfg.guide_text_config
+    frames = rng.uniform(-1, 1, (LONG_VIDEO_FRAMES, 3, size, size)).astype(np.float32)
+    return frames, rng.integers(0, gcfg.vocab_size, (1, gcfg.max_position_embeddings))
+
+
+@contextmanager
+def ranks_in_turn():
+    """Stand in, in this process, for the ranks of one run taken in turn: the
+    global compressor's gather (``ops.attention.gather_partials``) records each
+    chunk's K2 partials and returns them alone; once ``state["all"]`` is set
+    it returns every recorded chunk's, in rank order, to the one merge."""
+    import torch
+
+    from hicom_tpu_torch.ops import attention
+
+    state = {"parts": [], "all": False}
+
+    def gather(parts, group):
+        if state["all"]:
+            return tuple(torch.cat(t) for t in zip(*state["parts"]))
+        state["parts"].append(parts)
+        return parts
+
+    original, attention.gather_partials = attention.gather_partials, gather
+    try:
+        yield state
+    finally:
+        attention.gather_partials = original
+
+
+def long_video_phase(card: str, hc) -> dict:
+    """[long-video]: a 128-frame 384x384 video through ``HICom.encode_long_video``
+    (the frames split over the one rank), held to ``encode_visual`` over the
+    same frames. Then each rank's share of a 4-rank run: ``encode_visual_shard``
+    on 32 frames at offsets 0, 32, 64 and 96 in turn, the local grids
+    concatenated and the global compressor's partials merged by the merge
+    kernel inside ``sdpa(..., kv_group=)``, held to the same single pass
+    within the gate over the whole output. K1, K2, K4 and the merge kernel
+    must launch. Returns the launches of ``encode_long_video``."""
+    import torch
+
+    from hicom_tpu_torch.models.postprocess import post_process_visual_feature
+    from hicom_tpu_torch.ops.attention import SoloGroup
+    from hicom_tpu_torch.parallel.mesh import world_mesh
+
+    cfg, model = hc.config, hc.model
+    frames, gids = long_video(cfg)
+    world_mesh()  # set-up: the mesh's process groups are made once
+    fns = seq_counters()
+    zero_counts(fns)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = hc.encode_long_video(frames, gids)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: f.launches for name, f in fns.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    hc.encode_long_video(frames, gids)
+    torch.cuda.synchronize()
+    again_ms = (time.perf_counter() - t0) * 1e3
+    zero_counts(fns)
+    n_global = cfg.projector.global_.num_queries
+    with torch.inference_mode():
+        f = hc._to_dev(frames, model.model.norm.weight.dtype)
+        ge = model.encode_guide(hc._to_dev(gids, torch.int64))
+        t0 = time.perf_counter()
+        ref = model.encode_visual(f[None], ge)[0]
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3
+        t_loc, grids = LONG_VIDEO_FRAMES // LONG_VIDEO_RANKS, []
+        with ranks_in_turn() as turn:
+            for start in range(0, LONG_VIDEO_FRAMES, t_loc):
+                local_raw, _ = model.encode_visual_shard(f[None, start:start + t_loc], ge, "video", start,
+                                                         LONG_VIDEO_FRAMES, SoloGroup())
+                grids.append(local_raw[0])
+            turn["all"] = True
+            _, global_tokens = model.encode_visual_shard(f[None, :t_loc], ge, "video", 0, LONG_VIDEO_FRAMES,
+                                                         SoloGroup())
+        local = post_process_visual_feature(model.hicom_config, torch.cat(grids)[None], "video",
+                                            model.model.image_newline, False)[0]
+        shares = torch.cat([local, global_tokens[0]])
+    one, four = agreement(got, ref), agreement(shares, ref)
+    parts = (agreement(shares[:-n_global], ref[:-n_global])[1], agreement(shares[-n_global:], ref[-n_global:])[1])
+    log(f"[long-video] {card} | {LONG_VIDEO_FRAMES} frames of {cfg.vision_config.image_size}x"
+        f"{cfg.vision_config.image_size} -> {tuple(got.shape)} tokens: encode_long_video {ms:.1f} ms, again "
+        f"{again_ms:.1f} ms (host clock, guide encoder included), encode_visual {single_ms:.1f} ms | worst err/tol "
+        f"against encode_visual "
+        f"{one[1]:.3f} | launches K1 {launches['fullblock_attention']}, K2 {launches['flash_forward']}, K4 "
+        f"{launches['fused_tile_attention']}, merge {launches['merge_partials']} | peak {peak_gb:.2f} GB")
+    log(f"[long-video] {LONG_VIDEO_RANKS} ranks' shares in turn ({len(turn['parts'])} ranks' fp32 partials of "
+        f"{turn['parts'][0][0].shape[0]} chunks each, one merge): worst err/tol against encode_visual {four[1]:.3f}, "
+        f"max abs err {four[0]:.3g} (the local tokens alone {parts[0]:.3f}, the global ones {parts[1]:.3f}, each "
+        f"over its own rms)")
+    if got.shape != ref.shape or shares.shape != ref.shape or not (one[1] <= 1 and four[1] <= 1):
+        raise AssertionError(f"[long-video] the sequence-parallel tokens disagree: {one}, {four}")
+    for name in ("fullblock_attention", "flash_forward", "fused_tile_attention", "merge_partials"):
+        if launches[name] <= 0:
+            raise AssertionError(f"[long-video] encode_long_video never launched {name}")
+    return launches
+
+
+def ring_prefill_phase(card: str, hc) -> dict:
+    """[ring-prefill]: seeded (1, 16,384, 3,584) embeddings through
+    ``ring_prefill`` over Qwen2.5-7B's 28 layers against the decoder's direct
+    prefill (last hidden and cache k/v within the gate, length and validity
+    exact); one layer's q/k/v at that length split as an 8-rank ring splits
+    them (2,048-token chunks, 36 causal K2 blocks, one merge per rank) against
+    one causal K2 over all of it; then ``HICom._generate_ring`` of a
+    128-frame prompt against ``HICom.generate``, 16 greedy ids equal but at
+    near-ties. Returns the launches of the three sequence-parallel runs (the
+    comparisons not counted)."""
+    import torch
+
+    from hicom_tpu_torch.models.qwen2 import KVCache
+    from hicom_tpu_torch.ops.flash_attention import flash_forward, merge_partials
+    from hicom_tpu_torch.parallel.mesh import world_mesh
+    from hicom_tpu_torch.parallel.ring import ring_block, ring_prefill
+
+    cfg, model = hc.config, hc.model
+    tc, S = cfg.text_config, RING_TOKENS
+    fns = seq_counters()
+    total = {name: 0 for name in fns}
+
+    def count():
+        for name, f in fns.items():
+            total[name] += f.launches
+        zero_counts(fns)
+
+    gen = torch.Generator(DEVICE).manual_seed(51)
+    emb = torch.randn(1, S, tc.hidden_size, generator=gen, device=DEVICE).to(model.model.norm.weight.dtype)
+    pos = torch.arange(S, device=DEVICE)[None]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    last, cache = ring_prefill(model, emb, pos, world_mesh(), "dp", cache_len=S)
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    count()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.inference_mode():
+        ref_cache = KVCache.zeros(tc.num_hidden_layers, 1, tc.num_key_value_heads, S, tc.head_dim,
+                                  model.model.norm.weight.dtype, DEVICE)
+        t0 = time.perf_counter()
+        hidden = model.model(emb, pos, ref_cache, prefill_from_empty=True)
+        torch.cuda.synchronize()
+        direct_ms = (time.perf_counter() - t0) * 1e3
+        zero_counts(fns)
+        worst = max((agreement(last[0], hidden[0, -1:]), agreement(cache.k, ref_cache.k),
+                     agreement(cache.v, ref_cache.v)), key=lambda a: a[1])
+        exact = cache.length == S and bool(cache.valid.all())
+    del cache, ref_cache, hidden, emb
+    log(f"[ring-prefill] {card} | {S} tokens x {tc.num_hidden_layers} layers: ring_prefill {ring_ms:.1f} ms, "
+        f"direct prefill {direct_ms:.1f} ms (host clock) | last hidden and cache k/v worst err/tol {worst[1]:.3f} | "
+        f"length and validity exact: {exact} | peak {peak_gb:.2f} GB")
+    if not (worst[1] <= 1 and exact):
+        raise AssertionError(f"[ring-prefill] ring_prefill disagrees with the direct prefill: {worst}, exact {exact}")
+
+    H, KVH, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    q = torch.randn(1, H, S, d, generator=gen, device=DEVICE).to(model.model.norm.weight.dtype)
+    k, v = (torch.randn(1, KVH, S, d, generator=gen, device=DEVICE).to(model.model.norm.weight.dtype) for _ in range(2))
+    c, outs, blocks = S // RING_RANKS, [], 0
+    chunk = lambda x, i: x[:, :, i * c:(i + 1) * c]  # noqa: E731
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for idx in range(RING_RANKS):
+            parts = [p for p in (ring_block(chunk(q, idx), chunk(k, src), chunk(v, src), idx, src, scale=d**-0.5,
+                                            is_causal=True) for src in range(RING_RANKS)) if p is not None]
+            blocks += len(parts)
+            outs.append(merge_partials(*(torch.cat(t) for t in zip(*parts)), q.dtype)[0])
+        split = torch.cat(outs, dim=2)
+        torch.cuda.synchronize()
+        split_ms = (time.perf_counter() - t0) * 1e3
+        count()
+        whole = flash_forward(q, k, v, None, d**-0.5, 0.0, True)[0]
+        zero_counts(fns)
+    ratio = agreement(split, whole)[1]
+    log(f"[ring-prefill] {RING_RANKS}-rank split of one layer ({H}/{KVH} heads, d {d}, {c}-token chunks): {blocks} K2 "
+        f"blocks and {RING_RANKS} merges in {split_ms:.1f} ms (host clock) | worst err/tol against one causal K2 "
+        f"over {S} tokens {ratio:.3f}")
+    if blocks != RING_RANKS * (RING_RANKS + 1) // 2 or not ratio <= 1:
+        raise AssertionError(f"[ring-prefill] the {RING_RANKS}-rank split: {blocks} blocks, worst err/tol {ratio}")
+    del q, k, v, split, whole, outs
+
+    frames, gids = long_video(cfg)
+    rng = np.random.default_rng(52)
+    ids = rng.integers(0, tc.vocab_size, (1, 64))
+    ids[0, 5] = -201  # <video>
+    V = model.visual_token_count(LONG_VIDEO_FRAMES, "video")
+    cache_len = max(hc.cache_len_for(64, V, 16), 64 + V - 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = hc._generate_ring(ids, frames[None], gids, None, None, "video", 16, 0.0, 0.9, 0, (), cache_len)
+    ring_s = time.perf_counter() - t0
+    count()
+    tops, logits = [], model.logits
+
+    def recording(h):
+        out = logits(h)
+        tops.append(out[:, -1].float().topk(2, dim=-1).values[0])
+        return out
+
+    model.logits = recording
+    try:
+        t0 = time.perf_counter()
+        ref = hc.generate(ids, frames=frames[None], guide_ids=gids, max_new_tokens=16)
+        plain_s = time.perf_counter() - t0
+    finally:
+        del model.logits
+    zero_counts(fns)
+    div = first_divergence(got[0].tolist(), ref[0].tolist(), torch.stack(tops).cpu())
+    log(f"[ring-prefill] _generate_ring of a {LONG_VIDEO_FRAMES}-frame prompt ({64 - 1 + V} spliced tokens, "
+        f"{cache_len} slots): {ring_s:.3f} s against generate's {plain_s:.3f} s | ids {got[0].tolist()} | "
+        f"{'equal' if div is None else f'part at {div[0]}, top-2 gap {div[1]:.3g} of the top logit'} | launches "
+        f"in the phase {total}")
+    if div is not None and div[1] > NEAR_TIE:
+        raise AssertionError(f"[ring-prefill] _generate_ring parts from generate at {div[0]} (gap {div[1]:.3g})")
+    for name in ("flash_forward", "merge_partials", "flash_decode"):
+        if total[name] <= 0:
+            raise AssertionError(f"[ring-prefill] the ring paths never launched {name}")
+    return total
+
+
+def pipeline_phase(card: str, hc) -> dict:
+    """[pipeline]: ``pipeline_prefill`` at pp 1 (2 microbatches, b 2, 743
+    tokens) over Qwen2.5-7B's 28 layers against the cache-less decoder
+    forward, within the gate. Returns its launches."""
+    import torch
+
+    from hicom_tpu_torch.parallel import create_pp_mesh, pipeline_prefill
+
+    model, tc = hc.model, hc.config.text_config
+    gen = torch.Generator(DEVICE).manual_seed(53)
+    b, L = 2, 743
+    emb = torch.randn(b, L, tc.hidden_size, generator=gen, device=DEVICE).to(model.model.norm.weight.dtype)
+    pos = torch.arange(L, device=DEVICE)[None].expand(b, L)
+    mesh = create_pp_mesh(1)
+    fns = seq_counters()
+    with torch.inference_mode():
+        zero_counts(fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pipeline_prefill(model, emb, pos, mesh, num_microbatches=2)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {name: f.launches for name, f in fns.items()}
+        ref = model.model(emb, pos)
+        zero_counts(fns)
+    ratio = agreement(got, ref)[1]
+    log(f"[pipeline] {card} | pipeline_prefill at pp 1, 2 microbatches, b {b} x {L} tokens, "
+        f"{tc.num_hidden_layers} layers: {ms:.1f} ms (host clock) | worst err/tol against the decoder forward "
+        f"{ratio:.3f} | K2 launches {launches['flash_forward']}")
+    if not ratio <= 1 or launches["flash_forward"] != 2 * tc.num_hidden_layers:
+        raise AssertionError(f"[pipeline] worst err/tol {ratio}, K2 launches {launches['flash_forward']}")
+    return launches
+
+
+def seq_parallel_phase(card: str, hc) -> dict:
+    """[seq-parallel] on [slice]'s HICom-7B (its decoder norms at 1, after
+    [serve-engine]), in a one-rank NCCL group (torchrun's environment set in
+    the process, ``init_distributed``): [long-video], [ring-prefill] and
+    [pipeline]. Returns each one's launches by wrapper."""
+    import torch
+    import torch.distributed as dist
+
+    from hicom_tpu_torch.parallel.mesh import init_distributed
+
+    t_phase = time.perf_counter()
+    with mesh_env(free_port()):
+        init_distributed(DEVICE, 1, 1, 1)
+        try:
+            out = {"long-video": long_video_phase(card, hc), "ring-prefill": ring_prefill_phase(card, hc),
+                   "pipeline": pipeline_phase(card, hc)}
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"[seq-parallel] {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def stage3_lora_phase(card: str):
@@ -2927,10 +3290,16 @@ def write_word_tokenizer(path: str, vocab: int, eos: int):
                                     "{% if add_generation_prompt %}w9{% endif %}"}, f)
 
 
-MODEL_INIT_FLAGS = (("load_8bit", dict(load_8bit=True)), ("load_4bit", dict(load_4bit=True)),
-                    ("dec_quant=w8a8_mlp", dict(dec_quant="w8a8_mlp")), ("dec_quant=w8a8s", dict(dec_quant="w8a8s")),
-                    ("load_w8a8_tower=True", dict(load_w8a8_tower=True)),
-                    ("load_w8a8_tower=w8a8s_mlp", dict(load_w8a8_tower="w8a8s_mlp")))
+# (flag, load_model's arguments, the phase that runs the flag's decoder mode on a model of build_model's, or
+# None where [model-init] holds the flag's string to the CPU plain path). For the two flags with a phase,
+# model_init's quantize-on-load path is held to the CPU no longer: [serve-int8] and [serve-w8a8] hold the int8
+# and static w8a8s decoders to it on models they quantize themselves. Their CPU runs here, about 40 s, were cut
+# to keep the run in its time.
+MODEL_INIT_FLAGS = (("load_8bit", dict(load_8bit=True), "serve-int8"), ("load_4bit", dict(load_4bit=True), None),
+                    ("dec_quant=w8a8_mlp", dict(dec_quant="w8a8_mlp"), None),
+                    ("dec_quant=w8a8s", dict(dec_quant="w8a8s"), "serve-w8a8"),
+                    ("load_w8a8_tower=True", dict(load_w8a8_tower=True), None),
+                    ("load_w8a8_tower=w8a8s_mlp", dict(load_w8a8_tower="w8a8s_mlp"), None))
 
 
 def model_init_phase(card: str):
@@ -2938,9 +3307,10 @@ def model_init_phase(card: str):
     the port exports a seeded checkpoint (fp16 safetensors, a tower directory
     for its geometry) and a WordLevel tokenizer over its vocabulary, under
     ``build/``; then ``model_init(..., device_preprocess=True)`` + ``mm_infer``
-    on raw uint8 frames runs under each quantization flag on the card and on
-    the CPU (``device="cpu"``, the plain path), and the two strings must be
-    equal. Returns the launches on the card."""
+    on raw uint8 frames runs under each quantization flag on the card and,
+    except for ``load_8bit`` and ``dec_quant=w8a8s`` (see
+    ``MODEL_INIT_FLAGS``), on the CPU too (``device="cpu"``, the plain path),
+    and the two strings must be equal. Returns the launches on the card."""
     import dataclasses
     import os
     import shutil
@@ -2968,9 +3338,9 @@ def model_init_phase(card: str):
     gids = np.random.default_rng(22).integers(0, cfg.guide_text_config.vocab_size, (1, 64))
     question = "w100 w2000 w30000 w151000"
     total = {}
-    for name, flags in MODEL_INIT_FLAGS:
-        strings = {}
-        for device in (DEVICE, "cpu"):
+    for name, flags, held_by in MODEL_INIT_FLAGS:
+        strings = {"cpu": None}
+        for device in (DEVICE,) if held_by else (DEVICE, "cpu"):
             t0 = time.perf_counter()
             hc, proc, tok = model_init(ckpt, device_preprocess=True, device=device, **flags)
             pixels = proc["video"](video)
@@ -2984,9 +3354,11 @@ def model_init_phase(card: str):
             strings[device + "_s"] = time.perf_counter() - t0
             del hc, proc
             torch.cuda.empty_cache()
-        log(f"[model-init] {name}: card {strings[DEVICE]!r} ({strings[DEVICE + '_s']:.1f} s with the load), CPU "
-            f"plain path {strings['cpu']!r} ({strings['cpu_s']:.1f} s), launches on the card {launches}")
-        if strings[DEVICE] != strings["cpu"] or not strings["cpu"]:
+        cpu = f"not held to the CPU (its decoder mode is, in [{held_by}])" if held_by else \
+            f"CPU plain path {strings['cpu']!r} ({strings['cpu_s']:.1f} s)"
+        log(f"[model-init] {name}: card {strings[DEVICE]!r} ({strings[DEVICE + '_s']:.1f} s with the load), {cpu}, "
+            f"launches on the card {launches}")
+        if not strings[DEVICE] or not (held_by or strings[DEVICE] == strings["cpu"]):
             raise AssertionError(f"[model-init] {name}: the card's string differs from the CPU's (or is empty)")
         if min(launches.values()) <= 0:
             raise AssertionError(f"[model-init] {name}: mm_infer did not run through K1-K4: {launches}")
@@ -3461,9 +3833,9 @@ def main() -> int:
     quant_ops_checks(card)
     # each phase's launches by wrapper, counted from 0 just before it runs
     launches = {"serve-engine": {}}
-    # [serve-engine] runs on [slice]'s model before main_path frees it
-    launches["serve"] = main_path(card, then=lambda hc: launches["serve-engine"].update(
-        serve_engine_phase(card, hc)))
+    # [serve-engine], then [seq-parallel], run on [slice]'s model before main_path frees it
+    launches["serve"] = main_path(card, then=lambda hc: (launches["serve-engine"].update(serve_engine_phase(card, hc)),
+                                                         launches.update(seq_parallel_phase(card, hc))))
     launches["clip"] = main_path(card, clip_config(), "clip")
     launches["anyres"] = anyres_phase(card)
     launches["serve-int8"] = serve_quant_phase(card, "serve-int8", "int8")

@@ -1,10 +1,9 @@
 """Public inference API of the port: ``model_init``, ``load_model``, ``build_model``, ``HICom.generate``,
 ``mm_infer``, ``mm_infer_batch``, ``mm_serve``.
 
-Port of ``hicom_tpu/api.py`` on one device (its mesh and ring paths are not
-ported): ``mm_infer_batch`` runs same-shape videos or images as one
-right-padded batch; ``mm_serve`` streams mixed requests through the
-continuous-batching ``serve.ServeEngine``. ``load_model``
+Port of ``hicom_tpu/api.py``: ``mm_infer_batch`` runs same-shape videos or
+images as one right-padded batch; ``mm_serve`` streams mixed requests
+through the continuous-batching ``serve.ServeEngine``. ``load_model``
 reads the reference's checkpoint layouts: SFT (decoder, SigLIP towers and
 projector in one directory, or the towers from ``config.mm_vision_tower``),
 pretrain (``model_base`` + ``mm_projector.bin``) and LoRA (``model_base`` +
@@ -24,6 +23,20 @@ weights until their one-time calibration (``HICom.calibrate_tower`` /
 SmoothQuant refit starts from them. ``model_init(...,
 device_preprocess=True)`` preprocesses videos on the device
 (``ops/preprocess.py``): the host only decodes frames.
+
+Sequence-parallel inference, across the ranks of the default process group
+(one process per device under ``torchrun``; every rank calls ``mm_infer`` or
+``HICom.generate`` with the same inputs and gets the same answer; without a
+process group the world is this process): :meth:`HICom.encode_long_video`
+splits a video's frames over the ranks (``parallel/long_video.py``), and
+``mm_infer`` takes it for a video beyond 32 frames that splits evenly
+(``HICOM_SEQ_PARALLEL``: ``0`` off, ``1`` at any length, default auto);
+``HICom.generate`` prefills a long unpadded b = 1 multimodal prompt
+(``HICOM_RING_PREFILL_MIN`` spliced tokens, default 16384) with ring
+attention across the ranks (:meth:`HICom._generate_ring`,
+``parallel/ring.py``). Both need more than one rank. As in JAX, ``mm_infer``
+always passes the bucket padding mask, so the ring route is reached only
+through ``generate(..., attention_mask=None)``.
 """
 
 from __future__ import annotations
@@ -249,10 +262,21 @@ class HICom:
         else:
             V = self.model.visual_token_count(frames.shape[1], modal) if frames is not None else 0
         cache_len = self.cache_len_for(L, V, max_new_tokens)
+        multimodal = frames is not None or visual_embeds is not None
+
+        # a long unpadded prompt on several ranks: the prefill's sequence split across them (parallel/ring.py)
+        from .parallel.mesh import world_size
+
+        ring_min = int(os.environ.get("HICOM_RING_PREFILL_MIN", "16384"))
+        S_est = L + max(V - 1, 0)
+        if (multimodal and input_ids.shape[0] == 1 and attention_mask is None and S_est >= ring_min
+                and world_size() > 1):
+            return self._generate_ring(input_ids, frames, guide_ids, guide_mask, visual_embeds, modal,
+                                       max_new_tokens, temp, float(top_p), seed, tuple(stop_sequences),
+                                       max(cache_len, S_est))
 
         to_dev = self._to_dev
         gen = torch.Generator(dev).manual_seed(seed)
-        multimodal = frames is not None or visual_embeds is not None
         out = generate_tokens(
             self.model, to_dev(input_ids, torch.int64), to_dev(frames, dtype), to_dev(guide_ids, torch.int64),
             to_dev(guide_mask), to_dev(attention_mask), to_dev(visual_embeds, dtype),
@@ -260,6 +284,56 @@ class HICom:
             top_p=float(top_p), eos_token_id=int(self.eos_token_id), cache_len=cache_len,
             stop_sequences=tuple(stop_sequences), generator=gen, spec_k=int(spec_decode))
         return out.cpu().numpy()
+
+    def _generate_ring(self, input_ids, frames, guide_ids, guide_mask, visual_embeds, modal: str,
+                       max_new_tokens: int, temperature: float, top_p: float, seed: int, stop_sequences: tuple,
+                       cache_len: int) -> np.ndarray:
+        """A b = 1 unpadded prompt: guide, tower and splice, then the prefill
+        with its sequence split over the mesh's "dp" ranks
+        (``parallel/ring.ring_prefill``), then the decode loop over the
+        gathered cache (``models/generate.decode_tokens``), the same on every
+        rank."""
+        from .models.generate import decode_tokens
+        from .parallel.mesh import world_mesh
+        from .parallel.ring import ring_prefill
+
+        model, dt = self.model, self.model.model.norm.weight.dtype
+        to_dev = self._to_dev
+        with torch.inference_mode():
+            visual = to_dev(visual_embeds, dt)
+            if visual is None:
+                ge = model.encode_guide(to_dev(guide_ids, torch.int64), to_dev(guide_mask)) \
+                    if self.config.guide_enabled() else None
+                visual = model.encode_visual(to_dev(frames, dt), ge, modal)
+            sp = model.embed_and_splice(to_dev(input_ids, torch.int64), visual)
+            true_len = sp.attention_mask.to(torch.int64).sum(dim=1)
+            mesh = world_mesh()
+            n = mesh["dp"].size() if mesh is not None else 1
+            S = sp.embeds.shape[1]  # b = 1 unpadded: the spliced length is the true length
+            last_hidden, cache = ring_prefill(model, sp.embeds, sp.positions, mesh, "dp",
+                                              cache_len=max(cache_len, -(-S // n) * n))
+            out = decode_tokens(model, cache, last_hidden, true_len, max_new_tokens=max_new_tokens,
+                                temperature=temperature, top_p=top_p, eos_token_id=int(self.eos_token_id),
+                                stop_sequences=stop_sequences, generator=torch.Generator(self.device).manual_seed(seed))
+        return out.cpu().numpy()
+
+    def encode_long_video(self, frames, guide_ids=None, guide_mask=None) -> torch.Tensor:
+        """(t, 3, H, W) frames -> (V, hidden) visual tokens on the model's
+        device, the t axis split over every rank of the default process group
+        (``parallel/long_video.py``; this process alone without one): beyond
+        the reference's 32-frame cap. Every rank passes the same frames and
+        gets the same tokens."""
+        from .parallel.long_video import encode_visual_sharded
+        from .parallel.mesh import world_mesh
+
+        model, dt = self.model, self.model.model.norm.weight.dtype
+        self._maybe_autocalibrate(frames, guide_ids, "video")
+        with torch.inference_mode():
+            ge = None
+            if self.config.guide_enabled() and guide_ids is not None:
+                ge = model.encode_guide(self._to_dev(guide_ids, torch.int64), self._to_dev(guide_mask))[0]
+            return encode_visual_sharded(model, self._to_dev(frames, dt), world_mesh(), guide_embeds=ge,
+                                         modal="video")
 
     def cache_len_for(self, prompt_len: int, visual_tokens: int, max_new_tokens: int) -> int:
         """The KV cache ``generate`` takes: ``cache_len``, grown in steps of
@@ -509,6 +583,18 @@ def mm_infer(image_or_video, instruct, model: HICom, tokenizer, modal: str = "vi
             guide_mask = enc.get("attention_mask")
 
     visual_embeds = None
+    if modal == "video" and frames is not None and model.config.projector.kind == "hicom":
+        # a long video on several ranks: its frames split across them when they split evenly
+        # (HICOM_SEQ_PARALLEL=0 off / 1 at any length / auto: beyond the reference's 32-frame cap)
+        from .parallel.mesh import world_size
+
+        sp = os.environ.get("HICOM_SEQ_PARALLEL", "auto")
+        n, t = world_size(), frames.shape[1]
+        spec = model.config.projector
+        kt = spec.local.temporal_kernel_size if spec.local is not None else 1
+        if sp != "0" and n > 1 and t % (n * kt) == 0 and (sp == "1" or t > 32):
+            visual_embeds = model.encode_long_video(frames[0], guide_ids, guide_mask)[None]
+            frames = None
     if modal == "image" and frames is not None and frames.shape[1] > 1 and "anyres" in (
             model.config.image_aspect_ratio or ""):
         # a multi-crop anyres image: the merged tokens' count depends on image_size

@@ -40,6 +40,10 @@
 //     writes its chunk's unnormalised fp32 output, running max and denominator to a workspace, and
 //     flash_merge_kernel combines the chunks in a fixed order (the same result on every run) into
 //     the bf16 output and the fp32 lse.
+//   * Partials alone (o null): the blocks write their chunks' fp32 partials, even at one chunk, and
+//     no merge runs, so that partials over keys held elsewhere (other ranks, other ring blocks) are
+//     merged with these by one merge pass, all in fp32 (ops/flash_attention.py
+//     flash_forward_partials).
 //
 // Masking follows the Pallas kernel: masked logits are -1e30, so a row with no valid key yet carries
 // p = 1 until a real maximum arrives and wipes it (alpha = 0); keys past Lk are -inf (p = 0). Tiles
@@ -69,9 +73,9 @@ struct Params {
   CUtensorMap tq, tk, tv;         // 64-column boxes of BQ / BK rows, 128-byte swizzle
   CUtensorMap tq8, tk8, tv8;      // 8-column boxes of BQ / BK rows
   const int* kv_lengths;          // (B,) or null
-  bf16* o;                        // (B, H, Lq, d)
+  bf16* o;                        // (B, H, Lq, d), or null for the partials alone
   float* lse;                     // (B, H, Lq)
-  float *o_part, *m_part, *l_part;  // n_split > 1: (n_split, B * H, Lq, d), (n_split, B * H, Lq) x 2
+  float *o_part, *m_part, *l_part;  // n_split > 1 or o null: (n_split, B * H, Lq, d), (n_split, B * H, Lq) x 2
   int B, H, KVH, Lq, Lk, d, n_split;
   float scale, bias;
 };
@@ -274,7 +278,7 @@ __global__ void __launch_bounds__(NTHREADS, DP <= 80 ? 2 : 1) flash_fwd_kernel(c
     l[0] = l[1] = 0.f;
   }
 
-  if (p.n_split == 1) {
+  if (p.n_split == 1 && p.o != nullptr) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (row[r] >= p.Lq) continue;
@@ -365,7 +369,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   dim3 grid((p.Lq + BQ - 1) / BQ, p.B * p.H, p.n_split);
   kernel<<<grid, NTHREADS, smem, stream>>>(p);
   err = cudaGetLastError();
-  if (err != cudaSuccess || p.n_split == 1) return err;
+  if (err != cudaSuccess || p.n_split == 1 || p.o == nullptr) return err;
   return merge(p.o_part, p.m_part, p.l_part, p.o, p.lse, p.n_split, p.B * p.H * p.Lq, p.d, stream);
 }
 
@@ -382,14 +386,15 @@ cudaError_t dispatch(const Params& p, bool causal, cudaStream_t stream) {
 
 // q (B, H, Lq, d), k/v (B, KVH, Lk, d) bf16 contiguous; kv_lengths (B,) int32 or null; o (B, H, Lq, d)
 // bf16; lse (B, H, Lq) fp32. n_split >= 1 chunks of the key axis; for n_split > 1, fp32 workspaces
-// o_part (n_split, B * H, Lq, d), m_part and l_part (n_split, B * H, Lq). d % 8 == 0, d <= 128,
-// H % KVH == 0. Returns a CUDA error code (0 when both launches were accepted).
+// o_part (n_split, B * H, Lq, d), m_part and l_part (n_split, B * H, Lq). With o null the kernel
+// writes those partials (needed then at any n_split) and no merge runs; lse is unused. d % 8 == 0,
+// d <= 128, H % KVH == 0. Returns a CUDA error code (0 when both launches were accepted).
 extern "C" int hicom_flash_fwd(const void* q, const void* k, const void* v, const int* kv_lengths, void* o,
                                float* lse, float* o_part, float* m_part, float* l_part, int B, int H, int KVH,
                                int Lq, int Lk, int d, int n_split, float scale, float bias, int causal,
                                void* stream) {
   if (d % 8 != 0 || d > 128 || KVH <= 0 || H % KVH != 0 || B <= 0 || Lq <= 0 || Lk <= 0 || n_split < 1 ||
-      (n_split > 1 && (o_part == nullptr || m_part == nullptr || l_part == nullptr)))
+      ((n_split > 1 || o == nullptr) && (o_part == nullptr || m_part == nullptr || l_part == nullptr)))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return (int)cudaErrorInvalidValue;

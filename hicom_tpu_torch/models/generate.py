@@ -125,6 +125,19 @@ def generate_tokens(
                            prompt_ids=input_ids, return_stats=return_stats)
 
 
+@torch.inference_mode()
+def decode_tokens(model, cache: KVCache, last_hidden: Tensor, true_len: Tensor, *, max_new_tokens: int = 128,
+                  temperature: float = 0.0, top_p: float = 0.9, eos_token_id: int = 0, stop_sequences: tuple = (),
+                  generator: Optional[torch.Generator] = None) -> Tensor:
+    """The decode loop over a cache prefilled elsewhere (the ring prefill,
+    ``parallel/ring.ring_prefill``): ``last_hidden`` (b, 1, D) the final-norm
+    hidden of each row's last prompt token, ``true_len`` (b,) the prompt
+    lengths, where the rope positions continue. Returns (b, max_new_tokens)
+    ids, as :func:`generate_tokens` would."""
+    return sample_and_loop(model, cache, last_hidden, true_len, max_new_tokens, temperature, top_p, eos_token_id,
+                           stop_sequences, generator)
+
+
 def sample_and_loop(model, cache: KVCache, last_hidden: Tensor, true_len: Tensor, max_new_tokens: int,
                     temperature: float, top_p: float, eos_token_id: int, stop_sequences: tuple,
                     generator: Optional[torch.Generator] = None,

@@ -117,6 +117,20 @@ class HIComModel(Qwen2ForCausalLM):
         nl = self.model.image_newline
         return self.model.mm_projector(features, image_embeds, guide_embeds, modal, nl)
 
+    def encode_visual_shard(self, frames: Tensor, guide_embeds: Optional[Tensor], modal: str, t_offset: int,
+                            t_total: int, kv_group):
+        """One rank's chunk of a long video (``parallel/long_video.py``):
+        frames (b, t_loc, 3, H, W), the chunk's first frame at ``t_offset`` of
+        ``t_total``, through the tower and
+        :meth:`~.projector.HIComProjector.compress_shard` -> (local grid before
+        post-processing, global tokens), the global compressor's keys split
+        over ``kv_group``."""
+        if self.hicom_config.projector.kind != "hicom":
+            raise ValueError("the sequence-parallel path takes the hicom projector")
+        features, image_embeds = self._tower(frames)
+        return self.model.mm_projector.compress_shard(features, image_embeds, guide_embeds, modal, t_offset, t_total,
+                                                      kv_group)
+
     def encode_visual_anyres(self, frames: Tensor, image_size, guide_embeds: Optional[Tensor] = None) -> Tensor:
         """One anyres image: (n, 3, H, W) crops (crop 0 the base image) of an
         image of original ``image_size`` (width, height) -> (V, hidden) tokens;

@@ -36,7 +36,8 @@ def l2_normalize(x: Tensor, eps: float = 0.0) -> Tensor:
 class MultiheadAttention(nn.Module):
     """The projector's attention: optional SigLIP contrastive scaling, where q
     and k are L2-normalized over the full width and the logits use
-    ``exp(logit_scale)`` plus ``logit_bias`` instead of ``1/sqrt(head_dim)``."""
+    ``exp(logit_scale)`` plus ``logit_bias`` instead of ``1/sqrt(head_dim)``.
+    ``kv_group`` splits the key sequence across ranks (``ops/attention.sdpa``)."""
 
     def __init__(self, embed_dim: int, num_heads: int, dtype=None):
         super().__init__()
@@ -49,12 +50,13 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, query: Tensor, key: Tensor, value: Tensor,
                 logit_scale: Optional[Tensor] = None, logit_bias: Union[float, Tensor] = 0.0,
-                mask: Optional[Tensor] = None) -> Tensor:
+                mask: Optional[Tensor] = None, kv_group=None) -> Tensor:
         q, k, v = self.q_proj(query), self.k_proj(key), self.v_proj(value)
         if logit_scale is not None:
             q, k = l2_normalize(q), l2_normalize(k)
             scale, bias = torch.exp(logit_scale), logit_bias
         else:
             scale, bias = (self.embed_dim // self.num_heads) ** -0.5, 0.0
-        out = multi_head_attention(q, k, v, self.num_heads, scale=scale, logit_bias=bias, mask=mask)
+        out = multi_head_attention(q, k, v, self.num_heads, scale=scale, logit_bias=bias, mask=mask,
+                                   kv_group=kv_group)
         return self.out_proj(out)

@@ -15,6 +15,13 @@ cross-attention reaches the K2 flash kernel, and its K5/K6 backward,
 through ``sdpa``. An anyres image reaches the projector as the merge's
 base and patch grid. ``MeanPoolProjector`` is the ``mlp2x_gelu`` /
 ``linear`` baseline.
+
+:meth:`HIComProjector.compress_shard` compresses one rank's chunk of a long
+video's frames (``parallel/long_video.py``): the local compressor is exact on
+the chunk when its length is a multiple of the temporal kernel, and the
+global compressor's keys are split across the ranks (``sdpa(...,
+kv_group=)``), with the 3D position embedding of the whole video sliced at
+the chunk's first frame.
 """
 
 from __future__ import annotations
@@ -188,17 +195,20 @@ class GlobalCompressor(nn.Module):
 
     def forward(self, frames_feature: Tensor, frames_embed: Optional[Tensor] = None,
                 guide_embed: Optional[Tensor] = None, modal: str = "video",
-                logit_scale: Optional[Tensor] = None, logit_bias: Union[float, Tensor] = 0.0) -> Tensor:
-        """frames_feature (b, t, h, w, d) -> (b, N, D)."""
+                logit_scale: Optional[Tensor] = None, logit_bias: Union[float, Tensor] = 0.0,
+                t_offset: int = 0, t_total: Optional[int] = None, kv_group=None) -> Tensor:
+        """frames_feature (b, t, h, w, d) -> (b, N, D). Split across ranks:
+        the chunk holds frames [t_offset, t_offset + t) of ``t_total``, and
+        ``kv_group`` is the group whose ranks hold the other chunks."""
         b, t, h, w, d = frames_feature.shape
         if self.spec.use_pos_emb:
-            pos = sincos_pos_embed_3d(t, h, w, self.embed_dim, frames_feature.device)
-            frames_feature = frames_feature + pos.to(frames_feature.dtype)
+            pos = sincos_pos_embed_3d(t_total or t, h, w, self.embed_dim, frames_feature.device)
+            frames_feature = frames_feature + pos[t_offset:t_offset + t].to(frames_feature.dtype)
         query = self.query.to(frames_feature.dtype)[None].expand(b, -1, -1)
         if self.use_guide is not None:
             query = self.guide_injector(query, guide_embed)
         kv = frames_feature.reshape(b, t * h * w, d)
-        x = self.attn_layer(query, kv, kv, logit_scale=logit_scale, logit_bias=logit_bias)
+        x = self.attn_layer(query, kv, kv, logit_scale=logit_scale, logit_bias=logit_bias, kv_group=kv_group)
         return self.readout(query + x)
 
 
@@ -266,6 +276,31 @@ class HIComProjector(nn.Module):
                 frames_feature, frames_embed = volume(frames_feature, "patch"), volume(frames_embed, "patch")
             parts.append(self.global_compressor(frames_feature, frames_embed, guide_embed, modal, gs, gb))
         return torch.cat(parts, dim=-2) if len(parts) > 1 else parts[0]
+
+    def compress_shard(self, frames_feature: Tensor, frames_embed: Optional[Tensor], guide_embed: Optional[Tensor],
+                       modal: str, t_offset: int, t_total: int, kv_group):
+        """One rank's chunk (b, t_loc, h, w, d) of a ``t_total``-frame video,
+        its first frame at ``t_offset``: returns ``(local_raw, global_tokens)``,
+        the local compressor's (b, t', h', w', D) grid before post-processing
+        (the caller gathers the chunks and post-processes the whole grid once)
+        and the global compressor's (b, N, D) tokens, equal on every rank of
+        ``kv_group``; either is None without its compressor."""
+        t_loc = frames_feature.shape[1]
+        local_raw = global_tokens = None
+        if self.local_compressor is not None:
+            kt = self.local_compressor.spec.temporal_kernel_size
+            if modal != "video" or t_loc % kt or t_loc < kt:
+                raise ValueError(f"sharded local compression needs video chunks divisible by the temporal kernel "
+                                 f"(t_loc={t_loc}, kernel={kt})")
+            ls = self.local_logit_scale if self.local_use_clip_scale else None
+            lb = self.local_logit_bias if self.local_use_clip_scale else 0.0
+            local_raw = self.local_compressor(frames_feature, frames_embed, guide_embed, modal, ls, lb)
+        if self.global_compressor is not None:
+            gs = self.global_logit_scale if self.global_use_clip_scale else None
+            gb = self.global_logit_bias if self.global_use_clip_scale else 0.0
+            global_tokens = self.global_compressor(frames_feature, frames_embed, guide_embed, modal, gs, gb,
+                                                   t_offset=t_offset, t_total=t_total, kv_group=kv_group)
+        return local_raw, global_tokens
 
 
 class MeanPoolProjector(nn.Module):

@@ -32,6 +32,14 @@ whole cache per step. With ``remat=True`` in the config, each layer of a
 cache-less forward under grad mode runs inside
 ``torch.utils.checkpoint.checkpoint`` (the JAX ``nn.remat`` of each block): its
 activations are recomputed in the backward instead of kept.
+
+Ring prefill (``parallel/ring.py``): ``Qwen2Model.forward(...,
+ring_group=)`` takes the process group (or ``ops.attention.SoloGroup``) whose
+ranks each hold one equal chunk of the sequence, and hands it to every
+layer's attention, where JAX reads ``config.ring_axis`` from a twin model.
+Without a cache, or in a prefill from an empty cache, each layer's attention
+is then ``ring_attention(..., is_causal=True)`` over the chunks; as in JAX,
+for unpadded prompts only (no ``padding_mask``).
 """
 
 from __future__ import annotations
@@ -140,12 +148,12 @@ class DecoderAttention(nn.Module):
 
     def forward(self, x: Tensor, rope: Tuple[Tensor, Tensor], cache: Optional[KVCache] = None, layer: int = 0,
                 kv_lengths: Optional[Tensor] = None, prefill_from_empty: bool = False,
-                slot_mask: Optional[Tensor] = None, offsets: Optional[Tensor] = None) -> Tensor:
+                slot_mask: Optional[Tensor] = None, offsets: Optional[Tensor] = None, ring_group=None) -> Tensor:
         """``rope`` = the step's (cos, sin); ``kv_lengths`` the right-padded rows'
         lengths (cache-less or prefill modes); ``slot_mask`` the visible cache
         slots of a step, (b, S) for one token per row, (b, 1, L, S) for more;
         ``offsets`` (b, L) the slots a per-slot step writes. The decoder
-        computes them once per step."""
+        computes them once per step. ``ring_group``: see the module docstring."""
         b, L, _ = x.shape
         hd = self.head_dim
         # head counts from the projections' widths: a tensor-parallel rank holds H/tp and KVH/tp heads
@@ -158,7 +166,14 @@ class DecoderAttention(nn.Module):
         if cache is None or prefill_from_empty:
             if cache is not None:
                 self._write(cache, layer, k, v)
-            out = sdpa(q, k, v, scale=hd**-0.5, is_causal=True, kv_lengths=kv_lengths)
+            if ring_group is not None:
+                from ..parallel.ring import ring_attention
+
+                if kv_lengths is not None:
+                    raise ValueError("ring prefill requires unpadded causal prompts")
+                out = ring_attention(q, k, v, ring_group, scale=hd**-0.5, is_causal=True)
+            else:
+                out = sdpa(q, k, v, scale=hd**-0.5, is_causal=True, kv_lengths=kv_lengths)
         else:
             self._write(cache, layer, k, v, offsets)
             quant = cache.k_scale is not None
@@ -223,9 +238,9 @@ class DecoderLayer(nn.Module):
         self.mlp = DecoderMLP(cfg.hidden_size, cfg.intermediate_size, dtype=dtype, quant=mlp_q)
 
     def forward(self, x, rope, cache=None, layer=0, kv_lengths=None, prefill_from_empty=False, slot_mask=None,
-                offsets=None):
+                offsets=None, ring_group=None):
         x = x + self.self_attn(self.input_layernorm(x), rope, cache, layer, kv_lengths, prefill_from_empty,
-                               slot_mask, offsets)
+                               slot_mask, offsets, ring_group)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -241,10 +256,11 @@ class Qwen2Model(nn.Module):
 
     def forward(self, inputs_embeds: Tensor, positions: Tensor, cache: Optional[KVCache] = None,
                 padding_mask: Optional[Tensor] = None, prefill_from_empty: bool = False,
-                per_slot: bool = False) -> Tensor:
+                per_slot: bool = False, ring_group=None) -> Tensor:
         """Returns the final-norm hidden states; a given cache is written in
         place. ``per_slot``: a step over ``cache.lengths``' per-row offsets,
-        which it leaves as they are (see the module docstring)."""
+        which it leaves as they are; ``ring_group``: this rank's chunk of a
+        ring prefill (see the module docstring)."""
         cfg = self.config
         x = inputs_embeds.to(self.norm.weight.dtype)
         b, L = x.shape[:2]
@@ -278,9 +294,9 @@ class Qwen2Model(nn.Module):
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if remat:
-                x = checkpoint(layer, x, rope, None, i, kv_lengths, use_reentrant=False)
+                x = checkpoint(layer, x, rope, None, i, kv_lengths, ring_group=ring_group, use_reentrant=False)
             else:
-                x = layer(x, rope, cache, i, kv_lengths, prefill_from_empty, slot_mask, offsets)
+                x = layer(x, rope, cache, i, kv_lengths, prefill_from_empty, slot_mask, offsets, ring_group)
         if cache is not None and not per_slot:
             cache.length += L
         return self.norm(x)

@@ -9,6 +9,17 @@ filled with -inf); ``kv_lengths`` and boolean ``mask`` filled with
 ``sdpa`` sends CUDA tensors to the flash kernels exactly where the JAX
 ``auto`` rule sends TPU arrays to Pallas (:func:`flash_route`), and everything
 else to the plain path.
+
+``sdpa(..., kv_group=)`` is attention over a KV sequence split across the
+ranks of a process group, q the same on every rank (JAX's ``kv_axis_name``):
+each rank runs K2 without its merge
+(:func:`~.flash_attention.flash_forward_partials`; its plain twin on the
+CPU) over its own chunk, which gives fp32 partials (unnormalised output, max,
+denominator); the ranks all-gather them and merge them with the merge kernel
+(:func:`~.flash_attention.merge_partials`). JAX takes a ``pmax`` of the
+maxima and a ``psum`` of numerators and denominators instead: the same
+algebra in fp32, with one gather in place of two reductions.
+:class:`SoloGroup` stands for a group of this process alone.
 """
 
 from __future__ import annotations
@@ -16,8 +27,9 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
-from .flash_attention import DEFAULT_BLOCK_Q, run_kernel, uses_fullblock
+from .flash_attention import DEFAULT_BLOCK_Q, flash_forward_partials, merge_partials, run_kernel, uses_fullblock
 
 Tensor = torch.Tensor
 FULL_BLOCK_MAX = 1024  # whole-sequence single-block limit (JAX HICOM_FLASH_FULLBLOCK_MAX default)
@@ -54,12 +66,19 @@ def sdpa(
     mask: Optional[Tensor] = None,
     is_causal: bool = False,
     kv_lengths: Optional[Tensor] = None,
+    kv_group=None,
 ) -> Tensor:
     """Attention over the last two axes: q (..., Q, d), k/v (..., K, d).
 
     ``mask`` is boolean (..., Q, K), True = attend; ``kv_lengths`` (batch,)
-    right-aligned valid kv lengths. Output in q's dtype.
+    right-aligned valid kv lengths. Output in q's dtype. ``kv_group``: the
+    process group (or :class:`SoloGroup`) the KV sequence is split over, in
+    rank order; ``kv_lengths`` then count this rank's chunk (see the module
+    docstring; no ``mask``, no causal mask).
     """
+    if kv_group is not None:
+        return _sdpa_kv_sharded(q, k, v, scale=scale, logit_bias=logit_bias, mask=mask, is_causal=is_causal,
+                                kv_lengths=kv_lengths, group=kv_group)
     kernel = flash_route(q.shape, k.shape, mask=mask, scale=scale, logit_bias=logit_bias, is_causal=is_causal,
                          kv_lengths=kv_lengths) if q.is_cuda else None
     if kernel is not None:
@@ -106,6 +125,57 @@ def _sdpa_plain(q, k, v, *, scale, logit_bias, mask, is_causal, kv_lengths) -> T
     return out.to(q.dtype)
 
 
+class SoloGroup:
+    """A group of this process alone, for the split-sequence paths when no
+    process group is initialised."""
+
+    def size(self) -> int:
+        return 1
+
+    def rank(self) -> int:
+        return 0
+
+
+def group_size(group) -> int:
+    return group.size() if isinstance(group, SoloGroup) else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return group.rank() if isinstance(group, SoloGroup) else dist.get_rank(group)
+
+
+def gather_rows(t: Tensor, group) -> Tensor:
+    """Every rank's ``t``, stacked in rank order: (n, ...)."""
+    n = group_size(group)
+    if n == 1:
+        return t[None]
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.stack(parts)
+
+
+def gather_partials(parts, group):
+    """Every rank's K2 partials ``(o_part, m_part, l_part)``, each rank's
+    chunks laid end to end in rank order: (n * c, ...)."""
+    return tuple(gather_rows(t, group).flatten(0, 1) for t in parts)
+
+
+def _sdpa_kv_sharded(q, k, v, *, scale, logit_bias, mask, is_causal, kv_lengths, group) -> Tensor:
+    """K2's partials over this rank's KV chunk, then one merge of every
+    rank's. A tensor ``scale`` or ``logit_bias`` (the clip-scale form) is
+    read once as a number, which waits for the device. No gradient on the
+    card."""
+    if mask is not None or is_causal:
+        raise ValueError("attention over a split KV sequence takes kv_lengths only (no mask, no causal mask)")
+    d = q.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / d**0.5
+    shape = lambda x: (x.shape[0] if x.ndim > 2 else 1, -1) + tuple(x.shape[-2:])  # noqa: E731
+    parts = flash_forward_partials(q.reshape(shape(q)), k.reshape(shape(k)), v.reshape(shape(v)), kv_lengths,
+                                   scale, float(logit_bias), False)
+    out, _ = merge_partials(*gather_partials(parts, group), q.dtype)
+    return out.reshape(q.shape)
+
+
 def split_heads(x: Tensor, num_heads: int) -> Tensor:
     """(..., L, H*d) -> (..., H, L, d)"""
     *lead, L, D = x.shape
@@ -129,11 +199,12 @@ def multi_head_attention(
     logit_bias: Union[float, Tensor] = 0.0,
     mask: Optional[Tensor] = None,
     is_causal: bool = False,
+    kv_group=None,
 ) -> Tensor:
     """MHA over already-projected q/k/v of shape (..., L, H*d); ``mask`` is
-    (..., Q, K) and broadcast over heads."""
+    (..., Q, K) and broadcast over heads; ``kv_group`` as in :func:`sdpa`."""
     qh, kh, vh = split_heads(q, num_heads), split_heads(k, num_heads), split_heads(v, num_heads)
     if mask is not None:
         mask = mask[..., None, :, :]
-    out = sdpa(qh, kh, vh, scale=scale, logit_bias=logit_bias, mask=mask, is_causal=is_causal)
+    out = sdpa(qh, kh, vh, scale=scale, logit_bias=logit_bias, mask=mask, is_causal=is_causal, kv_group=kv_group)
     return merge_heads(out)

@@ -27,7 +27,13 @@ version) or sums K5's (:func:`sum_partials_reference`), in a fixed order.
 K6 has one block per 64 keys of a kv head; when those cannot fill the card
 (the decoder's 96) it splits each block's walk over its (query head, query
 tile) units (:func:`dkv_splits`, :func:`dkv_unit_range`) and sums the fp32
-dK and dV partials the same way. :func:`split_forward_reference`,
+dK and dV partials the same way. For attention over keys split across ranks
+(``ops/attention.py``, ``parallel/ring.py``), :func:`flash_forward_partials`
+stops K2 before its merge and returns its fp32 partials, and
+:func:`merge_partials` runs the merge kernel alone over the partials of every
+rank or block, so nothing is rounded before the one merge (JAX's ``psum`` of
+fp32 numerators and denominators); it counts its own launches.
+:func:`split_forward_reference`,
 :func:`split_dq_reference` and :func:`split_dkv_reference` are the split
 paths in plain PyTorch, over the kernels' own tiles.
 
@@ -89,6 +95,18 @@ def flash_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor
     dtype before the weighted sum, denominator ``max(l, 1e-30)``. Returns out
     (q.dtype) and lse (b, H, Lq) in the working type.
     """
+    o, m, l = flash_partials_reference(q, k, v, kv_lengths, scale, logit_bias, causal)
+    denom = l[0, ..., None].clamp_min(1e-30)
+    return (o[0] / denom).to(q.dtype), m[0] + torch.log(denom[..., 0])
+
+
+def flash_partials_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float,
+                             logit_bias: float, causal: bool) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain twin of the forward kernel's partials alone, over its keys as one
+    chunk, in the working type: the unnormalised output o_part (1, b, H, Lq,
+    d), the max m_part and the denominator l_part (1, b, H, Lq), masked
+    logits at -1e30 and p rounded to v's dtype (a row with no valid key: max
+    -1e30, every key at p = 1)."""
     b, H, Lq, d = q.shape
     KVH, Lk = k.shape[1], k.shape[2]
     acc = _acc_dtype(q)
@@ -98,10 +116,8 @@ def flash_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor
     logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
-    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype).to(acc), v.to(acc)) / denom
-    lse = (m + torch.log(denom))[..., 0]
-    return out.reshape(b, H, Lq, d).to(q.dtype), lse.reshape(b, H, Lq)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype).to(acc), v.to(acc))
+    return o.reshape(1, b, H, Lq, d), m.reshape(1, b, H, Lq), p.sum(dim=-1).reshape(1, b, H, Lq)
 
 
 def flash_backward_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], out: Tensor,
@@ -364,27 +380,34 @@ def _check(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], what: 
 
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float,
-            logit_bias: float, causal: bool, n_split: Optional[int] = None) -> Tuple[Tensor, Tensor]:
-    """The forward kernel (and its merge pass when split) on CUDA tensors.
-    ``n_split`` defaults to :func:`forward_splits`; tests force it."""
+            logit_bias: float, causal: bool, n_split: Optional[int] = None, partials: bool = False
+            ) -> Tuple[Tensor, ...]:
+    """The forward kernel (and its merge pass when split) on CUDA tensors:
+    (out, lse). With ``partials`` the kernel alone, returning its fp32
+    partials (o_part, m_part, l_part) over ``n_split`` chunks, shaped
+    (n_split, b, H, Lq, d) and (n_split, b, H, Lq). ``n_split`` defaults to
+    :func:`forward_splits`; tests force it."""
     b, H, KVH, Lq, Lk, d, lens = _check(q, k, v, kv_lengths, "flash kernel")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if n_split is None:
         n_split = forward_splits(b, H, Lq, Lk, _sm_count(q.device.index or 0))
-    out = torch.empty_like(q)
-    lse = torch.empty((b, H, Lq), dtype=torch.float32, device=q.device)
+    out = None if partials else torch.empty_like(q)
+    lse = None if partials else torch.empty((b, H, Lq), dtype=torch.float32, device=q.device)
     parts = (None, None, None)
-    if n_split > 1:
+    if n_split > 1 or partials:
         parts = (torch.empty((n_split, b * H, Lq, d), dtype=torch.float32, device=q.device),
                  torch.empty((n_split, b * H, Lq), dtype=torch.float32, device=q.device),
                  torch.empty((n_split, b * H, Lq), dtype=torch.float32, device=q.device))
     fn = c_function("flash_fwd", "hicom_flash_fwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                     + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr() if lens is not None else None,
-                out.data_ptr(), lse.data_ptr(), *(t.data_ptr() if t is not None else None for t in parts),
+                *(t.data_ptr() if t is not None else None for t in (out, lse) + parts),
                 b, H, KVH, Lq, Lk, d, int(n_split), float(scale), float(logit_bias), int(causal),
                 torch.cuda.current_stream(q.device).cuda_stream)
     check(status, "hicom_flash_fwd")
+    if partials:
+        o_part, m_part, l_part = parts
+        return o_part.view(n_split, b, H, Lq, d), m_part.view(n_split, b, H, Lq), l_part.view(n_split, b, H, Lq)
     return out, lse
 
 
@@ -430,6 +453,38 @@ def flash_forward(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor],
 
 
 flash_forward.launches = 0
+
+
+def flash_forward_partials(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float,
+                           logit_bias: float = 0.0, causal: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    """K2 without its merge: the fp32 partials of its key chunks, o_part (c,
+    b, H, Lq, d) unnormalised, m_part and l_part (c, b, H, Lq), for
+    :func:`merge_partials` to merge with partials over other keys. Arguments
+    as :func:`flash_forward`, whose launches it counts (c is 1 on the CPU)."""
+    plain_operands("K2", q, k, v, kv_lengths)
+    if q.device.type == "cpu":
+        return flash_partials_reference(q, k, v, kv_lengths, scale, logit_bias, causal)
+    parts = _launch(q, k, v, kv_lengths, scale, logit_bias, causal, partials=True)
+    flash_forward.launches += 1
+    return parts
+
+
+def merge_partials(o_part: Tensor, m_part: Tensor, l_part: Tensor, dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """The merge kernel over the partials of n key chunks, each as
+    :func:`flash_forward_partials` gives them: o_part (n, ..., d), m_part and
+    l_part (n, ...). Chunk s weighs exp(m_s - max m), which is 0 for a chunk
+    with no valid key (max near -1e30) beside one with a key. Returns (out
+    (..., d) in ``dtype``, lse (...)); the merge kernel writes bf16."""
+    plain_operands("merge", o_part, m_part, l_part)
+    if o_part.device.type == "cpu":
+        return merge_partials_reference(o_part, m_part, l_part, dtype)
+    n, d = o_part.shape[0], o_part.shape[-1]
+    out, lse = _launch_merge(o_part.reshape(n, -1, d), m_part.reshape(n, -1), l_part.reshape(n, -1))
+    merge_partials.launches += 1
+    return out.reshape(o_part.shape[1:]).to(dtype), lse.reshape(m_part.shape[1:])
+
+
+merge_partials.launches = 0
 
 
 _BWD_ARGS = [ctypes.c_void_p] * 7

@@ -44,13 +44,21 @@ def window_indices(n: int, kernel: int) -> np.ndarray:
     return starts[:, None] + np.arange(kernel)[None, :]
 
 
+def _gather_indices(n: int, kernel: int) -> np.ndarray:
+    """:func:`window_indices` as JAX's gather reads them: an axis shorter than
+    its kernel gives negative indices, which count from the end (``i + n``)
+    and are then clamped into the axis."""
+    idx = window_indices(n, kernel)
+    return np.clip(np.where(idx < 0, idx + n, idx), 0, n - 1)
+
+
 def tile_thw(x: Tensor, kernel: Sequence[int]) -> Tensor:
     """Group (..., t, h, w, d) volumes into (..., (t1 h1 w1), (t2 h2 w2), d) tiles."""
     *lead, t, h, w, d = x.shape
     kt, kh, kw = kernel
-    it = torch.as_tensor(window_indices(t, kt), device=x.device)  # (t1, kt)
-    ih = torch.as_tensor(window_indices(h, kh), device=x.device)
-    iw = torch.as_tensor(window_indices(w, kw), device=x.device)
+    it = torch.as_tensor(_gather_indices(t, kt), device=x.device)  # (t1, kt)
+    ih = torch.as_tensor(_gather_indices(h, kh), device=x.device)
+    iw = torch.as_tensor(_gather_indices(w, kw), device=x.device)
     t1, h1, w1 = it.shape[0], ih.shape[0], iw.shape[0]
     n = len(lead)
     x = x.index_select(n, it.reshape(-1)).reshape(*lead, t1, kt, h, w, d)

@@ -24,13 +24,19 @@ JAX's ``with mesh:``.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 MESH_AXES = ("dp", "fsdp", "tp")
 DATA_AXES = ("dp", "fsdp")
+
+
+def world_size() -> int:
+    """The ranks of the default process group; 1 when none is initialised
+    (where JAX counts ``len(jax.devices())``)."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def under_torchrun() -> bool:
@@ -100,6 +106,46 @@ def create_mesh(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1, device_typ
 def single_device_mesh(device_type: Optional[str] = None):
     """The (1, 1, 1) mesh of a one-rank group."""
     return create_mesh(1, 1, 1, device_type)
+
+
+_WORLD_MESH = (None, None)  # (the default group it was made over, the mesh)
+
+
+def world_mesh():
+    """The (world, 1, 1) mesh over the default process group, made once for
+    each group joined; None when no group is initialised."""
+    global _WORLD_MESH
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    if _WORLD_MESH[0] is not dist.group.WORLD:
+        _WORLD_MESH = (dist.group.WORLD, create_mesh(dp=dist.get_world_size()))
+    return _WORLD_MESH[1]
+
+
+def flat_group(mesh, names: Sequence[str]):
+    """(group, n, index) of this rank over mesh axes ``names``: the index is
+    the flattened coordinate over the axes in the order given, as JAX counts
+    it. The group is the one axis of more than one rank among them, or the
+    default group when they cover every such axis of the mesh (its rank order
+    is then the flattened coordinate); a
+    :class:`~..ops.attention.SoloGroup` with no mesh or no axis of more than
+    one rank."""
+    from ..ops.attention import SoloGroup
+
+    if mesh is None:
+        return SoloGroup(), 1, 0
+    n, idx = 1, 0
+    for a in names:
+        n, idx = n * mesh[a].size(), idx * mesh[a].size() + mesh[a].get_local_rank()
+    split = [a for a in names if mesh[a].size() > 1]
+    if not split:
+        return SoloGroup(), 1, 0
+    if len(split) == 1:
+        return mesh.get_group(split[0]), n, idx
+    if n != dist.get_world_size() or idx != dist.get_rank():
+        raise ValueError(f"axes {tuple(names)} of a mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: name every "
+                         "axis of more than one rank, in the mesh's order")
+    return dist.group.WORLD, n, idx
 
 
 def data_coordinate(mesh) -> tuple:

@@ -7,7 +7,9 @@ through one ``load_state_dict(strict=True)``:
   of arrays, as ``hicom_tpu``'s ``HIComModel.init`` makes them), by its own copy
   of the JAX package's export rules: Dense kernels transposed, conv kernels
   HWIO -> OIHW, ``scale`` -> ``weight``, ``embedding`` -> ``weight``,
-  ``layers_i`` -> ``layers.i``;
+  ``layers_i`` -> ``layers.i``; a decoder saved with ``scan_layers=True``
+  (its layers stacked on a leading axis under ``layers.layer``) is split
+  into the per-layer names first;
 * :func:`load_hf_state_dict`: an exported ``model.safetensors`` or a real SFT
   checkpoint (single file or sharded), read by the port's own safetensors
   reader (:func:`load_safetensors`; no ``safetensors`` package needed);
@@ -75,6 +77,27 @@ def flax_to_torch_state(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray
     return out
 
 
+def _map_leaves(fn, tree):
+    return {k: _map_leaves(fn, v) for k, v in tree.items()} if isinstance(tree, Mapping) else fn(tree)
+
+
+def unstack_layers(tree: Mapping) -> Dict:
+    """A module tree whose ``layers`` hold the scan layout (``{"layer": ...}``,
+    every leaf stacked on a leading layer axis) -> the per-layer layout
+    (``layers_0``, ``layers_1``, ...); any other tree as it is."""
+    layers = tree.get("layers")
+    if not (isinstance(layers, Mapping) and set(layers) == {"layer"}):
+        return dict(tree)
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    stacked = layers["layer"]
+    first = stacked
+    while isinstance(first, Mapping):
+        first = next(iter(first.values()))
+    for i in range(np.asarray(first).shape[0]):
+        out[f"layers_{i}"] = _map_leaves(lambda x, i=i: np.asarray(x)[i], stacked)
+    return out
+
+
 def _tower_keys(sd: Dict[str, np.ndarray], is_text: bool) -> Dict[str, np.ndarray]:
     root = "text_model" if is_text else "vision_model"
     host = "guide_encoder" if is_text else "vision_tower"
@@ -129,13 +152,17 @@ def state_dict_from_jax(params: Mapping, config=None) -> Dict[str, torch.Tensor]
 
     ``params`` holds any of ``language_model``, ``vision_tower``,
     ``guide_encoder``, ``mm_projector`` and ``image_newline``, with SigLIP or
-    CLIP towers and a hicom or mean-pool projector. ``config`` is accepted
+    CLIP towers and a hicom or mean-pool projector; the decoder's layers may
+    be in the scan layout (:func:`unstack_layers`). ``config`` is accepted
     for symmetry with the JAX export and not needed: the names alone decide
     the layout.
     """
     sd: Dict[str, np.ndarray] = {}
     if "language_model" in params:
-        for k, v in flax_to_torch_state(params["language_model"]).items():
+        lm = dict(params["language_model"])
+        if "model" in lm:
+            lm["model"] = unstack_layers(lm["model"])
+        for k, v in flax_to_torch_state(lm).items():
             sd[re.sub(r"model\.layers_(\d+)\.", r"model.layers.\1.", k)] = v
     if "vision_tower" in params:
         sd.update(_jax_tower_keys(params["vision_tower"], is_text=False))

@@ -17,8 +17,9 @@ import torch
 from hicom_tpu_torch.ops.flash_attention import (DKV_BLOCK_K, _launch, _launch_dkv, _launch_dq, _launch_merge,
                                                  _launch_part_sum, backward_operands, dkv_splits, flash_attention_gqa,
                                                  flash_backward, flash_backward_reference, flash_forward,
-                                                 flash_reference, forward_splits, fullblock_attention,
-                                                 merge_partials_reference, sum_partials_reference)
+                                                 flash_forward_partials, flash_reference, forward_splits,
+                                                 fullblock_attention, merge_partials, merge_partials_reference,
+                                                 sum_partials_reference)
 from hicom_tpu_torch.ops.flash_decode import DECODE_CHUNK, decode_reference, flash_decode
 from hicom_tpu_torch.ops.local_attn import chunked_tile_reference, fused_tile_attention, tile_reference
 from hicom_tpu_torch.ops.pos_embed import get_3d_sincos_pos_embed, sincos_pos_embed_3d
@@ -269,6 +270,27 @@ def test_merge_and_sum_kernels_match_their_plain_versions():
     assert _worst(out, ref) <= 1 and (lse - ref_lse).abs().max().item() <= 1e-3
     dq, = _launch_part_sum((o, 0.125))
     assert _worst(dq, sum_partials_reference(o, 0.125, torch.bfloat16)) <= 1
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens", [
+    (1, 28, 4, 256, 256, 128, True, None),  # a ring block on the diagonal
+    (2, 9, 9, 32, 700, 128, False, [0, 500]),  # a rank's global-compressor chunk, one row with no valid key
+])
+def test_forward_partials_merge_to_the_forward(rn, b, H, KVH, Lq, Lk, d, causal, lens, n_split):
+    """K2's fp32 partials alone (no merge), merged by the merge wrapper, equal
+    the plain forward; a row with no valid key is the mean of the values."""
+    q, k, v = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    parts = _launch(q, k, v, kl, d**-0.5, 0.1, causal, n_split=n_split, partials=True)
+    assert parts[0].shape == (n_split, b, H, Lq, d) and parts[0].dtype == torch.float32
+    out, lse = merge_partials(*parts, torch.bfloat16)
+    ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.1, causal)
+    assert _worst(out, ref) <= 1
+    ok = ref_lse > -1e29
+    assert (lse[ok] - ref_lse[ok]).abs().max().item() <= 1e-3
+    o, m, l = flash_forward_partials(q, k, v, kl, d**-0.5, 0.1, causal)
+    assert _worst(merge_partials(o, m, l, torch.bfloat16)[0], ref) <= 1
 
 
 @pytest.mark.parametrize("n_split", [1, 2, 3, 7])

@@ -52,13 +52,23 @@ EVAL_MODULES = ("hicom_tpu_torch.eval", "hicom_tpu_torch.eval.common", "hicom_tp
                 "hicom_tpu_torch.profiling", "hicom_tpu_torch.conversation", "hicom_tpu_torch.bench")
 
 
-def _imports_no_jax(modules):
+def _imports_no_jax(modules, path=REPO):
     code = f"import importlib, sys\nfor m in {modules!r}: importlib.import_module(m)\n" + \
         "print('BAD', sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'hicom_tpu')))"
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
-                         env={**os.environ, "PYTHONPATH": REPO})
+                         env={**os.environ, "PYTHONPATH": path})
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+SEQ_MODULES = ("hicom_tpu_torch.parallel", "hicom_tpu_torch.parallel.long_video", "hicom_tpu_torch.parallel.ring",
+               "hicom_tpu_torch.parallel.pipeline", "hicom_tpu_torch.ops.attention", "hicom_tpu_torch.models.generate")
+
+
+def test_seq_parallel_modules_import_no_jax():
+    """The sequence-parallel modules, and the rank workers of their tests
+    (``tests/torch_ranks.py``), import neither JAX nor the JAX package."""
+    _imports_no_jax(SEQ_MODULES + ("torch_ranks",), os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
 
 
 def test_train_modules_import_no_jax():
@@ -122,17 +132,18 @@ def test_rank_processes_hold_no_jax_and_wrappers_refuse_dtensors(tmp_path):
     R.spawn(R.hygiene_worker, 2, str(tmp_path / "out.pt"))
     out = torch.load(tmp_path / "out.pt")
     assert out["bad"] == []
-    assert set(out["raised"]) == {"K1", "K2", "K3", "K4", "K5/K6"}
+    assert set(out["raised"]) == {"K1", "K2", "K3", "K4", "K5/K6", "merge"}
     for kid, msg in out["raised"].items():
         assert msg and "DTensor" in msg, (kid, msg)
 
 
 def test_cpu_tensors_take_plain_twins_without_counting():
-    from hicom_tpu_torch.ops.flash_attention import flash_backward, flash_forward, fullblock_attention
+    from hicom_tpu_torch.ops.flash_attention import (flash_backward, flash_forward, flash_forward_partials,
+                                                     fullblock_attention, merge_partials)
     from hicom_tpu_torch.ops.flash_decode import flash_decode
     from hicom_tpu_torch.ops.local_attn import fused_tile_attention
 
-    wrappers = (fullblock_attention, flash_forward, flash_backward, flash_decode, fused_tile_attention)
+    wrappers = (fullblock_attention, flash_forward, flash_backward, flash_decode, fused_tile_attention, merge_partials)
     before = [f.launches for f in wrappers]
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((2, 2, 16, 8)).astype(np.float32))
@@ -142,5 +153,7 @@ def test_cpu_tensors_take_plain_twins_without_counting():
     flash_decode(x[:, :, :1], x, x, torch.ones(2, 16, dtype=torch.bool))
     vol = torch.from_numpy(rng.standard_normal((4, 3, 3, 8)).astype(np.float32))
     fused_tile_attention(vol[:1, :1, :1], vol, vol, (4, 3, 3), 0.3)
+    parts = flash_forward_partials(x, x[:, :1], x[:, :1], torch.tensor([9, 16]), 0.3, 0.0, True)
+    merge_partials(*(torch.cat([p, p]) for p in parts), torch.float32)
     after = [f.launches for f in wrappers]
     assert after == before

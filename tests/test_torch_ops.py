@@ -282,7 +282,8 @@ def test_resize_matches_jax_and_torch_interpolate(thw, out):
     np.testing.assert_allclose(_np(got), _np(tri), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("thw,kernel", [((8, 9, 9), (4, 3, 3)), ((6, 4, 5), (4, 3, 3)), ((5, 27, 27), (4, 3, 3))])
+@pytest.mark.parametrize("thw,kernel", [((8, 9, 9), (4, 3, 3)), ((6, 4, 5), (4, 3, 3)), ((5, 27, 27), (4, 3, 3)),
+                                        ((2, 9, 9), (4, 3, 3)), ((2, 2, 7), (5, 3, 3))])
 def test_tile_thw_matches_jax(thw, kernel):
     rng = np.random.default_rng(7)
     x = _rand(rng, *thw, 3)

@@ -265,7 +265,7 @@ def hygiene_worker(rank: int, out_path: str) -> None:
     a DTensor operand."""
     from torch.distributed.tensor import Replicate, distribute_tensor
 
-    from hicom_tpu_torch.ops.flash_attention import flash_backward, flash_forward, fullblock_attention
+    from hicom_tpu_torch.ops.flash_attention import flash_backward, flash_forward, fullblock_attention, merge_partials
     from hicom_tpu_torch.ops.flash_decode import flash_decode
     from hicom_tpu_torch.ops.local_attn import fused_tile_attention
     from hicom_tpu_torch.parallel.mesh import create_mesh
@@ -279,7 +279,8 @@ def hygiene_worker(rank: int, out_path: str) -> None:
              "K5/K6": lambda: flash_backward(x, x, x, None, d, torch.zeros(1, 2, 16), x, 0.3),
              "K3": lambda: flash_decode(x[:, :, :1], x, x, d[:, 0, :, 0] > 0),
              "K4": lambda: fused_tile_attention(torch.ones(1, 1, 1, 8), d[0, :1, :4].reshape(4, 1, 1, 8),
-                                                x[0, :1, :4].reshape(4, 1, 1, 8), (4, 1, 1), 0.3)}
+                                                x[0, :1, :4].reshape(4, 1, 1, 8), (4, 1, 1), 0.3),
+             "merge": lambda: merge_partials(d, x[:, :, :, 0], x[:, :, :, 0], torch.float32)}
     raised = {}
     for kid, call in calls.items():
         try:
@@ -290,3 +291,128 @@ def hygiene_worker(rank: int, out_path: str) -> None:
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hicom_tpu"))
     if rank == 0:
         torch.save({"bad": bad, "raised": raised}, out_path)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel inference: each worker takes a payload file the test
+# process wrote (configs, state dicts made from JAX's parameters, inputs) and
+# writes this rank's results to ``<out_path>.<rank>``.
+# ---------------------------------------------------------------------------
+
+
+def _tiny_model(overrides: dict, state_dict):
+    from hicom_tpu_torch.config import tiny_test_config
+    from hicom_tpu_torch.models.hicom import HIComModel
+
+    model = HIComModel(tiny_test_config(**overrides))
+    model.load_state_dict(state_dict, strict=True)
+    return model.eval()
+
+
+def load(path: str):
+    """A payload or result file of these workers (numpy arrays and tensors)."""
+    return torch.load(path, weights_only=False)
+
+
+def _save_rank(results: dict, out_path: str, rank: int) -> None:
+    results["no_jax"] = not any(m.split(".")[0] in ("jax", "jaxlib", "hicom_tpu") for m in sys.modules)
+    torch.save(results, f"{out_path}.{rank}")
+
+
+def long_video_worker(rank: int, payload_path: str, out_path: str) -> None:
+    """``encode_visual_sharded`` over a (world, 1, 1) mesh for each case of
+    the payload: {name: (config overrides, state dict, frames, guide ids)}."""
+    from hicom_tpu_torch.parallel.long_video import encode_visual_sharded
+    from hicom_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(dp=dist.get_world_size(), device_type="cpu")
+    results = {}
+    for name, (overrides, sd, frames, gids) in load(payload_path).items():
+        model = _tiny_model(overrides, sd)
+        with torch.no_grad():
+            ge = model.encode_guide(torch.as_tensor(gids))[0] if gids is not None else None
+        results[name] = encode_visual_sharded(model, torch.as_tensor(frames), mesh, guide_embeds=ge)
+    _save_rank(results, out_path, rank)
+
+
+def ring_worker(rank: int, payload_path: str, out_path: str) -> None:
+    """``ring_self_attention`` on the payload's whole q/k/v for each mask
+    case, ``ring_prefill`` of its embeddings, and ``HICom.generate`` routed to
+    the ring prefill (``HICOM_RING_PREFILL_MIN=1``), all over the mesh's dp
+    axis."""
+    from hicom_tpu_torch.api import HICom
+    from hicom_tpu_torch.parallel.mesh import create_mesh
+    from hicom_tpu_torch.parallel.ring import ring_prefill, ring_self_attention
+
+    p = load(payload_path)
+    mesh = create_mesh(dp=dist.get_world_size(), device_type="cpu")
+    q, k, v = (torch.as_tensor(x) for x in p["qkv"])
+    results = {"attention": {}}
+    for case, kw in p["cases"].items():
+        kw = {key: torch.as_tensor(val) if key == "kv_lengths" else val for key, val in kw.items()}
+        results["attention"][case] = ring_self_attention(q, k, v, mesh, axis="dp", **kw)
+    model = _tiny_model({}, p["state_dict"])
+    last, cache = ring_prefill(model, torch.as_tensor(p["embeds"]), torch.as_tensor(p["positions"]), mesh, "dp",
+                               cache_len=p["cache_len"])
+    results["prefill"] = dict(last=last, k=cache.k, v=cache.v, length=cache.length, valid=cache.valid)
+    os.environ["HICOM_RING_PREFILL_MIN"] = "1"
+    hc = HICom(config=model.hicom_config, model=model, eos_token_id=2, cache_len=64)
+    calls = []
+    real = HICom._generate_ring
+    HICom._generate_ring = lambda self, *a: calls.append(1) or real(self, *a)
+    try:
+        results["ids"] = hc.generate(p["ids"], frames=p["frames"], modal="video", max_new_tokens=6)
+    finally:
+        HICom._generate_ring = real
+    results["ring_calls"] = len(calls)
+    _save_rank(results, out_path, rank)
+
+
+def pipeline_worker(rank: int, payload_path: str, out_path: str) -> None:
+    """``pipeline_prefill`` of a 4-layer decoder over a ("pp",) mesh of the
+    world (2 microbatches), its hidden states and the gradients of
+    sum(hidden^2) of this stage's layers."""
+    import dataclasses
+
+    from hicom_tpu_torch.config import tiny_test_config
+    from hicom_tpu_torch.models.qwen2 import Qwen2ForCausalLM
+    from hicom_tpu_torch.parallel import create_pp_mesh, pipeline_prefill
+
+    p = load(payload_path)
+    lm = Qwen2ForCausalLM(dataclasses.replace(tiny_test_config().text_config, num_hidden_layers=4))
+    missing, unexpected = lm.load_state_dict(p["state_dict"], strict=False)
+    # JAX's init over embeddings makes no embedding table
+    assert missing == ["model.embed_tokens.weight"] and not unexpected, (missing, unexpected)
+    mesh = create_pp_mesh(device_type="cpu")
+    hidden = pipeline_prefill(lm, torch.as_tensor(p["embeds"]), torch.as_tensor(p["positions"]), mesh,
+                              num_microbatches=2)
+    hidden.square().sum().backward()
+    grads = {n: prm.grad for n, prm in lm.named_parameters() if prm.grad is not None and prm.grad.abs().sum() > 0}
+    _save_rank({"hidden": hidden.detach(), "grads": grads}, out_path, rank)
+
+
+def seq_api_worker(rank: int, ckpt: str, payload_path: str, out_path: str) -> None:
+    """``mm_infer`` on each video of the payload under each
+    ``HICOM_SEQ_PARALLEL`` setting, counting ``HICom.encode_long_video`` calls."""
+    from transformers import AutoTokenizer
+
+    import hicom_tpu_torch
+    from hicom_tpu_torch.api import HICom
+
+    p = load(payload_path)
+    hc = hicom_tpu_torch.load_model(ckpt, dtype="float32", cache_len=256, device="cpu")
+    tok = AutoTokenizer.from_pretrained(ckpt)
+    calls = []
+    real = HICom.encode_long_video
+    HICom.encode_long_video = lambda self, *a, **k: calls.append(1) or real(self, *a, **k)
+    results = {}
+    try:
+        for name, (video, setting) in p["cases"].items():
+            os.environ["HICOM_SEQ_PARALLEL"] = setting
+            before = len(calls)
+            text = hicom_tpu_torch.mm_infer(video, p["question"], hc, tok, modal="video", guide_ids=p["guide_ids"],
+                                            max_new_tokens=8)
+            results[name] = (text, len(calls) - before)
+    finally:
+        HICom.encode_long_video = real
+    _save_rank(results, out_path, rank)
