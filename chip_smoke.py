@@ -55,7 +55,16 @@ Phases:
      and [pipeline] (``pipeline_prefill`` at pp 1 against the decoder
      forward); K2's partials are also checked at the ring's block shape
      (2,048 x 2,048, causal and full), and the merge wrapper at the 8-rank
-     ring's;
+     ring's; then, in the same group, [mesh-serve] (``ServeEngine(mesh=
+     world_mesh())`` at tp 1 over [serve-engine]'s 8 requests, graphed with
+     the tp collectives captured in the round graphs: streams equal to
+     [serve-engine]'s graphed ones bit for bit, the collectives a captured
+     round holds, the graphed round beside [serve-engine]'s, K1-K4
+     launched, and the caller's model still giving those streams after)
+     and [eval-dp] (``HICom.shard_for_eval()`` and ``mm_infer_batch`` over 4
+     videos of 8 frames: the unsharded call's strings); K1, K2 and K3 are
+     also checked at a tp-2 rank's head shards (8 tower heads, 14/2 decoder
+     heads at the prefill and at the engine's decode);
   4b. [clip]: the same 3 requests (336x336 frames) through HICom-7B on the
      CLIP-L/336 tower at its published widths (K1 at d 64, K4 with 768-wide
      keys and 1024-wide values); [anyres]: the reference's llava1.5 anyres
@@ -329,21 +338,23 @@ def kernel_checks(card: str):
             raise AssertionError(f"{name}: kernel further from float64 than its plain version (max {ek:.4g} "
                                  f"against {ep:.4g}, rms {rk:.4g} against {rp:.4g})")
 
-    # K1: SigLIP tower self-attention, 32 frames x 16 heads, L = 729, d = 72
-    bh, L, d = 32 * 16, 729, 72
-    q, k, v = rn(bh, L, d), rn(bh, L, d), rn(bh, L, d)
-    # the library call on 4-D (bh, 1, L, d) tensors: SDPA's fused backends take only 4-D inputs
-    # (on 3-D ones it falls back to the math path, which writes out every score)
-    record("fullblock_attention[siglip 32f]", "K1",
-           lambda: fullblock_attention(q, k, v, d**-0.5),
-           lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.0, False)[0][:, 0],
-           lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
-           4 * bh * L * L * d, 4 * bh * L * d * 2 + bh * L * 4, grid=fwd_grid(bh, 1, L, L))
-    del q, k, v
+    # K1: SigLIP tower self-attention, 32 frames x 16 heads, L = 729, d = 72; and one tp-2 rank's 8 heads
+    # ([mesh-serve] runs tp 1 on one card: a check only)
+    for label, heads, phase in (("siglip 32f", 16, ""), ("siglip 32f tp2 shard", 8, None)):
+        bh, L, d = 32 * heads, 729, 72
+        q, k, v = rn(bh, L, d), rn(bh, L, d), rn(bh, L, d)
+        # the library call on 4-D (bh, 1, L, d) tensors: SDPA's fused backends take only 4-D inputs
+        # (on 3-D ones it falls back to the math path, which writes out every score)
+        record(f"fullblock_attention[{label}]", "K1",
+               lambda: fullblock_attention(q, k, v, d**-0.5),
+               lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.0, False)[0][:, 0],
+               lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
+               4 * bh * L * L * d, 4 * bh * L * d * 2 + bh * L * 4, grid=fwd_grid(bh, 1, L, L), phase=phase)
+        del q, k, v
 
-    # K2 prefill: 28 q / 4 kv heads (7B) and 12 / 2 (1.5B), L = 743 (64-token bucket - 1 + 680),
-    # causal, a right-padded row (kv_lengths 700) beside a full one
-    for label, H, KVH in (("7b", 28, 4), ("1.5b", 12, 2)):
+    # K2 prefill: 28 q / 4 kv heads (7B), a tp-2 rank's 14 / 2 of them (a check only) and 12 / 2 (1.5B),
+    # L = 743 (64-token bucket - 1 + 680), causal, a right-padded row (kv_lengths 700) beside a full one
+    for label, H, KVH in (("7b", 28, 4), ("7b tp2 shard", 14, 2), ("1.5b", 12, 2)):
         b, L, d = 2, 743, 128
         lens = [743, 700]
         q, k, v = rn(b, H, L, d), rn(b, KVH, L, d), rn(b, KVH, L, d)
@@ -357,7 +368,7 @@ def kernel_checks(card: str):
                lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
                4 * H * d * pairs, 2 * b * H * L * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * L * 4, valid,
-               grid=fwd_grid(b, H, L, L), phase="stage3-sft" if label == "1.5b" else "")
+               grid=fwd_grid(b, H, L, L), phase={"1.5b": "stage3-sft", "7b tp2 shard": None}.get(label, ""))
         del q, k, v, mask
 
     # K2 at the ring block shape: one rank's 2,048-token chunk of a 16,384-token prompt split over 8 ranks
@@ -436,13 +447,15 @@ def kernel_checks(card: str):
     eng_rows = ((729, 743, 20), (735, 743, 5), (40, 64, 30), (721, 807, 12))
     emask = torch.stack([(slot < t) | ((slot >= sp) & (slot <= sp + g)) for t, sp, g in eng_rows])
     ne = int(emask.sum())
-    qe, ke, ve = rn(4, H, 1, d), rn(4, KVH, S, d), rn(4, KVH, S, d)
-    record("flash_decode[engine b4]", "K3", lambda: flash_decode(qe, ke, ve, emask),
-           lambda: decode_reference(qe, ke, ve, emask, None, None, d**-0.5),
-           lambda: F.scaled_dot_product_attention(qe, ke, ve, attn_mask=emask[:, None, None, :], enable_gqa=True),
-           4 * H * d * ne, 2 * 4 * H * d * 2 + ne * KVH * d * 2 * 2 + 4 * S, grid=(-(-S // DECODE_CHUNK), 4 * KVH),
-           phase="serve-engine")
-    del qe, ke, ve
+    # the whole heads, and a tp-2 rank's 14 / 2 of them (a check only: [mesh-serve] runs tp 1 on one card)
+    for label, He, KVHe, phase in (("engine b4", H, KVH, "serve-engine"), ("engine b4 tp2 shard", 14, 2, None)):
+        qe, ke, ve = rn(4, He, 1, d), rn(4, KVHe, S, d), rn(4, KVHe, S, d)
+        record(f"flash_decode[{label}]", "K3", lambda: flash_decode(qe, ke, ve, emask),
+               lambda: decode_reference(qe, ke, ve, emask, None, None, d**-0.5),
+               lambda: F.scaled_dot_product_attention(qe, ke, ve, attn_mask=emask[:, None, None, :], enable_gqa=True),
+               4 * He * d * ne, 2 * 4 * He * d * 2 + ne * KVHe * d * 2 * 2 + 4 * S,
+               grid=(-(-S // DECODE_CHUNK), 4 * KVHe), phase=phase)
+        del qe, ke, ve
     ki = torch.randint(-127, 128, (b, KVH, S, d), generator=gen, device=dev, dtype=torch.int8)
     vi = torch.randint(-127, 128, (b, KVH, S, d), generator=gen, device=dev, dtype=torch.int8)
     ks = torch.rand(b, KVH, S, generator=gen, device=dev) * 0.02
@@ -927,6 +940,8 @@ def main_path(card: str, cfg=None, label: str = "slice", then=None):
 # ---------------------------------------------------------------------------
 
 ENGINE = dict(n_slots=4, cache_len=4096, sync_steps=16, prompt_buckets=(64, 128, 256, 512))
+# what [serve-engine] leaves for [mesh-serve]: its requests, graphed streams, tokenizer and readings
+ENGINE_REFERENCE = {}
 ENGINE_BUDGETS = (32, 8, 24, 16, 12, 28, 20, 10)  # max_new_tokens of the phase's 8 requests
 NEAR_TIE = 2**-6  # a divergence is allowed where the standalone run's top-2 gap is at most this of |top logit|
 
@@ -1034,10 +1049,10 @@ def drive(eng, reqs):
     return [res[i].tokens.tolist() for i in ids], [res[i] for i in ids], wall, rounds
 
 
-def engine_line(label, card, streams, results, wall, rounds):
+def engine_line(label, card, streams, results, wall, rounds, phase="serve-engine"):
     n_tok = sum(map(len, streams))
     ttft = " ".join(f"{1e3 * r.first_token_s:.0f}" for r in results)
-    log(f"[serve-engine] {label}: {card} | {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s aggregate | "
+    log(f"[{phase}] {label}: {card} | {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s aggregate | "
         f"{len(rounds)} rounds, admissions in them {[adm for _, adm in rounds]} | submit-to-first-token ms per "
         f"request: {ttft}")
     return n_tok / wall
@@ -1153,7 +1168,7 @@ def serve_engine_phase(card: str, hc):
     graphed_eng = serve_engine(hc, tok, cuda_graphs=True, **ENGINE)
     g1 = drive(graphed_eng, reqs)
     graphed, gres, gwall, grounds = drive(graphed_eng, reqs)
-    engine_line("graphed, first pass (captures)", card, *g1)
+    first_tps = engine_line("graphed, first pass (captures)", card, *g1)
     graphed_tps = engine_line("graphed", card, graphed, gres, gwall, grounds)
     spec_eng = serve_engine(hc, tok, spec_k=3, **ENGINE)
     s1 = drive(spec_eng, reqs)
@@ -1241,6 +1256,9 @@ def serve_engine_phase(card: str, hc):
             f"step, {4 * steps / round_ms * 1e3:.1f} tokens/s) | the next under torch.profiler: wall {wall:.1f} ms, "
             f"device kernels {busy:.1f} ms, events {span:.1f} ms, idle share {1 - busy / wall:.3f}")
     peak = torch.cuda.max_memory_allocated() / 1e9
+    ENGINE_REFERENCE.update(reqs=reqs, streams=graphed, tok=tok, prof_reqs=prof_reqs, peak_gb=peak,
+                            first_pass_tokens_per_s=first_tps,
+                            round_ms=rounds["graphed"][0] if "graphed" in rounds else None)
 
     launches = {name: f.launches for name, f in fns.items()}
     captured, replayed = ServeEngine.k3_captured - cap0, ServeEngine.k3_replayed - rep0
@@ -1886,26 +1904,156 @@ def pipeline_phase(card: str, hc) -> dict:
     return launches
 
 
-def seq_parallel_phase(card: str, hc) -> dict:
-    """[seq-parallel] on [slice]'s HICom-7B (its decoder norms at 1, after
-    [serve-engine]), in a one-rank NCCL group (torchrun's environment set in
-    the process, ``init_distributed``): [long-video], [ring-prefill] and
-    [pipeline]. Returns each one's launches by wrapper."""
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving and data-parallel eval at HICom-7B: [mesh-serve], [eval-dp]
+# ---------------------------------------------------------------------------
+
+
+def tp_collectives() -> int:
+    """The tp collectives issued so far (all-reduces and gathers, counted by their wrappers)."""
+    from hicom_tpu_torch.parallel.sharding import all_gather_tp, all_reduce_tp
+
+    return all_reduce_tp.launches + all_gather_tp.launches
+
+
+def mesh_serve_phase(card: str, hc) -> dict:
+    """[mesh-serve]: ``ServeEngine(mesh=world_mesh())`` at tp 1 on [slice]'s
+    model over [serve-engine]'s 8 requests, graphed, in one pass (its first
+    round of each kind is the eager warm-up, the second captured, with the
+    tp collectives inside the graph). Gates: its streams equal
+    [serve-engine]'s graphed streams bit for bit; every captured round holds
+    collectives; K1-K4 launched (K3 counted per replay); afterwards an engine
+    without a mesh on the caller's model gives the same streams. Prints the
+    collectives a captured round holds, a graphed decode round with 4 slots
+    resident beside [serve-engine]'s, aggregate tokens/s and the peak."""
+    import torch
+
+    from hicom_tpu_torch.api import serve_engine
+    from hicom_tpu_torch.parallel.mesh import world_mesh
+    from hicom_tpu_torch.serve import ServeEngine
+
+    ref = ENGINE_REFERENCE
+    t_phase = time.perf_counter()
+    fns = counters()
+    zero_counts(fns)
+    cap0, rep0, issued = ServeEngine.k3_captured, ServeEngine.k3_replayed, tp_collectives()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = serve_engine(hc, ref["tok"], cuda_graphs=True, mesh=world_mesh(), **ENGINE)
+    streams, res, wall, rounds = drive(eng, ref["reqs"])
+    launches = {name: f.launches for name, f in fns.items()}
+    captured, replayed = ServeEngine.k3_captured - cap0, ServeEngine.k3_replayed - rep0
+    launches["flash_decode"] += replayed - captured
+    tps = engine_line("tp 1, graphed", card, streams, res, wall, rounds, phase="mesh-serve")
+    kv_heads, held = eng.cache.k.shape[2], dict(eng.graph_collectives)
+    idle = round_idle(eng, ref["prof_reqs"])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[mesh-serve] {card} | tp collectives captured a round {held} (K3 {eng.graph_launches}), "
+        f"{tp_collectives() - issued} issued in all | replays {eng.replays} | cache kv heads {kv_heads} | "
+        f"aggregate {tps:.1f} tokens/s in its one pass, captures included ([serve-engine]'s first graphed pass "
+        f"{ref['first_pass_tokens_per_s']:.1f}) | peak memory {peak:.2f} GB (all of [serve-engine]: "
+        f"{ref['peak_gb']:.2f})")
+    if idle is not None:
+        round_ms, wall_ms, busy, span = idle
+        steps = ENGINE["sync_steps"]
+        ref_ms = "not measured" if ref["round_ms"] is None else f"{ref['round_ms']:.1f} ms"
+        log(f"[mesh-serve] graphed decode round, 4 slots resident: {round_ms:.1f} ms ({round_ms / steps:.2f} ms a "
+            f"step) against [serve-engine]'s {ref_ms} | the next under torch.profiler: wall {wall_ms:.1f} ms, "
+            f"device kernels {busy:.1f} ms, events {span:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
+    del eng
+    again = serve_engine(hc, ref["tok"], cuda_graphs=True, **ENGINE)
+    after = drive(again, ref["reqs"])[0]
+    del again
+    torch.cuda.empty_cache()
+    log(f"[mesh-serve] launches: {launches} (K3: {replayed} by replays, {captured} capture calls taken out) | "
+        f"streams == [serve-engine]'s graphed: {streams == ref['streams']} | the caller's model afterwards: "
+        f"{after == ref['streams']} | phase {time.perf_counter() - t_phase:.1f} s")
+    if streams != ref["streams"]:
+        raise AssertionError(f"[mesh-serve] streams differ from [serve-engine]'s: {streams} vs {ref['streams']}")
+    if after != ref["streams"]:
+        raise AssertionError("[mesh-serve] the caller's model no longer gives [serve-engine]'s streams")
+    if not held or min(held.values()) <= 0:
+        raise AssertionError(f"[mesh-serve] a captured round holds no tp collective: {held}")
+    if min(launches.values()) <= 0 or replayed <= 0:
+        raise AssertionError(f"[mesh-serve] K1-K4 not all launched: {launches}, K3 by replays {replayed}")
+    return launches
+
+
+EVAL_DP_FRAMES = 8  # the short videos of [eval-dp]
+
+
+def eval_dp_phase(card: str, hc) -> dict:
+    """[eval-dp]: ``HICom.shard_for_eval()`` on [slice]'s model in the
+    one-rank group, then ``mm_infer_batch`` over 4 seeded videos of 8
+    frames, greedy, 16 new tokens: the batch divides the one data rank, so
+    it runs as that rank's rows and the ids pass through the all-gather.
+    Gate: the strings of the unsharded call before it. Returns the sharded
+    call's launches by wrapper."""
+    import torch
+
+    from hicom_tpu_torch.api import mm_infer_batch
+
+    cfg, tok = hc.config, ENGINE_REFERENCE["tok"]
+    rng = np.random.default_rng(60)
+    size, gcfg = cfg.vision_config.image_size, cfg.guide_text_config
+    videos = list(rng.uniform(-1, 1, (4, EVAL_DP_FRAMES, 3, size, size)).astype(np.float32))
+    instructs = [" ".join(f"q{int(w)}" for w in rng.integers(0, 10**6, 24)) for _ in videos]
+    guide_ids = rng.integers(0, gcfg.vocab_size, (4, gcfg.max_position_embeddings))
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        texts = mm_infer_batch(videos, instructs, hc, tok, guide_ids=guide_ids, max_new_tokens=16)
+        return texts, time.perf_counter() - t0
+
+    want, t_plain = run()
+    fns = counters()
+    zero_counts(fns)
+    mesh = hc.shard_for_eval()
+    try:
+        got, t_dp = run()
+    finally:
+        hc.eval_mesh = None
+    launches = {name: f.launches for name, f in fns.items()}
+    log(f"[eval-dp] {card} | shard_for_eval mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} | mm_infer_batch of 4 "
+        f"videos of {EVAL_DP_FRAMES} frames, 16 new tokens: {t_dp:.3f} s sharded, {t_plain:.3f} s unsharded | "
+        f"strings equal: {got == want} | launches {launches}")
+    if got != want:
+        raise AssertionError(f"[eval-dp] sharded strings differ from the unsharded call's: {got} vs {want}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[eval-dp] K1-K4 not all launched: {launches}")
+    return launches
+
+
+SEQ_PHASES = ("long-video", "ring-prefill", "pipeline")
+SLICE_C_PHASES = ("mesh-serve", "eval-dp")
+
+
+def group_phases(card: str, hc, names=SEQ_PHASES + SLICE_C_PHASES) -> dict:
+    """On [slice]'s HICom-7B (its decoder norms at 1, after [serve-engine]),
+    in one one-rank NCCL group (torchrun's environment set in the process,
+    ``init_distributed``): [seq-parallel]'s [long-video], [ring-prefill] and
+    [pipeline], then [mesh-serve] and [eval-dp] (of ``names``). Returns each
+    one's launches by wrapper."""
     import torch
     import torch.distributed as dist
 
     from hicom_tpu_torch.parallel.mesh import init_distributed
 
-    t_phase = time.perf_counter()
+    phases = {"long-video": long_video_phase, "ring-prefill": ring_prefill_phase, "pipeline": pipeline_phase,
+              "mesh-serve": mesh_serve_phase, "eval-dp": eval_dp_phase}
+    out, seconds = {}, {}
     with mesh_env(free_port()):
         init_distributed(DEVICE, 1, 1, 1)
         try:
-            out = {"long-video": long_video_phase(card, hc), "ring-prefill": ring_prefill_phase(card, hc),
-                   "pipeline": pipeline_phase(card, hc)}
+            for name in names:
+                t0 = time.perf_counter()
+                out[name] = phases[name](card, hc)
+                seconds[name] = round(time.perf_counter() - t0, 1)
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
-    log(f"[seq-parallel] {time.perf_counter() - t_phase:.1f} s")
+    log(f"[one-rank group] seconds by phase {seconds}, {sum(seconds.values()):.1f} s in all")
     return out
 
 
@@ -3833,9 +3981,9 @@ def main() -> int:
     quant_ops_checks(card)
     # each phase's launches by wrapper, counted from 0 just before it runs
     launches = {"serve-engine": {}}
-    # [serve-engine], then [seq-parallel], run on [slice]'s model before main_path frees it
+    # [serve-engine], then [seq-parallel], [mesh-serve] and [eval-dp], run on [slice]'s model before main_path frees it
     launches["serve"] = main_path(card, then=lambda hc: (launches["serve-engine"].update(serve_engine_phase(card, hc)),
-                                                         launches.update(seq_parallel_phase(card, hc))))
+                                                         launches.update(group_phases(card, hc))))
     launches["clip"] = main_path(card, clip_config(), "clip")
     launches["anyres"] = anyres_phase(card)
     launches["serve-int8"] = serve_quant_phase(card, "serve-int8", "int8")

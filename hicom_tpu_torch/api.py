@@ -37,6 +37,12 @@ attention across the ranks (:meth:`HICom._generate_ring`,
 ``parallel/ring.py``). Both need more than one rank. As in JAX, ``mm_infer``
 always passes the bucket padding mask, so the ring route is reached only
 through ``generate(..., attention_mask=None)``.
+
+Data-parallel eval (:meth:`HICom.shard_for_eval`, JAX's): a batch that
+divides the eval mesh's device count is split over its data ranks, each
+rank generating its rows, and the ids are all-gathered, so every rank
+returns the whole result; ``mm_serve(..., mesh=)`` serves tensor-parallel
+(``serve.ServeEngine``).
 """
 
 from __future__ import annotations
@@ -121,10 +127,55 @@ class HICom:
     fp_decoder_weights: Optional[dict] = None
     tower_calibrated: bool = False
     decoder_calibrated: bool = False
+    eval_mesh: Any = None  # shard_for_eval's mesh: batched generate calls split over its data ranks
 
     @property
     def device(self) -> torch.device:
         return self.model.model.norm.weight.device
+
+    def shard_for_eval(self, mesh=None):
+        """Split later batched :meth:`generate` calls (``mm_infer_batch``)
+        over the data ranks of ``mesh`` (JAX's ``shard_for_eval``); returns
+        the mesh. Parameters stay replicated: every rank holds the whole
+        model, on its own device. ``mesh`` defaults to
+        ``create_mesh(dp=world_size())`` over the default process group;
+        without a group the world is this process, and every batch runs
+        whole (None is returned)."""
+        from .parallel.mesh import world_mesh
+
+        mesh = mesh if mesh is not None else world_mesh()
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot split the batches of a model on {self.device}")
+        self.eval_mesh = mesh
+        return mesh
+
+    def _eval_rows(self, rows: int) -> Optional[slice]:
+        """This rank's rows of a batch of ``rows`` on the eval mesh (JAX's
+        ``_place_batch``): its data coordinate's, where ``rows`` divides the
+        mesh's device count; None where every rank runs the whole batch."""
+        from .parallel.mesh import data_coordinate, data_rows
+
+        mesh = self.eval_mesh
+        if mesh is None or rows % mesh.size():
+            return None
+        return data_rows(rows, *data_coordinate(mesh))
+
+    def _gather_rows(self, part: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ids, (rows / n, T) each, -> the whole
+        batch in data-coordinate order; the all-gather is issued at one
+        rank too. Every rank's rows are ``max_new_tokens`` wide (eos after a
+        stop), as the unsharded call's."""
+        import torch.distributed as dist
+
+        from .parallel.mesh import DATA_AXES, flat_group
+
+        mesh = self.eval_mesh
+        group, n, _ = flat_group(mesh, DATA_AXES)
+        if n == 1:  # one data rank: its own group, so that the gather still runs
+            group = mesh.get_group("dp")
+        whole = part.new_empty((n * part.shape[0],) + part.shape[1:])
+        dist.all_gather_into_tensor(whole, part.contiguous(), group=group)
+        return whole
 
     def _to_dev(self, x, dt=None):
         """numpy or host data -> a tensor on the model's device; a tensor
@@ -277,12 +328,23 @@ class HICom:
 
         to_dev = self._to_dev
         gen = torch.Generator(dev).manual_seed(seed)
+        b = input_ids.shape[0]
+        rows = self._eval_rows(b)
+        if rows is not None:  # this rank's rows; the prefill and stopping rules those of the whole batch
+            if attention_mask is None and b > 1:
+                attention_mask = np.ones(input_ids.shape, bool)
+            input_ids, frames, guide_ids, guide_mask, attention_mask, visual_embeds = (
+                None if x is None else x[rows]
+                for x in (input_ids, frames, guide_ids, guide_mask, attention_mask, visual_embeds))
         out = generate_tokens(
             self.model, to_dev(input_ids, torch.int64), to_dev(frames, dtype), to_dev(guide_ids, torch.int64),
             to_dev(guide_mask), to_dev(attention_mask), to_dev(visual_embeds, dtype),
             modal=modal if multimodal else "text", max_new_tokens=max_new_tokens, temperature=temp,
             top_p=float(top_p), eos_token_id=int(self.eos_token_id), cache_len=cache_len,
-            stop_sequences=tuple(stop_sequences), generator=gen, spec_k=int(spec_decode))
+            stop_sequences=tuple(stop_sequences), generator=gen, spec_k=int(spec_decode),
+            sample_rows=None if rows is None else (rows, b))
+        if rows is not None:
+            out = self._gather_rows(out)
         return out.cpu().numpy()
 
     def _generate_ring(self, input_ids, frames, guide_ids, guide_mask, visual_embeds, modal: str,
@@ -677,7 +739,7 @@ def serve_engine(model: HICom, tokenizer, n_slots: int = 4, cache_len: Optional[
         pad_token_id=tokenizer.pad_token_id if tokenizer.pad_token_id is not None else 0,
         # speculative serving (greedy only): the kwarg wins, the environment is the default
         spec_k=0 if do_sample else int(kwargs.get("spec_k", os.environ.get("HICOM_SPEC_DECODE", "0"))),
-        device=model.device, cuda_graphs=kwargs.get("cuda_graphs"))
+        device=model.device, cuda_graphs=kwargs.get("cuda_graphs"), mesh=kwargs.get("mesh"))
 
 
 def serve_request(sample: dict, model: HICom, tokenizer, modal: str = "video", guide_len: int = 32,
@@ -724,7 +786,8 @@ def mm_serve(samples, model: HICom, tokenizer, modal: str = "video", n_slots: in
     None or absent: text only), ``modal``, ``guide_instruct`` / ``guide_ids``,
     ``max_new_tokens``. Shared kwargs: ``max_new_tokens``, ``do_sample``,
     ``temperature``, ``top_p``, ``stop_strings``, ``spec_k`` (default: env
-    ``HICOM_SPEC_DECODE``; greedy only) and ``cuda_graphs`` (the engine's)."""
+    ``HICOM_SPEC_DECODE``; greedy only), ``cuda_graphs`` and ``mesh`` (the
+    engine's: a mesh serves tensor-parallel over its tp axis)."""
     stop_strings = list(kwargs.get("stop_strings", ()))
     stop_seqs = keyword_token_sequences(stop_strings, tokenizer)
     engine = serve_engine(model, tokenizer, n_slots, cache_len, sync_steps, prompt_buckets, **kwargs)

@@ -50,6 +50,12 @@ def extract_mcqa_letter(
 
 
 def open_answer_file(path: str):
+    """``path`` opened for writing, its directory made; on a rank other than 0
+    of a process group (``--data-parallel``), a sink: only rank 0 writes."""
+    from ..utils import is_main_process
+
+    if not is_main_process():
+        return open(os.devnull, "w")
     path = os.path.expanduser(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     return open(path, "w")

@@ -1,18 +1,24 @@
 """Unified eval inference entry point: one command per benchmark.
 
-Port of ``hicom_tpu/eval/runner.py`` on one device: the model loads once
-(the port's ``model_init``) and the whole question set streams through
-``mm_infer``, or ``mm_infer_batch`` with ``--batch-size`` above 1.
-``--num-chunks/--chunk-idx`` remain for sharding over processes.
+Port of ``hicom_tpu/eval/runner.py``: the model loads once (the port's
+``model_init``) and the whole question set streams through ``mm_infer``, or
+``mm_infer_batch`` with ``--batch-size`` above 1. ``--num-chunks/--chunk-idx``
+remain for sharding over processes.
 
     python -m hicom_tpu_torch.eval.runner --benchmark videomme --model-path CKPT \\
         --video-folder ... --question-file ... --answer-file out.json [--device cpu]
+    torchrun --nproc_per_node N -m hicom_tpu_torch.eval.runner --benchmark mvbench ... \\
+        --data-parallel --batch-size 8
 
-``--device`` defaults to ``cuda`` and raises without a card. The JAX flags
-keep their meaning where one device can honour them: ``--data-parallel``
-replicates over the one device and exits when more than one card is visible
-(the multi-GPU port, ROADMAP Queue 1 item 5); ``--scan-layers`` is accepted
-and has no numeric effect.
+``--device`` defaults to ``cuda`` and raises without a card.
+``--data-parallel`` splits each batch of ``mm_infer_batch`` over the ranks
+(``HICom.shard_for_eval``). One process drives one device, so above one card
+the ranks are ``torchrun``'s: the flag joins its process group (NCCL on the
+card, gloo with ``--device cpu``); every rank runs the same loop, and only
+rank 0 writes the answer files. Without ``torchrun`` it raises where more
+than one card is visible, and one card is a mesh of one, as in JAX.
+``--batch-size`` must divide the ranks (JAX's check and message).
+``--scan-layers`` is accepted and has no numeric effect.
 """
 
 from __future__ import annotations
@@ -63,8 +69,8 @@ def build_parser():
                    help="accepted and ignored: a compile-time layer layout of the JAX package with no "
                         "numeric effect")
     p.add_argument("--data-parallel", action="store_true",
-                   help="one device: replicated over it; more than one visible card exits (multi-GPU "
-                        "port, ROADMAP Queue 1 item 5, multi-GPU slice C)")
+                   help="split batched generation over the ranks of torchrun's process group (one device "
+                        "each; only rank 0 writes the answers)")
     p.add_argument("--max-new-tokens", type=int, default=1024)
     p.add_argument("--batch-size", type=int, default=1,
                    help="videos per batched generate (MCQA benchmarks)")
@@ -116,23 +122,56 @@ def calibrate(model, processor, tokenizer, calib_video: str) -> None:
               f"scales to calibrate", file=sys.stderr)
 
 
-def main(argv=None):
+def data_parallel_device(device, batch_size: int):
+    """``--data-parallel``: under ``torchrun``, join its process group and
+    return this rank's device; without it, this process is the world, and
+    more than one visible card raises. Exits with JAX's message when
+    ``batch_size`` does not divide the ranks."""
     import torch
+
+    from ..parallel.mesh import init_distributed, under_torchrun, world_size
+
+    if under_torchrun():
+        device = init_distributed(device)
+    elif device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise SystemExit(f"--data-parallel over {torch.cuda.device_count()} cards runs one process per card: "
+                         f"start the runner with `torchrun --nproc_per_node {torch.cuda.device_count()} -m "
+                         f"hicom_tpu_torch.eval.runner ...`")
+    n_dev = world_size()
+    if batch_size % n_dev != 0:
+        # batches only shard when the batch axis divides the device count
+        raise SystemExit(
+            f"--data-parallel needs --batch-size to be a multiple of the "
+            f"{n_dev} devices (got {batch_size}); also note only the "
+            f"batched MCQA benchmarks (mvbench/mlvu/...) shard — "
+            f"batch-1 benchmarks run replicated."
+        )
+    return device
+
+
+def main(argv=None):
+    import torch.distributed as dist
+
+    from ..utils import is_main_process
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     if args.skip_existing and os.path.exists(args.answer_file) and os.path.getsize(args.answer_file) > 0:
         print(f"answer file exists, skipping: {args.answer_file}", file=sys.stderr)
         return
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise SystemExit(f"--data-parallel over {torch.cuda.device_count()} cards needs the multi-GPU port "
-                         f"(ROADMAP Queue 1 item 5, multi-GPU slice C)")
+    joined = False  # whether this call joined torchrun's group (and so leaves it at the end)
+    if args.data_parallel:
+        joined = not dist.is_initialized()
+        device = data_parallel_device(device, args.batch_size)
+        joined = joined and dist.is_initialized()
     model, processor, tokenizer = model_init(
         args.model_path, model_base=args.model_base, dtype=args.dtype, device=device,
         load_8bit=args.load_8bit, load_4bit=args.load_4bit, load_w8a8_tower=args.tower_quant or False,
         dec_quant=args.dec_quant, device_preprocess=args.device_preprocess, kv_cache_int8=args.kv_cache_int8)
     if args.calib_video:
         calibrate(model, processor, tokenizer, args.calib_video)
+    if args.data_parallel:
+        model.shard_for_eval()
     args.model_id = get_model_name_from_path(args.model_path)
 
     def infer(tensor, instruct, modal="video", image_size=None, guide_instruct=None):
@@ -154,7 +193,10 @@ def main(argv=None):
 
     bench = REGISTRY[args.benchmark]()
     bench.run(args, processor, infer)
-    print(f"done: {args.benchmark} → {args.answer_file}", file=sys.stderr)
+    if is_main_process():
+        print(f"done: {args.benchmark} → {args.answer_file}", file=sys.stderr)
+    if joined:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

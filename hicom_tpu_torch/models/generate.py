@@ -16,7 +16,7 @@ are exactly those of ``spec_k = 0``.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -25,18 +25,35 @@ from .qwen2 import KVCache
 Tensor = torch.Tensor
 
 
-def sample_token(logits: Tensor, generator: Optional[torch.Generator], temperature: float, top_p: float) -> Tensor:
-    """logits (b, vocab) -> token (b,). Greedy when temperature == 0."""
-    if temperature == 0.0:
-        return logits.argmax(dim=-1)
+def top_p_logits(logits: Tensor, temperature: float, top_p: float) -> Tensor:
+    """fp32 logits over ``temperature``, -inf outside the nucleus: the tokens
+    kept until the cumulative probability exceeds ``top_p`` (always the
+    top-1). Where it never does (top_p 1.0, a sum rounding below it), every
+    token stays, as JAX's out-of-range take keeps them."""
     logits = logits.float() / temperature
     sorted_logits = logits.sort(dim=-1, descending=True).values
     cum = torch.softmax(sorted_logits, dim=-1).cumsum(dim=-1)
-    # keep tokens until the cumulative probability exceeds top_p (always the top-1)
-    cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True)
+    cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True).clamp_max(logits.shape[-1] - 1)
     cutoff_logit = sorted_logits.gather(-1, cutoff_idx)
-    logits = logits.masked_fill(logits < cutoff_logit, float("-inf"))
-    return torch.multinomial(torch.softmax(logits, dim=-1), 1, generator=generator)[:, 0]
+    return logits.masked_fill(logits < cutoff_logit, float("-inf"))
+
+
+def sample_token(logits: Tensor, generator: Optional[torch.Generator], temperature: float, top_p: float,
+                 rows: Optional[Tuple[slice, int]] = None) -> Tensor:
+    """logits (b, vocab) -> token (b,). Greedy when temperature == 0.
+
+    A sample is ``torch.multinomial``'s draw for one sample, written out:
+    the argmax of the probabilities over Exp(1) noise of the same shape,
+    drawn from ``generator`` (the same numbers and tokens). ``rows`` =
+    (slice, batch) when ``logits`` are those rows of a batch of ``batch``:
+    the whole batch's noise is drawn and the rows' taken, so that a batch
+    split over ranks samples as it does whole."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    probs = torch.softmax(top_p_logits(logits, temperature, top_p), dim=-1)
+    sl, batch = rows if rows is not None else (slice(None), probs.shape[0])
+    noise = torch.empty((batch,) + probs.shape[1:], dtype=probs.dtype, device=probs.device)
+    return (probs / noise.exponential_(1, generator=generator)[sl]).argmax(dim=-1)
 
 
 def keyword_token_sequences(keywords, tokenizer) -> tuple:
@@ -94,10 +111,13 @@ def generate_tokens(
     spec_k: int = 0,
     spec_ngram: int = 3,
     return_stats: bool = False,
+    sample_rows: Optional[Tuple[slice, int]] = None,
 ):
     """Returns (b, max_new_tokens) generated ids, eos-padded after a stop;
     with ``return_stats`` an ``(ids, decode iterations)`` tuple (under
-    speculation, emitted tokens per iteration is the decode speed-up)."""
+    speculation, emitted tokens per iteration is the decode speed-up).
+    ``sample_rows``: (slice, batch) when these rows are that slice of a
+    batch split over ranks (:func:`sample_token`)."""
     cfg = model.hicom_config
     b = input_ids.shape[0]
     visual = visual_embeds
@@ -122,7 +142,7 @@ def generate_tokens(
     spec = spec_k if (spec_k > 0 and temperature == 0.0 and b == 1 and attention_mask is None) else 0
     return sample_and_loop(model, cache, last_hidden, true_len, max_new_tokens, temperature, top_p,
                            eos_token_id, stop_sequences, generator, spec_k=spec, spec_ngram=spec_ngram,
-                           prompt_ids=input_ids, return_stats=return_stats)
+                           prompt_ids=input_ids, return_stats=return_stats, sample_rows=sample_rows)
 
 
 @torch.inference_mode()
@@ -142,14 +162,15 @@ def sample_and_loop(model, cache: KVCache, last_hidden: Tensor, true_len: Tensor
                     temperature: float, top_p: float, eos_token_id: int, stop_sequences: tuple,
                     generator: Optional[torch.Generator] = None,
                     on_token: Optional[Callable[[int], None]] = None, spec_k: int = 0, spec_ngram: int = 3,
-                    prompt_ids: Optional[Tensor] = None, return_stats: bool = False):
+                    prompt_ids: Optional[Tensor] = None, return_stats: bool = False,
+                    sample_rows: Optional[Tuple[slice, int]] = None):
     """Sample the first token from the prefill's last hidden state, then decode
     one token per step until every row stopped or ``max_new_tokens`` (with
     ``spec_k``, :func:`_spec_loop`). ``on_token(step)`` is called once the
     ids of ``step`` are written (by the one-token loop)."""
     b = last_hidden.shape[0]
     dev = last_hidden.device
-    first = sample_token(model.logits(last_hidden)[:, 0], generator, temperature, top_p)
+    first = sample_token(model.logits(last_hidden)[:, 0], generator, temperature, top_p, sample_rows)
     out = torch.full((b, max_new_tokens), eos_token_id, dtype=torch.int64, device=dev)
     out[:, 0] = first
     if on_token is not None:
@@ -172,7 +193,7 @@ def sample_and_loop(model, cache: KVCache, last_hidden: Tensor, true_len: Tensor
         # rope position = per-row true length (pads excluded), not the cache slot
         positions = (true_len + step - 1)[:, None]
         hidden = model.model(model.embed(cur[:, None]), positions, cache)
-        tok = sample_token(model.logits(hidden)[:, 0], generator, temperature, top_p)
+        tok = sample_token(model.logits(hidden)[:, 0], generator, temperature, top_p, sample_rows)
         tok = torch.where(done, torch.full_like(tok, eos_token_id), tok)
         out[:, step] = tok
         if on_token is not None:

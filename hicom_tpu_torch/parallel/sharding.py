@@ -41,6 +41,25 @@ arithmetic is the same.
 indexed by its data coordinate (dp x fsdp, ``parallel/mesh.py``); the tp
 ranks of a data group read the same rows (:func:`shard_batch_tree`).
 
+**Tensor-parallel serving** (:func:`tp_serving_model`, JAX's
+``ServeEngine._shard_to_mesh``): a replica of a built model whose blocks
+hold one tp rank's slices as views of the caller's tensors, so the caller's
+model still answers whole. A block (an attention's q/k/v and o or
+out_proj, an MLP's gate/up and down or fc1 and fc2) is split when
+:func:`param_shardings` splits every one of its linears on tp and each is
+a plain ``nn.Linear``: the column-parallel linears keep their rank's output
+rows (a contiguous view), the row-parallel one its input columns (a strided
+view that the GEMM reads in place) and sums its output over the tp group
+with an explicit ``dist.all_reduce``. Every other block stays whole on every
+rank, with no sum: one whose heads do not divide by tp, and one holding a
+quantized linear (JAX's rules match no ``kernel_q`` and replicate it). The
+decoder's attention is split in every layer or in none, so that one KV
+cache layout serves all layers. ``lm_head`` is column-parallel and its
+logits are all-gathered, so that every rank samples from the whole
+vocabulary; the token embedding stays whole (JAX splits its hidden dim).
+The collectives are issued at one rank too, where each is a copy, and their
+wrappers count their calls (``launches``), as the kernel wrappers do.
+
 **Host offload** of the optimizer state, the counterpart of
 ``supports_host_offload`` and ``host_offload_shardings``: JAX gives the
 optimizer-state subtree a ``pinned_host`` memory kind and XLA streams it
@@ -54,11 +73,15 @@ power of two each, and only the last piece of a buffer is rounded.
 
 from __future__ import annotations
 
+import copy
+import itertools
 import re
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn import functional as F
 
 from .mesh import MESH_AXES, data_coordinate, data_rows
 
@@ -174,6 +197,104 @@ def tp_plan(model: nn.Module, mesh, rules=None) -> Dict[str, str]:
         else:
             raise TypeError(f"{name}: a {type(mod).__name__} cannot be split on tp")
     return plan
+
+
+def all_reduce_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` in place over the tp ``group`` (issued at one rank too)."""
+    dist.all_reduce(x, group=group)
+    all_reduce_tp.launches += 1
+    return x
+
+
+def all_gather_tp(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """(..., c) blocks of the last dim on the ``n`` ranks of ``group`` ->
+    (..., n * c), in rank order (issued at one rank too)."""
+    lead, c = x.shape[:-1], x.shape[-1]
+    flat = x.reshape(-1, c).contiguous()
+    out = flat.new_empty((n * flat.shape[0], c))
+    dist.all_gather_into_tensor(out, flat, group=group)
+    all_gather_tp.launches += 1
+    return out.view(n, -1, c).transpose(0, 1).reshape(*lead, n * c)
+
+
+all_reduce_tp.launches = all_gather_tp.launches = 0
+
+
+class ColumnShard(nn.Module):
+    """Output rows ``[rank * n, (rank + 1) * n)`` of a whole ``nn.Linear``
+    (views of its weight and bias); with ``gather`` (a tp group) the
+    rows of every rank are all-gathered into whole outputs."""
+
+    def __init__(self, linear: nn.Linear, rank: int, tp: int, gather=None):
+        super().__init__()
+        n = linear.out_features // tp
+        rows = slice(rank * n, (rank + 1) * n)
+        self.weight = nn.Parameter(linear.weight.detach()[rows], requires_grad=False)
+        self.bias = None if linear.bias is None else nn.Parameter(linear.bias.detach()[rows], requires_grad=False)
+        self.gather, self.tp = gather, tp
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight, self.bias)
+        return y if self.gather is None else all_gather_tp(y, self.gather, self.tp)
+
+
+class RowShard(nn.Module):
+    """Input columns ``[rank * n, (rank + 1) * n)`` of a whole ``nn.Linear``
+    (a strided view of its weight), the output summed over the tp
+    ``group``; the bias joins the sum on the group's first rank only, so
+    that at one rank this is the whole Linear, bit for bit."""
+
+    def __init__(self, linear: nn.Linear, rank: int, tp: int, group):
+        super().__init__()
+        n = linear.in_features // tp
+        self.weight = nn.Parameter(linear.weight.detach()[:, rank * n:(rank + 1) * n], requires_grad=False)
+        self.bias = linear.bias if rank == 0 else None
+        self.group = group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_tp(F.linear(x, self.weight, self.bias), self.group)
+
+
+# a block's column-parallel linears, then its row-parallel one
+TP_BLOCKS = ((("q_proj", "k_proj", "v_proj"), "o_proj"), (("q_proj", "k_proj", "v_proj"), "out_proj"),
+             (("gate_proj", "up_proj"), "down_proj"), (("fc1",), "fc2"))
+
+
+def tp_serving_model(model: nn.Module, mesh) -> Tuple[nn.Module, bool]:
+    """(replica, cache split): this rank's tensor-parallel replica of a built
+    ``HIComModel`` for serving (module docstring), and whether the decoder's
+    attention, and so the KV cache, is split over the kv heads. The replica
+    shares every tensor with ``model``: its slices are views, nothing is
+    copied, and ``model`` itself is left as it was."""
+    from ..models.qwen2 import DecoderAttention
+
+    tp, rank, group = mesh["tp"].size(), mesh["tp"].get_local_rank(), mesh.get_group("tp")
+    specs = param_shardings(model, mesh)
+    shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    replica = copy.deepcopy(model, shared)
+
+    def splits(name: str, mod: nn.Module, attr: str, dim: int) -> bool:
+        lin = getattr(mod, attr)
+        spec = specs.get(f"{name}.{attr}.weight", ())
+        return type(lin) is nn.Linear and len(spec) == 2 and spec[dim] == "tp"
+
+    blocks = []
+    for name, mod in replica.named_modules():
+        for cols, row in TP_BLOCKS:
+            if all(hasattr(mod, a) for a in cols + (row,)):
+                blocks.append((name, mod, cols, row,
+                               all(splits(name, mod, a, 0) for a in cols) and splits(name, mod, row, 1)))
+    decoder_attn = [split for _, mod, _, _, split in blocks if isinstance(mod, DecoderAttention)]
+    cache_split = bool(decoder_attn) and all(decoder_attn)
+    for name, mod, cols, row, split in blocks:
+        if split and (cache_split or not isinstance(mod, DecoderAttention)):
+            for a in cols:
+                setattr(mod, a, ColumnShard(getattr(mod, a), rank, tp))
+            setattr(mod, row, RowShard(getattr(mod, row), rank, tp, group))
+    head = getattr(replica, "lm_head", None)
+    if head is not None and specs.get("lm_head.weight", ())[:1] == ("tp",):
+        replica.lm_head = ColumnShard(head, rank, tp, gather=group)
+    return replica, cache_split
 
 
 def fsdp_units(model: nn.Module) -> List[nn.Module]:

@@ -1,7 +1,6 @@
 """Continuous-batching serving engine (slot-based, static shapes).
 
-Port of ``hicom_tpu/serve.py`` (``ServeEngine`` without tensor-parallel
-serving). The engine keeps ``n_slots`` independent sequences in ONE
+Port of ``hicom_tpu/serve.py``. The engine keeps ``n_slots`` independent sequences in ONE
 persistent KV cache and decodes every resident request together, one weight
 stream amortized over all of them, while requests join and leave between
 rounds:
@@ -38,6 +37,20 @@ K3's launch counter ticks where its wrapper runs, so at capture and not at a
 replay: ``graph_launches`` (per captured round) and ``replays`` count the
 rest, and the class totals ``k3_captured`` / ``k3_replayed`` sum them over
 every engine (the wrapper's ticks at capture, and the launches replays made).
+
+With a ``mesh`` (JAX's ``mesh=``; one process per device, every rank
+building the engine on the same model and submitting the same requests),
+the engine serves tensor-parallel: a replica of the model holds this rank's
+tp slices (``parallel/sharding.tp_serving_model``: views of the caller's
+tensors, row-parallel sums and the gathered logits by explicit collectives,
+blocks that cannot split whole on every rank) and the KV cache holds the
+rank's ``KVH/tp`` heads when the decoder's attention is split (all ``KVH``
+otherwise). The slot state is replicated. Every rank takes the same
+admissions and rounds: greedy tokens come from the gathered logits, sampled
+ones from a generator seeded the same on every rank. On a CUDA device the
+collectives are captured inside the round graphs (capture in
+``thread_local`` mode, so that NCCL's watchdog thread cannot spoil it);
+``graph_collectives`` counts them per captured round.
 
 Single video/image per request; keyword stops are applied at round
 granularity, so returned text matches ``mm_infer`` with ``stop_strings``.
@@ -118,14 +131,24 @@ class ServeEngine:
         spec_retry_rounds: int = 16,
         device=None,
         cuda_graphs: Optional[bool] = None,
+        mesh=None,
     ):
         """``model`` is the port's ``HIComModel`` on ``device`` (default the
         CUDA device; without one, pass ``device="cpu"``). ``cuda_graphs``
         (default: on a CUDA device) replays each greedy round kind as one
-        CUDA graph. The other arguments are JAX's, with its defaults."""
+        CUDA graph. ``mesh``: a (dp, fsdp, tp) mesh (``parallel/mesh.py``)
+        to serve tensor-parallel over its tp axis (module docstring); None
+        serves on this device alone. The other arguments are JAX's, with
+        its defaults."""
         from .api import resolve_device
 
         self.device = resolve_device(device)
+        self.mesh = mesh
+        cache_split = False
+        if mesh is not None:
+            from .parallel.sharding import tp_serving_model
+
+            model, cache_split = tp_serving_model(model, mesh)
         self.model = model
         self.n_slots = n_slots
         self.cache_len = cache_len
@@ -167,8 +190,9 @@ class ServeEngine:
         self._dtype = model.model.norm.weight.dtype
         n, dev, k1 = n_slots, self.device, self.spec_k + 1
         with torch.inference_mode():
-            self.cache = KVCache.zeros(tc.num_hidden_layers, n, tc.num_key_value_heads, cache_len, tc.head_dim,
-                                       self._dtype, dev, quantized=getattr(tc, "kv_cache_int8", False))
+            kv_heads = tc.num_key_value_heads // (mesh["tp"].size() if cache_split else 1)
+            self.cache = KVCache.zeros(tc.num_hidden_layers, n, kv_heads, cache_len, tc.head_dim, self._dtype, dev,
+                                       quantized=getattr(tc, "kv_cache_int8", False))
             # per-slot decode state lives on the device: admission scatters into it
             self._cur = torch.full((n,), self.eos_token_id, dtype=torch.int64, device=dev)
             self._pos = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -198,6 +222,7 @@ class ServeEngine:
         self._stream = None
         self._held: List[Tensor] = []
         self.graph_launches: Dict[str, int] = {}  # K3 launches captured in one round of each kind
+        self.graph_collectives: Dict[str, int] = {}  # tp collectives captured in one round of each kind
         self.replays: Dict[str, int] = {}  # graph replays of each kind
 
     # ------------------------------------------------------------- scheduling
@@ -405,6 +430,7 @@ class ServeEngine:
         """Run this round of ``kind`` eagerly on the capture stream (the
         warm-up), then capture the next one's work as a graph."""
         from .ops import flash_decode as fd
+        from .parallel.sharding import all_gather_tp, all_reduce_tp
 
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
@@ -419,9 +445,13 @@ class ServeEngine:
         self._held += [ws for (_, st), ws in fd._workspaces.items() if st == s.cuda_stream]
         graph = torch.cuda.CUDAGraph()
         before = fd.flash_decode.launches
-        with torch.cuda.graph(graph, pool=self._pool, stream=s):
+        issued = all_reduce_tp.launches + all_gather_tp.launches
+        # a mesh's collectives: NCCL's watchdog thread queries events while this thread captures
+        mode = "global" if self.mesh is None else "thread_local"
+        with torch.cuda.graph(graph, pool=self._pool, stream=s, capture_error_mode=mode):
             fn()
         self.graph_launches[kind] = fd.flash_decode.launches - before
+        self.graph_collectives[kind] = all_reduce_tp.launches + all_gather_tp.launches - issued
         ServeEngine.k3_captured += self.graph_launches[kind]
         self.replays[kind] = 0
         return graph

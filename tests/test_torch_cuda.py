@@ -598,6 +598,66 @@ def test_graphed_rounds_equal_eager_ones(spec_k):
     assert eng.graph_launches.get("spec", 0) == 0  # a verify chunk takes the plain masked path
 
 
+@pytest.mark.parametrize("spec_k", [0, 3])
+def test_mesh_engine_graphs_capture_its_collectives(spec_k, monkeypatch):
+    """``ServeEngine(mesh=)`` at tp 1 in a one-rank NCCL group: the tp
+    collectives (two all-reduces a layer and step, one gather of the logits)
+    are issued and captured inside the round graphs, and the graphed rounds
+    give the eager rounds' streams and those of the engine without a mesh,
+    bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from hicom_tpu_torch.parallel.mesh import create_mesh, init_distributed
+    from hicom_tpu_torch.serve import ServeEngine
+
+    model, reqs = _engine_model()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    init_distributed("cuda")
+    try:
+        mesh = create_mesh(1, 1, 1)
+
+        def run(graphs, mesh):
+            eng = ServeEngine(model, n_slots=2, cache_len=512, prompt_buckets=(16,), sync_steps=4, eos_token_id=2,
+                              spec_k=spec_k, spec_max_active=2, spec_min_accept=0.0, cuda_graphs=graphs, mesh=mesh)
+            ids = [eng.submit(r) for r in reqs]
+            res = eng.run()
+            return [res[i].tokens.tolist() for i in ids], eng
+
+        eager, _ = run(False, mesh)
+        graphed, eng = run(True, mesh)
+        plain, _ = run(True, None)
+    finally:
+        dist.destroy_process_group()
+    assert graphed == eager == plain
+    assert sum(eng.replays.values()) > 0
+    layers = model.hicom_config.text_config.num_hidden_layers
+    for kind, n in eng.graph_collectives.items():  # per step: 2 sums a layer, 1 gather (spec: the same, k+1 wide)
+        assert n == 4 * (2 * layers + 1), (kind, n)
+
+
+def test_sample_token_is_multinomial_on_the_card():
+    """``sample_token`` draws ``torch.multinomial``'s sample (the same tokens
+    from the same generator state), and a batch's rows drawn apart take the
+    whole batch's noise."""
+    from hicom_tpu_torch.models.generate import sample_token
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    logits = torch.randn(6, 152064, generator=torch.Generator("cuda").manual_seed(2), device="cuda")
+    g1, g2 = torch.Generator("cuda").manual_seed(5), torch.Generator("cuda").manual_seed(5)
+    got = sample_token(logits, g1, 1.0, 1.0)
+    assert torch.equal(got, torch.multinomial(torch.softmax(logits, -1), 1, generator=g2)[:, 0])
+    for rows in (slice(0, 3), slice(3, 6)):
+        part = sample_token(logits[rows], torch.Generator("cuda").manual_seed(5), 1.0, 1.0, (rows, 6))
+        assert torch.equal(part, got[rows])
+
+
 def test_per_slot_step_hides_stale_candidates_on_the_card(rn, monkeypatch):
     """A per-slot one-token step over rows at other offsets with pad holes and
     stale valid slots past the offset: K3 takes valid & (slot <= offset), its

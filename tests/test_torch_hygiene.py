@@ -80,7 +80,8 @@ def test_eval_and_aux_modules_import_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["build_model", "load_model", "create_train_state", "train_cli", "model_init",
-                                   "device_preprocessor", "serve_engine", "eval_runner", "selftest"])
+                                   "device_preprocessor", "serve_engine", "serve_engine_mesh", "eval_runner",
+                                   "eval_runner_data_parallel", "selftest"])
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     import hicom_tpu_torch
     from hicom_tpu_torch.models.hicom import HIComModel
@@ -106,11 +107,16 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
             from hicom_tpu_torch.serve import ServeEngine
 
             ServeEngine(HIComModel(hicom_tpu_torch.tiny_test_config()))
-        elif entry == "eval_runner":  # --device defaults to cuda
+        elif entry == "serve_engine_mesh":  # the device is resolved before the mesh is read
+            from hicom_tpu_torch.serve import ServeEngine
+
+            ServeEngine(HIComModel(hicom_tpu_torch.tiny_test_config()), mesh=object())
+        elif entry.startswith("eval_runner"):  # --device defaults to cuda; --data-parallel reaches shard_for_eval
             from hicom_tpu_torch.eval import runner
 
             runner.main(["--benchmark", "videomme", "--model-path", str(tmp_path), "--question-file", "q.parquet",
-                         "--answer-file", str(tmp_path / "a.json")])
+                         "--answer-file", str(tmp_path / "a.json")]
+                        + (["--data-parallel", "--batch-size", "2"] if entry.endswith("parallel") else []))
         elif entry == "selftest":
             from hicom_tpu_torch.selftest import run
 

@@ -8,8 +8,10 @@ rank process holds only the port (``test_torch_hygiene`` checks it).
 
 ``train_worker`` takes the port's sharded train steps on the tiny model that
 :func:`build` makes, for the cases ``tests/test_torch_mesh_train.py`` holds
-to the unsharded step. :class:`Torchrun` starts the port's CLI under
-``python -m torch.distributed.run`` in the background.
+to the unsharded step. :class:`Torchrun` starts the port's CLI (or the eval
+runner) under ``python -m torch.distributed.run`` in the background. The
+workers at the end serve tensor-parallel (``mesh_serve_worker``) and split
+eval batches (``eval_dp_worker``).
 """
 
 import os
@@ -234,14 +236,14 @@ def train_worker(rank: int, cases: list, out_path: str) -> None:
 
 
 class Torchrun:
-    """``python -m torch.distributed.run --standalone`` of the port's CLI with
-    ``flags`` in ``nproc`` gloo ranks (one torch thread each), started in the
-    background with its output in ``log``; :meth:`wait` returns its exit code
-    and output."""
+    """``python -m torch.distributed.run --standalone`` of the port's CLI (or
+    of ``module``) with ``flags`` in ``nproc`` gloo ranks (one torch thread
+    each), started in the background with its output in ``log``; :meth:`wait`
+    returns its exit code and output."""
 
-    def __init__(self, nproc: int, flags, log: str):
+    def __init__(self, nproc: int, flags, log: str, module: str = "hicom_tpu_torch.train.cli"):
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
-               "-m", "hicom_tpu_torch.train.cli", *flags]
+               "-m", module, *flags]
         env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
         self.log = open(log, "w+")
         # a session of its own: torchrun's signals to its workers never reach this process
@@ -415,4 +417,89 @@ def seq_api_worker(rank: int, ckpt: str, payload_path: str, out_path: str) -> No
             results[name] = (text, len(calls) - before)
     finally:
         HICom.encode_long_video = real
+    _save_rank(results, out_path, rank)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving and data-parallel eval (multi-GPU slice C)
+# ---------------------------------------------------------------------------
+
+
+def _serve(model, reqs, mesh=None, **kw):
+    """Token streams of ``ServeEngine(model, mesh=mesh, **kw)`` over ``reqs``
+    (dicts of ``GenRequest`` fields), and the engine."""
+    from hicom_tpu_torch.serve import GenRequest, ServeEngine
+
+    eng = ServeEngine(model, device="cpu", mesh=mesh, **kw)
+    ids = [eng.submit(GenRequest(**r)) for r in reqs]
+    res = eng.run()
+    return [res[i].tokens.tolist() for i in ids], eng
+
+
+def mesh_serve_worker(rank: int, payload_path: str, out_path: str) -> None:
+    """The payload's engine cases ({name: (mesh shape, engine kwargs)}) over
+    its requests on the tiny model, each engine built with ``mesh=``; then
+    the model's tensors against the payload's and an unsharded engine's
+    streams. Per case: the streams, the cache's kv heads, the spec rounds,
+    which blocks the replica split, and the tp collectives issued."""
+    from hicom_tpu_torch.parallel.mesh import create_mesh
+    from hicom_tpu_torch.parallel.sharding import ColumnShard, RowShard, all_gather_tp, all_reduce_tp
+
+    p = load(payload_path)
+    model = _tiny_model({}, p["state_dict"])
+    results = {}
+    for name, (shape, kw) in p["cases"].items():
+        issued = all_reduce_tp.launches + all_gather_tp.launches
+        streams, eng = _serve(model, p["requests"], create_mesh(*shape, device_type="cpu"), **kw)
+        layer = eng.model.model.layers[0]
+        tower = eng.model.model.vision_tower.vision_tower.vision_model.encoder.layers[0]
+        split = {"attention": isinstance(layer.self_attn.o_proj, RowShard),
+                 "mlp": isinstance(layer.mlp.down_proj, RowShard),
+                 "tower": isinstance(tower.self_attn.out_proj, RowShard),
+                 "lm_head": isinstance(eng.model.lm_head, ColumnShard)}
+        results[name] = dict(streams=streams, kv_heads=eng.cache.k.shape[2], spec_rounds=eng.spec_rounds, split=split,
+                             collectives=all_reduce_tp.launches + all_gather_tp.launches - issued)
+    sd = model.state_dict()
+    results["unchanged"] = all(torch.equal(sd[k], v) for k, v in p["state_dict"].items())
+    results["unsharded"] = _serve(model, p["requests"], **p["unsharded"])[0]
+    _save_rank(results, out_path, rank)
+
+
+def eval_dp_worker(rank: int, ckpt: str, payload_path: str, out_path: str) -> None:
+    """``mm_infer_batch`` after ``HICom.shard_for_eval()`` for each case of
+    the payload ({name: (videos, kwargs)}), with the rows each ``generate``
+    call ran; ``open_answer_file`` of a path of this rank's; the runner's
+    exit on a ``--batch-size`` that does not divide the world."""
+    from transformers import AutoTokenizer
+
+    import hicom_tpu_torch
+    from hicom_tpu_torch import api
+    from hicom_tpu_torch.eval import runner
+    from hicom_tpu_torch.eval.common import open_answer_file
+
+    p = load(payload_path)
+    hc = hicom_tpu_torch.load_model(ckpt, dtype="float32", cache_len=256, device="cpu")
+    tok = AutoTokenizer.from_pretrained(ckpt)
+    hc.shard_for_eval()
+    rows = []
+    real = api.generate_tokens
+    api.generate_tokens = lambda m, ids, *a, **k: rows.append(ids.shape[0]) or real(m, ids, *a, **k)
+    results = {}
+    try:
+        for name, (videos, kw) in p["cases"].items():
+            before = len(rows)
+            texts = api.mm_infer_batch(list(videos), [p["question"]] * len(videos), hc, tok,
+                                       guide_ids=np.repeat(p["guide_ids"], len(videos), 0), **kw)
+            results[name] = (texts, rows[before:])
+    finally:
+        api.generate_tokens = real
+    with open_answer_file(os.path.join(p["answer_dir"], f"rank{rank}", "preds.json")) as f:
+        f.write("answers\n")
+    try:
+        runner.main(["--benchmark", "mvbench", "--model-path", ckpt, "--question-file", "q", "--answer-file",
+                     os.path.join(p["answer_dir"], "never.json"), "--data-parallel", "--batch-size", "3",
+                     "--device", "cpu"])
+        results["indivisible"] = None
+    except SystemExit as e:
+        results["indivisible"] = str(e)
     _save_rank(results, out_path, rank)
