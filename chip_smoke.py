@@ -22,7 +22,9 @@ Phases:
      CLIP and anyres configurations: K1 over 577 tokens at d 64 and over an
      anyres image's 16 crops, K2 on the 7,333-token anyres prefill and the
      CLIP global compressor, K3 over an 8,192-slot cache, K4 at qk 768 /
-     dv 1024 and on an anyres patch grid, K5/K6 at the anyres train step);
+     dv 1024 and on an anyres patch grid, K5/K6 at the anyres train step;
+     and Qwen2.5-0.5B's: K2 at its prefill and K3 at head dim 64, group 7,
+     with a bf16 and an int8 cache, and K3 at groups 5 and 3);
   4. serving at the full width of the released HICom-7B (SigLIP-so400m,
      local43_global32 with direct guide, Qwen2.5-7B in bf16, weights from a seed
      on the card): 3 requests of a 32-frame 384x384 video through
@@ -72,6 +74,15 @@ Phases:
      1920x1080 and a 1024x1024 image through ``mm_infer(..., image_size=...)``
      (16 and 10 crops, 7,270 and 7,372 visual tokens, an 8,192-slot cache),
      with its stage breakdown and one merge + projector under the sync check;
+  4c. [baseline-0.5b]: ``BASELINE.json`` configs 1-2, HICom on so400m with
+     local compression only (local43) and the direct guide over
+     Qwen2.5-0.5B's published widths at full depth (24 layers, 14 / 2 heads
+     of 64, tied embeddings): phase 4's main path on 8-frame requests, the
+     single request's greedy ids and last-token logits against the plain path
+     on the card, and one single-image request (K4 on 1 x 3 x 3 tiles);
+     [fp32-route]: a model at ``selftest.py``'s tiny widths in fp32 (decoder
+     head dim 16) through ``model_init`` + ``mm_infer`` on the card and on the
+     CPU, the same string, its decode steps on the plain path by K3's contract;
   5. training at the same width: 3 stage-2 steps (projector and guide injectors
      trained, towers and decoder frozen) on a seeded batch of 2, with finite
      losses, frozen weights bit-identical, trained weights moved, 29 flash
@@ -130,13 +141,11 @@ Phases:
      the 3 requests of phase 4, with its logits beside the bf16 model's;
      [serve-w8a8] the same with a ``w8a8s_mlp_qkv`` tower and a ``w8a8s``
      decoder calibrating on their first request; both gated by a 2-layer
-     comparison with the plain CPU path on the same weights; [model-init]
-     ``model_init(..., device_preprocess=True)`` + ``mm_infer`` from an
-     exported checkpoint under each quantization flag, the card's string
-     equal to the CPU's for the NF4 decoder, the dynamic W8A8 decoder and
-     both W8A8 towers (``load_8bit`` and ``dec_quant=w8a8s`` on the card
-     only: their decoder modes are held to the CPU by [serve-int8] and
-     [serve-w8a8] on models built there, their loader path is not);
+     comparison with the plain path on the card on the same weights;
+     [model-init] ``model_init(..., device_preprocess=True)`` + ``mm_infer``
+     from an exported checkpoint under each quantization flag, the card's
+     string equal to the CPU's for the int8 decoder (``load_8bit``) and to
+     the plain path's on the card for the others;
      [stage3-qlora] 3 stage-3 steps over an NF4 base;
   8b. [bench]: ``python3 -m hicom_tpu_torch.bench`` at full width, one
      subprocess per mode: the default (w8a8s_mlp_qkv tower and w8a8 decoder,
@@ -152,10 +161,13 @@ Phases:
      frozen tensors' fingerprints, moved masters in every part, and a sample
      of tensors' masters and moments against ``torch.optim.AdamW``'s step.
 
-Prints one line per check, then a JSON object with the kernels (each row at
-a shape of the main paths, its launches counted in the phase that runs that
-shape: serving, [serve-engine], [ring-prefill], stage 2, the 1.5B stage 3,
-[clip], [anyres] or [anyres-train]), then the card's name and power limit,
+After every phase but [fp32-route], no decode step went to the plain path
+by K3's contract (``cuda_build.plain_route``: every phase runs bf16 at head
+dims and groups K3 takes). Prints one line per check, then a JSON object with the
+kernels (each row at a shape of the main paths, its launches counted in the
+phase that runs that shape: serving, [serve-engine], [ring-prefill], stage 2,
+the 1.5B stage 3, [clip], [anyres], [anyres-train] or [baseline-0.5b] and its
+image request), then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before that last line. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -190,6 +202,9 @@ KERNELS["K2-merge-ranks"] = ("merge_partials",) + KERNELS["K2"][1:]
 KERNELS["K5-sum"] = KERNELS["K5"]
 KERNELS["K6-sum"] = KERNELS["K6"]
 TRAIN_STEPS = 3
+# [baseline-0.5b]'s batch of 2: prompts of 64 and 41 ids, each with its <video> sentinel replaced by the 162
+# visual tokens of 8 frames (local43: 2 x 9 x 9 tiles); the spliced lengths, which its K2 and K3 rows take
+BASELINE_PREFILL = (64 - 1 + 162, 41 - 1 + 162)
 # what [slice] leaves for [serve-int8]: the bf16 model's logits and tower time
 BF16_REFERENCE = {}
 # the run whose launch counts a kernel row reports, by default: the serving
@@ -478,6 +493,55 @@ def kernel_checks(card: str):
             raise AssertionError(f"flash_decode disagrees with its twin on an all-clear row ({label})")
     del kb, vb, ki, vi
 
+    # K3 at the other widths it takes (head dim 64 or 128, groups 1-8): Qwen2.5-0.5B's 14 / 2 heads of 64 at
+    # [baseline-0.5b]'s fill (b 1: the 8-frame request's spliced prompt and 8 of its 16 new tokens), with a bf16
+    # cache and (a check only) an int8 one; group 5 (Qwen2.5-14B/32B's 40 / 8 heads) and group 3 (12 / 4) at
+    # the 7B rows' 760 valid slots, checks only. The library call is SDPA with enable_gqa and the slot mask as
+    # an additive bf16 mask (0 / -inf); for the int8 cache over its dequantized bf16 copy, made beforehand.
+    for label, Hn, KVHn, dn, fill, quant, phase in (
+            ("0.5b d64 b1", 14, 2, 64, BASELINE_PREFILL[0] + 8, False, "baseline-0.5b"),
+            ("0.5b d64 b1 int8 cache", 14, 2, 64, BASELINE_PREFILL[0] + 8, True, None),
+            ("g5 40/8 b1", 40, 8, 128, 760, False, None),
+            ("g3 12/4 b1", 12, 4, 128, 760, False, None)):
+        mn = (slot < fill)[None]
+        qn = rn(1, Hn, 1, dn)
+        if quant:
+            kn, vn = (torch.randint(-127, 128, (1, KVHn, S, dn), generator=gen, device=dev, dtype=torch.int8)
+                      for _ in range(2))
+            ksn, vsn = (torch.rand(1, KVHn, S, generator=gen, device=dev) * 0.02 for _ in range(2))
+            lib_k, lib_v = kn.to(torch.bfloat16) * ksn[..., None].to(torch.bfloat16), \
+                vn.to(torch.bfloat16) * vsn[..., None].to(torch.bfloat16)
+            row_bytes = dn * 2 + 8
+        else:
+            kn, vn, ksn, vsn = rn(1, KVHn, S, dn), rn(1, KVHn, S, dn), None, None
+            lib_k, lib_v, row_bytes = kn, vn, dn * 2 * 2
+        additive = torch.zeros(1, 1, 1, S, device=dev, dtype=torch.bfloat16).masked_fill(~mn[:, None, None, :],
+                                                                                         float("-inf"))
+        record(f"flash_decode[{label}]", "K3", lambda: flash_decode(qn, kn, vn, mn, k_scale=ksn, v_scale=vsn),
+               lambda: decode_reference(qn, kn, vn, mn, ksn, vsn, dn**-0.5),
+               lambda: F.scaled_dot_product_attention(qn, lib_k, lib_v, attn_mask=additive, enable_gqa=True),
+               4 * Hn * dn * fill, 2 * Hn * dn * 2 + fill * KVHn * row_bytes + S,
+               grid=(-(-S // DECODE_CHUNK), KVHn), phase=phase)
+        del qn, kn, vn, lib_k, lib_v
+
+    # K2 at [baseline-0.5b]'s prefill: the batch of 2 (prompts of 64 and 41 ids, each with 162 visual
+    # tokens spliced in) over Qwen2.5-0.5B's 14 / 2 heads of 64, causal, right-padded
+    b, H, KVH, d = 2, 14, 2, 64
+    L, lens = BASELINE_PREFILL[0], list(BASELINE_PREFILL)
+    q, k, v = rn(b, H, L, d), rn(b, KVH, L, d), rn(b, KVH, L, d)
+    kl = torch.tensor(lens, device=dev, dtype=torch.int32)
+    pos = torch.arange(L, device=dev)
+    mask = (pos[None, :] <= pos[:, None])[None, None] & (pos[None, None, None, :] < kl[:, None, None, None])
+    valid = (pos[None, :] < kl[:, None])[:, None, :].expand(b, H, L)
+    pairs = sum(int(np.minimum(n, np.arange(L) + 1).sum()) for n in lens)
+    record("flash_forward[prefill 0.5b]", "K2",
+           lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
+           lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
+           lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
+           4 * H * d * pairs, 2 * b * H * L * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * L * 4, valid,
+           grid=fwd_grid(b, H, L, L), phase="baseline-0.5b")
+    del q, k, v, mask
+
     # K4: local compressor, key/value (32 b, 27, 27, 1152), one query per 4x3x3 tile, in the main path's call
     # form (Python-float scale, bias 0.0: both pass by value); b 1 serves one request, b 2 the batched one (the
     # batch folds into the frame axis). The library call is SDPA over the tile-grouped view, the grouping copy of
@@ -508,13 +572,14 @@ def kernel_checks(card: str):
                    4 * n_tiles * 36 * c, 2 * t * h * w * c * 2 + 2 * n_tiles * c * 2, grid=(min(n_tiles, sms),),
                    phase=None)  # the 7B serving config has no clip scale
         del key, val, qq
+    # the image tile: [baseline-0.5b]'s single-image request (one 27 x 27 frame, tiles of 1 x 3 x 3)
     key, val, qq = rn(1, 27, 27, c), rn(1, 27, 27, c), rn(1, 9, 9, c)
-    err, ratio, rms, _ = agreement(fused_tile_attention(qq, key, val, (1, 3, 3), c**-0.5, 0.0),
-                                   tile_reference(qq, key, val, (1, 3, 3), c**-0.5, 0.0))
-    log(f"[kernel] fused_tile_attention[image 1x27x27, tile 1x3x3]: max_abs_err {err:.3g}, worst err/tol {ratio:.3f} "
-        f"(ref rms {rms:.3g}) | grid {min(81, sms)} blocks")
-    if not ratio <= 1:
-        raise AssertionError(f"the tile kernel disagrees with its plain version on the image tile ({ratio})")
+    record("fused_tile_attention[image 1x27x27, tile 1x3x3]", "K4",
+           lambda: fused_tile_attention(qq, key, val, (1, 3, 3), c**-0.5, 0.0),
+           lambda: tile_reference(qq, key, val, (1, 3, 3), c**-0.5, 0.0),
+           lambda: F.scaled_dot_product_attention(qq.reshape(81, 1, 1, c), tile_thw(key, (1, 3, 3))[:, None],
+                                                  tile_thw(val, (1, 3, 3))[:, None], scale=c**-0.5),
+           4 * 81 * 9 * c, 2 * 27 * 27 * c * 2 + 2 * 81 * c * 2, grid=(min(81, sms),), phase="baseline-0.5b-image")
     del key, val, qq
     anyres_clip_checks(rn, record, fwd_grid, sms)
     backward_checks(rn, record)
@@ -805,6 +870,20 @@ def clip_config(layers: int = None):
         projector_qk_dim=projector_qk_dim(ClipVisionConfig())), layers)
 
 
+def baseline_05b_config(layers: int = None):
+    """``BASELINE.json`` configs 1 and 2: HICom on the so400m tower with local
+    compression only (``local43``) and the direct guide, over
+    Qwen2.5-0.5B-Instruct's published widths (vocab 151,936, hidden 896, MLP
+    4,864, 24 layers, 14 query / 2 kv heads of 64, rope theta 1e6, tied
+    embeddings), bf16, 8 frames."""
+    from hicom_tpu_torch.config import Qwen2Config
+
+    text = Qwen2Config(vocab_size=151936, hidden_size=896, intermediate_size=4864, num_hidden_layers=24,
+                       num_attention_heads=14, num_key_value_heads=2, head_dim=64, rope_theta=1e6,
+                       tie_word_embeddings=True)
+    return cut_depth(serving_config().replace(text_config=text, mm_projector_type="local43", num_frames=8), layers)
+
+
 def make_requests(cfg, seed: int = 0):
     """Three requests: seeded prompt ids with one <video> sentinel, guide ids and
     a 32-frame 384x384 video each. Returns (batch of 2 right-padded, single)."""
@@ -870,6 +949,40 @@ def counters(train: bool = False):
     return {f.__name__: f for f in fns}
 
 
+def plain_routes() -> dict:
+    """The calls on the card that a kernel's contract sent to the plain path
+    since the last reset, by kernel (``cuda_build.plain_route``)."""
+    from hicom_tpu_torch.ops.cuda_build import plain_route
+
+    return dict(plain_route.counts)
+
+
+PHASE_START = [0.0]  # when the running phase began (perf_counter), for the "[label] phase s" lines
+
+
+def phase_seconds(label: str) -> None:
+    """Log the seconds since the last phase ended: the run's time by phase,
+    the first thing to read when the run nears its limit."""
+    now = time.perf_counter()
+    log(f"[{label}] phase {now - PHASE_START[0]:.1f} s")
+    PHASE_START[0] = now
+
+
+def on_contract(label: str, value=None):
+    """After a phase: every one-token decode step of it took K3 (the phases
+    run bf16 at head dims and groups K3 takes), so no plain-route count
+    moved. Resets the counts for the next phase, logs the phase's seconds;
+    returns ``value``."""
+    from hicom_tpu_torch.ops.cuda_build import plain_route
+
+    phase_seconds(label)
+    counts = plain_routes()
+    plain_route.reset()
+    if any(counts.values()):
+        raise AssertionError(f"[{label}] calls went to the plain path by a kernel's contract: {counts}")
+    return value
+
+
 def main_path(card: str, cfg=None, label: str = "slice", then=None):
     """Phase 4: a 7B slice answering 3 requests (the released configuration,
     or ``cfg``); returns launch counts. ``then(hc)`` runs on the same model
@@ -882,8 +995,9 @@ def main_path(card: str, cfg=None, label: str = "slice", then=None):
     t0 = time.perf_counter()
     model = build_model(cfg, device=DEVICE, seed=0)
     torch.cuda.synchronize()
-    log(f"[{label}] built 7B model ({cfg.mm_vision_tower}) with seeded weights in {time.perf_counter() - t0:.1f} s, "
-        f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
+    log(f"[{label}] built the model ({cfg.mm_vision_tower}, {cfg.mm_projector_type}, decoder "
+        f"{cfg.text_config.hidden_size} wide x {cfg.text_config.num_hidden_layers}) with seeded weights in "
+        f"{time.perf_counter() - t0:.1f} s, {sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
     hc = HICom(config=cfg, model=model, eos_token_id=cfg.text_config.eos_token_id, cache_len=4096)
     batch, single = make_requests(cfg)
     hc.generate(**single, max_new_tokens=2)  # warm-up: cuBLAS handles, library loads
@@ -901,7 +1015,7 @@ def main_path(card: str, cfg=None, label: str = "slice", then=None):
     t_single = time.perf_counter() - t0
     launches = {name: f.launches for name, f in fns.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[{label}] launches on the main path: {launches}")
+    log(f"[{label}] launches on the main path: {launches} | plain-route calls {plain_routes()}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"[{label}] the main path never launched {name}")
@@ -933,6 +1047,159 @@ def main_path(card: str, cfg=None, label: str = "slice", then=None):
     del model, hc
     torch.cuda.empty_cache()
     return launches
+
+
+def greedy_with_tops(hc, req, n: int):
+    """``hc.generate(**req)`` greedy for ``n`` tokens: (row 0's ids, each
+    step's top-2 logits (n, 2))."""
+    import torch
+
+    tops, logits = [], hc.model.logits
+
+    def recording(h):
+        out = logits(h)
+        tops.append(out[:, -1].float().topk(2, dim=-1).values[0])
+        return out
+
+    hc.model.logits = recording
+    try:
+        out = hc.generate(**req, max_new_tokens=n)
+    finally:
+        del hc.model.logits
+    return out[0].tolist(), torch.stack(tops).cpu()
+
+
+def baseline_05b_checks(card: str, hc) -> dict:
+    """[baseline-0.5b]'s checks on the model of its main path: the single
+    8-frame request's 16 greedy ids against the same model's under
+    :func:`plain_path` (equal, or first apart at a near-tie of the plain run,
+    ``NEAR_TIE``), its last-token logits within :func:`agreement`'s gate of the
+    plain path's, then one single-image request (``BASELINE.json`` config 1:
+    one frame, K4 on 1 x 3 x 3 tiles) through K1-K4. Returns the image
+    request's launches."""
+    import torch
+
+    from hicom_tpu_torch.constants import IMAGE_TOKEN_INDEX
+
+    cfg, model = hc.config, hc.model
+    n_vis = model.visual_token_count(cfg.num_frames, "video")
+    if BASELINE_PREFILL != (64 - 1 + n_vis, 41 - 1 + n_vis):
+        raise AssertionError(f"[baseline-0.5b] {n_vis} visual tokens: BASELINE_PREFILL is stale")
+    _, single = make_requests(cfg)
+    got, _ = greedy_with_tops(hc, single, 16)
+    with plain_path():
+        ref, tops = greedy_with_tops(hc, single, 16)
+    div = first_divergence(got, ref, tops)
+    log(f"[baseline-0.5b] single request's 16 greedy ids, kernel path vs plain path on the card: "
+        + ("equal" if div is None else f"first apart at {div[0]}, top-2 gap there {div[1]:.4g} of |top logit| "
+           f"(allowed {NEAR_TIE:.3g})"))
+    if div is not None and not div[1] <= NEAR_TIE:
+        raise AssertionError(f"[baseline-0.5b] greedy ids {got} differ from the plain path's {ref}")
+    got_l = last_logits(model, with_mask(single))
+    with plain_path():
+        ref_l = last_logits(model, with_mask(single))
+    err, ratio, rms, top = agreement(got_l, ref_l)
+    log(f"[baseline-0.5b] last-token logits, kernel vs plain path: max_abs_err {err:.3g}, worst err/tol {ratio:.3f} "
+        f"(tol 2^-6|ref| + 2^-5 rms, ref rms {rms:.3g}, max {top:.3g}), top-1 {int(got_l.argmax())} vs "
+        f"{int(ref_l.argmax())}")
+    if not (torch.isfinite(got_l).all() and ratio <= 1):
+        raise AssertionError(f"[baseline-0.5b] kernel-path logits disagree with the plain path ({ratio})")
+
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, cfg.text_config.vocab_size, (1, 64))
+    ids[0, 5] = IMAGE_TOKEN_INDEX
+    size = cfg.vision_config.image_size
+    image = rng.uniform(-1, 1, (1, 1, 3, size, size)).astype(np.float32)
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = hc.generate(ids, frames=image, guide_ids=single["guide_ids"], modal="image", max_new_tokens=16)
+    wall = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in fns.items()}
+    log(f"[baseline-0.5b] {card} | single-image request ({size}x{size}, "
+        f"{model.visual_token_count(1, 'image')} visual tokens, 16 new tokens) {wall:.3f} s | launches {launches} "
+        f"| ids {out[0].tolist()}")
+    if min(launches.values()) <= 0 or not (out.min() >= 0 and out.max() < cfg.text_config.vocab_size):
+        raise AssertionError(f"[baseline-0.5b] the image request did not run through K1-K4: {launches}")
+    return launches
+
+
+def baseline_05b_phase(card: str) -> dict:
+    """[baseline-0.5b]: the main path (:func:`main_path`: a batch of 2 and a
+    single 8-frame request, TTFT, decode rate, stages, the sync check, peak
+    memory) at :func:`baseline_05b_config`'s full width and depth, then
+    :func:`baseline_05b_checks` on the same model. Returns the launches of
+    the main path ("baseline-0.5b") and of the image request
+    ("baseline-0.5b-image")."""
+    out = {}
+
+    def then(hc):
+        out["baseline-0.5b-image"] = baseline_05b_checks(card, hc)
+
+    out["baseline-0.5b"] = main_path(card, baseline_05b_config(), "baseline-0.5b", then=then)
+    return out
+
+
+def fp32_route_phase(card: str) -> dict:
+    """[fp32-route]: the decoder's route on K3's contract, on the card.
+    A model at ``selftest.py``'s tiny widths (the decoder 64 wide over 4 query
+    and 2 kv heads: head dim 16; ``local43_global32``, no guide) in fp32,
+    drawn from a seed on the CPU and exported under ``build/``, is loaded by
+    ``model_init(..., dtype="float32")`` on the card and on the CPU. One
+    4-frame video through ``mm_infer`` on each: the same string, nothing
+    raised, no kernel launched on the card, and a positive plain-route count
+    for K3, whose contract refuses the model's decode steps (fp32, head dim
+    16); JAX's rule keeps its other attention calls plain (short sequences,
+    head dim 16 grouped, the 4 x 4 patch grid untiled by 3 x 3). Returns the
+    card's plain-route counts."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from hicom_tpu_torch import selftest, tiny_test_config
+    from hicom_tpu_torch.api import build_model, mm_infer, model_init
+    from hicom_tpu_torch.config import Qwen2Config
+    from hicom_tpu_torch.ops.cuda_build import plain_route
+    from hicom_tpu_torch.weights import export_hf_checkpoint
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_fp32_route")
+    shutil.rmtree(root, ignore_errors=True)
+    tower, ckpt = os.path.join(root, "siglip-selftest-width"), os.path.join(root, "hicom-selftest-width")
+    os.makedirs(tower)
+    text = Qwen2Config(**selftest.QWEN, head_dim=16, eos_token_id=2, pad_token_id=0)
+    cfg = tiny_test_config(text_config=text, use_guide=None, mm_vision_tower=tower)
+    with open(os.path.join(tower, "config.json"), "w") as f:
+        json.dump({"model_type": "siglip", "vision_config": dataclasses.asdict(cfg.vision_config),
+                   "text_config": dataclasses.asdict(cfg.guide_text_config)}, f)
+    export_hf_checkpoint(build_model(cfg, device="cpu", seed=5, std=0.2).state_dict(), cfg, ckpt)
+    write_word_tokenizer(ckpt, text.vocab_size, text.eos_token_id)
+    size = cfg.vision_config.image_size
+    pixels = np.random.default_rng(23).uniform(-1, 1, (cfg.num_frames, 3, size, size)).astype(np.float32)
+    strings, counts, launched = {}, {}, {}
+    for device in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        hc, _, tok = model_init(ckpt, dtype="float32", device=device)
+        fns = counters()
+        before = {n: f.launches for n, f in fns.items()}
+        plain_route.reset()
+        strings[device] = mm_infer(pixels, "w10 w20 w30 w40", hc, tok, max_new_tokens=8)
+        launched[device] = {n: f.launches - before[n] for n, f in fns.items()}
+        counts[device] = plain_routes()
+        log(f"[fp32-route] {device}: {strings[device]!r} ({time.perf_counter() - t0:.1f} s with the load) | "
+            f"launches {launched[device]} | plain-route calls {counts[device]}")
+        del hc
+    plain_route.reset()
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if strings[DEVICE] != strings["cpu"] or not strings["cpu"]:
+        raise AssertionError(f"[fp32-route] the card's string {strings[DEVICE]!r} is not the CPU's {strings['cpu']!r}")
+    if any(launched[DEVICE].values()) or counts[DEVICE]["K3"] <= 0:
+        raise AssertionError(f"[fp32-route] fp32 calls reached a kernel or skipped the plain route: "
+                             f"{launched[DEVICE]}, {counts[DEVICE]}")
+    return counts[DEVICE]
 
 
 # ---------------------------------------------------------------------------
@@ -995,29 +1262,17 @@ def standalone(hc, eng, req):
     """``HICom.generate`` of one request alone (greedy), its prompt padded to
     the engine's bucket with a mask as the engine pads it; returns the stream
     as the engine would return it and each step's top-2 logits (steps, 2)."""
-    import torch
-
     L = len(req.input_ids)
     bucket = eng._bucket_for(L)
     ids = np.full((1, bucket), eng.pad_token_id, np.int64)
     ids[0, :L] = req.input_ids
     mask = np.zeros((1, bucket), bool)
     mask[0, :L] = True
-    tops, logits = [], hc.model.logits
-
-    def recording(h):
-        out = logits(h)
-        tops.append(out[:, -1].float().topk(2, dim=-1).values[0])
-        return out
-
-    hc.model.logits = recording
-    try:
-        out = hc.generate(ids, frames=None if req.frames is None else req.frames[None],
-                          guide_ids=None if req.guide_ids is None else req.guide_ids[None], attention_mask=mask,
-                          modal=req.modal, max_new_tokens=req.max_new_tokens, stop_sequences=req.stop_sequences)
-    finally:
-        del hc.model.logits
-    return trim_stream(out[0].tolist(), hc.eos_token_id, req.stop_sequences), torch.stack(tops).cpu()
+    row, tops = greedy_with_tops(hc, dict(input_ids=ids, frames=None if req.frames is None else req.frames[None],
+                                          guide_ids=None if req.guide_ids is None else req.guide_ids[None],
+                                          attention_mask=mask, modal=req.modal, stop_sequences=req.stop_sequences),
+                                 req.max_new_tokens)
+    return trim_stream(row, hc.eos_token_id, req.stop_sequences), tops
 
 
 def first_divergence(got, ref, tops):
@@ -3268,24 +3523,17 @@ def quant_config(cfg, text=None, vision=None):
                        vision_config=dataclasses.replace(cfg.vision_config, quantization=vision))
 
 
-def cpu_copy(model):
-    """The model's weights (codes, scales, calibrated scales) in a CPU model."""
-    import torch
-
-    from hicom_tpu_torch.models.hicom import HIComModel
-
-    with torch.device("meta"):
-        cpu = HIComModel(model.hicom_config)
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True, assign=True)
-    return cpu.eval()
-
-
-def quant_cpu_parity(label: str, text: str, vision=None):
+def quant_plain_parity(label: str, text: str, vision=None):
     """The gate of a quantized serving phase: at 7B width with 2 tower and 2
-    decoder layers, the card's last-token logits against the port's plain
-    CPU path on the same weights (a static model calibrated first, on the
-    card, by its first request): an 8-frame request, the rule of the 2-layer
-    kernel-vs-plain check (5% of the largest logit)."""
+    decoder layers, the card's last-token logits against the plain path's on
+    the card (:func:`plain_path`) on the same weights (a static model
+    calibrated first, by its first request): an 8-frame request, the rule of
+    the 2-layer kernel-vs-plain check (5% of the largest logit). This gate
+    shares the quantized linears with the path under test: [quant-ops] holds
+    their products to the CPU's exact ones, and [model-init] holds the int8
+    decoder (``load_8bit``) to the CPU's string over a whole generation. A CPU
+    copy here took 10.6-11.2 s a phase on the host of an H100 80GB HBM3
+    machine, cut to keep the run in its time."""
     import torch
 
     from hicom_tpu_torch.api import HICom, build_model
@@ -3298,15 +3546,16 @@ def quant_cpu_parity(label: str, text: str, vision=None):
     hc.generate(**{k: v for k, v in single.items() if k != "attention_mask"}, max_new_tokens=1)
     got = last_logits(model, single)
     t0 = time.perf_counter()
-    ref = last_logits(cpu_copy(model), single)
-    cpu_s = time.perf_counter() - t0
-    err = (got.cpu() - ref).abs().max().item()
+    with plain_path():
+        ref = last_logits(model, single)
+    plain_s = time.perf_counter() - t0
+    err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
-    log(f"[{label}] 2-layer last-token logits, card vs the plain CPU path on the same weights: max_abs_err "
+    log(f"[{label}] 2-layer last-token logits, kernel vs plain path on the card on the same weights: max_abs_err "
         f"{err:.3g} (tol {0.05 * scale:.3g}, max |logit| {scale:.3g}), top-1 {int(got.argmax())} vs "
-        f"{int(ref.argmax())}, CPU path {cpu_s:.1f} s")
+        f"{int(ref.argmax())}, plain path {plain_s:.1f} s")
     if not (torch.isfinite(got).all() and scale > 0 and err <= 0.05 * scale):
-        raise AssertionError(f"[{label}] the card's quantized logits disagree with the CPU plain path")
+        raise AssertionError(f"[{label}] the card's quantized logits disagree with the plain path")
     del model, hc
     torch.cuda.empty_cache()
 
@@ -3415,7 +3664,7 @@ def serve_quant_phase(card: str, label: str, text: str, vision=None):
             raise AssertionError(f"[{label}] the first request did not calibrate every static site")
     del model, hc, pre
     torch.cuda.empty_cache()
-    quant_cpu_parity(label, text, vision)
+    quant_plain_parity(label, text, vision)
     return launches
 
 
@@ -3438,16 +3687,15 @@ def write_word_tokenizer(path: str, vocab: int, eos: int):
                                     "{% if add_generation_prompt %}w9{% endif %}"}, f)
 
 
-# (flag, load_model's arguments, the phase that runs the flag's decoder mode on a model of build_model's, or
-# None where [model-init] holds the flag's string to the CPU plain path). For the two flags with a phase,
-# model_init's quantize-on-load path is held to the CPU no longer: [serve-int8] and [serve-w8a8] hold the int8
-# and static w8a8s decoders to it on models they quantize themselves. Their CPU runs here, about 40 s, were cut
-# to keep the run in its time.
-MODEL_INIT_FLAGS = (("load_8bit", dict(load_8bit=True), "serve-int8"), ("load_4bit", dict(load_4bit=True), None),
-                    ("dec_quant=w8a8_mlp", dict(dec_quant="w8a8_mlp"), None),
-                    ("dec_quant=w8a8s", dict(dec_quant="w8a8s"), "serve-w8a8"),
-                    ("load_w8a8_tower=True", dict(load_w8a8_tower=True), None),
-                    ("load_w8a8_tower=w8a8s_mlp", dict(load_w8a8_tower="w8a8s_mlp"), None))
+# (flag, load_model's arguments, whether the card's string is held to the CPU's; else to the plain path's on
+# the card, on the same loaded model). Each CPU run took 10.9-21.9 s on the host of an H100 80GB HBM3 machine
+# where the whole run read 1,200.4 s by its clock with all of them: only load_8bit's stays, so that one quantized decoder is held to an
+# independent path over a whole generation (quantize-on-load, int8 linears, tower and attention all on the CPU).
+MODEL_INIT_FLAGS = (("load_8bit", dict(load_8bit=True), True), ("load_4bit", dict(load_4bit=True), False),
+                    ("dec_quant=w8a8_mlp", dict(dec_quant="w8a8_mlp"), False),
+                    ("dec_quant=w8a8s", dict(dec_quant="w8a8s"), False),
+                    ("load_w8a8_tower=True", dict(load_w8a8_tower=True), False),
+                    ("load_w8a8_tower=w8a8s_mlp", dict(load_w8a8_tower="w8a8s_mlp"), False))
 
 
 def model_init_phase(card: str):
@@ -3455,10 +3703,11 @@ def model_init_phase(card: str):
     the port exports a seeded checkpoint (fp16 safetensors, a tower directory
     for its geometry) and a WordLevel tokenizer over its vocabulary, under
     ``build/``; then ``model_init(..., device_preprocess=True)`` + ``mm_infer``
-    on raw uint8 frames runs under each quantization flag on the card and,
-    except for ``load_8bit`` and ``dec_quant=w8a8s`` (see
-    ``MODEL_INIT_FLAGS``), on the CPU too (``device="cpu"``, the plain path),
-    and the two strings must be equal. Returns the launches on the card."""
+    on raw uint8 frames runs under each quantization flag on the card, and
+    again on the CPU (``device="cpu"``, the plain path) for ``load_8bit`` or
+    under :func:`plain_path` on the card for the others (see
+    ``MODEL_INIT_FLAGS``); the two strings must be equal. Returns the
+    launches on the card."""
     import dataclasses
     import os
     import shutil
@@ -3486,28 +3735,31 @@ def model_init_phase(card: str):
     gids = np.random.default_rng(22).integers(0, cfg.guide_text_config.vocab_size, (1, 64))
     question = "w100 w2000 w30000 w151000"
     total = {}
-    for name, flags, held_by in MODEL_INIT_FLAGS:
-        strings = {"cpu": None}
-        for device in (DEVICE,) if held_by else (DEVICE, "cpu"):
-            t0 = time.perf_counter()
-            hc, proc, tok = model_init(ckpt, device_preprocess=True, device=device, **flags)
-            pixels = proc["video"](video)
-            if device == DEVICE:
-                reset_counts()
-            strings[device] = mm_infer(pixels, question, hc, tok, guide_ids=gids, max_new_tokens=6)
-            if device == DEVICE:
-                launches = {n: f.launches for n, f in counters().items()}
-                for n, v in launches.items():
-                    total[n] = total.get(n, 0) + v
-            strings[device + "_s"] = time.perf_counter() - t0
+    for name, flags, on_cpu in MODEL_INIT_FLAGS:
+        t0 = time.perf_counter()
+        hc, proc, tok = model_init(ckpt, device_preprocess=True, device=DEVICE, **flags)
+        pixels = proc["video"](video)
+        reset_counts()
+        card_str = mm_infer(pixels, question, hc, tok, guide_ids=gids, max_new_tokens=6)
+        launches = {n: f.launches for n, f in counters().items()}
+        for n, v in launches.items():
+            total[n] = total.get(n, 0) + v
+        card_s, t0 = time.perf_counter() - t0, time.perf_counter()
+        if on_cpu:
             del hc, proc
             torch.cuda.empty_cache()
-        cpu = f"not held to the CPU (its decoder mode is, in [{held_by}])" if held_by else \
-            f"CPU plain path {strings['cpu']!r} ({strings['cpu_s']:.1f} s)"
-        log(f"[model-init] {name}: card {strings[DEVICE]!r} ({strings[DEVICE + '_s']:.1f} s with the load), {cpu}, "
-            f"launches on the card {launches}")
-        if not strings[DEVICE] or not (held_by or strings[DEVICE] == strings["cpu"]):
-            raise AssertionError(f"[model-init] {name}: the card's string differs from the CPU's (or is empty)")
+            hc, proc, tok = model_init(ckpt, device_preprocess=True, device="cpu", **flags)
+            ref, where = mm_infer(proc["video"](video), question, hc, tok, guide_ids=gids, max_new_tokens=6), "CPU"
+        else:
+            with plain_path():
+                ref, where = mm_infer(pixels, question, hc, tok, guide_ids=gids, max_new_tokens=6), "the card's"
+        log(f"[model-init] {name}: card {card_str!r} ({card_s:.1f} s with the load), {where} plain path {ref!r} "
+            f"({time.perf_counter() - t0:.1f} s), launches on the card {launches}")
+        del hc, proc
+        torch.cuda.empty_cache()
+        if not card_str or card_str != ref:
+            raise AssertionError(f"[model-init] {name}: the card's string differs from the {where} plain path's "
+                                 f"(or is empty)")
         if min(launches.values()) <= 0:
             raise AssertionError(f"[model-init] {name}: mm_infer did not run through K1-K4: {launches}")
     shutil.rmtree(root, ignore_errors=True)
@@ -3977,35 +4229,41 @@ def main() -> int:
     log(f"[build] {len(seconds)} kernels in {time.perf_counter() - t0:.1f} s "
         + " ".join(f"{k}={v:.1f}s" for k, v in seconds.items()))
 
-    records = kernel_checks(card)
-    quant_ops_checks(card)
-    # each phase's launches by wrapper, counted from 0 just before it runs
+    PHASE_START[0] = time.perf_counter()
+    records = on_contract("kernels", kernel_checks(card))
+    on_contract("quant-ops", quant_ops_checks(card))
+    # each phase's launches by wrapper, counted from 0 just before it runs; after each phase, on_contract holds
+    # its plain-route counts at 0 (every phase but [fp32-route] runs bf16 at K3's widths)
     launches = {"serve-engine": {}}
     # [serve-engine], then [seq-parallel], [mesh-serve] and [eval-dp], run on [slice]'s model before main_path frees it
-    launches["serve"] = main_path(card, then=lambda hc: (launches["serve-engine"].update(serve_engine_phase(card, hc)),
-                                                         launches.update(group_phases(card, hc))))
-    launches["clip"] = main_path(card, clip_config(), "clip")
-    launches["anyres"] = anyres_phase(card)
-    launches["serve-int8"] = serve_quant_phase(card, "serve-int8", "int8")
-    launches["serve-w8a8"] = serve_quant_phase(card, "serve-w8a8", "w8a8s", "w8a8s_mlp_qkv")
-    launches["model-init"] = model_init_phase(card)
-    launches["train"], train_record = train_phase(card)
-    launches["mesh-train"] = mesh_train_phase(card, train_record)
-    launches["stage3-lora"] = stage3_lora_phase(card)
-    launches["stage3-qlora"] = stage3_qlora_phase(card)
-    launches["stage3-sft"], resident = stage3_sft_phase(card)
-    launches["stage3-sft-offload"], _ = stage3_sft_phase(card, resident=resident)
+    launches["serve"] = on_contract("slice", main_path(
+        card, then=lambda hc: (launches["serve-engine"].update(serve_engine_phase(card, hc)),
+                               launches.update(group_phases(card, hc)))))
+    launches["clip"] = on_contract("clip", main_path(card, clip_config(), "clip"))
+    launches["anyres"] = on_contract("anyres", anyres_phase(card))
+    launches.update(on_contract("baseline-0.5b", baseline_05b_phase(card)))
+    fp32_route_phase(card)  # the one phase whose decode steps K3's contract sends to the plain path
+    phase_seconds("fp32-route")
+    launches["serve-int8"] = on_contract("serve-int8", serve_quant_phase(card, "serve-int8", "int8"))
+    launches["serve-w8a8"] = on_contract("serve-w8a8", serve_quant_phase(card, "serve-w8a8", "w8a8s", "w8a8s_mlp_qkv"))
+    launches["model-init"] = on_contract("model-init", model_init_phase(card))
+    launches["train"], train_record = on_contract("train", train_phase(card))
+    launches["mesh-train"] = on_contract("mesh-train", mesh_train_phase(card, train_record))
+    launches["stage3-lora"] = on_contract("stage3-lora", stage3_lora_phase(card))
+    launches["stage3-qlora"] = on_contract("stage3-qlora", stage3_qlora_phase(card))
+    launches["stage3-sft"], resident = on_contract("stage3-sft", stage3_sft_phase(card))
+    launches["stage3-sft-offload"], _ = on_contract("stage3-sft-offload", stage3_sft_phase(card, resident=resident))
     del resident
-    launches["anyres-train"] = anyres_train_phase(card)
-    launches["multi-image"] = multi_image_phase(card)
-    plain_vs_kernel_logits()
-    plain_vs_kernel_grads()
-    plain_vs_kernel_anyres_clip()
-    mesh_cli_phase(card, cli_phase(card))
-    launches["closed-loop"] = closed_loop_phase(card)
-    bench_phase(card)
+    launches["anyres-train"] = on_contract("anyres-train", anyres_train_phase(card))
+    launches["multi-image"] = on_contract("multi-image", multi_image_phase(card))
+    on_contract("slice 2 layers", plain_vs_kernel_logits())
+    on_contract("slice 2 layers", plain_vs_kernel_grads())
+    on_contract("anyres/clip 2 layers", plain_vs_kernel_anyres_clip())
+    on_contract("mesh-cli", mesh_cli_phase(card, on_contract("cli", cli_phase(card))))
+    launches["closed-loop"] = on_contract("closed-loop", closed_loop_phase(card))
+    on_contract("bench", bench_phase(card))
     # last: its 65 GB of pinned moments stay in PyTorch's host cache once freed
-    launches["stage3-sft-7b-offload"] = stage3_sft_7b_offload_phase(card)
+    launches["stage3-sft-7b-offload"] = on_contract("stage3-sft-7b-offload", stage3_sft_7b_offload_phase(card))
 
     kernels = []
     for name, (kid, phase, rec) in records.items():

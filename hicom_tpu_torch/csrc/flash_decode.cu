@@ -6,6 +6,11 @@
 // accumulator only (v_scale), not the denominator, exactly as the TPU kernel does; p times the v
 // scale is rounded to bf16 before the P V product, as the TPU kernel rounds it to q's type.
 //
+// It takes the head dims 64 (Qwen2.5-0.5B) and 128 (1.5B to 72B) and any group g = H / KVH from 1
+// to 8, each a template instance (D, G, cache type); the wrapper's contract
+// (ops/flash_decode.takes_decode_kernel) names the same set, and the callers send anything else to
+// the plain path.
+//
 // What bounds it on the H100: bytes. One decode step reads each valid cache slot once
 // (2 * d * 2 bytes in bf16, 2 * d bytes + 8 bytes of scales in int8) and does 4 * g * d flops per
 // slot, far below the card's 295 flops per byte: at the served shape (b 2, 4 kv heads, about 1,500
@@ -19,7 +24,7 @@
 //     its (max -inf, denominator 0) partial and returns without touching K or V, so the unwritten
 //     part of the cache costs one byte per slot.
 //   * A chunk with a valid slot copies its valid K and V rows into shared memory with 16-byte
-//     cp.async (16 KB in bf16), all issued before any compute, while the query and the slots'
+//     cp.async (16 KB in bf16 at d 128, 8 KB at d 64), all issued before any compute, while the query and the slots'
 //     scales load; rows whose bit is clear are zero-filled and never read. int8 codes are copied as
 //     they are and converted to bf16 in shared memory (exact: |x| <= 127).
 //   * Both products are mma.sync m16n8k16 tiles: S = Q K^T with the group's heads as the 16 rows
@@ -38,13 +43,17 @@
 
 namespace {
 
-constexpr int D = 128;
-constexpr int CHUNK = 32;   // slots per block, one per lane
-constexpr int LDS = D + 8;  // bf16 row stride of the K and V tiles: a 16-byte pad, conflict-free ldmatrix
+constexpr int CHUNK = 32;  // slots per block, one per lane
 constexpr float NEG = -1e30f;
 
-// A chunk's int8 codes (CHUNK rows of D, packed) to bf16 rows of stride LDS; 16 codes per lane step.
+// bf16 row stride of the K and V tiles: a 16-byte pad, so that the 8 rows an ldmatrix reads start
+// 16 bytes apart modulo 128 (at d 128 272 bytes a row, at d 64 144): no bank conflict
+__host__ __device__ constexpr int lds(int d) { return d + 8; }
+
+// A chunk's int8 codes (CHUNK rows of D, packed) to bf16 rows of stride lds(D); 16 codes per lane step.
+template <int D>
 __device__ __forceinline__ void codes_to_bf16(bf16* dst, const int8_t* src, int lane) {
+  constexpr int LDS = lds(D);
   for (int i = lane; i < CHUNK * D / 16; i += 32) {
     const int r = i / (D / 16), c = (i % (D / 16)) * 16;
     const int4 raw = *reinterpret_cast<const int4*>(src + r * D + c);
@@ -58,12 +67,14 @@ __device__ __forceinline__ void codes_to_bf16(bf16* dst, const int8_t* src, int 
 }
 
 // grid (n_chunks, B * KVH), one warp; partial outputs pm/pl (rows, n_chunks, G), pacc (rows, n_chunks, G, D)
-template <int G, bool QUANT>
+template <int D, int G, bool QUANT>
 __global__ void __launch_bounds__(32)
 decode_partial_kernel(const bf16* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
                       const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                       const uint8_t* __restrict__ slot_mask, float* __restrict__ pm, float* __restrict__ pl,
                       float* __restrict__ pacc, int KVH, int S, float scale) {
+  static_assert(D % 16 == 0 && G >= 1 && G <= 8, "a k16 step of Q K^T, 8-column O tiles, G <= 8 of A's 16 rows");
+  constexpr int LDS = lds(D);
   constexpr int ROW = QUANT ? D : 2 * D;      // bytes of a cache row
   constexpr int STAGED = QUANT ? D : 2 * LDS;  // bytes of a row as copied into shared memory
   __shared__ __align__(16) bf16 sk[CHUNK * LDS];
@@ -118,9 +129,9 @@ decode_partial_kernel(const bf16* __restrict__ q, const void* __restrict__ k, co
   }
   cp_async_wait<0>();
   __syncwarp();
-  if (QUANT) {
-    codes_to_bf16(sk, codes, lane);
-    codes_to_bf16(sv, codes + CHUNK * D, lane);
+  if constexpr (QUANT) {
+    codes_to_bf16<D>(sk, codes, lane);
+    codes_to_bf16<D>(sv, codes + CHUNK * D, lane);
     __syncwarp();
   }
 
@@ -199,8 +210,8 @@ decode_partial_kernel(const bf16* __restrict__ q, const void* __restrict__ k, co
   }
 }
 
-// The block's max (IS_MAX) or sum of x, in a fixed order; red holds D / 32 floats.
-template <bool IS_MAX>
+// The block's max (IS_MAX) or sum of x, in a fixed order; red holds WARPS floats.
+template <int WARPS, bool IS_MAX>
 __device__ __forceinline__ float block_reduce(float x, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -211,7 +222,7 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
   __syncthreads();
   x = red[0];
 #pragma unroll
-  for (int w = 1; w < D / 32; ++w) x = IS_MAX ? fmaxf(x, red[w]) : x + red[w];
+  for (int w = 1; w < WARPS; ++w) x = IS_MAX ? fmaxf(x, red[w]) : x + red[w];
   __syncthreads();  // red may be written again
   return x;
 }
@@ -220,7 +231,7 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 // into o (B, KVH * G, 1, D) bf16. A row with no valid slot at all gets what the TPU kernel gives it:
 // every logit is -1e30, so every p is 1 and the output is the plain average of all S value rows
 // (times their v scales).
-template <bool QUANT>
+template <int D, bool QUANT>
 __global__ void __launch_bounds__(D)
 decode_combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl, const float* __restrict__ pacc,
                       const void* __restrict__ v, const float* __restrict__ v_scale, bf16* __restrict__ o, int G,
@@ -241,13 +252,13 @@ decode_combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl
     w[i] = pl[at(i)] > 0.f ? pm[at(i)] : -INFINITY;
     M = fmaxf(M, w[i]);
   }
-  M = block_reduce<true>(M, red);
+  M = block_reduce<D / 32, true>(M, red);
   float L = 0.f;
   for (int i = c; i < n_chunks; i += D) {
     w[i] = w[i] == -INFINITY ? 0.f : __expf(w[i] - M);
     L += w[i] * pl[at(i)];
   }
-  L = block_reduce<false>(L, red);  // its barriers also publish w
+  L = block_reduce<D / 32, false>(L, red);  // its barriers also publish w
   // the busy chunks' indices in order (a ballot per warp and D chunks per round), so that the sum
   // below issues its loads back to back instead of one behind each branch
   int n_busy = 0;
@@ -280,59 +291,89 @@ decode_combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl
   o[(size_t)rh * D + c] = __float2bfloat16(A / fmaxf(L, 1e-30f));
 }
 
-template <int G>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
-                   const uint8_t* mask, float* ws, void* o, int B, int KVH, int S, int quant,
-                   float scale, cudaStream_t stream) {
-  const int n_chunks = (S + CHUNK - 1) / CHUNK;
+// What one call hands its launches.
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const uint8_t* mask;
+  float* ws;
+  void* o;
+  int B, KVH, S, quant;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int D, int G>
+cudaError_t launch(const DecodeArgs& a) {
+  const int n_chunks = (a.S + CHUNK - 1) / CHUNK;
   const size_t combine_smem = (size_t)n_chunks * 2 * sizeof(float);
   if (combine_smem > 48 * 1024) return cudaErrorInvalidValue;
-  const int rows = B * KVH;
-  float* pm = ws;
+  const int rows = a.B * a.KVH;
+  float* pm = a.ws;
   float* pl = pm + (size_t)rows * n_chunks * G;
   float* pacc = pl + (size_t)rows * n_chunks * G;
   const dim3 grid(n_chunks, rows);
-  auto qp = static_cast<const bf16*>(q);
-  auto op = static_cast<bf16*>(o);
-  if (quant) {
-    decode_partial_kernel<G, true><<<grid, 32, 0, stream>>>(qp, k, v, ks, vs, mask, pm, pl, pacc, KVH, S, scale);
+  auto qp = static_cast<const bf16*>(a.q);
+  auto op = static_cast<bf16*>(a.o);
+  if (a.quant) {
+    decode_partial_kernel<D, G, true><<<grid, 32, 0, a.stream>>>(qp, a.k, a.v, a.ks, a.vs, a.mask, pm, pl, pacc,
+                                                                 a.KVH, a.S, a.scale);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    decode_combine_kernel<true><<<rows * G, D, combine_smem, stream>>>(pm, pl, pacc, v, vs, op, G, n_chunks, S);
+    decode_combine_kernel<D, true><<<rows * G, D, combine_smem, a.stream>>>(pm, pl, pacc, a.v, a.vs, op, G, n_chunks,
+                                                                           a.S);
   } else {
-    decode_partial_kernel<G, false><<<grid, 32, 0, stream>>>(qp, k, v, ks, vs, mask, pm, pl, pacc, KVH, S, scale);
+    decode_partial_kernel<D, G, false><<<grid, 32, 0, a.stream>>>(qp, a.k, a.v, a.ks, a.vs, a.mask, pm, pl, pacc,
+                                                                  a.KVH, a.S, a.scale);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    decode_combine_kernel<false><<<rows * G, D, combine_smem, stream>>>(pm, pl, pacc, v, vs, op, G, n_chunks, S);
+    decode_combine_kernel<D, false><<<rows * G, D, combine_smem, a.stream>>>(pm, pl, pacc, a.v, a.vs, op, G,
+                                                                            n_chunks, a.S);
   }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Workspace floats needed by hicom_flash_decode.
-extern "C" long long hicom_decode_workspace(int B, int KVH, int G, int S) {
-  const long long n_chunks = (S + CHUNK - 1) / CHUNK;
-  return (long long)B * KVH * n_chunks * G * (2 + D);
+template <int D>
+cudaError_t launch_group(int G, const DecodeArgs& a) {
+  switch (G) {
+    case 1: return launch<D, 1>(a);
+    case 2: return launch<D, 2>(a);
+    case 3: return launch<D, 3>(a);
+    case 4: return launch<D, 4>(a);
+    case 5: return launch<D, 5>(a);
+    case 6: return launch<D, 6>(a);
+    case 7: return launch<D, 7>(a);
+    case 8: return launch<D, 8>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-// q (B, KVH * G, 1, D) bf16; k/v (B, KVH, S, D) bf16 (quant = 0) or int8 (quant = 1);
-// k_scale/v_scale (B, KVH, S) fp32 (int8 only, else null); slot_mask (B, S) uint8;
-// ws fp32 workspace of hicom_decode_workspace floats; o (B, KVH * G, 1, D) bf16.
+}  // namespace
+
+// Workspace floats needed by hicom_flash_decode: each chunk's max, denominator and d accumulators
+// per head.
+extern "C" long long hicom_decode_workspace(int B, int KVH, int G, int S, int d) {
+  const long long n_chunks = (S + CHUNK - 1) / CHUNK;
+  return (long long)B * KVH * n_chunks * G * (2 + d);
+}
+
+// q (B, KVH * G, 1, d) bf16; k/v (B, KVH, S, d) bf16 (quant = 0) or int8 (quant = 1); d 64 or 128,
+// G 1 to 8; k_scale/v_scale (B, KVH, S) fp32 (int8 only, else null); slot_mask (B, S) uint8;
+// ws fp32 workspace of hicom_decode_workspace floats; o (B, KVH * G, 1, d) bf16.
 extern "C" int hicom_flash_decode(const void* q, const void* k, const void* v, const float* k_scale,
                                   const float* v_scale, const uint8_t* slot_mask, float* ws, void* o,
                                   int B, int KVH, int G, int S, int d, int quant, float scale,
                                   void* stream) {
-  if (d != D || S <= 0) return (int)cudaErrorInvalidValue;
+  if (S <= 0) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (G) {
-    case 1: return (int)launch<1>(q, k, v, k_scale, v_scale, slot_mask, ws, o, B, KVH, S, quant, scale, s);
-    case 2: return (int)launch<2>(q, k, v, k_scale, v_scale, slot_mask, ws, o, B, KVH, S, quant, scale, s);
-    case 4: return (int)launch<4>(q, k, v, k_scale, v_scale, slot_mask, ws, o, B, KVH, S, quant, scale, s);
-    case 6: return (int)launch<6>(q, k, v, k_scale, v_scale, slot_mask, ws, o, B, KVH, S, quant, scale, s);
-    case 7: return (int)launch<7>(q, k, v, k_scale, v_scale, slot_mask, ws, o, B, KVH, S, quant, scale, s);
-    case 8: return (int)launch<8>(q, k, v, k_scale, v_scale, slot_mask, ws, o, B, KVH, S, quant, scale, s);
+  const DecodeArgs a{q, k, v, k_scale, v_scale, slot_mask, ws, o, B, KVH, S, quant, scale,
+                     static_cast<cudaStream_t>(stream)};
+  switch (d) {
+    case 64: return (int)launch_group<64>(G, a);
+    case 128: return (int)launch_group<128>(G, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

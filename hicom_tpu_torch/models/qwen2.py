@@ -12,10 +12,13 @@ embeddings optional. ``config.quantization`` picks the linears of every layer
   also written to the cache;
 * a step over the cache: slot-causal over the cache's validity bitmap. One
   token per row goes through the K3 decode kernel on the card (its plain twin
-  on the CPU) over a bf16 or int8 cache; a chunk of L > 1 tokens per row (a
-  speculative verify step) takes the plain masked ``sdpa``, as in JAX, where
-  a masked call takes XLA under the ``auto`` rule and no Pallas kernel
-  computes it.
+  on the CPU) over a bf16 or int8 cache wherever its contract holds
+  (``ops/flash_decode.takes_decode_kernel``: a bf16 query, head dim 64 or
+  128, 1 to 8 query heads per kv head); a chunk of L > 1 tokens per row (a
+  speculative verify step), and on the card a step the contract refuses
+  (counted in ``cuda_build.plain_route``), takes the plain masked ``sdpa``
+  over the (dequantized) cache, as in JAX, where a masked call takes XLA
+  under the ``auto`` rule and the Pallas decode kernel is opt-in.
 
 The step has two cache modes. By default every row shares the ``int`` write
 offset ``length``. With ``per_slot=True`` (the serving engine, ``serve.py``)
@@ -53,7 +56,8 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import sdpa
-from ..ops.flash_decode import flash_decode
+from ..ops.cuda_build import plain_route
+from ..ops.flash_decode import flash_decode, takes_decode_kernel
 from .quant import decoder_layer_modes, make_linear
 
 Tensor = torch.Tensor
@@ -177,12 +181,16 @@ class DecoderAttention(nn.Module):
         else:
             self._write(cache, layer, k, v, offsets)
             quant = cache.k_scale is not None
-            if L == 1:
-                out = flash_decode(q, cache.k[layer], cache.v[layer], slot_mask,
-                                   k_scale=cache.k_scale[layer] if quant else None,
+            ck, cv = cache.k[layer], cache.v[layer]
+            if L == 1 and takes_decode_kernel(q.shape, ck.shape, q.dtype, ck.dtype, q.device.type):
+                out = flash_decode(q, ck, cv, slot_mask, k_scale=cache.k_scale[layer] if quant else None,
                                    v_scale=cache.v_scale[layer] if quant else None, scale=hd**-0.5)
-            else:  # a verify chunk: the plain masked path (JAX takes XLA here too; no kernel to port)
-                ck, cv = cache.k[layer], cache.v[layer]
+            else:
+                # a verify chunk, or a step whose operands K3's contract refuses (fp32, a head dim
+                # other than 64 / 128): the plain masked path, JAX's default XLA decode
+                if L == 1:
+                    plain_route.add("K3")
+                    slot_mask = slot_mask[:, None, None, :]
                 if quant:
                     ck, cv = dequantize_kv(ck, cache.k_scale[layer], q.dtype), dequantize_kv(cv, cache.v_scale[layer],
                                                                                             q.dtype)

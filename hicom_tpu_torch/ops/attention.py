@@ -6,9 +6,13 @@ plain (einsum) path: fp32 logits and softmax, then a cast back; an additive
 filled with -inf); ``kv_lengths`` and boolean ``mask`` filled with
 ``finfo(float32).min``; GQA grouped without repeating KV.
 
-``sdpa`` sends CUDA tensors to the flash kernels exactly where the JAX
+``sdpa`` sends device tensors to the flash kernels exactly where the JAX
 ``auto`` rule sends TPU arrays to Pallas (:func:`flash_route`), and everything
-else to the plain path.
+else to the plain path. The kernels take bf16 at head dims that pad to 32, 64,
+80 or 128 (:func:`~.flash_attention.takes_flash_kernel`); their wrappers
+raise for other device operands (fp32, head dim 16 or 96), which JAX's
+dtype-generic Pallas kernels compute: those instances are open kernel work,
+never a silent plain path.
 
 ``sdpa(..., kv_group=)`` is attention over a KV sequence split across the
 ranks of a process group, q the same on every rank (JAX's ``kv_axis_name``):
@@ -80,7 +84,7 @@ def sdpa(
         return _sdpa_kv_sharded(q, k, v, scale=scale, logit_bias=logit_bias, mask=mask, is_causal=is_causal,
                                 kv_lengths=kv_lengths, group=kv_group)
     kernel = flash_route(q.shape, k.shape, mask=mask, scale=scale, logit_bias=logit_bias, is_causal=is_causal,
-                         kv_lengths=kv_lengths) if q.is_cuda else None
+                         kv_lengths=kv_lengths) if q.device.type != "cpu" else None
     if kernel is not None:
         return run_kernel(kernel, q, k, v, scale=float(scale) if scale is not None else 1.0 / (q.shape[-1] ** 0.5),
                           logit_bias=float(logit_bias), is_causal=is_causal, kv_lengths=kv_lengths)

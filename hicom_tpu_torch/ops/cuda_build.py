@@ -132,6 +132,30 @@ def plain_operands(what: str, *operands) -> None:
                 raise TypeError(f"{what} takes plain local tensors, not DTensors")
 
 
+class PlainRoute:
+    """Calls on a device that a kernel's contract sent to the plain path, by
+    kernel. Only K3 has such a route: the decoder asks ``takes_decode_kernel``
+    before a one-token step, from shapes and dtypes, and counts here each step
+    it takes to the plain masked attention, which is JAX's default XLA decode
+    (its Pallas decode kernel is opt-in). The other wrappers raise for device
+    operands outside their contract. CPU tensors never count: their wrappers
+    take the plain twin."""
+
+    KERNELS = ("K3",)
+
+    def __init__(self):
+        self.counts = dict.fromkeys(self.KERNELS, 0)
+
+    def add(self, kernel: str) -> None:
+        self.counts[kernel] += 1
+
+    def reset(self) -> None:
+        self.counts = dict.fromkeys(self.KERNELS, 0)
+
+
+plain_route = PlainRoute()
+
+
 def check(status: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if status != 0:

@@ -45,6 +45,10 @@ through it whenever a gradient is wanted, and straight to the forward kernel
 otherwise (serving under ``torch.inference_mode()`` saves nothing).
 :func:`uses_fullblock` is the one rule that chooses between K1 and K2, as
 ``_flash_fwd_impl`` chooses on the TPU.
+
+The kernels' contract is :func:`takes_flash_kernel` (bf16 q, k and v; a head
+dim that is a multiple of 8 and pads to 32, 64, 80 or 128); the wrappers raise
+for device operands outside it.
 """
 
 from __future__ import annotations
@@ -66,6 +70,18 @@ DKV_BLOCK_K, DKV_BLOCK_Q = 64, 64  # K6's keys per block, query rows per unit
 H100_SMS = 132
 
 Tensor = torch.Tensor
+FLASH_HEAD_DIMS = (32, 64, 80, 128)  # the kernels' instances, each head dim padded to a multiple of 16
+
+
+def takes_flash_kernel(d: int, dtypes, device_type: str) -> bool:
+    """Whether the flash wrappers (K1, K2, and K5/K6 behind them) compute
+    attention of head dim ``d`` over q, k and v of ``dtypes`` on
+    ``device_type``: always on the CPU (the plain twins); elsewhere the
+    kernels' contract: bf16 operands, ``d`` a multiple of 8 that pads to one of
+    :data:`FLASH_HEAD_DIMS`."""
+    if device_type == "cpu":
+        return True
+    return all(dt == torch.bfloat16 for dt in dtypes) and d % 8 == 0 and (d + 15) // 16 * 16 in FLASH_HEAD_DIMS
 
 
 def _acc_dtype(x: Tensor) -> torch.dtype:
@@ -369,7 +385,7 @@ def _check(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], what: 
         raise TypeError(f"{what} takes bfloat16 q, k and v")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError(f"{what}: q, k and v must be on one device")
-    if d % 8 or d > 128 or (d + 15) // 16 * 16 not in (32, 64, 80, 128):
+    if not takes_flash_kernel(d, (q.dtype, k.dtype, v.dtype), q.device.type):
         raise ValueError(f"{what}: head dim {d} not supported")
     lens = None
     if kv_lengths is not None:

@@ -8,6 +8,11 @@ the denominator, as on the TPU. The CUDA kernel splits the slot axis into
 chunks of :data:`DECODE_CHUNK` slots, one warp each, skips chunks with no valid
 slot, and merges the chunks' partials in a second small kernel (see the
 source); :func:`chunked_decode_reference` is that path in plain PyTorch.
+
+The kernel's contract is :func:`takes_decode_kernel`: a bf16 query, a bf16 or
+int8 cache, head dim 64 or 128 and 1 to 8 query heads per kv head. The wrapper
+raises for CUDA operands outside it; the decoder asks it first and takes the
+plain masked attention for the rest (``models/qwen2.py``).
 """
 
 from __future__ import annotations
@@ -21,8 +26,25 @@ from .cuda_build import c_function, check, plain_operands
 
 NEG_INF = -1e30
 DECODE_CHUNK = 32  # the kernel's slots per block
+DECODE_HEAD_DIMS = (64, 128)  # the kernel's instances: head dim x group 1-8 x bf16 / int8 cache
+MAX_DECODE_GROUP = 8  # the group's heads are rows of an mma.sync A tile; 8 of its 16 rows are used
 
 Tensor = torch.Tensor
+
+
+def takes_decode_kernel(q_shape, k_shape, q_dtype: torch.dtype, cache_dtype: torch.dtype,
+                        device_type: str) -> bool:
+    """Whether :func:`flash_decode` computes this one-token step on
+    ``device_type``: always on the CPU (its plain twin); elsewhere the
+    kernel's contract: q (b, H, 1, d) bf16 over a bf16 or int8 cache (b, KVH,
+    S, d), d in :data:`DECODE_HEAD_DIMS`, H / KVH a whole group of 1 to
+    :data:`MAX_DECODE_GROUP`."""
+    if device_type == "cpu":
+        return True
+    H, L, d = q_shape[1], q_shape[2], q_shape[3]
+    KVH = k_shape[1]
+    return (q_dtype == torch.bfloat16 and cache_dtype in (torch.bfloat16, torch.int8) and L == 1
+            and d in DECODE_HEAD_DIMS and k_shape[3] == d and H % KVH == 0 and 1 <= H // KVH <= MAX_DECODE_GROUP)
 
 
 def decode_reference(q: Tensor, k: Tensor, v: Tensor, slot_mask: Tensor, k_scale: Optional[Tensor],
@@ -116,8 +138,6 @@ def flash_decode(
         return decode_reference(q, k, v, slot_mask, k_scale, v_scale, scale)
 
     g = H // KVH
-    if q.dtype != torch.bfloat16:
-        raise TypeError("decode kernel takes a bfloat16 query")
     if quantized:
         if k.dtype != torch.int8 or v.dtype != torch.int8 or v_scale is None:
             raise TypeError("int8 decode needs int8 k/v and both scale tensors")
@@ -129,7 +149,9 @@ def flash_decode(
         raise TypeError("decode kernel takes a bfloat16 or int8 cache")
     if k.shape != (b, KVH, S, d) or v.shape != k.shape or slot_mask.shape != (b, S):
         raise ValueError(f"decode kernel: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} mask {tuple(slot_mask.shape)}")
-    if d != 128 or g not in (1, 2, 4, 6, 7, 8):
+    if not takes_decode_kernel(q.shape, k.shape, q.dtype, k.dtype, q.device.type):
+        if q.dtype != torch.bfloat16:
+            raise TypeError("decode kernel takes a bfloat16 query")
         raise ValueError(f"decode kernel: head dim {d} / group {g} not supported")
     if any(t.device != q.device for t in (k, v, slot_mask)):
         raise ValueError("decode kernel: all inputs must be on one device")
@@ -137,8 +159,8 @@ def flash_decode(
     # a bool mask is read as bytes in place: no conversion launch per layer
     mask = (slot_mask.view(torch.uint8) if slot_mask.dtype == torch.bool else slot_mask.to(torch.uint8)).contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    workspace = c_function("flash_decode", "hicom_decode_workspace", [ctypes.c_int] * 4, ctypes.c_longlong)
-    ws = _workspace(q.device, stream, workspace(b, KVH, g, S))
+    workspace = c_function("flash_decode", "hicom_decode_workspace", [ctypes.c_int] * 5, ctypes.c_longlong)
+    ws = _workspace(q.device, stream, workspace(b, KVH, g, S, d))  # d accumulators a head and chunk
     out = torch.empty_like(q)
     fn = c_function("flash_decode", "hicom_flash_decode",
                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])

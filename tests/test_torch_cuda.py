@@ -348,6 +348,111 @@ def test_flash_decode_chunks(rn, b, g, quantized):
     assert max(_worst(out[r], ref[r]) for r in range(b)) <= 1
 
 
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("g", range(1, 9))
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_decode_every_width(rn, d, g, quantized):
+    """Every instance of K3 (head dim 64 or 128, groups 1-8, bf16 or int8
+    cache): valid slots ending inside a chunk, and a row with no valid slot,
+    each row held to the twin on its own."""
+    b, KVH, S = 2, 2, 1000
+    q = rn(b, KVH * g, 1, d)
+    slot = torch.arange(S, device="cuda")
+    mask = torch.stack([slot < 5 * DECODE_CHUNK + 7, torch.zeros_like(slot, dtype=torch.bool)])
+    if quantized:
+        k = torch.randint(-127, 128, (b, KVH, S, d), device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, KVH, S, d), device="cuda", dtype=torch.int8)
+        ks, vs = torch.rand(b, KVH, S, device="cuda") * 0.02, torch.rand(b, KVH, S, device="cuda") * 0.02
+    else:
+        k, v, ks, vs = rn(b, KVH, S, d), rn(b, KVH, S, d), None, None
+    before = flash_decode.launches
+    out = flash_decode(q, k, v, mask, k_scale=ks, v_scale=vs)
+    assert flash_decode.launches == before + 1
+    ref = decode_reference(q, k, v, mask, ks, vs, d**-0.5)
+    assert max(_worst(out[r], ref[r]) for r in range(b)) <= 1
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("H,KVH,d,fill", [
+    (14, 2, 64, 233),  # Qwen2.5-0.5B at [baseline-0.5b]'s fill
+    (40, 8, 128, 760),  # group 5: Qwen2.5-14B/32B
+    (20, 4, 128, 760),  # group 5 at tp 2
+    (12, 4, 128, 760),  # group 3
+])
+def test_flash_decode_new_widths_at_serving_shapes(rn, H, KVH, d, fill, quantized):
+    S = 4096
+    q = rn(1, H, 1, d)
+    mask = (torch.arange(S, device="cuda") < fill)[None]
+    if quantized:
+        k = torch.randint(-127, 128, (1, KVH, S, d), device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (1, KVH, S, d), device="cuda", dtype=torch.int8)
+        ks, vs = torch.rand(1, KVH, S, device="cuda") * 0.02, torch.rand(1, KVH, S, device="cuda") * 0.02
+    else:
+        k, v, ks, vs = rn(1, KVH, S, d), rn(1, KVH, S, d), None, None
+    out = flash_decode(q, k, v, mask, k_scale=ks, v_scale=vs)
+    assert _worst(out, decode_reference(q, k, v, mask, ks, vs, d**-0.5)) <= 1
+
+
+def test_selftest_runs_on_the_card_in_fp32(tmp_path):
+    """``python -m hicom_tpu_torch.selftest``'s loop at its defaults (fp32, a
+    decoder of head dim 16) on the card: its decode steps, which K3's
+    contract refuses, take the plain masked attention (JAX's default decode),
+    and the loop ends with a score."""
+    from hicom_tpu_torch import selftest
+    from hicom_tpu_torch.ops.cuda_build import plain_route
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plain_route.reset()
+    out = selftest.run(str(tmp_path))
+    assert 0.0 <= out["videomme_accuracy"] <= 100.0 and out["n_questions"] > 0
+    assert plain_route.counts["K3"] > 0
+    plain_route.reset()
+
+
+def test_fp32_model_init_gives_the_cpus_string_on_the_card(tmp_path):
+    """An fp32 export at the tiny widths (text head dim 32; a 56 x 56 tower,
+    whose 4 x 4 patch grid the 3 x 3 tiles do not divide and whose 16 tokens
+    JAX's rule keeps off the flash kernels) through ``model_init`` +
+    ``mm_infer`` on the card and on the CPU: the same string, no kernel
+    launched on the card, the decode steps refused by K3's contract and
+    counted on the plain route."""
+    import dataclasses
+    import json
+
+    import numpy as np
+
+    from hicom_tpu_torch import api, tiny_test_config
+    from hicom_tpu_torch.ops.cuda_build import plain_route
+    from hicom_tpu_torch.selftest import WORDS, _write_wordlevel_tokenizer
+    from hicom_tpu_torch.weights import export_hf_checkpoint
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tower, ckpt = tmp_path / "siglip-56", tmp_path / "hicom-fp32"
+    tower.mkdir()
+    cfg = tiny_test_config(dtype="float32", use_guide=None, mm_vision_tower=str(tower))
+    cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, vocab_size=3 + len(WORDS), eos_token_id=2))
+    with open(tower / "config.json", "w") as f:
+        json.dump({"model_type": "siglip", "vision_config": dataclasses.asdict(cfg.vision_config),
+                   "text_config": dataclasses.asdict(cfg.guide_text_config)}, f)
+    export_hf_checkpoint(api.build_model(cfg, device="cpu", seed=3, std=0.2).state_dict(), cfg, str(ckpt))
+    _write_wordlevel_tokenizer(str(ckpt), WORDS)
+    pixels = np.random.default_rng(4).uniform(-1, 1, (4, 3, 56, 56)).astype(np.float32)
+    wrappers = (fullblock_attention, flash_forward, flash_decode, fused_tile_attention)
+    strings = {}
+    for device in ("cuda", "cpu"):
+        hc, _, tok = api.model_init(str(ckpt), dtype="float32", device=device)
+        before = [f.launches for f in wrappers]
+        plain_route.reset()
+        strings[device] = api.mm_infer(pixels, "what is in the video ?", hc, tok, max_new_tokens=6)
+        if device == "cuda":
+            assert [f.launches for f in wrappers] == before
+            assert plain_route.counts["K3"] > 0
+    plain_route.reset()
+    assert strings["cuda"] == strings["cpu"]
+
+
 def _small_decoder_model(rn):
     """A small HICom model on the card whose decoder takes K2/K5/K6 (head_dim
     64, GQA 4/2, causal, 150 prompt tokens with a right-padded row), and a
@@ -723,8 +828,10 @@ def test_device_time_times_a_k2_call_with_cuda_events(rn):
 
 
 def test_eval_runner_on_the_card_writes_the_cpus_answers(tmp_path, monkeypatch):
-    """The port's eval runner on a tiny bf16 export (text head_dim 128, so
-    that K2 and K3 take it; weights N(0, 0.2)) writes the same mini Video-MME
+    """The port's eval runner on a tiny bf16 export (text head_dim 128: at the
+    tiny config's 32 K3's contract refuses the decode steps and JAX's rule
+    keeps the grouped prefill plain, so no kernel would launch; weights
+    N(0, 0.2)) writes the same mini Video-MME
     answer files with ``--device cuda`` as with ``--device cpu``, from the
     same generated strings, and launches the kernels on the card."""
     import dataclasses

@@ -1,0 +1,303 @@
+"""The kernels' contracts and the routes that read them, asked about the card.
+
+Each kernel family has one predicate of its contract, beside its wrapper:
+``takes_flash_kernel`` (K1/K2, and K5/K6 behind them), ``takes_decode_kernel``
+(K3) and ``takes_tile_kernel`` (K4, its tiling; the wrapper checks the types).
+The wrappers' checks read them and raise for device operands outside them.
+Only K3 has a route on its contract: the decoder asks ``takes_decode_kernel``
+before a one-token step and takes the plain masked attention for the rest
+(JAX's default decode, on XLA), counted in ``cuda_build.plain_route``. The
+other callers (``ops/attention.sdpa`` by JAX's ``auto`` rule, the split-key
+partials and merge, the projector's local compressor by its tiling) launch
+the kernel wherever JAX launches its Pallas kernel, so an fp32 operand or a
+head dim of 16 or 96 raises there on the card: those instances are open
+kernel work.
+
+The routes are driven on meta tensors, which take every wrapper's device
+branch (the CPU branch is for CPU tensors alone) through all its checks, with
+the launch itself stubbed: a wrapper that would raise on the card raises here,
+and a launch counts as it would there. No JAX: the routes' arithmetic is
+held to JAX by the other ``test_torch_*`` files.
+"""
+
+import dataclasses
+import types
+
+import pytest
+import torch
+
+from hicom_tpu_torch import config as tcfg
+from hicom_tpu_torch.models import qwen2
+from hicom_tpu_torch.models.projector import LocalCompressor
+from hicom_tpu_torch.ops import attention
+from hicom_tpu_torch.ops import flash_attention as tfa
+from hicom_tpu_torch.ops import flash_decode as tfd
+from hicom_tpu_torch.ops import local_attn as tla
+from hicom_tpu_torch.ops.cuda_build import plain_route
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.fixture
+def probe(monkeypatch):
+    """Stub the launches (the C functions, the SM count, the stream) so that
+    wrappers run to their end on meta tensors; returns a function giving the
+    launches and plain-route counts since the fixture began."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    for mod in (tfa, tfd, tla):
+        monkeypatch.setattr(mod, "c_function", lambda *a, **k: (lambda *args: 0))
+    for mod in (tfa, tla):
+        monkeypatch.setattr(mod, "_sm_count", lambda index: 132)
+    wrappers = {"K1": tfa.fullblock_attention, "K2": tfa.flash_forward, "K3": tfd.flash_decode,
+                "K4": tla.fused_tile_attention, "merge": tfa.merge_partials}
+    before = {k: f.launches for k, f in wrappers.items()}
+    plain_route.reset()
+
+    def counts():
+        launched = {k: f.launches - before[k] for k, f in wrappers.items()}
+        return {k: n for k, n in launched.items() if n}, {k: n for k, n in plain_route.counts.items() if n}
+
+    yield counts
+    plain_route.reset()
+
+
+def meta(*shape, dtype=BF16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+# --------------------------------------------------------------------------- #
+# the predicates
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("d,dtypes,takes", [
+    (72, (BF16,) * 3, True),  # so400m
+    (64, (BF16,) * 3, True),  # CLIP-L, Qwen2.5-0.5B
+    (128, (BF16,) * 3, True),  # Qwen2.5-1.5B to 72B, the global compressor
+    (32, (BF16,) * 3, True),
+    (72, (F32,) * 3, False),
+    (128, (BF16, BF16, F32), False),
+    (16, (BF16,) * 3, False),  # the selftest's decoder
+    (96, (BF16,) * 3, False),  # pads to 96: no instance
+    (136, (BF16,) * 3, False),
+])
+def test_flash_contract(d, dtypes, takes):
+    assert tfa.takes_flash_kernel(d, dtypes, "cuda") is takes
+    assert tfa.takes_flash_kernel(d, dtypes, "cpu")  # the plain twins take anything
+
+
+@pytest.mark.parametrize("d,dtype,takes", [(128, BF16, True), (72, BF16, True), (128, F32, True), (6, BF16, False)])
+def test_merge_contract(probe, d, dtype, takes):
+    """The merge kernel takes fp32 partials of any head dim that is a
+    multiple of 4 and writes bf16 rows (cast to the caller's dtype); another
+    head dim raises on a device."""
+    parts = meta(2, 4, d, dtype=F32), meta(2, 4, dtype=F32), meta(2, 4, dtype=F32)
+    if takes:
+        out, lse = tfa.merge_partials(*parts, dtype)
+        assert out.shape == (4, d) and out.dtype == dtype and lse.shape == (4,)
+    else:
+        with pytest.raises(ValueError, match="d % 4"):
+            tfa.merge_partials(*parts, dtype)
+    assert probe() == ({"merge": 1} if takes else {}, {})
+
+
+@pytest.mark.parametrize("b,H,KVH,S,d,q_dtype,cache_dtype,takes", [
+    # every K3 row of PERF.md's table: 7B at b 1 and 2, the anyres cache, the engine, a tp-2 rank's heads
+    (1, 28, 4, 4096, 128, BF16, BF16, True),
+    (2, 28, 4, 4096, 128, BF16, BF16, True),
+    (1, 28, 4, 8192, 128, BF16, BF16, True),
+    (4, 28, 4, 4096, 128, BF16, BF16, True),
+    (4, 14, 2, 4096, 128, BF16, BF16, True),
+    (2, 28, 4, 4096, 128, BF16, torch.int8, True),
+    # the new instances: Qwen2.5-0.5B (d 64, group 7), group 5 (14B/32B, and 20/4 at tp 2), group 3
+    (1, 14, 2, 4096, 64, BF16, BF16, True),
+    (1, 14, 2, 4096, 64, BF16, torch.int8, True),
+    (1, 40, 8, 4096, 128, BF16, BF16, True),
+    (1, 20, 4, 4096, 128, BF16, BF16, True),
+    (1, 12, 4, 4096, 128, BF16, BF16, True),
+    (1, 12, 12, 64, 64, BF16, BF16, True),  # group 1
+    # refused: fp32, the selftest's head dim 16, head dim 96, a group past 8
+    (1, 4, 2, 64, 16, F32, F32, False),
+    (1, 4, 2, 64, 128, F32, F32, False),
+    (1, 4, 2, 64, 16, BF16, BF16, False),
+    (1, 8, 2, 64, 96, BF16, BF16, False),
+    (1, 36, 4, 64, 128, BF16, BF16, False),
+])
+def test_decode_contract(b, H, KVH, S, d, q_dtype, cache_dtype, takes):
+    q_shape, k_shape = (b, H, 1, d), (b, KVH, S, d)
+    assert tfd.takes_decode_kernel(q_shape, k_shape, q_dtype, cache_dtype, "cuda") is takes
+    assert tfd.takes_decode_kernel(q_shape, k_shape, q_dtype, cache_dtype, "cpu")
+
+
+@pytest.mark.parametrize("dtypes,device,takes", [
+    ((BF16,) * 3, "cuda", True),
+    ((F32,) * 3, "cuda", False),
+    ((BF16, BF16, F32), "cuda", False),
+    ((F32,) * 3, "cpu", True),  # the plain version takes any type
+])
+def test_tile_contract_reads_the_types_off_the_cpu(probe, dtypes, device, takes):
+    """The tiling holds for the video and the image tile whatever the types;
+    the wrapper takes bf16 on a device (meta here: its device branch) and any
+    type on the CPU."""
+    for thw, kernel in (((32, 27, 27), (4, 3, 3)), ((1, 27, 27), (1, 3, 3))):  # the video and the image tile
+        assert tla.takes_tile_kernel(thw, 1152, 1152, kernel)
+    assert not tla.takes_tile_kernel((4, 4, 4), 64, 64, (4, 3, 3))
+    dev = "meta" if device == "cuda" else device
+    q, key, value = (torch.zeros(shape, dtype=dt, device=dev)
+                     for shape, dt in zip(((2, 3, 3, 64), (8, 9, 9, 64), (8, 9, 9, 64)), dtypes))
+    if takes:
+        assert tla.fused_tile_attention(q, key, value, (4, 3, 3), 0.125).shape == (2, 3, 3, 64)
+    else:
+        with pytest.raises(TypeError):
+            tla.fused_tile_attention(q, key, value, (4, 3, 3), 0.125)
+    assert probe() == ({"K4": 1} if takes and dev == "meta" else {}, {})
+
+
+# --------------------------------------------------------------------------- #
+# the routes
+# --------------------------------------------------------------------------- #
+
+SDPA_CASES = {
+    # name: (q shape, k shape, dtype, sdpa keywords, kernel launched or None, the wrapper's error or None)
+    "so400m 729^2 d 72": ((32, 16, 729, 72), (32, 16, 729, 72), BF16, {}, "K1", None),
+    "clip 577^2 d 64": ((32, 16, 577, 64), (32, 16, 577, 64), BF16, {}, "K1", None),
+    "prefill 28/4": ((2, 28, 743, 128), (2, 4, 743, 128), BF16, dict(is_causal=True, lens=[743, 700]), "K2", None),
+    "prefill 12/2": ((2, 12, 743, 128), (2, 2, 743, 128), BF16, dict(is_causal=True, lens=[743, 700]), "K2", None),
+    "prefill 14/2 d 128": ((2, 14, 743, 128), (2, 2, 743, 128), BF16, dict(is_causal=True), "K2", None),
+    "prefill 0.5b 14/2 d 64": ((2, 14, 743, 64), (2, 2, 743, 64), BF16, dict(is_causal=True, lens=[743, 700]),
+                               "K2", None),
+    "global 32 x 23,328": ((2, 9, 32, 128), (2, 9, 23328, 128), BF16, {}, "K2", None),
+    # JAX's rule picks a kernel that has no instance for these: the wrapper raises (open kernel work)
+    "so400m fp32": ((32, 16, 729, 72), (32, 16, 729, 72), F32, {}, None, TypeError),
+    "prefill fp32": ((2, 28, 743, 128), (2, 4, 743, 128), F32, dict(is_causal=True), None, TypeError),
+    "head dim 16": ((1, 4, 200, 16), (1, 4, 200, 16), BF16, {}, None, ValueError),
+    "head dim 96": ((1, 4, 200, 96), (1, 4, 200, 96), BF16, {}, None, ValueError),
+    "masked": ((1, 4, 200, 128), (1, 4, 200, 128), BF16, dict(mask=True), None, None),  # JAX's rule: plain
+}
+
+
+@pytest.mark.parametrize("name", sorted(SDPA_CASES))
+def test_sdpa_routes_on_the_contract(probe, name):
+    q_shape, k_shape, dtype, kw, kernel, error = SDPA_CASES[name]
+    kw = dict(kw)
+    lens = kw.pop("lens", None)
+    if lens is not None:
+        kw["kv_lengths"] = torch.tensor(lens, device="meta")
+    if kw.pop("mask", False):
+        kw["mask"] = torch.empty((q_shape[0], 1, q_shape[2], k_shape[2]), dtype=torch.bool, device="meta")
+    q, k = meta(*q_shape, dtype=dtype), meta(*k_shape, dtype=dtype)
+    with torch.inference_mode():
+        if error:
+            with pytest.raises(error):
+                attention.sdpa(q, k, k, **kw)
+        else:
+            out = attention.sdpa(q, k, k, **kw)
+            assert out.shape == q_shape and out.dtype == dtype
+    assert probe() == ({kernel: 1} if kernel else {}, {})
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_split_key_partials_and_merge_route_on_the_contract(probe, dtype):
+    """The split-key path launches K2's partials and the merge kernel on bf16;
+    fp32 partials raise at K2, as no fp32 instance exists."""
+    q, k = meta(1, 9, 32, 128, dtype=dtype), meta(1, 9, 2916, 128, dtype=dtype)
+    if dtype == F32:
+        with pytest.raises(TypeError):
+            attention.sdpa(q, k, k, kv_group=attention.SoloGroup())
+    else:
+        out = attention.sdpa(q, k, k, kv_group=attention.SoloGroup())
+        assert out.shape == q.shape and out.dtype == dtype
+    assert probe() == ({} if dtype == F32 else {"K2": 1, "merge": 1}, {})
+
+
+def _decoder(H, KVH, d, dtype, layers=2):
+    cfg = dataclasses.replace(tcfg.tiny_test_config().text_config, num_attention_heads=H, num_key_value_heads=KVH,
+                              head_dim=d, hidden_size=H * d, num_hidden_layers=layers)
+    with torch.device("meta"):
+        return cfg, qwen2.Qwen2Model(cfg, dtype=dtype)
+
+
+@pytest.mark.parametrize("case,H,KVH,d,dtype,quantized,want", [
+    # the selftest's decoder on the card (fp32, head dim 16): its grouped prefill is plain by JAX's
+    # rule (d % 64 != 0), its decode by K3's contract
+    ("selftest fp32 d 16", 4, 2, 16, F32, False, ({}, {"K3": 2})),
+    # fp32 at head dim 128: JAX's rule sends the grouped prefill to K2, which has no fp32 instance
+    ("fp32 d 128", 4, 2, 128, F32, False, TypeError),
+    ("fp32 int8 cache", 4, 2, 128, F32, True, TypeError),
+    # bf16 at 40/8 heads (group 5), at Qwen2.5-0.5B's 14/2 heads of 64, at group 3: both kernels
+    ("bf16 40/8", 40, 8, 128, BF16, False, ({"K2": 2, "K3": 2}, {})),
+    ("bf16 0.5b 14/2 d 64", 14, 2, 64, BF16, False, ({"K2": 2, "K3": 2}, {})),
+    ("bf16 0.5b int8 cache", 14, 2, 64, BF16, True, ({"K2": 2, "K3": 2}, {})),
+    ("bf16 12/4", 12, 4, 128, BF16, False, ({"K2": 2, "K3": 2}, {})),
+    ("bf16 d 96", 4, 2, 96, BF16, False, ({}, {"K3": 2})),  # grouped d 96: JAX's rule keeps the prefill plain
+])
+def test_decoder_step_routes_on_the_contract(probe, case, H, KVH, d, dtype, quantized, want):
+    """A prefill of 130 tokens into an empty cache, then one decode step, on
+    the device branch: each call either launches (the stub) or, for K3, is
+    counted on the plain route; where the prefill reaches K2 in fp32, K2's
+    wrapper raises."""
+    cfg, model = _decoder(H, KVH, d, dtype)
+    b, L = 2, 130
+    cache = qwen2.KVCache.zeros(cfg.num_hidden_layers, b, KVH, 256, d, dtype, "meta", quantized=quantized)
+    pos = torch.arange(L, device="meta").expand(b, L)
+    if isinstance(want, type):
+        with torch.inference_mode(), pytest.raises(want):
+            model(meta(b, L, cfg.hidden_size, dtype=dtype), pos, cache, prefill_from_empty=True)
+        assert probe() == ({}, {})
+        return
+    with torch.inference_mode():
+        model(meta(b, L, cfg.hidden_size, dtype=dtype), pos, cache, prefill_from_empty=True)
+        out = model(meta(b, 1, cfg.hidden_size, dtype=dtype), pos[:, -1:] + 1, cache)
+    assert out.shape == (b, 1, cfg.hidden_size) and cache.length == L + 1
+    assert probe() == want
+
+
+def test_verify_chunk_stays_plain_and_uncounted(probe):
+    cfg, model = _decoder(14, 2, 64, BF16)
+    cache = qwen2.KVCache.zeros(cfg.num_hidden_layers, 1, 2, 64, 64, BF16, "meta")
+    with torch.inference_mode():
+        model(meta(1, 4, cfg.hidden_size), torch.arange(4, device="meta")[None], cache)
+    assert probe() == ({}, {})  # JAX takes XLA there too: no kernel to depart from
+
+
+@pytest.mark.parametrize("dtype,want", [(BF16, ({"K4": 1}, {})), (F32, TypeError)])
+def test_projector_routes_on_the_tile_contract(probe, dtype, want):
+    """The local compressor takes K4 wherever the tiles fit, as JAX takes its
+    Pallas kernel; K4 has no fp32 instance, so fp32 raises on a device."""
+    ct = tcfg.tiny_test_config(use_guide="direct")
+    with torch.device("meta"):
+        local = LocalCompressor(ct.projector.local, ct.qk_dim, ct.mm_hidden_size, ct.hidden_size, "direct",
+                                dtype=dtype)
+    args = meta(2, 8, 9, 9, ct.mm_hidden_size, dtype=dtype), meta(2, 8, 9, 9, ct.qk_dim, dtype=dtype), \
+        meta(2, ct.qk_dim, dtype=dtype)
+    with torch.inference_mode():
+        if isinstance(want, type):
+            with pytest.raises(want):
+                local(*args)
+            assert probe() == ({}, {})
+            return
+        out = local(*args)
+    assert out.shape == (2, 2, 3, 3, ct.hidden_size)
+    assert probe() == want
+
+
+def test_wrappers_still_raise_off_their_contract(probe):
+    """The route decides before the call; the wrappers keep refusing device
+    operands outside their contract."""
+    with pytest.raises(TypeError):
+        tfa.flash_forward(meta(1, 4, 200, 128, dtype=F32), meta(1, 4, 200, 128, dtype=F32),
+                          meta(1, 4, 200, 128, dtype=F32), None, 0.1)
+    with pytest.raises(ValueError, match="head dim 96"):
+        tfa.fullblock_attention(meta(4, 200, 96), meta(4, 200, 96), meta(4, 200, 96), 0.1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfd.flash_decode(meta(1, 4, 1, 128, dtype=F32), meta(1, 2, 64, 128), meta(1, 2, 64, 128),
+                         torch.ones(1, 64, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="head dim 16 / group 2"):
+        tfd.flash_decode(meta(1, 4, 1, 16), meta(1, 2, 64, 16), meta(1, 2, 64, 16),
+                         torch.ones(1, 64, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="group 9"):
+        tfd.flash_decode(meta(1, 18, 1, 64), meta(1, 2, 64, 64), meta(1, 2, 64, 64),
+                         torch.ones(1, 64, dtype=torch.bool, device="meta"))
+    with pytest.raises(TypeError):
+        tla.fused_tile_attention(meta(2, 9, 9, 64, dtype=F32), meta(8, 27, 27, 64, dtype=F32),
+                                 meta(8, 27, 27, 64, dtype=F32), (4, 3, 3), 0.125)
+    assert probe() == ({}, {})
