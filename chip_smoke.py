@@ -24,7 +24,13 @@ Phases:
      CLIP global compressor, K3 over an 8,192-slot cache, K4 at qk 768 /
      dv 1024 and on an anyres patch grid, K5/K6 at the anyres train step;
      and Qwen2.5-0.5B's: K2 at its prefill and K3 at head dim 64, group 7,
-     with a bf16 and an int8 cache, and K3 at groups 5 and 3);
+     with a bf16 and an int8 cache, and K3 at groups 5 and 3); and the fp32
+     instances at [fp32-serve]'s shapes (K1 over the tower's 512 rows of
+     729, K2 at the 7B prefill and at the global compressor's b 1 with its
+     fp32 merge, the merge alone, K4 at b 1, in the main path's and the
+     clip-scale form), held to their fp32 plain versions at the fp32 gate
+     (2^-14 |ref| + 2^-14 rms), with SDPA in fp32 beside them; K1 and K2 at
+     head dims 16 and 96 in bf16 and fp32 (checks only);
   4. serving at the full width of the released HICom-7B (SigLIP-so400m,
      local43_global32 with direct guide, Qwen2.5-7B in bf16, weights from a seed
      on the card): 3 requests of a 32-frame 384x384 video through
@@ -83,6 +89,12 @@ Phases:
      [fp32-route]: a model at ``selftest.py``'s tiny widths in fp32 (decoder
      head dim 16) through ``model_init`` + ``mm_infer`` on the card and on the
      CPU, the same string, its decode steps on the plain path by K3's contract;
+     [fp32-serve]: HICom-7B in fp32 at full width and depth (norms at 1),
+     phase 4's 3 requests with K1, K2 (split and merged at the global
+     compressor) and K4 launched as often as the model's depth gives, every
+     decode step on the plain path by K3's contract (28 a step), then 8
+     greedy ids equal to the plain path's on the card and last-token logits
+     within the fp32 gate; TTFT, decode rate, stages, peak memory;
   5. training at the same width: 3 stage-2 steps (projector and guide injectors
      trained, towers and decoder frozen) on a seeded batch of 2, with finite
      losses, frozen weights bit-identical, trained weights moved, 29 flash
@@ -130,6 +142,8 @@ Phases:
      Video-MME whose answer is always "B" (which stage 2 teaches), scored at
      least 75.0 (chance 25.0), and again under the int8 weight-only and
      ``serving_default`` quantization with the fp accuracy; K1-K6 all launch;
+     then the runner once more with ``--dtype float32`` (at least 75.0, K1,
+     K2 and K4 launched in fp32);
   8. the quantized serving configuration from raw frames (``models/quant.py``,
      ``ops/preprocess.py``): [quant-ops] the int8 routes (``torch._int_mm``
      bit-equal to the exact product at the tower MLP and decode shapes; the
@@ -147,8 +161,10 @@ Phases:
      string equal to the CPU's for the int8 decoder (``load_8bit``) and to
      the plain path's on the card for the others;
      [stage3-qlora] 3 stage-3 steps over an NF4 base;
-  8b. [bench]: ``python3 -m hicom_tpu_torch.bench`` at full width, one
-     subprocess per mode: the default (w8a8s_mlp_qkv tower and w8a8 decoder,
+  8b. [bench]: ``python3 -m hicom_tpu_torch.bench`` at full width with the
+     tower and decoder cut to 4 layers (``--layers 4``), one
+     subprocess per mode, the four at once (a check, not a measurement):
+     the default (w8a8s_mlp_qkv tower and w8a8 decoder,
      then the bf16 arm; 8 and 4 timed iterations), ``--decode``, ``--train``
      and ``--from-disk`` (4 each); each last JSON line names the card, has a
      positive value, MFU in (0, 100], both arms in the default, and positive
@@ -162,12 +178,13 @@ Phases:
      of tensors' masters and moments against ``torch.optim.AdamW``'s step.
 
 After every phase but [fp32-route], no decode step went to the plain path
-by K3's contract (``cuda_build.plain_route``: every phase runs bf16 at head
-dims and groups K3 takes). Prints one line per check, then a JSON object with the
+by K3's contract (``cuda_build.plain_route``: every other phase runs bf16 at
+head dims and groups K3 takes, or counts its fp32 decode steps and resets:
+[fp32-serve], [closed-loop]'s fp32 call). Prints one line per check, then a JSON object with the
 kernels (each row at a shape of the main paths, its launches counted in the
 phase that runs that shape: serving, [serve-engine], [ring-prefill], stage 2,
-the 1.5B stage 3, [clip], [anyres], [anyres-train] or [baseline-0.5b] and its
-image request), then the card's name and power limit,
+the 1.5B stage 3, [clip], [anyres], [anyres-train], [baseline-0.5b] and its
+image request, or [fp32-serve]), then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before that last line. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -175,9 +192,11 @@ a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 
@@ -238,36 +257,52 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def agreement(got, ref):
-    """A kernel's output against its plain version's, both bf16.
+# (relative, of rms) factors of the kernels' gates: bf16 and fp32 (see agreement)
+BF16_GATE = (2**-6, 2**-5)
+FP32_GATE = (2**-14, 2**-14)
 
-    Each element may differ by 2^-6 |ref| + 2^-5 rms(ref): two bf16 ulps of
-    its own value (both sides round the output; the kernel rounds or sums p at
-    another running max than the plain version), plus a 32nd of the output's
-    typical size for elements near zero, whose error is that of the row's sum
-    of rounded terms. Returns (max abs error, worst error/tolerance, rms(ref),
-    max |ref|); the check passes when the worst ratio is at most 1."""
-    got, ref = got.float(), ref.float()
+
+def agreement(got, ref, gate=BF16_GATE):
+    """A kernel's output against its plain version's.
+
+    bf16 (``BF16_GATE``): each element may differ by 2^-6 |ref| + 2^-5
+    rms(ref): two bf16 ulps of its own value (both sides round the output; the
+    kernel rounds or sums p at another running max than the plain version),
+    plus a 32nd of the output's typical size for elements near zero, whose
+    error is that of the row's sum of rounded terms. fp32 (``FP32_GATE``, the
+    fp32 instances and the fp32 serving path): 2^-14 |ref| + 2^-14 rms(ref),
+    512 fp32 ulps of the value, where both sides keep every operand in fp32
+    and differ by the order of their sums; a TF32 (10-bit mantissa) or bf16
+    operand anywhere exceeds it (``tests/test_torch_fp32_kernels.py``). Rows
+    above either gate are decided by :func:`float64_referee` where they have
+    an exact version. Returns (max abs error, worst error/tolerance,
+    rms(ref), max |ref|); the check passes when the worst ratio is at most 1."""
+    got, ref = got.double(), ref.double()
     err = (got - ref).abs()
     rms = ref.square().mean().sqrt()
-    ratio = (err / (2**-6 * ref.abs() + 2**-5 * rms)).max()
+    ratio = (err / (gate[0] * ref.abs() + gate[1] * rms)).max()
     return err.max().item(), ratio.item(), rms.item(), ref.abs().max().item()
 
 
-def float64_referee(got, plain, exact):
+def gate_text(gate) -> str:
+    return f"2^{int(np.log2(gate[0]))}|ref| + 2^{int(np.log2(gate[1]))} rms"
+
+
+def float64_referee(got, plain, exact, mantissa: int = 7):
     """The check of a kernel row that exceeds :func:`agreement`'s gate where
     both sides are as far from the exact answer: the kernel's bf16 output
     and the plain version's, each against the float64 plain version on the
     same inputs. The kernel's largest error may exceed the plain version's by
-    an eighth plus one bf16 ulp of the element where it is largest (the two
-    round the output on either side of a value), and its rms error the plain
-    version's by an eighth. Returns (kernel's max error, plain's, that ulp,
-    kernel's rms error, plain's, passes)."""
+    an eighth plus one ulp (of a ``mantissa``-bit type: 7 for bf16, 23 for
+    fp32) of the element where it is largest (the two round the output on
+    either side of a value), and its rms error the plain version's by an
+    eighth. Returns (kernel's max error, plain's, that ulp, kernel's rms
+    error, plain's, passes)."""
     import torch
 
     ek, ep = (got.double() - exact).abs(), (plain.double() - exact).abs()
     at = exact.flatten()[ek.argmax()].abs().clamp_min(2**-126)
-    ulp = (2.0 ** (torch.floor(torch.log2(at)) - 7)).item()
+    ulp = (2.0 ** (torch.floor(torch.log2(at)) - mantissa)).item()
     rk, rp = ek.square().mean().sqrt().item(), ep.square().mean().sqrt().item()
     mk, mp = ek.max().item(), ep.max().item()
     return mk, mp, ulp, rk, rp, mk <= (1 + 2**-3) * mp + ulp and rk <= (1 + 2**-3) * rp
@@ -305,7 +340,7 @@ def kernel_checks(card: str):
         return (-(-Lq // FWD_BLOCK_Q), b * H, n_split or forward_splits(b, H, Lq, Lk, sms))
 
     def record(name, kid, kernel_fn, plain_fn, library_fn, flops, nbytes, valid=None, outputs=1, grid=None,
-               flops_rate=None, phase="", exact_fn=None):
+               flops_rate=None, phase="", exact_fn=None, gate=BF16_GATE):
         """Hold the first ``outputs`` tensors of the kernel's result to the plain
         version's (or the one selected by ``outputs``, a tuple of indices).
         ``grid`` is the kernel launch's (x, y, z), printed with its blocks;
@@ -314,7 +349,8 @@ def kernel_checks(card: str):
         ``DEFAULT_PHASE``; None: a check only). ``exact_fn`` (one output only)
         gives the float64 answer: where the gate is exceeded, the row passes
         only if :func:`float64_referee` finds the kernel no further from it
-        than the plain version."""
+        than the plain version. ``gate``: :data:`BF16_GATE`, or
+        :data:`FP32_GATE` for an fp32 instance."""
         got, ref = kernel_fn(), plain_fn()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -323,7 +359,7 @@ def kernel_checks(card: str):
         for g, r in zip(got, (ref[i] for i in idx)):
             if valid is not None:
                 g, r = g[valid], r[valid]
-            worst = max(worst, agreement(g, r), key=lambda a: a[1])
+            worst = max(worst, agreement(g, r, gate), key=lambda a: a[1])
         err, ratio, rms, top = worst
         bound_c, bound_b = flops / (flops_rate or peak_flops) * 1e3, nbytes / peak_bw * 1e3
         rec = dict(name=name, route="cuda", source=KERNELS[kid][1], replaces=KERNELS[kid][2],
@@ -332,7 +368,7 @@ def kernel_checks(card: str):
                    library_ms=cuda_ms(library_fn) if library_fn is not None else None)
         phase = DEFAULT_PHASE[KERNELS[kid][0]] if phase == "" else phase
         records[name] = (kid, phase, rec)
-        log(f"[kernel] {name}: max_abs_err {err:.3g}, worst err/tol {ratio:.3f} (tol 2^-6|ref| + 2^-5 rms, "
+        log(f"[kernel] {name}: max_abs_err {err:.3g}, worst err/tol {ratio:.3f} (tol {gate_text(gate)}, "
             f"ref rms {rms:.3g}, max {top:.3g}) | kernel {rec['ms']:.4f} ms | plain "
             f"{rec['plain_ms']:.4f} ms | library {rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)} ms"
             f" | bound {rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']})"
@@ -344,9 +380,9 @@ def kernel_checks(card: str):
             raise AssertionError(f"{name}: kernel disagrees with its plain version (worst err/tol {ratio})")
         exact = exact_fn()
         sel = (lambda x: x[valid]) if valid is not None else (lambda x: x)  # noqa: E731
-        ek, ep, ulp, rk, rp, ok = float64_referee(sel(got[0]), sel(ref[0]), sel(exact))
+        ek, ep, ulp, rk, rp, ok = float64_referee(sel(got[0]), sel(ref[0]), sel(exact), 23 if gate == FP32_GATE else 7)
         log(f"[referee] {name}: the gate is exceeded ({ratio:.3f}); against float64: max error kernel {ek:.4g}, "
-            f"plain {ep:.4g}, one bf16 ulp at the kernel's worst element {ulp:.4g}; rms error kernel {rk:.4g}, "
+            f"plain {ep:.4g}, one ulp at the kernel's worst element {ulp:.4g}; rms error kernel {rk:.4g}, "
             f"plain {rp:.4g} | {'passes' if ok else 'FAILS'} (kernel <= (1 + 2^-3) plain + 1 ulp, rms <= "
             "(1 + 2^-3) plain's)")
         if not ok:
@@ -581,9 +617,132 @@ def kernel_checks(card: str):
                                                   tile_thw(val, (1, 3, 3))[:, None], scale=c**-0.5),
            4 * 81 * 9 * c, 2 * 27 * 27 * c * 2 + 2 * 81 * c * 2, grid=(min(81, sms),), phase="baseline-0.5b-image")
     del key, val, qq
+    fp32_checks(record, fwd_grid, sms)
     anyres_clip_checks(rn, record, fwd_grid, sms)
     backward_checks(rn, record)
     return {name: r for name, r in records.items() if r[1] is not None}
+
+
+def fp32_checks(record, fwd_grid, sms):
+    """Phase 3, the fp32 instances (``csrc/flash_fwd_f32.cu``, the merge's and
+    K4's fp32 forms) at the shapes of [fp32-serve], each against its fp32 plain
+    version on the card (TF32 off) at ``FP32_GATE``, its bound at the fp32
+    peak (no tensor core takes fp32 operands), the library call SDPA in fp32:
+    K1 over the tower's 512 rows of 729, d 72; K2 at the 7B prefill (b 2,
+    28 / 4 heads, 743 tokens, causal, lengths 743 / 700) and at the global
+    compressor's b 1 (split, then the fp32 merge; the merge alone too); K4 on
+    the b 1 volume. Then checks only: K1 and K2 at head dims 16 and 96 in bf16
+    and fp32 (K2 causal with lengths, K2 at d 96 grouped too), and the
+    clip-scale form of K4 in fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    from hicom_tpu_torch.ops.flash_attention import (_launch_merge, flash_forward, flash_reference,
+                                                     fullblock_attention, merge_partials_reference)
+    from hicom_tpu_torch.ops.grouping import tile_thw
+    from hicom_tpu_torch.ops.local_attn import fused_tile_attention, tile_reference
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("the fp32 plain versions would run on TF32")
+    gen = torch.Generator("cuda").manual_seed(17)
+    f32 = dict(gate=FP32_GATE, flops_rate=FP32_PEAK)
+
+    def grid32(b, H, Lq, Lk):  # the fp32 kernel's blocks hold 64 query rows
+        return (-(-Lq // 64),) + fwd_grid(b, H, Lq, Lk)[1:]
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    bh, L, d = 512, 729, 72
+    q, k, v = rn(bh, L, d), rn(bh, L, d), rn(bh, L, d)
+    record("fullblock_attention[siglip 32f fp32]", "K1", lambda: fullblock_attention(q, k, v, d**-0.5),
+           lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.0, False)[0][:, 0],
+           lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
+           4 * bh * L * L * d, 4 * bh * L * d * 4 + bh * L * 4, grid=grid32(bh, 1, L, L), phase="fp32-serve", **f32)
+    del q, k, v
+
+    b, H, KVH, L, d, lens = 2, 28, 4, 743, 128, [743, 700]
+    q, k, v = rn(b, H, L, d), rn(b, KVH, L, d), rn(b, KVH, L, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32)
+    pos = torch.arange(L, device="cuda")
+    mask = (pos[None, :] <= pos[:, None])[None, None] & (pos[None, None, None, :] < kl[:, None, None, None])
+    valid = (pos[None, :] < kl[:, None])[:, None, :].expand(b, H, L)
+    pairs = sum(int(np.minimum(n, np.arange(L) + 1).sum()) for n in lens)
+    record("flash_forward[prefill 7b fp32]", "K2", lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
+           lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
+           lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
+           4 * H * d * pairs, 2 * b * H * L * d * 4 + 2 * KVH * sum(lens) * d * 4 + b * H * L * 4, valid,
+           grid=grid32(b, H, L, L), phase="fp32-serve", **f32)
+    del q, k, v, mask
+
+    H, Lq, Lk, d = 9, 32, 23328, 128
+    q, k, v = rn(1, H, Lq, d), rn(1, H, Lk, d), rn(1, H, Lk, d)
+    grid = grid32(1, H, Lq, Lk)
+    record("flash_forward[global 32f b1 fp32]", "K2", lambda: flash_forward(q, k, v, None, d**-0.5, 0.0, False),
+           lambda: flash_reference(q, k, v, None, d**-0.5, 0.0, False),
+           lambda: F.scaled_dot_product_attention(q, k, v, scale=d**-0.5),
+           4 * H * Lq * Lk * d, 2 * H * Lq * d * 4 + 2 * H * Lk * d * 4 + H * Lq * 4, outputs=2,
+           grid=grid, phase="fp32-serve", **f32)
+    if grid[2] < 2:
+        raise AssertionError("the global compressor's fp32 forward was to run split")
+    del q, k, v
+    n, rows, d = grid[2], 9 * 32, 128
+    o = rn(n, rows, d) * 50
+    m = rn(n, rows) * 3
+    m[3], m[7, : rows // 2] = -1e30, float("-inf")
+    l = torch.rand(n, rows, generator=gen, device="cuda") * 50 + 1
+    record(f"flash_merge[global 32f b1 fp32, {n} chunks]", "K2-merge", lambda: _launch_merge(o, m, l, torch.float32),
+           lambda: merge_partials_reference(o, m, l, torch.float32), None,
+           4 * n * rows * d, n * rows * (d + 2) * 4 + rows * (d + 1) * 4, outputs=2, grid=(-(-rows // 4),),
+           phase="fp32-serve", **f32)
+    del o, m, l
+
+    c, t, h, w = 1152, 32, 27, 27
+    key, val, qq = rn(t, h, w, c), rn(t, h, w, c), rn(t // 4, h // 3, w // 3, c)
+    n_tiles = (t // 4) * (h // 3) * (w // 3)
+    record("fused_tile_attention[local 32f b1 fp32]", "K4",
+           lambda: fused_tile_attention(qq, key, val, (4, 3, 3), c**-0.5, 0.0),
+           lambda: tile_reference(qq, key, val, (4, 3, 3), c**-0.5, 0.0),
+           lambda: F.scaled_dot_product_attention(qq.reshape(n_tiles, 1, 1, c), tile_thw(key, (4, 3, 3))[:, None],
+                                                  tile_thw(val, (4, 3, 3))[:, None], scale=c**-0.5),
+           4 * n_tiles * 36 * c, 2 * t * h * w * c * 4 + 2 * n_tiles * c * 4, grid=(min(n_tiles, sms),),
+           phase="fp32-serve", **f32)
+    scale, bias = torch.exp(torch.tensor(-3.0, device="cuda")), torch.tensor(0.4, device="cuda")
+    record("fused_tile_attention[local 32f b1 fp32 clip-scale]", "K4",
+           lambda: fused_tile_attention(qq, key, val, (4, 3, 3), scale, bias),
+           lambda: tile_reference(qq, key, val, (4, 3, 3), scale, bias), None,
+           4 * n_tiles * 36 * c, 2 * t * h * w * c * 4 + 2 * n_tiles * c * 4, phase=None, **f32)
+    del key, val, qq
+
+    # head dims 16 and 96 (the selftest's decoder, a non-grouped decoder of 96): checks only, no phase runs them
+    for dtype, kw, tag in ((torch.bfloat16, dict(gate=BF16_GATE), "bf16"), (torch.float32, f32, "fp32")):
+        item, blocks = (2, fwd_grid) if dtype == torch.bfloat16 else (4, grid32)
+        for d in (16, 96):
+            bh, L = 64, 729
+            q, k, v = rn(bh, L, d, dtype=dtype), rn(bh, L, d, dtype=dtype), rn(bh, L, d, dtype=dtype)
+            # SDPA leaves the uniform bias out: it cancels in the softmax
+            record(f"fullblock_attention[d{d} {tag}]", "K1", lambda: fullblock_attention(q, k, v, d**-0.5, 0.1),
+                   lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.1, False)[0][:, 0],
+                   lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
+                   4 * bh * L * L * d, 4 * bh * L * d * item + bh * L * 4, grid=blocks(bh, 1, L, L),
+                   phase=None, **kw)
+            for H, KVH in ((8, 8), (8, 2)):
+                b, L, lens = 2, 600, [600, 517]
+                q, k, v = rn(b, H, L, d, dtype=dtype), rn(b, KVH, L, d, dtype=dtype), rn(b, KVH, L, d, dtype=dtype)
+                kl = torch.tensor(lens, device="cuda", dtype=torch.int32)
+                pos = torch.arange(L, device="cuda")
+                valid = (pos[None, :] < kl[:, None])[:, None, :].expand(b, H, L)
+                mask = (pos[None, :] <= pos[:, None])[None, None] & (pos[None, None, None, :] < kl[:, None, None, None])
+                pairs = sum(int(np.minimum(n, np.arange(L) + 1).sum()) for n in lens)
+                record(f"flash_forward[d{d} {H}/{KVH} causal lengths {tag}]", "K2",
+                       lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
+                       lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
+                       lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5,
+                                                              enable_gqa=True),
+                       4 * H * d * pairs, 2 * b * H * L * d * item + 2 * KVH * sum(lens) * d * item + b * H * L * 4,
+                       valid, grid=blocks(b, H, L, L), phase=None, **kw)
+                del mask
+            del q, k, v
 
 
 def anyres_prefill_shape():
@@ -1202,6 +1361,111 @@ def fp32_route_phase(card: str) -> dict:
     return counts[DEVICE]
 
 
+def fp32_serve_phase(card: str) -> dict:
+    """[fp32-serve]: HICom-7B in fp32 at full width and depth
+    (``serving_config()`` with ``dtype="float32"``: the so400m tower over 32
+    frames, ``local43_global32`` with the direct guide, Qwen2.5-7B), built by
+    ``build_model(..., seed=0)`` with the decoder's norms at 1. TF32 must be
+    off everywhere. Phase 4's 3 requests (a right-padded batch of 2, then one
+    alone, 16 new tokens) through ``HICom.generate``: K1 (each tower layer),
+    K2 (each decoder layer's prefill and the global compressor, split with
+    its merge) and K4 (the local compressor) launch exactly as often as the
+    phase reckons from the model's depth, and every decode step takes the
+    masked ``sdpa`` by K3's contract (no fp32 instance), counted in
+    ``plain_route`` once per layer and step. Then the single request's 8
+    greedy ids and last-token logits against ``plain_path()`` on the card,
+    the logits within ``FP32_GATE``; TTFT, decode rate, stages and peak
+    memory. Returns the launches of the 3 requests."""
+    import torch
+
+    from hicom_tpu_torch.api import HICom, build_model
+    from hicom_tpu_torch.ops.cuda_build import plain_route
+    from hicom_tpu_torch.ops.flash_attention import forward_splits
+
+    if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("[fp32-serve] TF32 is on: an fp32 product would drop to a 10-bit mantissa")
+    cfg = serving_config().replace(dtype="float32")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE, seed=0)
+    norms_at_one(model)
+    torch.cuda.synchronize()
+    log(f"[fp32-serve] built HICom-7B in fp32 with seeded weights in {time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    hc = HICom(config=cfg, model=model, eos_token_id=cfg.text_config.eos_token_id, cache_len=4096)
+    batch, single = make_requests(cfg)
+    hc.generate(**single, max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+
+    steps = [0]
+    hook = model.model.register_forward_pre_hook(
+        lambda mod, args: steps.__setitem__(0, steps[0] + (args[0].shape[1] == 1)))
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    plain_route.reset()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out2 = hc.generate(**batch, max_new_tokens=16)
+        t_batch = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out1 = hc.generate(**single, max_new_tokens=16)
+        t_single = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    launches = {name: f.launches for name, f in fns.items()}
+    k3_plain = plain_routes()["K3"]
+    plain_route.reset()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers, calls = cfg.text_config.num_hidden_layers, 2
+    reckoned = {"fullblock_attention": calls * cfg.vision_config.num_hidden_layers,
+                "flash_forward": calls * (layers + 1), "flash_decode": 0, "fused_tile_attention": calls}
+    splits = [forward_splits(b, 9, 32, 32 * 27 * 27) for b in (2, 1)]
+    log(f"[fp32-serve] launches {launches} (reckoned {reckoned}; the global compressor split into {splits} chunks "
+        f"and merged) | decode steps {steps[0]}, K3 plain-route calls {k3_plain} (reckoned {steps[0] * layers})")
+    if launches != reckoned or min(splits) < 2:
+        raise AssertionError(f"[fp32-serve] launches {launches} are not the reckoned {reckoned}")
+    if steps[0] <= 0 or k3_plain != steps[0] * layers:
+        raise AssertionError(f"[fp32-serve] {k3_plain} plain-route decode calls for {steps[0]} steps x {layers} layers")
+    vocab = cfg.text_config.vocab_size
+    for out in (out2, out1):
+        if not (out.min() >= 0 and out.max() < vocab):
+            raise AssertionError(f"[fp32-serve] generated ids out of range: {out}")
+    log(f"[fp32-serve] batch of 2 ids: {out2.tolist()} | single ids: {out1.tolist()}")
+
+    got, _ = greedy_with_tops(hc, single, 8)
+    with plain_path():
+        ref, tops = greedy_with_tops(hc, single, 8)
+    got_l = last_logits(model, with_mask(single))
+    with plain_path():
+        ref_l = last_logits(model, with_mask(single))
+    plain_route.reset()
+    err, ratio, rms, top = agreement(got_l, ref_l, FP32_GATE)
+    log(f"[fp32-serve] 8 greedy ids, kernel path {got} vs plain path {ref}: {'equal' if got == ref else 'DIFFER'} | "
+        f"last-token logits: max_abs_err {err:.3g}, worst err/tol {ratio:.3f} (tol {gate_text(FP32_GATE)}, ref rms "
+        f"{rms:.3g}, max {top:.3g})")
+    if got != ref or not (torch.isfinite(got_l).all() and ratio <= 1):
+        raise AssertionError(f"[fp32-serve] the kernel path departs from the plain path: ids {got} vs {ref}, "
+                             f"logits worst err/tol {ratio}")
+
+    ttfts = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        hc.generate(**single, max_new_tokens=1)
+        ttfts.append(time.perf_counter() - t0)
+    decode_tps, _ = stage_breakdown(hc, video_front(hc, single), label="fp32-serve-stages")
+    plain_route.reset()
+    size = cfg.vision_config.image_size
+    log(f"[fp32-serve] {card} | 3 requests ({cfg.num_frames} frames of {size}x{size}, 16 new tokens): batch-of-2 "
+        f"request {t_batch:.3f} s, single request {t_single:.3f} s | TTFT {min(ttfts) * 1e3:.1f} ms | decode "
+        f"{decode_tps:.1f} tokens/s (single stream) | peak memory {peak_gb:.2f} GB")
+    del model, hc
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # The continuous-batching engine at HICom-7B: [serve-engine]
 # ---------------------------------------------------------------------------
@@ -1570,11 +1834,12 @@ def video_front(hc, single, frames_fn=None):
     import torch
 
     model, dev = hc.model, hc.device
+    dtype = model.model.norm.weight.dtype
 
     def front(mark):
         ids = torch.as_tensor(single["input_ids"], device=dev)
         if frames_fn is None:
-            frames = torch.as_tensor(single["frames"], device=dev, dtype=torch.bfloat16)
+            frames = torch.as_tensor(single["frames"], device=dev, dtype=dtype)
         else:
             frames = frames_fn()
         ge = model.encode_guide(torch.as_tensor(single["guide_ids"], device=dev))
@@ -1619,7 +1884,7 @@ def stage_breakdown(hc, front, new_tokens: int = 16, label: str = "stages"):
         b = ids.shape[0]
         cache = KVCache.zeros(tc.num_hidden_layers, b, tc.num_key_value_heads,
                               hc.cache_len_for(ids.shape[1], vis.shape[1], new_tokens), tc.head_dim,
-                              torch.bfloat16, dev)
+                              model.model.norm.weight.dtype, dev)
         hidden = model.model(sp.embeds, sp.positions, cache, prefill_from_empty=True)
         mark("splice + prefill")
         true_len = torch.full((b,), sp.embeds.shape[1], device=dev)
@@ -3280,6 +3545,10 @@ def mesh_cli_phase(card: str, cli: dict):
 # [bench]: each mode of ``python3 -m hicom_tpu_torch.bench`` the phase runs, its flags, and the kernel
 # wrappers whose launches must be positive over its timed groups
 PREFILL_KERNELS = ("fullblock_attention", "flash_forward", "fused_tile_attention")
+# each mode at its widths with the tower and decoder cut to BENCH_LAYERS layers, the four processes at once: the
+# smoke checks that every mode runs and reports sanely, its numbers are no measurement (the bench's measurements
+# run one mode at a time at full depth, scripts/torch_bench_modes.py)
+BENCH_LAYERS = 4
 BENCH_MODES = (
     ("default", ["--iters", "8", "--iters-bf16", "4"], PREFILL_KERNELS),
     ("decode", ["--decode"], ("flash_decode",)),
@@ -3289,11 +3558,13 @@ BENCH_MODES = (
 
 
 def bench_phase(card: str):
-    """[bench]: the port's bench (``hicom_tpu_torch/bench.py``) at full width
-    in a subprocess per mode (the kernels already built under
-    ``build/kernels/``): its last JSON line must name this card, carry a
-    positive value, every MFU in (0, 100], a finite train loss, both arms in
-    the default mode, and positive launch counts of the mode's kernels."""
+    """[bench]: the port's bench (``hicom_tpu_torch/bench.py``) at full width,
+    its tower and decoder cut to ``BENCH_LAYERS`` layers (``--layers``), in a
+    subprocess per mode, the four started together (the kernels already built
+    under ``build/kernels/``; each mode's cut model takes under 10 GB): its
+    last JSON line must name this card, carry a positive value, every MFU in
+    (0, 100], a finite train loss, both arms in the default mode, and positive
+    launch counts of the mode's kernels."""
     import os
 
     import torch
@@ -3301,15 +3572,34 @@ def bench_phase(card: str):
     torch.cuda.empty_cache()
     kind = torch.cuda.get_device_name(0)
     root = os.path.dirname(os.path.abspath(__file__))
-    for label, flags, kernels in BENCH_MODES:
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "hicom_tpu_torch.bench"] + flags, cwd=root, capture_output=True,
-                             text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        if out.returncode != 0:
-            raise AssertionError(f"[bench] {label} exited {out.returncode}: {out.stderr[-4000:]}")
-        line = [ln for ln in out.stdout.splitlines() if ln.startswith("{")][-1]
-        log(f"[bench] {card} | {label} ({' '.join(flags)}), {seconds:.1f} s: {line}")
+    t0 = time.perf_counter()
+    # output to files, not pipes: a full pipe would stall a mode until the phase reads it
+    with contextlib.ExitStack() as stack:
+        files = [(stack.enter_context(tempfile.TemporaryFile("w+")), stack.enter_context(tempfile.TemporaryFile("w+")))
+                 for _ in BENCH_MODES]
+        procs = [subprocess.Popen([sys.executable, "-m", "hicom_tpu_torch.bench", "--layers", str(BENCH_LAYERS)]
+                                  + flags, cwd=root, stdout=out, stderr=err)
+                 for (_, flags, _), (out, err) in zip(BENCH_MODES, files)]
+        try:
+            ends = []
+            for proc in procs:
+                proc.wait(timeout=600)
+                ends.append(time.perf_counter() - t0)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        outs = []
+        for (out, err), proc, seconds in zip(files, procs, ends):
+            out.seek(0)
+            err.seek(0)
+            outs.append((out.read(), err.read(), proc.returncode, seconds))
+    for (label, flags, kernels), (stdout, stderr, code, seconds) in zip(BENCH_MODES, outs):
+        if code != 0:
+            raise AssertionError(f"[bench] {label} exited {code}: {stderr[-4000:]}")
+        line = [ln for ln in stdout.splitlines() if ln.startswith("{")][-1]
+        log(f"[bench] {card} | {label} ({' '.join(flags)}), done {seconds:.1f} s after the start: {line}")
         res = json.loads(line)
         detail = res["detail"]
         mfus = [detail[k] for k in ("mfu_pct", "bf16_mfu_pct") if k in detail]
@@ -3355,8 +3645,10 @@ def closed_loop_phase(card: str):
     the same under ``LOOP_MODES`` with each mode's greedy-token agreement
     with fp. Fails unless the accuracy is at least 75.0 over at least 4
     questions (chance 25.0), every mode scores the fp accuracy, stage 2's
-    last loss is below its first, and K1-K6 each launched in the phase.
-    Returns the phase's launches."""
+    last loss is below its first, and K1-K6 each launched in the phase. Then
+    the eval runner once more over the same export with ``--dtype float32``
+    (:func:`fp32_runner_call`). Returns the phase's launches (the fp32 call's
+    apart)."""
     import dataclasses
     import os
     import shutil
@@ -3404,8 +3696,50 @@ def closed_loop_phase(card: str):
         raise AssertionError(f"[closed-loop] stage 2's loss did not fall: {stages['stage2']}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"[closed-loop] a kernel never launched in the loop: {launches}")
+    fp32_runner_call(card, os.path.join(root, "loop"), out["artifacts"]["hf_export"])
     shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+def fp32_runner_call(card: str, workdir: str, hf_export: str):
+    """[closed-loop]'s fp32 call: the port's eval runner over the stage-2
+    export with ``--dtype float32`` on the mini Video-MME the loop scored
+    (``selftest.build_mini_videomme`` writes the same files again). It must
+    score at least 75.0, as the bf16 call does, launch K1, K2 and K4 (fp32
+    instances) and take each decode step to the plain path by K3's contract
+    (counted, then reset: every other call of the phase holds it at 0)."""
+    import os
+
+    import torch
+
+    from hicom_tpu_torch import selftest
+    from hicom_tpu_torch.eval import scorers
+    from hicom_tpu_torch.eval.common import merge_chunked_videomme
+    from hicom_tpu_torch.eval.runner import main as runner_main
+    from hicom_tpu_torch.ops.cuda_build import plain_route
+
+    if any(plain_routes().values()):
+        raise AssertionError(f"[closed-loop] bf16 calls went to the plain path: {plain_routes()}")
+    t0 = time.perf_counter()
+    qf, vids, subs = selftest.build_mini_videomme(workdir, n_videos=2)
+    answer = os.path.join(workdir, "eval_fp32", "preds.json")
+    fns = counters()
+    before = {n: f.launches for n, f in fns.items()}
+    runner_main(selftest._runner_argv(hf_export, qf, vids, subs, answer, DEVICE, "float32"))
+    torch.cuda.synchronize()
+    launched = {n: f.launches - before[n] for n, f in fns.items()}
+    k3_plain = plain_routes()["K3"]
+    plain_route.reset()
+    report = scorers.score_videomme(merge_chunked_videomme([answer]), ["short"], skip_missing=True)
+    log(f"[closed-loop] {card} | eval runner --dtype float32 over the stage-2 export: accuracy "
+        f"{report['overall']:.1f} | launches {launched} | K3 plain-route calls {k3_plain} | "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not report["overall"] >= 75.0:
+        raise AssertionError(f"[closed-loop] the fp32 runner call scored {report['overall']}: {report}")
+    if min(launched[n] for n in ("fullblock_attention", "flash_forward", "fused_tile_attention")) <= 0 \
+            or launched["flash_decode"] or k3_plain <= 0:
+        raise AssertionError(f"[closed-loop] the fp32 runner call did not take the fp32 kernels: {launched}, "
+                             f"K3 plain {k3_plain}")
 
 
 # ---------------------------------------------------------------------------
@@ -4244,6 +4578,8 @@ def main() -> int:
     launches.update(on_contract("baseline-0.5b", baseline_05b_phase(card)))
     fp32_route_phase(card)  # the one phase whose decode steps K3's contract sends to the plain path
     phase_seconds("fp32-route")
+    # fp32 HICom-7B; its decode steps' plain-route calls are checked and reset inside
+    launches["fp32-serve"] = on_contract("fp32-serve", fp32_serve_phase(card))
     launches["serve-int8"] = on_contract("serve-int8", serve_quant_phase(card, "serve-int8", "int8"))
     launches["serve-w8a8"] = on_contract("serve-w8a8", serve_quant_phase(card, "serve-w8a8", "w8a8s", "w8a8s_mlp_qkv"))
     launches["model-init"] = on_contract("model-init", model_init_phase(card))

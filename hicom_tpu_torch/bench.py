@@ -95,12 +95,14 @@ def log(*a) -> None:
 
 
 def serving_config(model: str = "1.5b", frames: int = 32, tower_quant: Optional[str] = None,
-                   **overrides) -> HIComConfig:
+                   layers: Optional[int] = None, **overrides) -> HIComConfig:
     """The benchmark's serving configurations.
 
     "1.5b": so400m + the widths of Qwen2.5-1.5B (untied embeddings).
     "7b":   so400m + the widths of Qwen2.5-7B, int8 weight-only decoder.
     ``tower_quant``: None or a tower mode of ``models/quant.py``;
+    ``layers``: the tower's and the decoder's depth when cut (a check of the
+    mode at its widths, not a measurement of the configuration);
     ``overrides`` update the text config (e.g. kv_cache_int8=True).
     """
     if model == "7b":
@@ -111,9 +113,10 @@ def serving_config(model: str = "1.5b", frames: int = 32, tower_quant: Optional[
         text = dict(vocab_size=151936, hidden_size=1536, intermediate_size=8960, num_hidden_layers=28,
                     num_attention_heads=12, num_key_value_heads=2, head_dim=128, rope_theta=1000000.0)
     text.update(overrides)
+    depth = {} if layers is None else dict(num_hidden_layers=layers)
     return HIComConfig(
-        text_config=Qwen2Config(**text),
-        vision_config=SiglipVisionConfig(quantization=tower_quant),
+        text_config=Qwen2Config(**dict(text, **depth)),
+        vision_config=SiglipVisionConfig(quantization=tower_quant, **depth),
         guide_text_config=SiglipTextConfig(),
         mm_vision_tower="google/siglip-so400m-patch14-384",
         mm_projector_type="local43_global32",
@@ -385,7 +388,7 @@ def _make_arm(args, tower_quant: str, dec_quant: str, device: torch.device) -> A
     else:
         tq = None if tower_quant == "none" else tower_quant
         dq = {} if dec_quant == "none" else {"quantization": dec_quant}
-        cfg = serving_config(args.model, frames=args.frames, tower_quant=tq, **dq)
+        cfg = serving_config(args.model, frames=args.frames, tower_quant=tq, layers=args.layers, **dq)
         t = 1 if modal == "image" else args.frames
     sentinel = IMAGE_TOKEN_INDEX if modal == "image" else VIDEO_TOKEN_INDEX
     ids, frames, gids = arm_inputs(cfg, args.batch, t, sentinel)
@@ -433,7 +436,11 @@ def _config_name(args) -> str:
     return (("so400m+qwen2.5-7B-int8" if args.model == "7b" else "so400m+qwen2.5-1.5B")
             + (f"-tower:{args.tower_quant}" if args.tower_quant != "none" else "")
             + (f"-dec:{args.dec_quant}" if args.dec_quant != "none" else "")
-            + ("-image" if args.modal == "image" else ""))
+            + ("-image" if args.modal == "image" else "") + _depth_tag(args))
+
+
+def _depth_tag(args) -> str:
+    return f"-{args.layers}layers" if args.layers is not None else ""
 
 
 def _run(args, device: torch.device) -> None:
@@ -572,7 +579,7 @@ def _run_decode(args, device: torch.device) -> None:
         cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, kv_cache_int8=args.kv_int8))
         cache_len = 128
     else:
-        cfg = serving_config(args.model, frames=args.frames, kv_cache_int8=args.kv_int8)
+        cfg = serving_config(args.model, frames=args.frames, layers=args.layers, kv_cache_int8=args.kv_int8)
     dev = device_detail(device)
     peaks = card_peaks(dev["kind"])
     reset_peak(device)
@@ -608,8 +615,8 @@ def _run_decode(args, device: torch.device) -> None:
         "detail": {
             "table": rows, "cache_len": cache_len, "kv_int8": bool(args.kv_int8),
             "weight_bytes": decode_weight_bytes(tc),
-            "config": ("tiny" if args.small else "so400m+qwen2.5-7B-int8" if args.model == "7b"
-                       else "so400m+qwen2.5-1.5B"),
+            "config": ("tiny" if args.small else ("so400m+qwen2.5-7B-int8" if args.model == "7b"
+                                                   else "so400m+qwen2.5-1.5B") + _depth_tag(args)),
             "baseline_model": f"weight-reading floor (decoder bytes / {peaks.hbm / 1e12:g} TB/s, the card's "
                               "data-sheet memory rate)",
             "device": dev,
@@ -646,7 +653,7 @@ def _run_train(args, device: torch.device) -> None:
         cfg = cfg.replace(text_config=dataclasses.replace(cfg.text_config, remat=True, **over))
         b, t, L = 2, 4, 16
     else:
-        cfg = serving_config(args.model, frames=args.frames, remat=True, **over)
+        cfg = serving_config(args.model, frames=args.frames, layers=args.layers, remat=True, **over)
         b, t, L = args.batch, args.frames, 48
     dev = device_detail(device)
     peaks = card_peaks(dev["kind"])
@@ -734,7 +741,8 @@ def _run_train(args, device: torch.device) -> None:
             "tunable_parts": parts, "remat": True,
             **({"auto_shrunk_from_batch": requested_b} if b != requested_b else {}),
             "config": ("tiny" if args.small else
-                       f"so400m+qwen2.5-{args.model}" + (f"-qlora{args.bits}bit" if args.bits != 16 else "")),
+                       f"so400m+qwen2.5-{args.model}" + (f"-qlora{args.bits}bit" if args.bits != 16 else "")
+                       + _depth_tag(args)),
             "baseline_model": "analytic A100 bf16 roofline @45% MFU, same step "
                               "(BASELINE.md §baseline-derivation)",
             "device": dev,
@@ -943,6 +951,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model", choices=("1.5b", "7b"), default="1.5b",
                     help="decoder widths; 7b runs Qwen2.5-7B's with an int8 weight-only decoder")
     ap.add_argument("--frames", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the tower and the decoder to this many layers each: a quick check of the mode at "
+                         "its widths (chip_smoke.py's [bench]), not a measurement of the configuration")
     ap.add_argument("--modal", choices=("video", "image"), default="video",
                     help="image: the single-image pipeline (113 visual tokens); use a larger --batch "
                          "(e.g. 32), one image being 1/32 of a video's tower work")

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 q/k/v in, fp32 softmax, bf16 out + fp32 lse.
+// Flash-attention forward for Hopper (sm_90a): bf16 q/k/v in, fp32 softmax, bf16 out + fp32 lse (fp32
+// operands take flash_fwd_f32.cu; the split path's merge pass is flash_merge.cuh).
 //
 // Replaces two Pallas TPU kernels of hicom_tpu/ops/flash_attention.py:
 //   * _fullblock_kernel (K1): unmasked softmax(q k^T * scale + bias) v over whole rows, the SigLIP
@@ -26,6 +27,9 @@
 //     columns, rows of 128 B in the 128-byte swizzle that wgmma reads; d 72's columns 64-71 (a
 //     144-byte row has no swizzle of its width) arrive as a 16-byte box without swizzle, read with
 //     a second descriptor and a 16-column P V product, and columns 72-79 are zeros written once.
+//     Every padded head dim 16, 32, ..., 128 (d % 8 == 0) has an instance: the columns past the last
+//     whole box (all of them at d <= 48) arrive so, in chunks of 8 columns, and P V over them is one
+//     product of 16 or 32 columns, or 32 and then 16 (a 48-column tail: d 48, d 112).
 //     Rows past Lq or Lk arrive as zeros. Device memory is never padded.
 //   * Per key tile, S of the tile and P V of the previous one are in flight together, and the
 //     softmax of the tile runs while P V of the previous one does; nothing is in flight from one
@@ -38,8 +42,8 @@
 //     ceil(Lq / 128) * B * H blocks cannot fill the card (ops/flash_attention.py forward_splits:
 //     29 chunks at the global compressor's b 1, 14 at b 2; one at the tower and prefill). Each block
 //     writes its chunk's unnormalised fp32 output, running max and denominator to a workspace, and
-//     flash_merge_kernel combines the chunks in a fixed order (the same result on every run) into
-//     the bf16 output and the fp32 lse.
+//     flash_merge_kernel (flash_merge.cuh) combines the chunks in a fixed order (the same result on
+//     every run) into the bf16 output and the fp32 lse.
 //   * Partials alone (o null): the blocks write their chunks' fp32 partials, even at one chunk, and
 //     no merge runs, so that partials over keys held elsewhere (other ranks, other ring blocks) are
 //     merged with these by one merge pass, all in fp32 (ops/flash_attention.py
@@ -54,6 +58,7 @@
 // exp(-1e30 - M) = 0 against any chunk with a real maximum M. The final divide uses max(l, 1e-30).
 #include <math.h>
 
+#include "flash_merge.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -313,53 +318,6 @@ __global__ void __launch_bounds__(NTHREADS, DP <= 80 ? 2 : 1) flash_fwd_kernel(c
   }
 }
 
-// The split path's second pass, one warp per row: the chunks' largest max M and denominator sum
-// L = sum_s w_s l_s with w_s = exp(m_s - M) (a chunk with max -inf weighs 0), then each lane sums 4
-// columns, out = sum_s w_s o_s / max(L, 1e-30) in split order, in bf16; lse = M + log max(L, 1e-30).
-__global__ void flash_merge_kernel(const float* __restrict__ o_part, const float* __restrict__ m_part,
-                                   const float* __restrict__ l_part, bf16* __restrict__ o, float* __restrict__ lse,
-                                   int n_split, int rows, int d) {
-  const int r = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows) return;
-  auto weight = [&](int s, float M) {
-    const float ms = m_part[(size_t)s * rows + r];
-    return ms == -INFINITY ? 0.f : __expf(ms - M);
-  };
-  float M = -INFINITY;
-  for (int s = lane; s < n_split; s += 32) M = fmaxf(M, m_part[(size_t)s * rows + r]);
-#pragma unroll
-  for (int x = 16; x > 0; x >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, x));
-  float L = 0.f;
-  for (int s = lane; s < n_split; s += 32) L += weight(s, M) * l_part[(size_t)s * rows + r];
-#pragma unroll
-  for (int x = 16; x > 0; x >>= 1) L += __shfl_xor_sync(0xffffffffu, L, x);
-  const float denom = fmaxf(L, 1e-30f);
-  const float inv = 1.f / denom;
-  for (int c = lane * 4; c < d; c += 128) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int s = 0; s < n_split; ++s) {
-      const float w = weight(s, M);
-      const float4 x = *reinterpret_cast<const float4*>(o_part + ((size_t)s * rows + r) * d + c);
-      acc.x += w * x.x;
-      acc.y += w * x.y;
-      acc.z += w * x.z;
-      acc.w += w * x.w;
-    }
-    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(o + (size_t)r * d + c);
-    out[0] = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
-    out[1] = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
-  }
-  if (lane == 0) lse[r] = M + logf(denom);
-}
-
-cudaError_t merge(const float* o_part, const float* m_part, const float* l_part, bf16* o, float* lse, int n_split,
-                  int rows, int d, cudaStream_t stream) {
-  flash_merge_kernel<<<(rows + 3) / 4, 128, 0, stream>>>(o_part, m_part, l_part, o, lse, n_split, rows, d);
-  return cudaGetLastError();
-}
-
 template <int DP, bool CAUSAL, bool HAS_LEN>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int smem = fwd_smem_bytes<DP>();
@@ -370,7 +328,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   kernel<<<grid, NTHREADS, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1 || p.o == nullptr) return err;
-  return merge(p.o_part, p.m_part, p.l_part, p.o, p.lse, p.n_split, p.B * p.H * p.Lq, p.d, stream);
+  return merge<bf16>(p.o_part, p.m_part, p.l_part, p.o, p.lse, p.n_split, p.B * p.H * p.Lq, p.d, stream);
 }
 
 template <int DP>
@@ -414,19 +372,24 @@ extern "C" int hicom_flash_fwd(const void* q, const void* k, const void* v, cons
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 15) / 16 * 16) {
+    case 16: return (int)dispatch<16>(p, causal != 0, s);
     case 32: return (int)dispatch<32>(p, causal != 0, s);
+    case 48: return (int)dispatch<48>(p, causal != 0, s);
     case 64: return (int)dispatch<64>(p, causal != 0, s);
     case 80: return (int)dispatch<80>(p, causal != 0, s);
+    case 96: return (int)dispatch<96>(p, causal != 0, s);
+    case 112: return (int)dispatch<112>(p, causal != 0, s);
     case 128: return (int)dispatch<128>(p, causal != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The merge pass alone: o_part (n_split, rows, d), m_part and l_part (n_split, rows) fp32 to o (rows, d)
-// bf16 and lse (rows,) fp32. d % 4 == 0.
+// and lse (rows,) fp32; o is fp32 when out_fp32, else bf16. d % 4 == 0.
 extern "C" int hicom_flash_merge(const float* o_part, const float* m_part, const float* l_part, void* o, float* lse,
-                                 int n_split, int rows, int d, void* stream) {
+                                 int n_split, int rows, int d, int out_fp32, void* stream) {
   if (d % 4 != 0 || n_split < 1 || rows <= 0) return (int)cudaErrorInvalidValue;
-  return (int)merge(o_part, m_part, l_part, static_cast<bf16*>(o), lse, n_split, rows, d,
-                    static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_fp32) return (int)merge<float>(o_part, m_part, l_part, static_cast<float*>(o), lse, n_split, rows, d, s);
+  return (int)merge<bf16>(o_part, m_part, l_part, static_cast<bf16*>(o), lse, n_split, rows, d, s);
 }

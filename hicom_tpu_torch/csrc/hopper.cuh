@@ -5,7 +5,8 @@
 // Tile layout: a tile of R rows and DP (padded d) bf16 columns holds NB = DP / 64 boxes of 64 columns,
 // R rows of 128 B each in the 128-byte swizzle (8-row atoms of 1 KB), then the TAIL = DP % 64 columns
 // past them as 16-byte chunks of R rows without swizzle (d 72: one box, the chunk of columns 64-71 and
-// a chunk of zeros for 72-79). TMA writes both forms; rows past the tensor's extent arrive as zeros.
+// a chunk of zeros for 72-79; d 16 and 48: no box, 2 and 6 chunks). TMA writes both forms; rows past
+// the tensor's extent arrive as zeros.
 // Tiles start on 1 KB boundaries.
 #pragma once
 
@@ -201,7 +202,11 @@ struct Tile {
 #pragma unroll
     for (int bx = 0; bx < NB; ++bx)
       wgmma_rs<64, 1>(acc + bx * 32, a, make_desc(base + bx * R * 128 + kc * 2048, R * 128, 1024) | SW128, 1);
-    if constexpr (TAIL > 0) wgmma_rs<TAIL, 1>(acc + NB * 32, a, make_desc(base + NB * R * 128 + kc * 256, 128, R * 16), 1);
+    // the tail: one product of N = 16 or 32, or of 32 then 16 for a tail of 48 columns (d 48, d 112)
+    constexpr int T0 = TAIL == 48 ? 32 : TAIL;
+    if constexpr (T0 > 0) wgmma_rs<T0, 1>(acc + NB * 32, a, make_desc(base + NB * R * 128 + kc * 256, 128, R * 16), 1);
+    if constexpr (TAIL == 48)
+      wgmma_rs<16, 1>(acc + NB * 32 + 16, a, make_desc(base + NB * R * 128 + 4 * R * 16 + kc * 256, 128, R * 16), 1);
   }
   // zero the tail chunks past d (columns 72-79 at d 72) of the tile at base; thread idx of n threads
   static __device__ __forceinline__ void zero_pad(uint32_t base, int R, int tail_loaded, int idx, int n) {

@@ -3,6 +3,8 @@
 // Replaces the Pallas TPU kernel hicom_tpu/ops/local_attn.py:_tile_attn_kernel (K4): one query per
 // (kt, kh, kw) tile of a (t, h, w, d) volume attends over the K = kt * kh * kw keys of its tile: fp32
 // logits times scale plus bias, fp32 softmax, p rounded to bf16, fp32 weighted sum, output rounded to bf16.
+// The fp32 instance (JAX's kernel is dtype-generic) reads and writes fp32 rows and rounds nothing: the same
+// code on the element type T, a 16-byte chunk holding 8 bf16 or 4 floats.
 //
 // What bounds it on the H100: bytes. The tiles partition the volumes, so each key and value row is read
 // once, and the arithmetic is about 2 flops per byte: tensor cores cannot help. What the kernel has to do
@@ -34,17 +36,18 @@ namespace {
 
 constexpr int MAX_K = 64;
 constexpr int MAX_WARPS = 8;          // warps of each of the key and value roles
-constexpr int MAX_CHUNKS = 4;         // 16-byte chunks per thread: d <= 8 * 32 * 8 * 4 = 8192
+constexpr int MAX_CHUNKS = 4;         // 16-byte chunks per thread: d <= 8 * 32 * 4 chunks (8192 bf16, 4096 fp32)
 constexpr int MAX_SLOTS = 32;
 constexpr int RING_BYTES = 210 * 1024;  // of the SM's 228 KB, less the barriers and red
-constexpr int MAX_SEGMENT = 24576;    // kw * d elements of one slot (48 KB): at least 4 slots
+constexpr int MAX_SEGMENT_BYTES = 49152;  // kw rows of d elements, one slot (48 KB): at least 4 slots
 constexpr int ROWS = 4;               // key rows of a segment reduced together
 
+template <typename T>
 struct Params {
-  const bf16* q;      // (tiles, qk)
-  const bf16* key;    // (t, h, w, qk)
-  const bf16* value;  // (t, h, w, dv)
-  bf16* out;          // (tiles, dv)
+  const T* q;      // (tiles, qk)
+  const T* key;    // (t, h, w, qk)
+  const T* value;  // (t, h, w, dv)
+  T* out;          // (tiles, dv)
   const float* scale_p;  // device scalars, or null for the values below
   const float* bias_p;
   float scale, bias;
@@ -63,9 +66,13 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
                : "memory");
 }
 
-// 8 bf16 from a 16-byte chunk of shared memory (one 16-byte load: read through a reference, the chunk would
-// be four 4-byte loads with 4-way bank conflicts between lanes 16 bytes apart) as floats
-__device__ __forceinline__ void unpack8(const unsigned char* chunk, float* f) {
+// elements of T in a 16-byte chunk
+template <typename T>
+__host__ __device__ constexpr int per_chunk() { return 16 / (int)sizeof(T); }
+
+// A 16-byte chunk of shared memory (one 16-byte load: read through a reference, the chunk would be four
+// 4-byte loads with 4-way bank conflicts between lanes 16 bytes apart) as floats: 8 bf16 or 4 floats.
+__device__ __forceinline__ void unpack(const unsigned char* chunk, float* f, const bf16*) {
   const uint4 v = *reinterpret_cast<const uint4*>(chunk);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
@@ -75,31 +82,54 @@ __device__ __forceinline__ void unpack8(const unsigned char* chunk, float* f) {
     f[2 * i + 1] = x.y;
   }
 }
-
-// part[r] += q8 . (columns 8c .. 8c + 7 of row r), rows 0 .. R - 1 of a segment; the R loads go out together
-template <int R>
-__device__ __forceinline__ void dot_rows(const unsigned char* rows, int row_bytes, int c, const float* q8,
-                                         float* part) {
-  float k[R][8];
-#pragma unroll
-  for (int r = 0; r < R; ++r) unpack8(rows + (size_t)r * row_bytes + c * 16, k[r]);
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) part[r] = fmaf(q8[e], k[r][e], part[r]);
+__device__ __forceinline__ void unpack(const unsigned char* chunk, float* f, const float*) {
+  const float4 v = *reinterpret_cast<const float4*>(chunk);
+  f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
 }
 
-// acc += pr[r] * (columns 8c .. 8c + 7 of row r), rows 0 .. R - 1 in order
-template <int R>
-__device__ __forceinline__ void fold_rows(const unsigned char* rows, int row_bytes, int c, const float* pr,
-                                          float* acc) {
-  float v[R][8];
+// the output chunk of 8 bf16 or 4 floats from its fp32 accumulators, stored as is (16 bytes)
+__device__ __forceinline__ void store_chunk(bf16* out, const float* acc) {
+  uint4 o;
+  o.x = pack_bf16(acc[0], acc[1]);
+  o.y = pack_bf16(acc[2], acc[3]);
+  o.z = pack_bf16(acc[4], acc[5]);
+  o.w = pack_bf16(acc[6], acc[7]);
+  *reinterpret_cast<uint4*>(out) = o;
+}
+__device__ __forceinline__ void store_chunk(float* out, const float* acc) {
+  *reinterpret_cast<float4*>(out) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+// p as the TPU kernel has it before the weighted sum: rounded to the values' type
+__device__ __forceinline__ float round_p(float x, const bf16*) { return __bfloat162float(__float2bfloat16(x)); }
+__device__ __forceinline__ float round_p(float x, const float*) { return x; }
+
+// part[r] += qc . (chunk c of row r), rows 0 .. R - 1 of a segment; the R loads go out together
+template <typename T, int R>
+__device__ __forceinline__ void dot_rows(const unsigned char* rows, int row_bytes, int c, const float* qc,
+                                         float* part) {
+  constexpr int E = per_chunk<T>();
+  float k[R][E];
 #pragma unroll
-  for (int r = 0; r < R; ++r) unpack8(rows + (size_t)r * row_bytes + c * 16, v[r]);
+  for (int r = 0; r < R; ++r) unpack(rows + (size_t)r * row_bytes + c * 16, k[r], (const T*)nullptr);
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[e] = fmaf(pr[r], v[r][e], acc[e]);
+    for (int e = 0; e < E; ++e) part[r] = fmaf(qc[e], k[r][e], part[r]);
+}
+
+// acc += pr[r] * (chunk c of row r), rows 0 .. R - 1 in order
+template <typename T, int R>
+__device__ __forceinline__ void fold_rows(const unsigned char* rows, int row_bytes, int c, const float* pr,
+                                          float* acc) {
+  constexpr int E = per_chunk<T>();
+  float v[R][E];
+#pragma unroll
+  for (int r = 0; r < R; ++r) unpack(rows + (size_t)r * row_bytes + c * 16, v[r], (const T*)nullptr);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = fmaf(pr[r], v[r][e], acc[e]);
 }
 
 // One role's place in the ring: the slot of its next item and the parity of that slot's current round.
@@ -125,7 +155,10 @@ __device__ __forceinline__ float reduce_rows4(const float* part, int lane) {
   return b;
 }
 
-__global__ void __launch_bounds__((2 * MAX_WARPS + 1) * 32, 1) tile_attn_kernel(const Params p) {
+template <typename T>
+__global__ void __launch_bounds__((2 * MAX_WARPS + 1) * 32, 1) tile_attn_kernel(const Params<T> p) {
+  constexpr int E = per_chunk<T>();
+  constexpr int ES = sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
   const int S = p.slots;
   const int ncw = p.warps;
@@ -163,14 +196,14 @@ __global__ void __launch_bounds__((2 * MAX_WARPS + 1) * 32, 1) tile_attn_kernel(
       const int bb = (tile / w1) % h1;
       const int a = tile / (w1 * h1);
       for (int item = 0; item <= 2 * nseg; ++item, at.advance(1, S)) {
-        const bf16* src = p.q + (size_t)tile * p.qk;
-        uint32_t bytes = p.qk * 2;
+        const T* src = p.q + (size_t)tile * p.qk;
+        uint32_t bytes = p.qk * ES;
         if (item > 0) {
           const int seg = (item - 1) % nseg;  // (it, ih) = (seg / kh, seg % kh)
           const size_t pos = ((size_t)(a * p.kt + seg / p.kh) * p.h + (bb * p.kh + seg % p.kh)) * p.w + c * p.kw;
           const bool is_value = item > nseg;
           src = is_value ? p.value + pos * p.dv : p.key + pos * p.qk;
-          bytes = p.kw * (is_value ? p.dv : p.qk) * 2;
+          bytes = p.kw * (is_value ? p.dv : p.qk) * ES;
         }
         mbar_wait(smem_u32(empty + at.slot), at.phase ^ 1);  // the slot's last item was released
         mbar_expect_tx(smem_u32(full + at.slot), bytes);
@@ -192,19 +225,19 @@ __global__ void __launch_bounds__((2 * MAX_WARPS + 1) * 32, 1) tile_attn_kernel(
 
   if (warp < ncw) {  // the key warps: thread ct owns the 16-byte chunks ct, ct + nc, ... of a row
     const int ct = threadIdx.x;
-    const int nck = p.qk / 8;
+    const int nck = p.qk / E;
     RingPos at;
     for (int tile = blockIdx.x, it = 0; tile < p.tiles; tile += gridDim.x, ++it) {
       const unsigned char* row = wait_item(at);
-      float qf[MAX_CHUNKS][8];
+      float qf[MAX_CHUNKS][E];
 #pragma unroll
       for (int i = 0; i < MAX_CHUNKS; ++i) {
         const int c = ct + i * nc;
         if (c < nck) {
-          unpack8(row + c * 16, qf[i]);
+          unpack(row + c * 16, qf[i], (const T*)nullptr);
         } else {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) qf[i][e] = 0.f;
+          for (int e = 0; e < E; ++e) qf[i][e] = 0.f;
         }
       }
       release_item(at);
@@ -216,7 +249,7 @@ __global__ void __launch_bounds__((2 * MAX_WARPS + 1) * 32, 1) tile_attn_kernel(
         const unsigned char* rows = wait_item(at);
         for (int r0 = 0; r0 < p.kw; r0 += ROWS) {
           const int nr = p.kw - r0 < ROWS ? p.kw - r0 : ROWS;
-          const unsigned char* seg_rows = rows + (size_t)r0 * p.qk * 2;
+          const unsigned char* seg_rows = rows + (size_t)r0 * p.qk * ES;
           float part[ROWS];
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) part[r] = 0.f;
@@ -225,10 +258,10 @@ __global__ void __launch_bounds__((2 * MAX_WARPS + 1) * 32, 1) tile_attn_kernel(
             const int c = ct + i * nc;
             if (c < nck) {
               switch (nr) {
-                case 1: dot_rows<1>(seg_rows, p.qk * 2, c, qf[i], part); break;
-                case 2: dot_rows<2>(seg_rows, p.qk * 2, c, qf[i], part); break;
-                case 3: dot_rows<3>(seg_rows, p.qk * 2, c, qf[i], part); break;
-                default: dot_rows<4>(seg_rows, p.qk * 2, c, qf[i], part); break;
+                case 1: dot_rows<T, 1>(seg_rows, p.qk * ES, c, qf[i], part); break;
+                case 2: dot_rows<T, 2>(seg_rows, p.qk * ES, c, qf[i], part); break;
+                case 3: dot_rows<T, 3>(seg_rows, p.qk * ES, c, qf[i], part); break;
+                default: dot_rows<T, 4>(seg_rows, p.qk * ES, c, qf[i], part); break;
               }
             }
           }
@@ -246,7 +279,7 @@ __global__ void __launch_bounds__((2 * MAX_WARPS + 1) * 32, 1) tile_attn_kernel(
 
   // the value warps: the softmax of each tile (in every warp), then the weighted sum of its values
   const int ct = threadIdx.x - nc;
-  const int ncv = p.dv / 8;
+  const int ncv = p.dv / E;
   const float scale = p.scale_p != nullptr ? *p.scale_p : p.scale;
   const float bias = p.bias_p != nullptr ? *p.bias_p : p.bias;
   RingPos at;
@@ -255,8 +288,8 @@ __global__ void __launch_bounds__((2 * MAX_WARPS + 1) * 32, 1) tile_attn_kernel(
     const int b = it & 1;
     const float* red_t = red + b * MAX_WARPS * MAX_K;
     mbar_wait(smem_u32(logits_ready + b), (it >> 1) & 1);
-    // logit j on lane j % 32: the key warps' partials summed in warp order; p rounded to bf16 as the TPU
-    // kernel rounds it
+    // logit j on lane j % 32: the key warps' partials summed in warp order; p rounded to the values' type
+    // as the TPU kernel rounds it
     float l0 = -INFINITY, l1 = -INFINITY;
     if (lane < K) {
       float s = 0.f;
@@ -278,19 +311,19 @@ __global__ void __launch_bounds__((2 * MAX_WARPS + 1) * 32, 1) tile_attn_kernel(
     float sum = e0 + e1;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float p0 = __bfloat162float(__float2bfloat16(e0 / sum));
-    const float p1 = __bfloat162float(__float2bfloat16(e1 / sum));
+    const float p0 = round_p(e0 / sum, (const T*)nullptr);
+    const float p1 = round_p(e1 / sum, (const T*)nullptr);
 
-    float acc[MAX_CHUNKS][8];
+    float acc[MAX_CHUNKS][E];
 #pragma unroll
     for (int i = 0; i < MAX_CHUNKS; ++i)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+      for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
     for (int seg = 0; seg < nseg; ++seg) {
       const unsigned char* rows = wait_item(at);
       for (int r0 = 0; r0 < p.kw; r0 += ROWS) {
         const int nr = p.kw - r0 < ROWS ? p.kw - r0 : ROWS;
-        const unsigned char* seg_rows = rows + (size_t)r0 * p.dv * 2;
+        const unsigned char* seg_rows = rows + (size_t)r0 * p.dv * ES;
         float pr[ROWS];  // p of rows r0 .. r0 + 3 (those past the segment unused)
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
@@ -302,10 +335,10 @@ __global__ void __launch_bounds__((2 * MAX_WARPS + 1) * 32, 1) tile_attn_kernel(
           const int c = ct + i * nc;
           if (c < ncv) {
             switch (nr) {
-              case 1: fold_rows<1>(seg_rows, p.dv * 2, c, pr, acc[i]); break;
-              case 2: fold_rows<2>(seg_rows, p.dv * 2, c, pr, acc[i]); break;
-              case 3: fold_rows<3>(seg_rows, p.dv * 2, c, pr, acc[i]); break;
-              default: fold_rows<4>(seg_rows, p.dv * 2, c, pr, acc[i]); break;
+              case 1: fold_rows<T, 1>(seg_rows, p.dv * ES, c, pr, acc[i]); break;
+              case 2: fold_rows<T, 2>(seg_rows, p.dv * ES, c, pr, acc[i]); break;
+              case 3: fold_rows<T, 3>(seg_rows, p.dv * ES, c, pr, acc[i]); break;
+              default: fold_rows<T, 4>(seg_rows, p.dv * ES, c, pr, acc[i]); break;
             }
           }
         }
@@ -315,53 +348,59 @@ __global__ void __launch_bounds__((2 * MAX_WARPS + 1) * 32, 1) tile_attn_kernel(
 #pragma unroll
     for (int i = 0; i < MAX_CHUNKS; ++i) {
       const int c = ct + i * nc;
-      if (c < ncv) {
-        uint4 o;
-        o.x = pack_bf16(acc[i][0], acc[i][1]);
-        o.y = pack_bf16(acc[i][2], acc[i][3]);
-        o.z = pack_bf16(acc[i][4], acc[i][5]);
-        o.w = pack_bf16(acc[i][6], acc[i][7]);
-        *reinterpret_cast<uint4*>(p.out + (size_t)tile * p.dv + c * 8) = o;
-      }
+      if (c < ncv) store_chunk(p.out + (size_t)tile * p.dv + c * E, acc[i]);
     }
   }
 }
 
-}  // namespace
-
-// q (t1, h1, w1, qk), key (t, h, w, qk), value (t, h, w, dv), out (t1, h1, w1, dv): bf16, contiguous, 16-byte
-// aligned. scale and bias: device fp32 scalars at scale_p / bias_p, or (when null) the values given. The tile
-// grid divides the volume, K = kt * kh * kw <= 64, qk and dv are multiples of 8 and at most 8192, and kw *
-// max(qk, dv) <= 24576 (one 48 KB ring slot). sms: the card's SMs, which the persistent grid fills.
-// Returns a CUDA error code (0 when the launch was accepted).
-extern "C" int hicom_tile_attention(const void* q, const void* key, const void* value, void* out,
-                                    const float* scale_p, const float* bias_p, float scale, float bias, int t,
-                                    int h, int w, int qk, int dv, int kt, int kh, int kw, int sms,
-                                    void* stream) {
+template <typename T>
+cudaError_t tile_attention(const void* q, const void* key, const void* value, void* out, const float* scale_p,
+                           const float* bias_p, float scale, float bias, int t, int h, int w, int qk, int dv, int kt,
+                           int kh, int kw, int sms, cudaStream_t stream) {
   const int d = qk > dv ? qk : dv;
+  constexpr int E = per_chunk<T>();
   if (kt <= 0 || kh <= 0 || kw <= 0 || t % kt || h % kh || w % kw || kt * kh * kw > MAX_K || qk <= 0 ||
-      dv <= 0 || qk % 8 || dv % 8 || d > MAX_WARPS * 32 * MAX_CHUNKS * 8 || kw * d > MAX_SEGMENT || sms <= 0)
-    return (int)cudaErrorInvalidValue;
+      dv <= 0 || qk % E || dv % E || d > MAX_WARPS * 32 * MAX_CHUNKS * E ||
+      kw * d * (int)sizeof(T) > MAX_SEGMENT_BYTES || sms <= 0)
+    return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(key) | reinterpret_cast<uintptr_t>(value) |
        reinterpret_cast<uintptr_t>(out)) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.key = static_cast<const bf16*>(key);
-  p.value = static_cast<const bf16*>(value);
-  p.out = static_cast<bf16*>(out);
+    return cudaErrorInvalidValue;
+  Params<T> p;
+  p.q = static_cast<const T*>(q);
+  p.key = static_cast<const T*>(key);
+  p.value = static_cast<const T*>(value);
+  p.out = static_cast<T*>(out);
   p.scale_p = scale_p, p.bias_p = bias_p, p.scale = scale, p.bias = bias;
   p.h = h, p.w = w, p.qk = qk, p.dv = dv, p.kt = kt, p.kh = kh, p.kw = kw;
   p.tiles = (t / kt) * (h / kh) * (w / kw);
-  if (p.tiles == 0) return (int)cudaSuccess;
-  p.slot_bytes = kw * d * 2;
+  if (p.tiles == 0) return cudaSuccess;
+  p.slot_bytes = kw * d * (int)sizeof(T);
   p.slots = RING_BYTES / p.slot_bytes < MAX_SLOTS ? RING_BYTES / p.slot_bytes : MAX_SLOTS;
-  const int chunks = d / 8;
+  const int chunks = d / E;
   p.warps = (chunks + 31) / 32 < MAX_WARPS ? (chunks + 31) / 32 : MAX_WARPS;
   const int smem = p.slots * (p.slot_bytes + 16) + 4 * 8 + 2 * MAX_WARPS * MAX_K * 4;
-  const cudaError_t err = cudaFuncSetAttribute(tile_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  const cudaError_t err = cudaFuncSetAttribute(tile_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   const int grid = p.tiles < sms ? p.tiles : sms;
-  tile_attn_kernel<<<grid, (2 * p.warps + 1) * 32, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  tile_attn_kernel<T><<<grid, (2 * p.warps + 1) * 32, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q (t1, h1, w1, qk), key (t, h, w, qk), value (t, h, w, dv), out (t1, h1, w1, dv): bf16, or fp32 when fp32 is
+// nonzero; contiguous, 16-byte aligned. scale and bias: device fp32 scalars at scale_p / bias_p, or (when null)
+// the values given. The tile grid divides the volume, K = kt * kh * kw <= 64, qk and dv fill whole 16-byte
+// chunks and are at most 8192 bf16 or 4096 fp32, and kw * max(qk, dv) elements fit one 48 KB ring slot. sms:
+// the card's SMs, which the persistent grid fills. Returns a CUDA error code (0 when the launch was accepted).
+extern "C" int hicom_tile_attention(const void* q, const void* key, const void* value, void* out,
+                                    const float* scale_p, const float* bias_p, float scale, float bias, int t,
+                                    int h, int w, int qk, int dv, int kt, int kh, int kw, int sms, int fp32,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fp32) return (int)tile_attention<float>(q, key, value, out, scale_p, bias_p, scale, bias, t, h, w, qk, dv, kt,
+                                              kh, kw, sms, s);
+  return (int)tile_attention<bf16>(q, key, value, out, scale_p, bias_p, scale, bias, t, h, w, qk, dv, kt, kh, kw,
+                                   sms, s);
 }

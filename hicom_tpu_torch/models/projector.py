@@ -162,7 +162,7 @@ class LocalCompressor(nn.Module):
 
         att_scale = torch.exp(logit_scale) if logit_scale is not None else 1.0 / math.sqrt(self.qk_dim)
         dv = value.shape[-1]
-        if takes_tile_kernel((t, h, w), key.shape[-1], dv, (kt, ks, ks)) and not torch.is_grad_enabled():
+        if takes_tile_kernel((t, h, w), key.shape[-1], dv, (kt, ks, ks), key.dtype) and not torch.is_grad_enabled():
             # tiles never cross frames, so the batch folds into the frame axis
             out = fused_tile_attention(q.reshape(b * down[0], *down[1:], q.shape[-1]),
                                        key.reshape(b * t, h, w, key.shape[-1]),

@@ -1,8 +1,10 @@
 """Flash attention: the Hopper kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, their
 plain twins, and the ``torch.autograd.Function`` that joins them.
 
-Two CUDA sources take the place of four Pallas TPU kernels of
-``hicom_tpu/ops/flash_attention.py``:
+Three CUDA sources take the place of four Pallas TPU kernels of
+``hicom_tpu/ops/flash_attention.py`` (``flash_fwd_f32.cu`` is the forward's
+fp32 instance, on the CUDA cores; the split path's merge pass is
+``flash_merge.cuh``, in both):
 
 * :func:`fullblock_attention` replaces ``_fullblock_kernel`` (K1): unmasked
   attention with every row seeing the whole kv, the SigLIP tower shape;
@@ -46,9 +48,12 @@ otherwise (serving under ``torch.inference_mode()`` saves nothing).
 :func:`uses_fullblock` is the one rule that chooses between K1 and K2, as
 ``_flash_fwd_impl`` chooses on the TPU.
 
-The kernels' contract is :func:`takes_flash_kernel` (bf16 q, k and v; a head
-dim that is a multiple of 8 and pads to 32, 64, 80 or 128); the wrappers raise
-for device operands outside it.
+The forward's contract is :func:`takes_flash_kernel` (bf16 or fp32 q, k and
+v of one dtype, as JAX's dtype-generic kernels take them; a head dim that is a
+multiple of 8 up to 128); the backward's is :func:`takes_flash_backward` (bf16,
+a head dim that pads to 32, 64, 80 or 128). The wrappers raise for device
+operands outside them, and :func:`attend` raises before the forward when a
+gradient is wanted that no backward instance computes.
 """
 
 from __future__ import annotations
@@ -70,18 +75,41 @@ DKV_BLOCK_K, DKV_BLOCK_Q = 64, 64  # K6's keys per block, query rows per unit
 H100_SMS = 132
 
 Tensor = torch.Tensor
-FLASH_HEAD_DIMS = (32, 64, 80, 128)  # the kernels' instances, each head dim padded to a multiple of 16
+FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # the forward's instances, each head dim padded to 16
+FLASH_DTYPES = (torch.bfloat16, torch.float32)  # the forward's operand types: flash_fwd.cu, flash_fwd_f32.cu
+BACKWARD_HEAD_DIMS = (32, 64, 80, 128)  # K5/K6's instances (bf16 only)
+
+
+def _padded(d: int) -> int:
+    return (d + 15) // 16 * 16
 
 
 def takes_flash_kernel(d: int, dtypes, device_type: str) -> bool:
-    """Whether the flash wrappers (K1, K2, and K5/K6 behind them) compute
-    attention of head dim ``d`` over q, k and v of ``dtypes`` on
-    ``device_type``: always on the CPU (the plain twins); elsewhere the
-    kernels' contract: bf16 operands, ``d`` a multiple of 8 that pads to one of
+    """Whether the forward wrappers (K1, K2) compute attention of head dim
+    ``d`` over q, k and v of ``dtypes`` on ``device_type``: always on the CPU
+    (the plain twins); elsewhere the kernels' contract: operands of one dtype
+    of :data:`FLASH_DTYPES`, ``d`` a multiple of 8 that pads to one of
     :data:`FLASH_HEAD_DIMS`."""
     if device_type == "cpu":
         return True
-    return all(dt == torch.bfloat16 for dt in dtypes) and d % 8 == 0 and (d + 15) // 16 * 16 in FLASH_HEAD_DIMS
+    dtypes = tuple(dtypes)
+    return (dtypes[0] in FLASH_DTYPES and all(dt == dtypes[0] for dt in dtypes) and d % 8 == 0
+            and _padded(d) in FLASH_HEAD_DIMS)
+
+
+def takes_flash_backward(d: int, dtypes, device_type: str) -> bool:
+    """Whether K5/K6 (:func:`flash_backward`) take a gradient of attention of
+    head dim ``d`` over ``dtypes`` on ``device_type``: always on the CPU;
+    elsewhere bf16 operands at a head dim that pads to one of
+    :data:`BACKWARD_HEAD_DIMS`."""
+    if device_type == "cpu":
+        return True
+    return all(dt == torch.bfloat16 for dt in dtypes) and d % 8 == 0 and _padded(d) in BACKWARD_HEAD_DIMS
+
+
+def _backward_instance(d: int, dtype) -> str:
+    """The K5/K6 instance that a gradient of (d, dtype) would need."""
+    return f"K5/K6 have no {str(dtype).replace('torch.', '')} instance at head dim {d} (padded {_padded(d)})"
 
 
 def _acc_dtype(x: Tensor) -> torch.dtype:
@@ -381,8 +409,9 @@ def _check(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], what: 
     KVH, Lk = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or H % KVH:
         raise ValueError(f"{what}: incompatible q {tuple(q.shape)} and k {tuple(k.shape)}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"{what} takes bfloat16 q, k and v")
+    if q.dtype not in FLASH_DTYPES or any(t.dtype != q.dtype for t in (k, v)):
+        raise TypeError(f"{what} takes bfloat16 or float32 q, k and v of one dtype; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError(f"{what}: q, k and v must be on one device")
     if not takes_flash_kernel(d, (q.dtype, k.dtype, v.dtype), q.device.type):
@@ -414,31 +443,37 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale
         parts = (torch.empty((n_split, b * H, Lq, d), dtype=torch.float32, device=q.device),
                  torch.empty((n_split, b * H, Lq), dtype=torch.float32, device=q.device),
                  torch.empty((n_split, b * H, Lq), dtype=torch.float32, device=q.device))
-    fn = c_function("flash_fwd", "hicom_flash_fwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    source, symbol = ("flash_fwd_f32", "hicom_flash_fwd_f32") if q.dtype == torch.float32 else \
+        ("flash_fwd", "hicom_flash_fwd")
+    fn = c_function(source, symbol, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                     + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr() if lens is not None else None,
                 *(t.data_ptr() if t is not None else None for t in (out, lse) + parts),
                 b, H, KVH, Lq, Lk, d, int(n_split), float(scale), float(logit_bias), int(causal),
                 torch.cuda.current_stream(q.device).cuda_stream)
-    check(status, "hicom_flash_fwd")
+    check(status, symbol)
     if partials:
         o_part, m_part, l_part = parts
         return o_part.view(n_split, b, H, Lq, d), m_part.view(n_split, b, H, Lq), l_part.view(n_split, b, H, Lq)
     return out, lse
 
 
-def _launch_merge(o_part: Tensor, m_part: Tensor, l_part: Tensor) -> Tuple[Tensor, Tensor]:
+def _launch_merge(o_part: Tensor, m_part: Tensor, l_part: Tensor, dtype: torch.dtype = torch.bfloat16
+                  ) -> Tuple[Tensor, Tensor]:
     """The forward's merge kernel alone on fp32 CUDA partials o_part (n, rows,
-    d), m_part and l_part (n, rows): returns (out (rows, d) bf16, lse (rows,))."""
+    d), m_part and l_part (n, rows): returns (out (rows, d) in ``dtype``, bf16
+    or fp32, written by the kernel with no other rounding, lse (rows,))."""
     n, rows, d = o_part.shape
     if m_part.shape != (n, rows) or l_part.shape != (n, rows) or d % 4:
         raise ValueError(f"merge takes o_part (n, rows, d % 4 == 0) and m/l (n, rows); got {tuple(o_part.shape)}")
+    if dtype not in FLASH_DTYPES:
+        raise TypeError(f"the merge kernel writes bfloat16 or float32 rows, not {dtype}")
     o_part, m_part, l_part = (t.float().contiguous() for t in (o_part, m_part, l_part))
-    out = torch.empty((rows, d), dtype=torch.bfloat16, device=o_part.device)
+    out = torch.empty((rows, d), dtype=dtype, device=o_part.device)
     lse = torch.empty((rows,), dtype=torch.float32, device=o_part.device)
-    fn = c_function("flash_fwd", "hicom_flash_merge", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn = c_function("flash_fwd", "hicom_flash_merge", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     check(fn(o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(), lse.data_ptr(), n, rows, d,
-             torch.cuda.current_stream(o_part.device).cuda_stream), "hicom_flash_merge")
+             int(dtype == torch.float32), torch.cuda.current_stream(o_part.device).cuda_stream), "hicom_flash_merge")
     return out, lse
 
 
@@ -490,14 +525,15 @@ def merge_partials(o_part: Tensor, m_part: Tensor, l_part: Tensor, dtype: torch.
     :func:`flash_forward_partials` gives them: o_part (n, ..., d), m_part and
     l_part (n, ...). Chunk s weighs exp(m_s - max m), which is 0 for a chunk
     with no valid key (max near -1e30) beside one with a key. Returns (out
-    (..., d) in ``dtype``, lse (...)); the merge kernel writes bf16."""
+    (..., d) in ``dtype``, lse (...)); on a device the merge kernel writes
+    ``dtype`` (bf16 or fp32) itself."""
     plain_operands("merge", o_part, m_part, l_part)
     if o_part.device.type == "cpu":
         return merge_partials_reference(o_part, m_part, l_part, dtype)
     n, d = o_part.shape[0], o_part.shape[-1]
-    out, lse = _launch_merge(o_part.reshape(n, -1, d), m_part.reshape(n, -1), l_part.reshape(n, -1))
+    out, lse = _launch_merge(o_part.reshape(n, -1, d), m_part.reshape(n, -1), l_part.reshape(n, -1), dtype)
     merge_partials.launches += 1
-    return out.reshape(o_part.shape[1:]).to(dtype), lse.reshape(m_part.shape[1:])
+    return out.reshape(o_part.shape[1:]), lse.reshape(m_part.shape[1:])
 
 
 merge_partials.launches = 0
@@ -577,6 +613,8 @@ def backward_operands(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tens
     returns (q, k, v, int32 lengths or None, dO, lse, delta), contiguous, with
     delta = rowsum(dO * O) in fp32 (one reduction, as ``_flash_bwd_impl``)."""
     b, H, KVH, Lq, Lk, d, lens = _check(q, k, v, kv_lengths, "flash backward")
+    if not takes_flash_backward(d, (q.dtype, k.dtype, v.dtype), q.device.type):
+        raise TypeError(f"flash backward: {_backward_instance(d, q.dtype)}")
     if out.shape != q.shape or do.shape != q.shape or lse.shape != (b, H, Lq):
         raise ValueError(f"flash backward: out/dO must be {tuple(q.shape)} and lse {(b, H, Lq)}")
     if out.dtype != torch.bfloat16 or do.dtype != torch.bfloat16 or lse.dtype != torch.float32:
@@ -638,8 +676,13 @@ class FlashAttention(torch.autograd.Function):
 
 def attend(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float, logit_bias: float,
            causal: bool, fullblock: bool) -> Tensor:
-    """:class:`FlashAttention` when a gradient is wanted, else the forward kernel alone."""
+    """:class:`FlashAttention` when a gradient is wanted, else the forward kernel
+    alone. A gradient that no K5/K6 instance computes (fp32, head dims 16, 48,
+    96 and 112 on a device) raises here, before the forward runs."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        d = q.shape[-1]
+        if not takes_flash_backward(d, (q.dtype, k.dtype, v.dtype), q.device.type):
+            raise TypeError(f"flash attention needs a gradient here, and {_backward_instance(d, q.dtype)}")
         return FlashAttention.apply(q, k, v, kv_lengths, scale, logit_bias, causal, fullblock)
     return _forward(q, k, v, kv_lengths, scale, logit_bias, causal, fullblock)[0]
 

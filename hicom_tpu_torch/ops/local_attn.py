@@ -9,7 +9,9 @@ value when they are numbers and by device pointer when they are tensors on the
 card (the clip-scale path), so a call never waits for the device.
 K4 has no backward, on the TPU or here: the CUDA wrapper refuses inputs that
 require a gradient under grad mode, and the projector takes ``tile_thw`` +
-``sdpa`` there, the path the JAX train step runs.
+``sdpa`` there, the path the JAX train step runs. The kernel takes bf16 or
+fp32 q, key and value of one dtype (JAX's kernel is dtype-generic); in fp32 it
+rounds nothing, p included.
 """
 
 from __future__ import annotations
@@ -24,17 +26,22 @@ from .flash_attention import _sm_count
 
 Tensor = torch.Tensor
 MAX_K = 64  # keys per tile
-MAX_WIDTH = 8192  # qk and dv: 16-byte chunks of 8 warps x 32 threads x 4
-MAX_SEGMENT = 24576  # kw * max(qk, dv) elements: one 48 KB slot of the kernel's ring
+MAX_WIDTH_BYTES = 16384  # a row of qk or dv: 16-byte chunks of 8 warps x 32 threads x 4 (8192 bf16, 4096 fp32)
+MAX_SEGMENT_BYTES = 49152  # kw rows of max(qk, dv): one 48 KB slot of the kernel's ring
+TILE_DTYPES = (torch.bfloat16, torch.float32)  # the kernel's instances
 
 
-def takes_tile_kernel(thw: Tuple[int, int, int], qk: int, dv: int, kernel: tuple) -> bool:
-    """Whether K4 computes the tile attention of one (t, h, w) volume: the
-    tiles divide it, K = kt * kh * kw <= 64, qk and dv are multiples of 8 (16-
-    byte rows) up to 8192, and a segment of kw rows fits a 48 KB ring slot."""
+def takes_tile_kernel(thw: Tuple[int, int, int], qk: int, dv: int, kernel: tuple,
+                      dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether K4 computes the tile attention of one (t, h, w) volume of
+    ``dtype`` elements: the tiles divide it, K = kt * kh * kw <= 64, qk and
+    dv are multiples of 8, a row is at most 16 KB and a segment of kw rows fits
+    a 48 KB ring slot (bytes counted in ``dtype``; the wrapper checks the types
+    themselves)."""
     (t, h, w), (kt, kh, kw) = thw, kernel
+    row = max(qk, dv) * dtype.itemsize
     return (t % kt == 0 and h % kh == 0 and w % kw == 0 and kt * kh * kw <= MAX_K and qk % 8 == 0
-            and dv % 8 == 0 and max(qk, dv) <= MAX_WIDTH and kw * max(qk, dv) <= MAX_SEGMENT)
+            and dv % 8 == 0 and row <= MAX_WIDTH_BYTES and kw * row <= MAX_SEGMENT_BYTES)
 
 
 def _tiles(x: Tensor, kernel: tuple) -> Tensor:
@@ -111,9 +118,10 @@ def fused_tile_attention(
         raise RuntimeError("the tile kernel has no backward: take tile_thw + sdpa when a gradient is needed")
 
     dv = value.shape[-1]
-    if any(x.dtype != torch.bfloat16 for x in (q, key, value)):
-        raise TypeError("tile kernel takes bfloat16 q, key and value")
-    if value.shape[:3] != key.shape[:3] or not takes_tile_kernel((t, h, w), qk, dv, kernel):
+    if q.dtype not in TILE_DTYPES or any(x.dtype != q.dtype for x in (key, value)):
+        raise TypeError(f"tile kernel takes bfloat16 or float32 q, key and value of one dtype; got {q.dtype}, "
+                        f"{key.dtype}, {value.dtype}")
+    if value.shape[:3] != key.shape[:3] or not takes_tile_kernel((t, h, w), qk, dv, kernel, q.dtype):
         raise ValueError(f"tile kernel: unsupported shapes {tuple(key.shape)}, dv {dv}, tile {tuple(kernel)}")
     if any(x.device != q.device for x in (key, value)):
         raise ValueError("tile kernel: all inputs must be on one device")
@@ -121,11 +129,12 @@ def fused_tile_attention(
     (scale_t, scale_v), (bias_t, bias_v) = _scalar(scale, q.device), _scalar(logit_bias, q.device)
     out = torch.empty(q.shape[:3] + (dv,), dtype=q.dtype, device=q.device)
     fn = c_function("local_attn", "hicom_tile_attention", [ctypes.c_void_p] * 6 + [ctypes.c_float] * 2
-                    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                    + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     status = fn(q.data_ptr(), key.data_ptr(), value.data_ptr(), out.data_ptr(),
                 scale_t.data_ptr() if scale_t is not None else None,
                 bias_t.data_ptr() if bias_t is not None else None, scale_v, bias_v, t, h, w, qk, dv, kt, kh, kw,
-                _sm_count(q.device.index or 0), torch.cuda.current_stream(q.device).cuda_stream)
+                _sm_count(q.device.index or 0), int(q.dtype == torch.float32),
+                torch.cuda.current_stream(q.device).cuda_stream)
     check(status, "hicom_tile_attention")
     fused_tile_attention.launches += 1
     return out

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch twins, on the card.
 
 Marked ``cuda``: they skip without a CUDA device (so on the CPU test runs).
+The fp32 instances (``flash_fwd_f32.cu``, K4's and the merge's fp32 forms)
+are held to their fp32 twins at the fp32 gate (the end of this file).
 On a machine with a card and no JAX, run them without the JAX-loading
 conftest: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
@@ -19,7 +21,7 @@ from hicom_tpu_torch.ops.flash_attention import (DKV_BLOCK_K, _launch, _launch_d
                                                  flash_backward, flash_backward_reference, flash_forward,
                                                  flash_forward_partials, flash_reference, forward_splits,
                                                  fullblock_attention, merge_partials, merge_partials_reference,
-                                                 sum_partials_reference)
+                                                 split_forward_reference, sum_partials_reference)
 from hicom_tpu_torch.ops.flash_decode import DECODE_CHUNK, decode_reference, flash_decode
 from hicom_tpu_torch.ops.local_attn import chunked_tile_reference, fused_tile_attention, tile_reference
 from hicom_tpu_torch.ops.pos_embed import get_3d_sincos_pos_embed, sincos_pos_embed_3d
@@ -206,9 +208,17 @@ def test_tile_kernel_refuses_gradients(rn):
 
 
 def test_cuda_wrappers_refuse_what_they_cannot_take(rn):
-    q = rn(2, 4, 16, 72).float()  # fp32: the kernel takes bf16 only
+    q = rn(2, 4, 16, 72).half()  # fp16: the kernels take bf16 and fp32
     with pytest.raises(TypeError):
         flash_forward(q, q, q, None, 0.1, 0.0, False)
+    q = rn(2, 4, 16, 136)  # past head dim 128
+    with pytest.raises(ValueError, match="head dim 136"):
+        flash_forward(q, q, q, None, 0.1, 0.0, False)
+    q = rn(2, 4, 200, 72).float().requires_grad_()  # an fp32 forward that needs a gradient: no K5/K6 instance
+    before = flash_forward.launches
+    with pytest.raises(TypeError, match="K5/K6 have no float32 instance"):
+        flash_attention_gqa(q, q, q, is_causal=True)
+    assert flash_forward.launches == before
 
 
 @pytest.mark.parametrize("n_split", [1, 2, 3, 7])
@@ -905,3 +915,163 @@ def test_offloaded_moments_rest_in_pinned_memory(rn):
         for n, t in want[kind].items():
             assert got[kind][n].device == (t.device if kind == "masters" else torch.device("cpu")), n
             assert torch.equal(got[kind][n].to(t.device), t), (kind, n)
+
+
+# --------------------------------------------------------------------------- #
+# fp32 instances, and K1/K2 at the head dims that pad to 16, 48, 96 and 112
+# --------------------------------------------------------------------------- #
+#
+# fp32: each element within 2^-14 |ref| + 2^-14 rms(ref) of the fp32 twin on the card (TF32 off), the fp32
+# gate of chip_smoke.py: both sides keep every operand in fp32 and differ by the order of their fp32 sums and
+# by exp2 against exp, far below it; TF32 or bf16 operands exceed it (tests/test_torch_fp32_kernels.py).
+
+
+@pytest.fixture
+def rn32(rn):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator("cuda").manual_seed(5)
+    return lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+
+
+def _worst32(got, ref):
+    """The largest ratio of an element's error to the fp32 gate (pass: <= 1)."""
+    assert got.dtype == ref.dtype == torch.float32
+    tol = 2**-14 * ref.abs() + 2**-14 * ref.square().mean().sqrt()
+    return ((got - ref).abs() / tol).max().item()
+
+
+def _valid_rows(out, ref, b, H, Lq, kl):
+    if kl is None:
+        return out, ref
+    valid = (torch.arange(Lq, device="cuda")[None] < kl[:, None])[:, None, :].expand(b, H, Lq)
+    return out[valid], ref[valid]
+
+
+@pytest.mark.parametrize("bh,L,d", [
+    (512, 729, 72),  # the so400m tower over 32 frames
+    (8, 729, 16), (8, 200, 16), (8, 200, 96), (4, 200, 48), (4, 300, 112), (3, 200, 128),
+])
+def test_fullblock_fp32(rn32, bh, L, d):
+    q, k, v = rn32(bh, L, d), rn32(bh, L, d), rn32(bh, L, d)
+    before = fullblock_attention.launches
+    out, lse = fullblock_attention(q, k, v, d**-0.5, 0.1)
+    ref, ref_lse = flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.1, False)
+    assert fullblock_attention.launches == before + 1 and out.dtype == torch.float32
+    assert _worst32(out, ref[:, 0]) <= 1 and (lse - ref_lse[:, 0]).abs().max().item() <= 1e-5
+
+
+FP32_FORWARD = [
+    (2, 28, 4, 743, 743, 128, True, [743, 700]),  # the decoder prefill
+    (1, 9, 9, 32, 23328, 128, False, None),  # the global compressor at b 1: split, then the fp32 merge
+    (2, 9, 9, 32, 23328, 128, False, None),  # and at b 2
+    (2, 4, 4, 300, 300, 96, True, [217, 300]),  # d 96, non-grouped, causal, lengths
+    (2, 6, 2, 130, 260, 112, True, [200, 260]),  # d 112, grouped, bottom-right diagonal
+    (2, 4, 4, 200, 200, 48, False, [150, 200]),
+    (1, 4, 2, 200, 200, 16, True, None),
+]
+
+
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens", FP32_FORWARD)
+def test_flash_forward_fp32(rn32, b, H, KVH, Lq, Lk, d, causal, lens):
+    q, k, v = rn32(b, H, Lq, d), rn32(b, KVH, Lk, d), rn32(b, KVH, Lk, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = flash_forward(q, k, v, kl, d**-0.5, 0.0, causal)
+    ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.0, causal)
+    assert out.dtype == torch.float32 and lse.dtype == torch.float32
+    assert _worst32(*_valid_rows(out, ref, b, H, Lq, kl)) <= 1
+    assert (lse - ref_lse).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens", [
+    (2, 4, 4, 37, 130, 32, False, [100, 130]),  # chunks wholly past kv_lengths
+    (2, 4, 2, 300, 300, 64, True, [217, 300]),  # chunks all masked for some rows
+    (1, 3, 3, 200, 729, 72, False, None),  # d 72, ragged last tile
+])
+def test_flash_forward_fp32_forced_split(rn32, b, H, KVH, Lq, Lk, d, causal, lens, n_split):
+    q, k, v = rn32(b, H, Lq, d), rn32(b, KVH, Lk, d), rn32(b, KVH, Lk, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = _launch(q, k, v, kl, d**-0.5, 0.1, causal, n_split=n_split)
+    ref, ref_lse = split_forward_reference(q.cpu(), k.cpu(), v.cpu(), kl.cpu() if kl is not None else None,
+                                           d**-0.5, 0.1, causal, n_split)
+    assert _worst32(out, ref.cuda()) <= 1 and (lse - ref_lse.cuda()).abs().max().item() <= 1e-5
+    assert _worst32(out, flash_reference(q, k, v, kl, d**-0.5, 0.1, causal)[0]) <= 1
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("causal,lens", [(True, None), (False, [0, 60])])
+def test_flash_forward_fp32_rows_without_keys(rn32, causal, lens, n_split):
+    q, k, v = rn32(2, 2, 100, 32), rn32(2, 2, 60, 32), rn32(2, 2, 60, 32)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, _ = _launch(q, k, v, kl, 0.2, 0.0, causal, n_split=n_split)
+    assert _worst32(out, flash_reference(q, k, v, kl, 0.2, 0.0, causal)[0]) <= 1
+
+
+def test_fp32_partials_merge_to_fp32_rows(rn32):
+    """K2's fp32 partials over a rank's chunk of the global compressor, merged
+    by the merge kernel into fp32 rows: within 1e-5 of the twin relative to
+    each element (a bf16 step would be 2^-9 off), no bf16 anywhere."""
+    q, k, v = rn32(1, 9, 32, 128), rn32(1, 9, 2916, 128), rn32(1, 9, 2916, 128)
+    parts = flash_forward_partials(q, k, v, None, 128**-0.5, 0.0, False)
+    before = merge_partials.launches
+    out, lse = merge_partials(*parts, torch.float32)
+    assert merge_partials.launches == before + 1 and out.dtype == torch.float32
+    ref, ref_lse = flash_reference(q, k, v, None, 128**-0.5, 0.0, False)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-6, atol=1e-5)
+    n, rows, d = 5, 300, 72
+    o, m, l = rn32(n, rows, d), rn32(n, rows) * 3, torch.rand(n, rows, device="cuda") * 10 + 1
+    m[1] = -1e30
+    m[2, :100] = float("-inf")
+    got, got_lse = _launch_merge(o, m, l, torch.float32)
+    want, want_lse = merge_partials_reference(o, m, l, torch.float32)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got_lse, want_lse, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("thw,kernel,qk,dv", [
+    ((32, 27, 27), (4, 3, 3), 1152, 1152),  # one 32-frame request
+    ((64, 27, 27), (4, 3, 3), 1152, 1152),  # the batched request
+    ((1, 27, 27), (1, 3, 3), 1152, 1152),  # an image
+    ((8, 9, 12), (4, 3, 3), 64, 200),  # qk != dv
+])
+def test_tile_kernel_fp32(rn32, thw, kernel, qk, dv):
+    t, h, w = thw
+    kt, kh, kw = kernel
+    key, val, q = rn32(t, h, w, qk), rn32(t, h, w, dv), rn32(t // kt, h // kh, w // kw, qk)
+    before = fused_tile_attention.launches
+    out = fused_tile_attention(q, key, val, kernel, qk**-0.5, 0.0)
+    assert fused_tile_attention.launches == before + 1 and out.dtype == torch.float32
+    assert _worst32(out, tile_reference(q, key, val, kernel, qk**-0.5, 0.0)) <= 1
+    assert _worst32(out, chunked_tile_reference(q, key, val, kernel, qk**-0.5, 0.0)) <= 1
+
+
+def test_tile_kernel_fp32_clip_scale_form(rn32):
+    key, val, q = rn32(8, 27, 27, 1152), rn32(8, 27, 27, 1152), rn32(2, 9, 9, 1152)
+    scale, bias = torch.exp(torch.tensor(-3.0, device="cuda")), torch.tensor(0.4, device="cuda")
+    out = fused_tile_attention(q, key, val, (4, 3, 3), scale, bias)
+    assert _worst32(out, tile_reference(q, key, val, (4, 3, 3), scale, bias)) <= 1
+
+
+@pytest.mark.parametrize("bh,L,d", [(8, 200, 16), (8, 729, 16), (8, 200, 96), (4, 200, 48), (4, 300, 112)])
+def test_fullblock_new_widths(rn, bh, L, d):
+    q, k, v = rn(bh, L, d), rn(bh, L, d), rn(bh, L, d)
+    out, lse = fullblock_attention(q, k, v, d**-0.5, 0.1)
+    ref, ref_lse = flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.1, False)
+    assert _worst(out, ref[:, 0]) <= 1 and (lse - ref_lse[:, 0]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens", [
+    (2, 4, 4, 300, 300, 96, True, [217, 300]),
+    (2, 6, 2, 130, 260, 112, True, [200, 260]),
+    (2, 4, 4, 200, 200, 48, False, [150, 200]),
+    (1, 4, 2, 200, 200, 16, True, None),
+    (1, 9, 9, 32, 5000, 96, False, None),
+])
+def test_flash_forward_new_widths(rn, b, H, KVH, Lq, Lk, d, causal, lens, n_split):
+    q, k, v = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = _launch(q, k, v, kl, d**-0.5, 0.0, causal, n_split=n_split)
+    ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.0, causal)
+    assert _worst(*_valid_rows(out, ref, b, H, Lq, kl)) <= 1

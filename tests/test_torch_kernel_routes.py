@@ -9,9 +9,11 @@ before a one-token step and takes the plain masked attention for the rest
 (JAX's default decode, on XLA), counted in ``cuda_build.plain_route``. The
 other callers (``ops/attention.sdpa`` by JAX's ``auto`` rule, the split-key
 partials and merge, the projector's local compressor by its tiling) launch
-the kernel wherever JAX launches its Pallas kernel, so an fp32 operand or a
-head dim of 16 or 96 raises there on the card: those instances are open
-kernel work.
+the kernel wherever JAX launches its Pallas kernel: K1/K2, the merge and K4
+take fp32 as well as bf16, and K1/K2 every head dim that is a multiple of 8
+up to 128, as JAX's dtype-generic kernels do. What no kernel takes raises in
+its wrapper: a head dim past 128, fp16, mixed dtypes, and a gradient that no
+K5/K6 instance computes (fp32, padded head dims 16, 48, 96 and 112).
 
 The routes are driven on meta tensors, which take every wrapper's device
 branch (the CPU branch is for CPU tensors alone) through all its checks, with
@@ -74,28 +76,34 @@ def meta(*shape, dtype=BF16):
     (64, (BF16,) * 3, True),  # CLIP-L, Qwen2.5-0.5B
     (128, (BF16,) * 3, True),  # Qwen2.5-1.5B to 72B, the global compressor
     (32, (BF16,) * 3, True),
-    (72, (F32,) * 3, False),
-    (128, (BF16, BF16, F32), False),
-    (16, (BF16,) * 3, False),  # the selftest's decoder
-    (96, (BF16,) * 3, False),  # pads to 96: no instance
-    (136, (BF16,) * 3, False),
+    (72, (F32,) * 3, True),  # so400m in fp32: flash_fwd_f32.cu
+    (128, (BF16, BF16, F32), False),  # mixed dtypes
+    (16, (BF16,) * 3, True),  # the selftest's decoder
+    (96, (BF16,) * 3, True),  # pads to 96
+    (136, (BF16,) * 3, False),  # past 128: JAX's d % 64 rule admits 192 and 256, no instance here
+    (16, (F32,) * 3, True),
+    (112, (F32,) * 3, True),
+    (72, (torch.float16,) * 3, False),
+    (36, (BF16,) * 3, False),  # d % 8 != 0
 ])
 def test_flash_contract(d, dtypes, takes):
     assert tfa.takes_flash_kernel(d, dtypes, "cuda") is takes
     assert tfa.takes_flash_kernel(d, dtypes, "cpu")  # the plain twins take anything
 
 
-@pytest.mark.parametrize("d,dtype,takes", [(128, BF16, True), (72, BF16, True), (128, F32, True), (6, BF16, False)])
+@pytest.mark.parametrize("d,dtype,takes", [(128, BF16, True), (72, BF16, True), (128, F32, True), (6, BF16, False),
+                                           (72, F32, True), (128, torch.float16, False)])
 def test_merge_contract(probe, d, dtype, takes):
     """The merge kernel takes fp32 partials of any head dim that is a
-    multiple of 4 and writes bf16 rows (cast to the caller's dtype); another
-    head dim raises on a device."""
+    multiple of 4 and writes rows of the caller's dtype itself, bf16 or fp32
+    (no bf16 step before an fp32 row); another head dim or dtype raises on a
+    device."""
     parts = meta(2, 4, d, dtype=F32), meta(2, 4, dtype=F32), meta(2, 4, dtype=F32)
     if takes:
         out, lse = tfa.merge_partials(*parts, dtype)
-        assert out.shape == (4, d) and out.dtype == dtype and lse.shape == (4,)
+        assert out.shape == (4, d) and out.dtype == dtype and lse.shape == (4,) and lse.dtype == F32
     else:
-        with pytest.raises(ValueError, match="d % 4"):
+        with pytest.raises(ValueError if d % 4 else TypeError, match="d % 4" if d % 4 else "float32"):
             tfa.merge_partials(*parts, dtype)
     assert probe() == ({"merge": 1} if takes else {}, {})
 
@@ -130,17 +138,23 @@ def test_decode_contract(b, H, KVH, S, d, q_dtype, cache_dtype, takes):
 
 @pytest.mark.parametrize("dtypes,device,takes", [
     ((BF16,) * 3, "cuda", True),
-    ((F32,) * 3, "cuda", False),
+    ((F32,) * 3, "cuda", True),  # the fp32 instance
     ((BF16, BF16, F32), "cuda", False),
     ((F32,) * 3, "cpu", True),  # the plain version takes any type
+    ((torch.float16,) * 3, "cuda", False),
 ])
 def test_tile_contract_reads_the_types_off_the_cpu(probe, dtypes, device, takes):
-    """The tiling holds for the video and the image tile whatever the types;
-    the wrapper takes bf16 on a device (meta here: its device branch) and any
-    type on the CPU."""
+    """The tiling holds for the video and the image tile in bf16 and fp32
+    (a 3-row segment of 1152 fp32 values is 13.8 KB of a 48 KB slot); the
+    predicate counts bytes in the dtype, so a width that fits in bf16 can
+    overflow in fp32. The wrapper takes bf16 or fp32 of one dtype on a device
+    (meta here: its device branch) and any type on the CPU."""
     for thw, kernel in (((32, 27, 27), (4, 3, 3)), ((1, 27, 27), (1, 3, 3))):  # the video and the image tile
         assert tla.takes_tile_kernel(thw, 1152, 1152, kernel)
+        assert tla.takes_tile_kernel(thw, 1152, 1152, kernel, F32)
     assert not tla.takes_tile_kernel((4, 4, 4), 64, 64, (4, 3, 3))
+    assert tla.takes_tile_kernel((8, 9, 9), 6144, 64, (4, 3, 3)) and \
+        not tla.takes_tile_kernel((8, 9, 9), 6144, 64, (4, 3, 3), F32)  # a 24 KB fp32 row
     dev = "meta" if device == "cuda" else device
     q, key, value = (torch.zeros(shape, dtype=dt, device=dev)
                      for shape, dt in zip(((2, 3, 3, 64), (8, 9, 9, 64), (8, 9, 9, 64)), dtypes))
@@ -166,11 +180,16 @@ SDPA_CASES = {
     "prefill 0.5b 14/2 d 64": ((2, 14, 743, 64), (2, 2, 743, 64), BF16, dict(is_causal=True, lens=[743, 700]),
                                "K2", None),
     "global 32 x 23,328": ((2, 9, 32, 128), (2, 9, 23328, 128), BF16, {}, "K2", None),
-    # JAX's rule picks a kernel that has no instance for these: the wrapper raises (open kernel work)
-    "so400m fp32": ((32, 16, 729, 72), (32, 16, 729, 72), F32, {}, None, TypeError),
-    "prefill fp32": ((2, 28, 743, 128), (2, 4, 743, 128), F32, dict(is_causal=True), None, TypeError),
-    "head dim 16": ((1, 4, 200, 16), (1, 4, 200, 16), BF16, {}, None, ValueError),
-    "head dim 96": ((1, 4, 200, 96), (1, 4, 200, 96), BF16, {}, None, ValueError),
+    # fp32 (flash_fwd_f32.cu), and the head dims that pad to 16 and 96, where JAX's rule picks a kernel
+    "so400m fp32": ((32, 16, 729, 72), (32, 16, 729, 72), F32, {}, "K1", None),
+    "prefill fp32": ((2, 28, 743, 128), (2, 4, 743, 128), F32, dict(is_causal=True), "K2", None),
+    "global fp32": ((1, 9, 32, 128), (1, 9, 23328, 128), F32, {}, "K2", None),  # split, its merge inside K2
+    "head dim 16": ((1, 4, 200, 16), (1, 4, 200, 16), BF16, {}, "K1", None),
+    "head dim 96": ((1, 4, 200, 96), (1, 4, 200, 96), BF16, {}, "K1", None),
+    "head dim 96 fp32": ((1, 4, 200, 96), (1, 4, 200, 96), F32, dict(is_causal=True), "K2", None),
+    # JAX's rule picks a kernel that no instance computes: the wrapper raises
+    "head dim 136": ((1, 4, 200, 136), (1, 4, 200, 136), BF16, {}, None, ValueError),
+    "so400m fp16": ((32, 16, 729, 72), (32, 16, 729, 72), torch.float16, {}, None, TypeError),
     "masked": ((1, 4, 200, 128), (1, 4, 200, 128), BF16, dict(mask=True), None, None),  # JAX's rule: plain
 }
 
@@ -197,16 +216,12 @@ def test_sdpa_routes_on_the_contract(probe, name):
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_split_key_partials_and_merge_route_on_the_contract(probe, dtype):
-    """The split-key path launches K2's partials and the merge kernel on bf16;
-    fp32 partials raise at K2, as no fp32 instance exists."""
+    """The split-key path launches K2's partials and the merge kernel in bf16
+    and in fp32; the merge writes the caller's dtype."""
     q, k = meta(1, 9, 32, 128, dtype=dtype), meta(1, 9, 2916, 128, dtype=dtype)
-    if dtype == F32:
-        with pytest.raises(TypeError):
-            attention.sdpa(q, k, k, kv_group=attention.SoloGroup())
-    else:
-        out = attention.sdpa(q, k, k, kv_group=attention.SoloGroup())
-        assert out.shape == q.shape and out.dtype == dtype
-    assert probe() == ({} if dtype == F32 else {"K2": 1, "merge": 1}, {})
+    out = attention.sdpa(q, k, k, kv_group=attention.SoloGroup())
+    assert out.shape == q.shape and out.dtype == dtype
+    assert probe() == ({"K2": 1, "merge": 1}, {})
 
 
 def _decoder(H, KVH, d, dtype, layers=2):
@@ -220,9 +235,10 @@ def _decoder(H, KVH, d, dtype, layers=2):
     # the selftest's decoder on the card (fp32, head dim 16): its grouped prefill is plain by JAX's
     # rule (d % 64 != 0), its decode by K3's contract
     ("selftest fp32 d 16", 4, 2, 16, F32, False, ({}, {"K3": 2})),
-    # fp32 at head dim 128: JAX's rule sends the grouped prefill to K2, which has no fp32 instance
-    ("fp32 d 128", 4, 2, 128, F32, False, TypeError),
-    ("fp32 int8 cache", 4, 2, 128, F32, True, TypeError),
+    # fp32 at head dim 128: JAX's rule sends the grouped prefill to K2 (its fp32 instance), K3's contract
+    # sends the decode step to the plain path
+    ("fp32 d 128", 4, 2, 128, F32, False, ({"K2": 2}, {"K3": 2})),
+    ("fp32 int8 cache", 4, 2, 128, F32, True, ({"K2": 2}, {"K3": 2})),
     # bf16 at 40/8 heads (group 5), at Qwen2.5-0.5B's 14/2 heads of 64, at group 3: both kernels
     ("bf16 40/8", 40, 8, 128, BF16, False, ({"K2": 2, "K3": 2}, {})),
     ("bf16 0.5b 14/2 d 64", 14, 2, 64, BF16, False, ({"K2": 2, "K3": 2}, {})),
@@ -233,8 +249,7 @@ def _decoder(H, KVH, d, dtype, layers=2):
 def test_decoder_step_routes_on_the_contract(probe, case, H, KVH, d, dtype, quantized, want):
     """A prefill of 130 tokens into an empty cache, then one decode step, on
     the device branch: each call either launches (the stub) or, for K3, is
-    counted on the plain route; where the prefill reaches K2 in fp32, K2's
-    wrapper raises."""
+    counted on the plain route."""
     cfg, model = _decoder(H, KVH, d, dtype)
     b, L = 2, 130
     cache = qwen2.KVCache.zeros(cfg.num_hidden_layers, b, KVH, 256, d, dtype, "meta", quantized=quantized)
@@ -259,10 +274,12 @@ def test_verify_chunk_stays_plain_and_uncounted(probe):
     assert probe() == ({}, {})  # JAX takes XLA there too: no kernel to depart from
 
 
-@pytest.mark.parametrize("dtype,want", [(BF16, ({"K4": 1}, {})), (F32, TypeError)])
+@pytest.mark.parametrize("dtype,want", [(BF16, ({"K4": 1}, {})), (F32, ({"K4": 1}, {})),
+                                        (torch.float16, TypeError)])
 def test_projector_routes_on_the_tile_contract(probe, dtype, want):
     """The local compressor takes K4 wherever the tiles fit, as JAX takes its
-    Pallas kernel; K4 has no fp32 instance, so fp32 raises on a device."""
+    Pallas kernel, in bf16 and fp32; K4 has no fp16 instance, so fp16 raises
+    on a device."""
     ct = tcfg.tiny_test_config(use_guide="direct")
     with torch.device("meta"):
         local = LocalCompressor(ct.projector.local, ct.qk_dim, ct.mm_hidden_size, ct.hidden_size, "direct",
@@ -282,12 +299,22 @@ def test_projector_routes_on_the_tile_contract(probe, dtype, want):
 
 def test_wrappers_still_raise_off_their_contract(probe):
     """The route decides before the call; the wrappers keep refusing device
-    operands outside their contract."""
-    with pytest.raises(TypeError):
-        tfa.flash_forward(meta(1, 4, 200, 128, dtype=F32), meta(1, 4, 200, 128, dtype=F32),
-                          meta(1, 4, 200, 128, dtype=F32), None, 0.1)
-    with pytest.raises(ValueError, match="head dim 96"):
-        tfa.fullblock_attention(meta(4, 200, 96), meta(4, 200, 96), meta(4, 200, 96), 0.1)
+    operands outside their contract: a head dim past 128, fp16, and (before
+    its forward runs) an fp32 forward that needs a gradient, which names the
+    K5/K6 instance it lacks."""
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tfa.flash_forward(meta(1, 4, 200, 128, dtype=torch.float16), meta(1, 4, 200, 128, dtype=torch.float16),
+                          meta(1, 4, 200, 128, dtype=torch.float16), None, 0.1)
+    with pytest.raises(ValueError, match="head dim 136"):
+        tfa.fullblock_attention(meta(4, 200, 136), meta(4, 200, 136), meta(4, 200, 136), 0.1)
+    for d, dtype, instance in ((128, F32, "no float32 instance at head dim 128"),
+                               (96, BF16, "no bfloat16 instance at head dim 96")):
+        q = meta(1, 4, 200, d, dtype=dtype).requires_grad_()
+        with pytest.raises(TypeError, match=instance):
+            tfa.flash_attention(q, q, q, is_causal=True)
+    q = meta(1, 4, 200, 128, dtype=F32)
+    with pytest.raises(TypeError, match="K5/K6 have no float32 instance"):
+        tfa.flash_backward(q, q, q, None, q, meta(1, 4, 200, dtype=F32), q, 0.1)
     with pytest.raises(TypeError, match="bfloat16"):
         tfd.flash_decode(meta(1, 4, 1, 128, dtype=F32), meta(1, 2, 64, 128), meta(1, 2, 64, 128),
                          torch.ones(1, 64, dtype=torch.bool, device="meta"))
@@ -298,6 +325,6 @@ def test_wrappers_still_raise_off_their_contract(probe):
         tfd.flash_decode(meta(1, 18, 1, 64), meta(1, 2, 64, 64), meta(1, 2, 64, 64),
                          torch.ones(1, 64, dtype=torch.bool, device="meta"))
     with pytest.raises(TypeError):
-        tla.fused_tile_attention(meta(2, 9, 9, 64, dtype=F32), meta(8, 27, 27, 64, dtype=F32),
-                                 meta(8, 27, 27, 64, dtype=F32), (4, 3, 3), 0.125)
+        tla.fused_tile_attention(meta(2, 9, 9, 64, dtype=torch.float16), meta(8, 27, 27, 64, dtype=torch.float16),
+                                 meta(8, 27, 27, 64, dtype=torch.float16), (4, 3, 3), 0.125)
     assert probe() == ({}, {})
