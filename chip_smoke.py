@@ -30,7 +30,11 @@ Phases:
      fp32 merge, the merge alone, K4 at b 1, in the main path's and the
      clip-scale form), held to their fp32 plain versions at the fp32 gate
      (2^-14 |ref| + 2^-14 rms), with SDPA in fp32 beside them; K1 and K2 at
-     head dims 16 and 96 in bf16 and fp32 (checks only);
+     head dims 16 and 96 in bf16 and fp32 (checks only); the flash backward
+     in fp32 at [fp32-train]'s shapes (K5 and K6 at the 7B decoder and the
+     global compressor's b 2, the sum pass writing fp32) at the fp32 gate,
+     with SDPA's fp32 backward beside them, and K5/K6 at head dims 16, 48, 96
+     and 112 in bf16 and at 16 and 96 in fp32 (checks only);
   4. serving at the full width of the released HICom-7B (SigLIP-so400m,
      local43_global32 with direct guide, Qwen2.5-7B in bf16, weights from a seed
      on the card): 3 requests of a 32-frame 384x384 video through
@@ -95,6 +99,10 @@ Phases:
      decode step on the plain path by K3's contract (28 a step), then 8
      greedy ids equal to the plain path's on the card and last-token logits
      within the fp32 gate; TTFT, decode rate, stages, peak memory;
+     [fp32-train]: 3 stage-2 steps of HICom-7B in fp32 at full width and
+     depth, the flash backward (its fp32 instance) 29 times a step, step 1's
+     trained gradients within the fp32 gate of the plain path's, frozen
+     tensors' bits kept, trained tensors moved; step ms and peak memory;
   5. training at the same width: 3 stage-2 steps (projector and guide injectors
      trained, towers and decoder frozen) on a seeded batch of 2, with finite
      losses, frozen weights bit-identical, trained weights moved, 29 flash
@@ -174,7 +182,7 @@ Phases:
      batch 1, 3 steps: the link's own rate, the pinned bytes against the
      moments', step ms split into forward + loss, backward and update, the
      update against its link bound, the peak against the card's memory; the
-     frozen tensors' fingerprints, moved masters in every part, and a sample
+     frozen tensors' bits, moved masters in every part, and a sample
      of tensors' masters and moments against ``torch.optim.AdamW``'s step.
 
 After every phase but [fp32-route], no decode step went to the plain path
@@ -218,8 +226,12 @@ KERNELS = {
 KERNELS["K2-merge"] = KERNELS["K2"]
 # the merge kernel alone over ranks' or ring blocks' partials counts in its own wrapper
 KERNELS["K2-merge-ranks"] = ("merge_partials",) + KERNELS["K2"][1:]
-KERNELS["K5-sum"] = KERNELS["K5"]
-KERNELS["K6-sum"] = KERNELS["K6"]
+# the sum pass (flash_part_sum.cuh) runs inside the K5 and K6 wrappers, bf16 or fp32, and counts with them
+KERNELS["K5-sum"] = ("flash_backward", "hicom_tpu_torch/csrc/flash_part_sum.cuh", KERNELS["K5"][2])
+KERNELS["K6-sum"] = ("flash_backward", "hicom_tpu_torch/csrc/flash_part_sum.cuh", KERNELS["K6"][2])
+# the fp32 instances, in their own sources
+for _k, _src in (("K1", "flash_fwd_f32"), ("K2", "flash_fwd_f32"), ("K5", "flash_bwd_f32"), ("K6", "flash_bwd_f32")):
+    KERNELS[f"{_k}-f32"] = (KERNELS[_k][0], f"hicom_tpu_torch/csrc/{_src}.cu", KERNELS[_k][2])
 TRAIN_STEPS = 3
 # [baseline-0.5b]'s batch of 2: prompts of 64 and 41 ids, each with its <video> sentinel replaced by the 162
 # visual tokens of 8 frames (local43: 2 x 9 x 9 tiles); the spliced lengths, which its K2 and K3 rows take
@@ -620,6 +632,8 @@ def kernel_checks(card: str):
     fp32_checks(record, fwd_grid, sms)
     anyres_clip_checks(rn, record, fwd_grid, sms)
     backward_checks(rn, record)
+    backward_checks(lambda *shape: torch.randn(*shape, generator=gen, device=dev), record, fp32=True)
+    new_width_backward_checks(record)
     return {name: r for name, r in records.items() if r[1] is not None}
 
 
@@ -655,7 +669,7 @@ def fp32_checks(record, fwd_grid, sms):
 
     bh, L, d = 512, 729, 72
     q, k, v = rn(bh, L, d), rn(bh, L, d), rn(bh, L, d)
-    record("fullblock_attention[siglip 32f fp32]", "K1", lambda: fullblock_attention(q, k, v, d**-0.5),
+    record("fullblock_attention[siglip 32f fp32]", "K1-f32", lambda: fullblock_attention(q, k, v, d**-0.5),
            lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.0, False)[0][:, 0],
            lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
            4 * bh * L * L * d, 4 * bh * L * d * 4 + bh * L * 4, grid=grid32(bh, 1, L, L), phase="fp32-serve", **f32)
@@ -668,7 +682,7 @@ def fp32_checks(record, fwd_grid, sms):
     mask = (pos[None, :] <= pos[:, None])[None, None] & (pos[None, None, None, :] < kl[:, None, None, None])
     valid = (pos[None, :] < kl[:, None])[:, None, :].expand(b, H, L)
     pairs = sum(int(np.minimum(n, np.arange(L) + 1).sum()) for n in lens)
-    record("flash_forward[prefill 7b fp32]", "K2", lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
+    record("flash_forward[prefill 7b fp32]", "K2-f32", lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
            lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
            4 * H * d * pairs, 2 * b * H * L * d * 4 + 2 * KVH * sum(lens) * d * 4 + b * H * L * 4, valid,
@@ -678,7 +692,7 @@ def fp32_checks(record, fwd_grid, sms):
     H, Lq, Lk, d = 9, 32, 23328, 128
     q, k, v = rn(1, H, Lq, d), rn(1, H, Lk, d), rn(1, H, Lk, d)
     grid = grid32(1, H, Lq, Lk)
-    record("flash_forward[global 32f b1 fp32]", "K2", lambda: flash_forward(q, k, v, None, d**-0.5, 0.0, False),
+    record("flash_forward[global 32f b1 fp32]", "K2-f32", lambda: flash_forward(q, k, v, None, d**-0.5, 0.0, False),
            lambda: flash_reference(q, k, v, None, d**-0.5, 0.0, False),
            lambda: F.scaled_dot_product_attention(q, k, v, scale=d**-0.5),
            4 * H * Lq * Lk * d, 2 * H * Lq * d * 4 + 2 * H * Lk * d * 4 + H * Lq * 4, outputs=2,
@@ -717,11 +731,12 @@ def fp32_checks(record, fwd_grid, sms):
     # head dims 16 and 96 (the selftest's decoder, a non-grouped decoder of 96): checks only, no phase runs them
     for dtype, kw, tag in ((torch.bfloat16, dict(gate=BF16_GATE), "bf16"), (torch.float32, f32, "fp32")):
         item, blocks = (2, fwd_grid) if dtype == torch.bfloat16 else (4, grid32)
+        f = "" if dtype == torch.bfloat16 else "-f32"
         for d in (16, 96):
             bh, L = 64, 729
             q, k, v = rn(bh, L, d, dtype=dtype), rn(bh, L, d, dtype=dtype), rn(bh, L, d, dtype=dtype)
             # SDPA leaves the uniform bias out: it cancels in the softmax
-            record(f"fullblock_attention[d{d} {tag}]", "K1", lambda: fullblock_attention(q, k, v, d**-0.5, 0.1),
+            record(f"fullblock_attention[d{d} {tag}]", f"K1{f}", lambda: fullblock_attention(q, k, v, d**-0.5, 0.1),
                    lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.1, False)[0][:, 0],
                    lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
                    4 * bh * L * L * d, 4 * bh * L * d * item + bh * L * 4, grid=blocks(bh, 1, L, L),
@@ -734,7 +749,7 @@ def fp32_checks(record, fwd_grid, sms):
                 valid = (pos[None, :] < kl[:, None])[:, None, :].expand(b, H, L)
                 mask = (pos[None, :] <= pos[:, None])[None, None] & (pos[None, None, None, :] < kl[:, None, None, None])
                 pairs = sum(int(np.minimum(n, np.arange(L) + 1).sum()) for n in lens)
-                record(f"flash_forward[d{d} {H}/{KVH} causal lengths {tag}]", "K2",
+                record(f"flash_forward[d{d} {H}/{KVH} causal lengths {tag}]", f"K2{f}",
                        lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
                        lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
                        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5,
@@ -857,14 +872,13 @@ def split_pass_checks(rn, record):
     """Phase 3, the split path's second passes alone, at the global
     compressor's shapes: the forward's merge of 29 chunk partials (b 1) with
     chunks that walked no tile (max -inf) and chunks all masked for their rows
-    (max -1e30), and K5's sum of 14 dQ partials (b 2); and the merge kernel
+    (max -1e30); and the merge kernel
     through its own wrapper ``merge_partials`` at the 8-rank ring's shape, the
     last rank's 8 block partials of 28 heads x 2,048 rows, half the blocks
     with no valid key for a quarter of the rows (max -1e30)."""
     import torch
 
-    from hicom_tpu_torch.ops.flash_attention import (_launch_merge, _launch_part_sum, merge_partials,
-                                                     merge_partials_reference, sum_partials_reference)
+    from hicom_tpu_torch.ops.flash_attention import _launch_merge, merge_partials, merge_partials_reference
 
     gen = torch.Generator("cuda").manual_seed(2)
     n, rows, d = 29, 9 * 32, 128
@@ -886,14 +900,9 @@ def split_pass_checks(rn, record):
            None, 4 * n * rows * d, n * rows * (d + 2) * 4 + rows * (d * 2 + 4), outputs=2, grid=(-(-rows // 4),),
            flops_rate=FP32_PEAK, phase="ring-prefill")
     del o, m, l
-    n, N = 14, 2 * 9 * 32 * 128
-    part = torch.randn(n, N, generator=gen, device="cuda")
-    record("flash_dq_sum[global 32f b2, 14 chunks]", "K5-sum", lambda: _launch_part_sum((part, 128**-0.5)),
-           lambda: sum_partials_reference(part, 128**-0.5, torch.bfloat16), None,
-           n * N, n * N * 4 + N * 2, grid=(-(-N // 4 // 128), 1), flops_rate=FP32_PEAK)
 
 
-def backward_checks(rn, record):
+def backward_checks(rn, record, fp32: bool = False):
     """Phase 3, flash backward: K5 (dQ) and K6 (dK, dV) at the three shapes the
     train steps give them (the 7B and 1.5B decoders, the global compressor) and
     at the tower's, which no phase runs yet (a check only), each held to the
@@ -901,7 +910,12 @@ def backward_checks(rn, record):
     backward of ``F.scaled_dot_product_attention`` at the same shape (dQ, dK and
     dV together), through ``torch.autograd.grad`` on a kept graph. At the
     decoder shape K6 also runs with forced splits of 1, 2 and 7 (the default is
-    3), and its sum pass alone on two seeded fp32 workspaces."""
+    3), and its sum pass alone on two seeded fp32 workspaces; at the global
+    compressor's shape K5's sum pass alone over its 14 chunks. With ``fp32``
+    (``rn`` draws fp32): the same at [fp32-train]'s shapes, the 7B decoder and
+    the global compressor at b 2, through the fp32 instances
+    (``csrc/flash_bwd_f32.cu``, the sum pass writing fp32), within
+    ``FP32_GATE`` (TF32 off), bounds at the fp32 peak."""
     import torch
     import torch.nn.functional as F
 
@@ -920,6 +934,11 @@ def backward_checks(rn, record):
         ("prefill anyres 7b", 2, 28, 4) + anyres_prefill_shape()[:1] * 2 + (  # 2 rows of the 1920x1080 plan
             128, True, [anyres_prefill_shape()[0], 41 - 1 + ANYRES_TOKENS[0]], "anyres-train"),
     ]
+    item, dtype, f, gate = 2, torch.bfloat16, "", BF16_GATE
+    if fp32:
+        shapes = [(f"{x[0]} fp32",) + x[1:-1] + ("fp32-train",) for x in shapes if x[0] in ("prefill 7b", "global 32f b2")]
+        item, dtype, f, gate = 4, torch.float32, "-f32", FP32_GATE
+    kw = dict(gate=gate, flops_rate=FP32_PEAK) if fp32 else {}
     for label, b, H, KVH, Lq, Lk, d, causal, lens, phase in shapes:
         q, k, v, do = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d), rn(b, H, Lq, d)
         kl = torch.tensor(lens, device=dev, dtype=torch.int32) if lens else None
@@ -955,36 +974,91 @@ def backward_checks(rn, record):
 
         # unmasked (q, k) pairs, per head
         rows = np.arange(Lq)
-        visible = [np.minimum(n if n is not None else Lk, rows + 1 + (Lk - Lq) if causal else Lk)
+        visible = [np.minimum(n if n is not None else Lk, rows + 1 + (Lk - Lq) if causal else np.full(Lq, Lk))
                    for n in (lens or [None] * b)]
         pairs = int(sum(np.clip(x, 0, None).sum() for x in visible))
-        qd_bytes = 2 * b * H * Lq * d * 2 + 2 * b * H * Lq * 4  # q and dO read, lse and delta read
-        kv_bytes = 2 * b * KVH * Lk * d * 2  # k and v (read), or dk and dv (written)
+        qd_bytes = 2 * b * H * Lq * d * item + 2 * b * H * Lq * 4  # q and dO read, lse and delta read
+        kv_bytes = 2 * b * KVH * Lk * d * item  # k and v (read), or dk and dv (written)
         dq_grid = (-(-Lq // dq_block_q(Lq)), b * H, dq_splits(b, H, Lq, Lk, sms))
-        record(f"flash_backward_dq[{label}]", "K5", lambda: (_launch_dq(*ops, scale, 0.0, causal),), plain, library,
-               6 * H * d * pairs, qd_bytes + kv_bytes + b * H * Lq * d * 2, outputs=(0,), grid=dq_grid, phase=phase)
+        record(f"flash_backward_dq[{label}]", f"K5{f}", lambda: (_launch_dq(*ops, scale, 0.0, causal),), plain,
+               library, 6 * H * d * pairs, qd_bytes + kv_bytes + b * H * Lq * d * item, outputs=(0,), grid=dq_grid,
+               phase=phase, **kw)
         dkv_grid = (-(-Lk // DKV_BLOCK_K), b * KVH, dkv_splits(b, H, KVH, Lq, Lk, sms))
-        record(f"flash_backward_dkv[{label}]", "K6", lambda: _launch_dkv(*ops, scale, 0.0, causal), plain, library,
-               8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid, phase=phase)
-        if label == "prefill 7b":
+        record(f"flash_backward_dkv[{label}]", f"K6{f}", lambda: _launch_dkv(*ops, scale, 0.0, causal), plain,
+               library, 8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid, phase=phase, **kw)
+        gen = torch.Generator(dev).manual_seed(3)
+        if label.startswith("prefill 7b"):
             if int(np.prod(dkv_grid)) < sms:
                 raise AssertionError(f"K6's grid {dkv_grid} at the decoder shape does not fill the card")
             for n_split in (1, 2, 7):
-                record(f"flash_backward_dkv[{label} split {n_split}]", "K6",
+                record(f"flash_backward_dkv[{label} split {n_split}]", f"K6{f}",
                        lambda: _launch_dkv(*ops, scale, 0.0, causal, n_split=n_split), plain, None,
                        8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid[:2] + (n_split,),
-                       phase=None)
-            gen = torch.Generator(dev).manual_seed(3)
+                       phase=None, **kw)
             n, N = dkv_grid[2], b * KVH * Lk * d
             dk_part, dv_part = (torch.randn(n, N, generator=gen, device=dev) for _ in range(2))
             record(f"flash_dkv_sum[{label}, {n} splits]", "K6-sum",
-                   lambda: _launch_part_sum((dk_part, scale), (dv_part, 1.0)),
-                   lambda: (sum_partials_reference(dk_part, scale, torch.bfloat16),
-                            sum_partials_reference(dv_part, 1.0, torch.bfloat16)), None,
-                   2 * n * N, 2 * (n * N * 4 + N * 2), outputs=2, grid=(-(-N // 4 // 128), 2), flops_rate=FP32_PEAK)
+                   lambda: _launch_part_sum((dk_part, scale), (dv_part, 1.0), dtype=dtype),
+                   lambda: (sum_partials_reference(dk_part, scale, dtype),
+                            sum_partials_reference(dv_part, 1.0, dtype)), None,
+                   2 * n * N, 2 * (n * N * 4 + N * item), outputs=2, grid=(-(-N // 4 // 128), 2),
+                   flops_rate=FP32_PEAK, phase=phase, gate=gate)
             del dk_part, dv_part
+        if label.startswith("global"):  # K5's 14 chunks summed into dQ
+            n, N = dq_grid[2], b * H * Lq * d
+            part = torch.randn(n, N, generator=gen, device=dev)
+            record(f"flash_dq_sum[{label}, {n} chunks]", "K5-sum",
+                   lambda: _launch_part_sum((part, scale), dtype=dtype),
+                   lambda: sum_partials_reference(part, scale, dtype), None, n * N, n * N * 4 + N * item,
+                   grid=(-(-N // 4 // 128), 1), flops_rate=FP32_PEAK, phase=phase, gate=gate)
+            del part
         del q, k, v, do, out, lse, ops, lib_out, lq, lk_, lv, mask
         torch.cuda.empty_cache()
+
+
+def new_width_backward_checks(record):
+    """Phase 3, checks only (no phase trains at these widths): K5/K6 in bf16 at
+    the head dims that pad to 16, 48, 96 and 112 (``flash_bwd.cu``'s new
+    instances) and in fp32 at 16 and 96, at small masked shapes (causal with
+    lengths, grouped at 48 and 112), against the plain twin at each type's gate;
+    the library call is SDPA's backward, as in :func:`backward_checks`."""
+    import torch
+    import torch.nn.functional as F
+
+    from hicom_tpu_torch.ops.flash_attention import (DKV_BLOCK_K, _launch_dkv, _launch_dq, backward_operands,
+                                                     dkv_splits, dq_block_q, dq_splits, flash_backward_reference,
+                                                     flash_forward)
+
+    gen = torch.Generator("cuda").manual_seed(18)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b, L, lens = 2, 600, [600, 517]
+    cases = [(d, torch.bfloat16) for d in (16, 48, 96, 112)] + [(d, torch.float32) for d in (16, 96)]
+    for d, dtype in cases:
+        H, KVH = (8, 2) if d in (48, 112) else (8, 8)
+        item, tag, f = (2, "bf16", "") if dtype == torch.bfloat16 else (4, "fp32", "-f32")
+        kw = dict(gate=BF16_GATE) if dtype == torch.bfloat16 else dict(gate=FP32_GATE, flops_rate=FP32_PEAK)
+        q, do = (torch.randn(b, H, L, d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, KVH, L, d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+        kl = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        out, lse = flash_forward(q, k, v, kl, d**-0.5, 0.0, True)
+        ops = backward_operands(q, k, v, kl, out, lse, do)
+        plain = lambda: flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, 0.0, True)  # noqa: E731
+        pos = torch.arange(L, device="cuda")
+        mask = (pos[None, :] <= pos[:, None])[None, None] & (pos[None, None, None, :] < kl[:, None, None, None])
+        lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, scale=d**-0.5, enable_gqa=H != KVH)
+        library = lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do, retain_graph=True)  # noqa: E731
+        pairs = sum(int(np.minimum(n, np.arange(L) + 1).sum()) for n in lens)
+        qd_bytes, kv_bytes = 2 * b * H * L * d * item + 2 * b * H * L * 4, 2 * b * KVH * L * d * item
+        record(f"flash_backward_dq[d{d} {H}/{KVH} causal lengths {tag}]", f"K5{f}",
+               lambda: (_launch_dq(*ops, d**-0.5, 0.0, True),), plain, library, 6 * H * d * pairs,
+               qd_bytes + kv_bytes + b * H * L * d * item, outputs=(0,),
+               grid=(-(-L // dq_block_q(L)), b * H, dq_splits(b, H, L, L, sms)), phase=None, **kw)
+        record(f"flash_backward_dkv[d{d} {H}/{KVH} causal lengths {tag}]", f"K6{f}",
+               lambda: _launch_dkv(*ops, d**-0.5, 0.0, True), plain, library, 8 * H * d * pairs,
+               qd_bytes + 2 * kv_bytes, outputs=(1, 2),
+               grid=(-(-L // DKV_BLOCK_K), b * KVH, dkv_splits(b, H, KVH, L, L, sms)), phase=None, **kw)
+        del q, k, v, do, out, lse, ops, lq, lk, lv, lib_out, mask
 
 
 def cut_depth(cfg, layers: int = None):
@@ -1462,6 +1536,121 @@ def fp32_serve_phase(card: str) -> dict:
         f"request {t_batch:.3f} s, single request {t_single:.3f} s | TTFT {min(ttfts) * 1e3:.1f} ms | decode "
         f"{decode_tps:.1f} tokens/s (single stream) | peak memory {peak_gb:.2f} GB")
     del model, hc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bit_sums(named, chunk: int = 1 << 26) -> dict:
+    """{name: (sum, position-weighted sum) of the tensor's bits read as
+    integers, modulo 2^64} on its device, over ``chunk``-element pieces: a
+    change of any one element changes the first sum, so equal sums before and
+    after a run witness bits unchanged without a host copy (17 GB for
+    HICom-7B's frozen bf16 tensors, 34 GB in fp32, whose copies and host
+    comparisons took most of [train]'s and [stage3-lora]'s seconds), where
+    sums of the values in fp64 could miss a change of a low bit."""
+    import torch
+
+    out = {}
+    with torch.no_grad():
+        for n, p in named:
+            flat = p.detach().reshape(-1).view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                                                1: torch.uint8}[p.element_size()])
+            acc = torch.zeros(2, dtype=torch.int64, device=p.device)
+            for i in range(0, flat.numel(), chunk):
+                x = flat[i:i + chunk].to(torch.int64)
+                acc[0] += x.sum()
+                acc[1] += (x * (torch.arange(i, i + x.numel(), device=p.device) % 8191 + 1)).sum()
+            out[n] = acc
+    return out
+
+
+def fp32_train_phase(card: str):
+    """[fp32-train]: stage 2 of HICom-7B in fp32 at full width and depth
+    (``serving_config()`` with ``dtype="float32"``; ``train_phase``'s recipe,
+    batch and 3 steps), with TF32 off. Each step launches the flash backward
+    (``csrc/flash_bwd_f32.cu``) once per decoder layer and once for the global
+    compressor, and no tile or decode kernel; the frozen tensors keep their
+    bits (``bit_sums``), every trained tensor whose gradient reaches AdamW's
+    eps moves,
+    the losses are finite; step 1's trained gradients on the kernel path are
+    held to ``plain_path()``'s on the same weights and batch within
+    ``FP32_GATE``, each tensor against its own rms (a gradient the softmax
+    cancels, whose exact value is 0, is held below 2^-20 of the largest
+    gradient on both paths instead). Returns the launches of the 3 steps."""
+    import torch
+
+    from hicom_tpu_torch.api import build_model
+    from hicom_tpu_torch.train.optimizer import build_optimizer, trainable_param_count
+    from hicom_tpu_torch.train.train_step import batch_to_device, create_train_state, make_loss_fn, make_train_step
+
+    if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("[fp32-train] TF32 is on: an fp32 product would drop to a 10-bit mantissa")
+    cfg = serving_config().replace(dtype="float32")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE, seed=0)
+    opt = build_optimizer(model, learning_rate=1e-3, guide_injector_lr=1e-3, total_steps=TRAIN_STEPS,
+                          tunable_parts="mm_projector", use_guide="direct")
+    state = create_train_state(model, opt, device=DEVICE)
+    params = dict(model.named_parameters())
+    trained = sorted(n for n, p in params.items() if p.requires_grad)
+    frozen_before = bit_sums((n, p) for n, p in params.items() if n not in trained)
+    trained_before = {n: params[n].detach().clone() for n in trained}
+    batch = batch_to_device(make_train_batch(cfg), torch.device(DEVICE), torch.float32)
+    torch.cuda.synchronize()
+    log(f"[fp32-train] HICom-7B stage 2 in fp32: {trainable_param_count(model, 'mm_projector', 'direct') / 1e6:.1f} M "
+        f"trained, {sum(p.numel() for n, p in params.items() if n not in trained) / 1e9:.2f} B frozen; built in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    def grads():
+        return {n: params[n].grad.detach().clone() if params[n].grad is not None else torch.zeros_like(params[n])
+                for n in trained}
+
+    with plain_path():  # step 1's gradients on the plain path, from the same weights
+        loss_p, _ = make_loss_fn(model)(batch)
+        loss_p.backward()
+    plain = grads()
+    for p in model.parameters():
+        p.grad = None
+    step = make_train_step()
+    reset_counts()
+    times, metrics, fwd, per_step = run_steps(state, step, batch, n=1)
+    got = grads()
+    # a gradient the softmax cancels (the keys' bias) is rounding noise on both paths: held below the noise floor
+    noise = 2**-20 * max(float(g.abs().max()) for g in plain.values())
+    cancelled = [n for n in trained if float(plain[n].abs().max()) <= noise]
+    loud = [n for n in cancelled if float(got[n].abs().max()) > noise]
+    ratios = {n: agreement(got[n], plain[n], FP32_GATE)[1] for n in trained if n not in cancelled}
+    worst = max((r, n) for n, r in ratios.items())
+    log(f"[fp32-train] step 1's gradients, kernel vs plain path: loss {metrics[0]['loss']:.7f} vs "
+        f"{float(loss_p.detach()):.7f}, {len(trained)} tensors, worst err/tol {worst[0]:.3f} ({worst[1]}; tol "
+        f"{gate_text(FP32_GATE)} of each tensor); {len(cancelled)} cancelled tensors below {noise:.3g} on both "
+        f"paths: {'yes' if not loud else loud}; err/tol by tensor "
+        + " ".join(f"{n.split('mm_projector.')[-1]} {r:.3f}" for n, r in ratios.items()))
+    if loud or not worst[0] <= 1:
+        raise AssertionError(f"[fp32-train] kernel-path gradients depart from the plain path's: {worst}, {loud}")
+    del plain, got, loss_p
+    more = run_steps(state, step, batch, n=TRAIN_STEPS - 1)
+    times, metrics, fwd, per_step = (a + b for a, b in zip((times, metrics, fwd, per_step), more))
+    # a gradient below AdamW's eps moves its tensor by less than an ulp (as check_moved allows)
+    with_grad = [n for n in trained if params[n].grad is not None and params[n].grad.abs().max().item() >= 1e-8]
+    launches = log_steps("fp32-train", card, "HICom-7B stage 2 in fp32", model, cfg, batch, times, metrics, fwd,
+                         per_step)
+    n_layers = cfg.text_config.num_hidden_layers
+    if per_step != [n_layers + 1] * TRAIN_STEPS:  # every decoder layer + the global compressor
+        raise AssertionError(f"[fp32-train] flash backward launched {per_step} times per step, not {n_layers + 1}")
+    if launches["fused_tile_attention"] or launches["flash_decode"] or not (
+            launches["fullblock_attention"] and launches["flash_forward"]):
+        raise AssertionError(f"[fp32-train] launches {launches}")
+    after = bit_sums((n, params[n]) for n in frozen_before)
+    changed = [n for n in frozen_before if not torch.equal(after[n], frozen_before[n])]
+    still = [n for n in with_grad if torch.equal(params[n].detach(), trained_before[n])]
+    if changed or still or not with_grad:
+        raise AssertionError(f"[fp32-train] frozen tensors changed {changed[:3]}; trained tensors with a gradient "
+                             f"that did not move {still[:3]} (of {len(with_grad)})")
+    log(f"[fp32-train] checks: {len(frozen_before)} frozen tensors kept their bits; {len(with_grad)} of "
+        f"{len(trained)} trained tensors had a gradient >= AdamW's eps (1e-8) and all moved")
+    del model, state, opt, params, trained_before, batch
     torch.cuda.empty_cache()
     return launches
 
@@ -2000,7 +2189,7 @@ def train_phase(card: str):
     log(f"[train] stage 2: {trainable_param_count(model, 'mm_projector', 'direct') / 1e6:.1f} M trained "
         f"parameters (fp32 masters), {sum(p.numel() for n, p in params.items() if n not in trained) / 1e9:.2f} B "
         "frozen (bf16)")
-    frozen_before = {n: p.detach().cpu() for n, p in params.items() if n not in trained}  # host copies
+    frozen_before = bit_sums((n, p) for n, p in params.items() if n not in trained)
     trained_before = {n: params[n].detach().clone() for n in trained}
     batch = batch_to_device(make_train_batch(cfg), torch.device("cuda"), torch.bfloat16)
     step = make_train_step()
@@ -2017,13 +2206,14 @@ def train_phase(card: str):
         raise AssertionError(f"a kernel without a backward ran in training: {launches}")
     if not (launches["fullblock_attention"] and launches["flash_forward"]):
         raise AssertionError(f"the train step never launched a forward kernel: {launches}")
-    changed = [n for n, before in frozen_before.items() if not torch.equal(params[n].detach().cpu(), before)]
+    after = bit_sums((n, params[n]) for n in frozen_before)
+    changed = [n for n, before in frozen_before.items() if not torch.equal(after[n], before)]
     if changed:
         raise AssertionError(f"{len(changed)} frozen parameters changed, e.g. {changed[:3]}")
     still = [n for n in with_grad if torch.equal(params[n].detach(), trained_before[n])]
     if still or not with_grad:
         raise AssertionError(f"trained parameters with a nonzero gradient did not move: {still[:5]}")
-    log(f"[train] checks: {len(frozen_before)} frozen tensors bit-identical; {len(with_grad)} of {len(trained)} "
+    log(f"[train] checks: {len(frozen_before)} frozen tensors kept their bits; {len(with_grad)} of {len(trained)} "
         f"trained tensors had a nonzero gradient and all moved")
     train_profile("train", state, step, batch, model.parameters(), lambda: state.optimizer.update(model))
     del model, state, opt, params, trained_before, batch
@@ -2074,7 +2264,7 @@ def mesh_train_phase(card: str, want: dict):
     [train]'s bit for bit. The attention must reach K1/K2/K5/K6 as plain
     local tensors (a DTensor raises in the wrappers): flash_backward once per
     decoder layer and the global compressor each step, as in [train]; the
-    frozen tensors keep their fingerprints. The step time beside [train]'s is
+    frozen tensors keep their bits. The step time beside [train]'s is
     the cost of the DTensor/FSDP2 machinery at world size 1, not a claim."""
     import torch
     import torch.distributed as dist
@@ -2096,7 +2286,7 @@ def mesh_train_phase(card: str, want: dict):
             opt = build_optimizer(model, learning_rate=1e-3, guide_injector_lr=1e-3, total_steps=TRAIN_STEPS + 2,
                                   tunable_parts="mm_projector", use_guide="direct")
             trained = {n for n, lab in opt.labels.items() if lab != "frozen"}
-            frozen_before = fingerprints((n, p) for n, p in model.named_parameters() if n not in trained)
+            frozen_before = bit_sums((n, p) for n, p in model.named_parameters() if n not in trained)
             t0 = time.perf_counter()
             state = create_sharded_state(model, opt, mesh, device)
             torch.cuda.synchronize()
@@ -2110,7 +2300,7 @@ def mesh_train_phase(card: str, want: dict):
             times, metrics, fwd, per_step = run_steps(state, make_train_step(), batch)
             launches = log_steps("mesh-train", card, "HICom-7B stage 2 through the (1, 1, 1) mesh", model, cfg,
                                  batch, times, metrics, fwd, per_step)
-            after = fingerprints((n, local(params[n])) for n in frozen_before)
+            after = bit_sums((n, local(params[n])) for n in frozen_before)
             moved = [n for n in frozen_before if not torch.equal(after[n], frozen_before[n])]
             step_ms = sum(times[1:]) / len(times[1:]) * 1e3
             keys = ("loss", "target_tokens", "grad_norm")
@@ -2130,7 +2320,7 @@ def mesh_train_phase(card: str, want: dict):
             if moved:
                 raise AssertionError(f"[mesh-train] {len(moved)} frozen tensors moved, e.g. {moved[:3]}")
             log(f"[mesh-train] checks: losses, target tokens and grad norms of {TRAIN_STEPS} steps bit-equal to "
-                f"[train]'s; {len(frozen_before)} frozen tensors kept their fingerprints")
+                f"[train]'s; {len(frozen_before)} frozen tensors kept their bits")
             # where the extra time goes: the sharded tower has no forward of its own outside the step
             train_profile("mesh-train", state, make_train_step(), batch, model.parameters(), None, stages=False)
             del model, state, opt, params, batch
@@ -2605,7 +2795,7 @@ def stage3_lora_phase(card: str):
     n_adapter = sum(p.numel() for p in state.lora.parameters())
     log(f"[stage3-lora] HICom-7B, remat on: {len(state.lora.names)} adapted linears, {n_adapter / 1e6:.1f} M adapter "
         f"parameters (fp32), {sum(p.numel() for p in model.parameters()) / 1e9:.2f} B frozen (bf16)")
-    base_before = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}  # host copies
+    base_before = bit_sums(model.named_parameters())
     b_before = {n: b.detach().clone() for n, b in state.lora.b.items()}
     batch = batch_to_device(make_train_batch(cfg), torch.device("cuda"), torch.bfloat16)
     step = make_lora_train_step()
@@ -2622,12 +2812,13 @@ def stage3_lora_phase(card: str):
                              "(each decoder layer, its recompute, the global compressor)")
     if launches["fused_tile_attention"] or launches["flash_decode"]:
         raise AssertionError(f"[stage3-lora] a kernel without a backward ran in training: {launches}")
-    changed = [n for n, p in model.named_parameters() if not torch.equal(p.detach(), base_before[n].to(p.device))]
+    after = bit_sums(model.named_parameters())
+    changed = [n for n in base_before if not torch.equal(after[n], base_before[n])]
     still = [n for n, b in state.lora.b.items() if torch.equal(b.detach(), b_before[n])]
     if changed or still:
         raise AssertionError(f"[stage3-lora] {len(changed)} base tensors changed (e.g. {changed[:3]}), "
                              f"{len(still)} adapter B left unmoved (e.g. {still[:3]})")
-    log(f"[stage3-lora] checks: {len(base_before)} base tensors bit-identical; all {len(b_before)} adapter B moved")
+    log(f"[stage3-lora] checks: {len(base_before)} base tensors kept their bits; all {len(b_before)} adapter B moved")
     train_profile("stage3-lora", state, step, batch, state.lora.parameters(), state.optimizer.step)
     state.lora.detach()
     del model, state, base_before, b_before, batch
@@ -2823,7 +3014,7 @@ def stage3_sft_7b_offload_phase(card: str):
     moments', the peak against the card's memory, the link's bytes a step and
     the rate reached beside the link's own rate (``link_rates``), and the
     update's bound (the moments' bytes both ways over the both-at-once rate).
-    It checks: finite losses; the frozen tensors' fingerprints; moved masters
+    It checks: finite losses; the frozen tensors' bits; moved masters
     in each part; for a sample (decoder layer 0's seven linears, the
     embedding's first 64 rows, the tower head), the third step's masters and
     moments against ``torch.optim.AdamW``'s single-tensor step on the card
@@ -2872,7 +3063,7 @@ def stage3_sft_7b_offload_phase(card: str):
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of {total_gb:.2f} GB before the first step")
     if abs(pinned - moment_bytes) > 0.1 * moment_bytes:
         raise AssertionError(f"[{label}] pinned {pinned} bytes for {moment_bytes} bytes of moments")
-    frozen_before = fingerprints((n, p) for n, p in params.items() if n not in trained)
+    frozen_before = bit_sums((n, p) for n, p in params.items() if n not in trained)
     heads = [n for n in trained if n.startswith("model.vision_tower.vision_tower.")]
     layer0 = [n for n in trained if n.startswith("model.layers.0.") and n.endswith("_proj.weight")]
     rows = 64
@@ -2942,7 +3133,7 @@ def stage3_sft_7b_offload_phase(card: str):
                              f"{2 * n_layers + 1} / {n_layers + 1}")
     if launches["fused_tile_attention"] or launches["flash_decode"]:
         raise AssertionError(f"[{label}] a kernel without a backward ran in training: {launches}")
-    after = fingerprints((n, params[n]) for n in frozen_before)
+    after = bit_sums((n, params[n]) for n in frozen_before)
     changed = [n for n in frozen_before if not torch.equal(after[n], frozen_before[n])]
     parts = {"tower head": "vision_tower.vision_tower.", "guide encoder": "guide_encoder.",
              "projector": "mm_projector.", "decoder": None}
@@ -2954,7 +3145,7 @@ def stage3_sft_7b_offload_phase(card: str):
         if not n_moved:
             idle.append(part)
     worst = adam_check(opt, params, sample, snap, float(m["grad_norm"]), count=TRAIN_STEPS - 1)
-    log(f"[{label}] checks: {len(frozen_before)} frozen tensors kept their fingerprints ({len(changed)} changed); "
+    log(f"[{label}] checks: {len(frozen_before)} frozen tensors kept their bits ({len(changed)} changed); "
         f"trained tensors whose first 4,096 master elements moved: {', '.join(summary)}; the sample's masters and "
         f"moments against torch.optim.AdamW's step: " + ", ".join(f"{k} {v[0]} elements differ, the largest by "
                                                                   f"{v[1]:g} ulp" for k, v in worst.items()))
@@ -3220,7 +3411,7 @@ def write_base_dirs(llm: str, tower: str, cfg, seed: int, norms_at_one: bool = F
     from hicom_tpu_torch.api import build_model
     from hicom_tpu_torch.weights import save_safetensors
 
-    sd = build_model(cfg, device="cuda", seed=seed).state_dict()
+    sd = build_model(cfg, device=DEVICE, seed=seed).state_dict()
     for k, v in sd.items():
         if norms_at_one and "norm" in k.split(".")[-2]:
             v.fill_(1.0 if k.endswith(".weight") else 0.0)
@@ -4130,7 +4321,7 @@ def stage3_qlora_phase(card: str):
     base_bytes = sum(t.numel() * t.element_size() for t in base.values())
     log(f"[stage3-qlora] HICom-7B, NF4 decoder, remat on: {len(state.lora.names)} adapted linears, "
         f"{n_adapter / 1e6:.1f} M adapter parameters (fp32), frozen base {base_bytes / 1e9:.2f} GB")
-    base_before = {n: t.detach().to("cpu", copy=True) for n, t in base.items()}
+    base_before = bit_sums(base.items())
     before = {n: p.detach().clone() for n, p in state.lora.named_parameters()}
     batch = batch_to_device(make_train_batch(cfg), torch.device(DEVICE), torch.bfloat16)
     step = make_lora_train_step()
@@ -4149,7 +4340,8 @@ def stage3_qlora_phase(card: str):
     if bwd != [n_layers] * TRAIN_STEPS or fwd != [2 * n_layers + 1] * TRAIN_STEPS:
         raise AssertionError(f"[stage3-qlora] flash backward {bwd}, forward {fwd} per step, not {n_layers} and "
                              f"{2 * n_layers + 1}")
-    changed = [n for n, t in base.items() if not torch.equal(t.detach().cpu(), base_before[n])]
+    after = bit_sums(base.items())
+    changed = [n for n in base_before if not torch.equal(after[n], base_before[n])]
     eps = state.optimizer.defaults["eps"]
     params = dict(state.lora.named_parameters())
     reach = [n for n, p in params.items() if p.grad is not None and p.grad.abs().max().item() >= eps]
@@ -4315,30 +4507,21 @@ def anyres_sync_check(model, crops, plan):
         raise AssertionError(f"[anyres-sync] {tuple(vis.shape)}, finite {finite}")
 
 
-def fingerprints(params) -> dict:
-    """{name: (sum, sum of squares)} of each tensor in fp64 on its device: a
-    cheap witness that a frozen tensor stayed put (no host copy of 15 GB)."""
-    import torch
-
-    with torch.no_grad():
-        return {n: torch.stack([p.double().sum(), p.double().square().sum()]) for n, p in params}
-
-
 def check_moved(label: str, model, trained_before: dict, frozen_before: dict, eps: float = 1e-8):
     """Fails unless every trained tensor whose last gradient reaches AdamW's
     ``eps`` moved (a smaller one may stay put: eps dominates its update, as
-    [stage3-sft] allows) and every frozen one kept its fingerprint."""
+    [stage3-sft] allows) and every frozen one kept its bits (``bit_sums``)."""
     import torch
 
     params = dict(model.named_parameters())
     reach = [n for n in trained_before if params[n].grad is not None and params[n].grad.abs().max().item() >= eps]
     still = [n for n in reach if torch.equal(params[n].detach(), trained_before[n])]
-    after = fingerprints((n, params[n]) for n in frozen_before)
+    after = bit_sums((n, params[n]) for n in frozen_before)
     changed = [n for n in frozen_before if not torch.equal(after[n], frozen_before[n])]
     if still or not reach or changed:
         raise AssertionError(f"[{label}] trained tensors with max |grad| >= eps that did not move {still[:3]} (of "
                              f"{len(reach)}); frozen tensors that changed {changed[:3]}")
-    log(f"[{label}] checks: {len(frozen_before)} frozen tensors kept their fingerprints; {len(reach)} of "
+    log(f"[{label}] checks: {len(frozen_before)} frozen tensors kept their bits; {len(reach)} of "
         f"{len(trained_before)} trained tensors had a gradient >= eps ({eps}) and all moved")
 
 
@@ -4384,7 +4567,7 @@ def anyres_train_phase(card: str):
     state = create_train_state(model, opt)
     params = dict(model.named_parameters())
     trained_before = {n: p.detach().clone() for n, p in params.items() if p.requires_grad}
-    frozen_before = fingerprints((n, p) for n, p in params.items() if not p.requires_grad)
+    frozen_before = bit_sums((n, p) for n, p in params.items() if not p.requires_grad)
     plan = make_anyres_plan(ANYRES_IMAGES[0], cfg, cfg.vision_config.image_size)
     batch = batch_to_device(anyres_train_batch(cfg, plan), torch.device(DEVICE), torch.bfloat16)
     step = make_train_step(modal="image", anyres_plan=plan)
@@ -4445,7 +4628,7 @@ def multi_image_phase(card: str):
     state = create_train_state(model, opt)
     params = dict(model.named_parameters())
     trained_before = {n: p.detach().clone() for n, p in params.items() if p.requires_grad}
-    frozen_before = fingerprints((n, p) for n, p in params.items() if not p.requires_grad)
+    frozen_before = bit_sums((n, p) for n, p in params.items() if not p.requires_grad)
     batch = batch_to_device(multi_image_batch(cfg), torch.device(DEVICE), torch.bfloat16)
     step = make_train_step(modal="image", multi_image=True)
     reset_counts()
@@ -4580,6 +4763,7 @@ def main() -> int:
     phase_seconds("fp32-route")
     # fp32 HICom-7B; its decode steps' plain-route calls are checked and reset inside
     launches["fp32-serve"] = on_contract("fp32-serve", fp32_serve_phase(card))
+    launches["fp32-train"] = on_contract("fp32-train", fp32_train_phase(card))
     launches["serve-int8"] = on_contract("serve-int8", serve_quant_phase(card, "serve-int8", "int8"))
     launches["serve-w8a8"] = on_contract("serve-w8a8", serve_quant_phase(card, "serve-w8a8", "w8a8s", "w8a8s_mlp_qkv"))
     launches["model-init"] = on_contract("model-init", model_init_phase(card))

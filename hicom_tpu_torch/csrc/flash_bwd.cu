@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): bf16 q/k/v/out/dO in, fp32 sums, bf16 grads out.
+// Flash-attention backward for Hopper (sm_90a): bf16 q/k/v/out/dO in, fp32 sums, bf16 grads out (fp32
+// operands take flash_bwd_f32.cu; the split path's sum pass is flash_part_sum.cuh, in both).
 //
 // Replaces two Pallas TPU kernels of hicom_tpu/ops/flash_attention.py:
 //   * _bwd_dq_kernel (K5): dQ = scale * sum_k dS K, with P = exp(S - lse) recomputed from the
@@ -27,8 +28,8 @@
 //   * K5 split-KV: when ceil(Lq / BQ) * B * H blocks cannot fill the card, the wrapper picks
 //     n_split chunks of those key tiles (grid z; ops/flash_attention.py dq_splits: 14 at the
 //     global compressor's b 2, 252 blocks instead of 18). Each block writes its chunk's fp32 dQ sum
-//     to a workspace of n_split x B * H * Lq * d floats, and part_sum_kernel adds the chunks in
-//     split order, applies scale and rounds to bf16: no atomics, the same result on every run.
+//     to a workspace of n_split x B * H * Lq * d floats, and part_sum_kernel (flash_part_sum.cuh) adds
+//     the chunks in split order, applies scale and rounds to bf16: no atomics, the same result on every run.
 //   * K6: one block = one warpgroup and 64 keys of one (batch, kv head). Its K and V tiles arrive
 //     once by TMA and stay in shared memory; the (query head, 64-row query tile) units that can see
 //     its keys stream their Q, dO, lse and delta through a 2-3 slot ring (Q and dO by TMA into the
@@ -53,12 +54,19 @@
 //     keep one split.
 //   * dS and P are formed in the accumulator layout of S^T/dP (K6) or S/dP (K5) and reused directly
 //     as the A operand of the next product, as the forward does with P.
-//   * d is padded inside shared memory to DP (a multiple of 16); rows past Lq / Lk load as zeros,
-//     and a query row past Lq reads lse = +inf, so its p is 0.
+//   * d is padded inside shared memory to DP (a multiple of 16): every padded head dim 16, 32, ..., 128 has
+//     an instance of each kernel. K5 takes DP / 16 k-steps of mma.sync; K6's tiles are the forward's
+//     (hopper.cuh Tile<DP>), the columns past the last whole 64-column box (all of them at d <= 48) arriving
+//     as 8-column chunks, and its dV/dK products over them one wgmma of N = 16 or 32, or 32 then 16 (a
+//     48-column tail: d 48, d 112). Rows past Lq / Lk load as zeros, and a query row past Lq reads
+//     lse = +inf, so its p is 0.
+//   * kv_lengths is a runtime argument of one instance per mask kind (causal or not): the masks test every
+//     key against the row's limit either way.
 //   * delta = rowsum(dO * O) is one fp32 reduction in the wrapper, as the JAX package computes it
 //     outside its kernels.
 #include <math.h>
 
+#include "flash_part_sum.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -74,40 +82,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c0, const flo
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// The split path's second pass: out[y] (n) bf16 = scale[y] * sum over the chunks of part[y]
-// (n_split, n) fp32, in split order, for the y = blockIdx.y outputs (K5: dQ; K6: dK and dV). One
-// thread per 4 elements; n % 4 == 0.
-struct PartSum {
-  const float* part[2];
-  bf16* out[2];
-  float scale[2];
-};
-
-__global__ void part_sum_kernel(const PartSum a, int n_split, size_t n) {
-  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i >= n) return;
-  const float* part = a.part[blockIdx.y];
-  const float scale = a.scale[blockIdx.y];
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-  for (int s = 0; s < n_split; ++s) {
-    const float4 x = *reinterpret_cast<const float4*>(part + (size_t)s * n + i);
-    acc.x += x.x;
-    acc.y += x.y;
-    acc.z += x.z;
-    acc.w += x.w;
-  }
-  __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(a.out[blockIdx.y] + i);
-  out[0] = __floats2bfloat162_rn(acc.x * scale, acc.y * scale);
-  out[1] = __floats2bfloat162_rn(acc.z * scale, acc.w * scale);
-}
-
-cudaError_t part_sum(const PartSum& a, int outputs, int n_split, size_t n, cudaStream_t stream) {
-  const size_t threads = n / 4;
-  part_sum_kernel<<<dim3((unsigned)((threads + 127) / 128), outputs), 128, 0, stream>>>(a, n_split, n);
-  return cudaGetLastError();
 }
 
 constexpr int DKV_BK = 64;  // K6: keys per block, one warpgroup (16 per warp)
@@ -136,7 +110,7 @@ __host__ __device__ constexpr int dkv_smem_bytes() {  // K, V, the ring of Q and
 
 // K6. grid (ceil(Lk / 64), B * KVH, n_split), one warpgroup, dkv_smem_bytes<DP>() of dynamic shared
 // memory. Writes scale * dK and dV in bf16 (n_split == 1) or the split's unscaled fp32 partials.
-template <int DP, bool CAUSAL, bool HAS_LEN>
+template <int DP, bool CAUSAL>
 __global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
   constexpr int BK = DKV_BK, BQ = DKV_BQ;
   constexpr int KC = DP / 16;   // k16 steps of S^T and dP^T over d
@@ -166,7 +140,7 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __gr
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
 
   int kv_limit = p.Lk;
-  if (HAS_LEN) kv_limit = __shfl_sync(0xffffffffu, max(0, min(p.Lk, p.kv_lengths[b])), 0);
+  if (p.kv_lengths != nullptr) kv_limit = __shfl_sync(0xffffffffu, max(0, min(p.Lk, p.kv_lengths[b])), 0);
   const int diag = p.Lk - p.Lq;  // bottom-right causal offset
   // The units of work: (query head of the group, query tile) pairs, head-major, over the tiles that
   // can see the block's keys (the first query that sees key k0 is k0 - diag); none for a tile wholly
@@ -331,28 +305,24 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __gr
   }
 }
 
-template <int DP, bool CAUSAL, bool HAS_LEN>
+template <int DP, bool CAUSAL>
 cudaError_t launch_dkv(const DkvParams& p, cudaStream_t stream) {
   constexpr int smem = dkv_smem_bytes<DP>();
-  auto kernel = flash_bwd_dkv_kernel<DP, CAUSAL, HAS_LEN>;
+  auto kernel = flash_bwd_dkv_kernel<DP, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Lk + DKV_BK - 1) / DKV_BK, p.B * p.KVH, p.n_split);
   kernel<<<grid, WG_THREADS, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return err;
-  return part_sum(PartSum{{p.dk_part, p.dv_part}, {p.dk, p.dv}, {p.scale, 1.f}}, 2, p.n_split,
+  return part_sum(PartSum<bf16>{{p.dk_part, p.dv_part}, {p.dk, p.dv}, {p.scale, 1.f}}, 2, p.n_split,
                   (size_t)p.B * p.KVH * p.Lk * p.d, stream);
 }
 
-// One of the four mask variants of K6 at padded head dim DP.
+// K6 at padded head dim DP, causal or not.
 template <int DP>
 cudaError_t dispatch_dkv(const DkvParams& p, bool causal, cudaStream_t stream) {
-  const bool has_len = p.kv_lengths != nullptr;
-  if (causal && has_len) return launch_dkv<DP, true, true>(p, stream);
-  if (causal) return launch_dkv<DP, true, false>(p, stream);
-  if (has_len) return launch_dkv<DP, false, true>(p, stream);
-  return launch_dkv<DP, false, false>(p, stream);
+  return causal ? launch_dkv<DP, true>(p, stream) : launch_dkv<DP, false>(p, stream);
 }
 
 struct DqParams {
@@ -372,7 +342,7 @@ constexpr int dq_smem_bytes() {
 
 // K5. grid (ceil(Lq / (16 NW)), B * H, n_split), 32 NW threads, dq_smem_bytes<DP>() of dynamic
 // shared memory. Writes scale * dQ in bf16 (n_split == 1) or the chunk's unscaled fp32 sum.
-template <int DP, bool CAUSAL, bool HAS_LEN, int NW>
+template <int DP, bool CAUSAL, int NW>
 __global__ void __launch_bounds__(NW * 32)
 flash_bwd_dq_kernel(const DqParams p) {
   constexpr int BQ = 16 * NW;        // query rows per block
@@ -397,7 +367,7 @@ flash_bwd_dq_kernel(const DqParams p) {
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
   int kv_limit = p.Lk;
-  if (HAS_LEN) kv_limit = max(0, min(p.Lk, p.kv_lengths[b]));
+  if (p.kv_lengths != nullptr) kv_limit = max(0, min(p.Lk, p.kv_lengths[b]));
   const int diag = p.Lk - p.Lq;  // bottom-right causal offset
   int n_tiles = (kv_limit + BK_DQ - 1) / BK_DQ;
   if (CAUSAL) {
@@ -535,35 +505,25 @@ flash_bwd_dq_kernel(const DqParams p) {
   }
 }
 
-template <int DP, bool CAUSAL, bool HAS_LEN, int NW>
+template <int DP, bool CAUSAL, int NW>
 cudaError_t launch_dq_nw(const DqParams& p, cudaStream_t stream) {
   constexpr int smem = dq_smem_bytes<DP>();
-  auto kernel = flash_bwd_dq_kernel<DP, CAUSAL, HAS_LEN, NW>;
+  auto kernel = flash_bwd_dq_kernel<DP, CAUSAL, NW>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Lq + 16 * NW - 1) / (16 * NW), p.B * p.H, p.n_split);
   kernel<<<grid, NW * 32, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return err;
-  return part_sum(PartSum{{p.dq_part, nullptr}, {p.dq, nullptr}, {p.scale, 0.f}}, 1, p.n_split,
+  return part_sum(PartSum<bf16>{{p.dq_part, nullptr}, {p.dq, nullptr}, {p.scale, 0.f}}, 1, p.n_split,
                   (size_t)p.B * p.H * p.Lq * p.d, stream);
 }
 
-// 32-row query tiles (2 warps) when Lq <= 32, else 64 (4 warps).
-template <int DP, bool CAUSAL, bool HAS_LEN>
-cudaError_t launch_dq(const DqParams& p, cudaStream_t stream) {
-  if (p.Lq <= 32) return launch_dq_nw<DP, CAUSAL, HAS_LEN, 2>(p, stream);
-  return launch_dq_nw<DP, CAUSAL, HAS_LEN, 4>(p, stream);
-}
-
-// One of the four mask variants of K5 at padded head dim DP.
+// K5 at padded head dim DP, causal or not: 32-row query tiles (2 warps) when Lq <= 32, else 64 (4 warps).
 template <int DP>
 cudaError_t dispatch_dq(const DqParams& p, bool causal, cudaStream_t stream) {
-  const bool has_len = p.kv_lengths != nullptr;
-  if (causal && has_len) return launch_dq<DP, true, true>(p, stream);
-  if (causal) return launch_dq<DP, true, false>(p, stream);
-  if (has_len) return launch_dq<DP, false, true>(p, stream);
-  return launch_dq<DP, false, false>(p, stream);
+  if (p.Lq <= 32) return causal ? launch_dq_nw<DP, true, 2>(p, stream) : launch_dq_nw<DP, false, 2>(p, stream);
+  return causal ? launch_dq_nw<DP, true, 4>(p, stream) : launch_dq_nw<DP, false, 4>(p, stream);
 }
 
 bool bad_shape(int d, int H, int KVH, int Lq, int Lk) {
@@ -586,22 +546,31 @@ extern "C" int hicom_flash_bwd_dq(const void* q, const void* k, const void* v, c
              B, H, KVH, Lq, Lk, d, n_split, scale, bias};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 15) / 16 * 16) {
+    case 16: return (int)dispatch_dq<16>(p, causal != 0, s);
     case 32: return (int)dispatch_dq<32>(p, causal != 0, s);
+    case 48: return (int)dispatch_dq<48>(p, causal != 0, s);
     case 64: return (int)dispatch_dq<64>(p, causal != 0, s);
     case 80: return (int)dispatch_dq<80>(p, causal != 0, s);
+    case 96: return (int)dispatch_dq<96>(p, causal != 0, s);
+    case 112: return (int)dispatch_dq<112>(p, causal != 0, s);
     case 128: return (int)dispatch_dq<128>(p, causal != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The split path's reduction alone: out (n) bf16 = scale * sum over n_split of part (n_split, n) fp32
-// (K5's dQ sum), and with a second pair part2/out2 (scale2) in the same launch (K6's dK and dV sums);
-// n % 4 == 0.
+// The split path's reduction alone: out (n) = scale * sum over n_split of part (n_split, n) fp32, written
+// in bf16, or in fp32 with out_fp32 (K5's dQ sum), and with a second pair part2/out2 (scale2) in the same
+// launch (K6's dK and dV sums); n % 4 == 0.
 extern "C" int hicom_flash_part_sum(const float* part, void* out, float scale, const float* part2, void* out2,
-                                    float scale2, int n_split, long long n, void* stream) {
+                                    float scale2, int n_split, long long n, int out_fp32, void* stream) {
   if (n <= 0 || n % 4 != 0 || n_split < 1 || (part2 == nullptr) != (out2 == nullptr)) return (int)cudaErrorInvalidValue;
-  const PartSum a{{part, part2}, {static_cast<bf16*>(out), static_cast<bf16*>(out2)}, {scale, scale2}};
-  return (int)part_sum(a, part2 == nullptr ? 1 : 2, n_split, (size_t)n, static_cast<cudaStream_t>(stream));
+  const int outputs = part2 == nullptr ? 1 : 2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_fp32)
+    return (int)part_sum(PartSum<float>{{part, part2}, {static_cast<float*>(out), static_cast<float*>(out2)},
+                                        {scale, scale2}}, outputs, n_split, (size_t)n, s);
+  return (int)part_sum(PartSum<bf16>{{part, part2}, {static_cast<bf16*>(out), static_cast<bf16*>(out2)},
+                                     {scale, scale2}}, outputs, n_split, (size_t)n, s);
 }
 
 // K6, as hicom_flash_bwd_dq; dk/dv (B, KVH, Lk, d) bf16. n_split >= 1 ranges of each block's units;
@@ -630,9 +599,13 @@ extern "C" int hicom_flash_bwd_dkv(const void* q, const void* k, const void* v, 
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 15) / 16 * 16) {
+    case 16: return (int)dispatch_dkv<16>(p, causal != 0, s);
     case 32: return (int)dispatch_dkv<32>(p, causal != 0, s);
+    case 48: return (int)dispatch_dkv<48>(p, causal != 0, s);
     case 64: return (int)dispatch_dkv<64>(p, causal != 0, s);
     case 80: return (int)dispatch_dkv<80>(p, causal != 0, s);
+    case 96: return (int)dispatch_dkv<96>(p, causal != 0, s);
+    case 112: return (int)dispatch_dkv<112>(p, causal != 0, s);
     case 128: return (int)dispatch_dkv<128>(p, causal != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -6,13 +6,6 @@
 
 namespace {
 
-__device__ __forceinline__ void store4(bf16* o, float4 x) {
-  __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(o);
-  out[0] = __floats2bfloat162_rn(x.x, x.y);
-  out[1] = __floats2bfloat162_rn(x.z, x.w);
-}
-__device__ __forceinline__ void store4(float* o, float4 x) { *reinterpret_cast<float4*>(o) = x; }
-
 // One warp per row: the chunks' largest max M and denominator sum L = sum_s w_s l_s with w_s = exp(m_s - M)
 // (a chunk with max -inf weighs 0), then each lane sums 4 columns, out = sum_s w_s o_s / max(L, 1e-30) in
 // split order, stored as OutT with no other rounding; lse = M + log max(L, 1e-30).

@@ -28,6 +28,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Four fp32 values to 4 consecutive elements of the output type, rounded once (bf16) or as they are (fp32).
+__device__ __forceinline__ void store4(bf16* o, float4 x) {
+  __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(o);
+  out[0] = __floats2bfloat162_rn(x.x, x.y);
+  out[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+__device__ __forceinline__ void store4(float* o, float4 x) { *reinterpret_cast<float4*>(o) = x; }
+
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));

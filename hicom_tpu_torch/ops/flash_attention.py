@@ -1,10 +1,11 @@
 """Flash attention: the Hopper kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, their
 plain twins, and the ``torch.autograd.Function`` that joins them.
 
-Three CUDA sources take the place of four Pallas TPU kernels of
-``hicom_tpu/ops/flash_attention.py`` (``flash_fwd_f32.cu`` is the forward's
-fp32 instance, on the CUDA cores; the split path's merge pass is
-``flash_merge.cuh``, in both):
+Four CUDA sources take the place of four Pallas TPU kernels of
+``hicom_tpu/ops/flash_attention.py`` (``flash_fwd_f32.cu`` and
+``flash_bwd_f32.cu`` are the fp32 instances, on the CUDA cores; the split
+paths' merge and sum passes are ``flash_merge.cuh`` and
+``flash_part_sum.cuh``, shared by both types):
 
 * :func:`fullblock_attention` replaces ``_fullblock_kernel`` (K1): unmasked
   attention with every row seeing the whole kv, the SigLIP tower shape;
@@ -50,10 +51,12 @@ otherwise (serving under ``torch.inference_mode()`` saves nothing).
 
 The forward's contract is :func:`takes_flash_kernel` (bf16 or fp32 q, k and
 v of one dtype, as JAX's dtype-generic kernels take them; a head dim that is a
-multiple of 8 up to 128); the backward's is :func:`takes_flash_backward` (bf16,
-a head dim that pads to 32, 64, 80 or 128). The wrappers raise for device
-operands outside them, and :func:`attend` raises before the forward when a
-gradient is wanted that no backward instance computes.
+multiple of 8 up to 128); the backward's, :func:`takes_flash_backward`, is the
+same: K5/K6 have an instance of each type at every padded head dim 16-128, and
+a gradient reaches the fp32 instances with fp32 ``out`` and ``dO``. The
+wrappers raise for device operands outside them (fp16, a head dim past 128),
+and :func:`attend` raises before the forward when a gradient is wanted that no
+backward instance computes.
 """
 
 from __future__ import annotations
@@ -77,7 +80,6 @@ H100_SMS = 132
 Tensor = torch.Tensor
 FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # the forward's instances, each head dim padded to 16
 FLASH_DTYPES = (torch.bfloat16, torch.float32)  # the forward's operand types: flash_fwd.cu, flash_fwd_f32.cu
-BACKWARD_HEAD_DIMS = (32, 64, 80, 128)  # K5/K6's instances (bf16 only)
 
 
 def _padded(d: int) -> int:
@@ -99,12 +101,11 @@ def takes_flash_kernel(d: int, dtypes, device_type: str) -> bool:
 
 def takes_flash_backward(d: int, dtypes, device_type: str) -> bool:
     """Whether K5/K6 (:func:`flash_backward`) take a gradient of attention of
-    head dim ``d`` over ``dtypes`` on ``device_type``: always on the CPU;
-    elsewhere bf16 operands at a head dim that pads to one of
-    :data:`BACKWARD_HEAD_DIMS`."""
-    if device_type == "cpu":
-        return True
-    return all(dt == torch.bfloat16 for dt in dtypes) and d % 8 == 0 and _padded(d) in BACKWARD_HEAD_DIMS
+    head dim ``d`` over ``dtypes`` on ``device_type``: what the forward
+    kernels take (:func:`takes_flash_kernel`), with an instance of each type
+    at every padded head dim (bf16 in ``flash_bwd.cu``, fp32 in
+    ``flash_bwd_f32.cu``)."""
+    return takes_flash_kernel(d, dtypes, device_type)
 
 
 def _backward_instance(d: int, dtype) -> str:
@@ -551,46 +552,61 @@ def _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal):
              torch.cuda.current_stream(q.device).cuda_stream))
 
 
+def _bwd_source(dtype: torch.dtype, kernel: str) -> Tuple[str, str]:
+    """(library, symbol) of K5 (``kernel`` "dq") or K6 ("dkv") for operands of ``dtype``."""
+    if dtype == torch.float32:
+        return "flash_bwd_f32", f"hicom_flash_bwd_{kernel}_f32"
+    return "flash_bwd", f"hicom_flash_bwd_{kernel}"
+
+
 def _launch_dq(q, k, v, lens, do, lse, delta, scale, logit_bias, causal, n_split: Optional[int] = None) -> Tensor:
-    """K5 (and its sum pass when split) on checked, contiguous CUDA tensors
-    (no launch count: see :func:`flash_backward`). ``n_split`` defaults to
-    :func:`dq_splits`; tests force it."""
+    """K5 (and its sum pass when split) on checked, contiguous CUDA tensors,
+    its bf16 or fp32 instance by q's dtype (no launch count: see
+    :func:`flash_backward`). ``n_split`` defaults to :func:`dq_splits`; tests
+    force it."""
     b, H, Lq, d = q.shape
     if n_split is None:
         n_split = dq_splits(b, H, Lq, k.shape[2], _sm_count(q.device.index or 0))
     dq = torch.empty_like(q)
     part = torch.empty((n_split, b * H, Lq, d), dtype=torch.float32, device=q.device) if n_split > 1 else None
     head, tail = _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal)
-    fn = c_function("flash_bwd", "hicom_flash_bwd_dq", _BWD_ARGS + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+    source, symbol = _bwd_source(q.dtype, "dq")
+    fn = c_function(source, symbol, _BWD_ARGS + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
                     + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     check(fn(*head, dq.data_ptr(), part.data_ptr() if part is not None else None, *tail[:6], int(n_split), *tail[6:]),
-          "hicom_flash_bwd_dq")
+          symbol)
     return dq
 
 
-def _launch_part_sum(*pairs: Tuple[Tensor, float]) -> Tuple[Tensor, ...]:
+def _launch_part_sum(*pairs: Tuple[Tensor, float], dtype: torch.dtype = torch.bfloat16) -> Tuple[Tensor, ...]:
     """The split path's sum pass alone on one or two (fp32 CUDA workspace (n,
     ...), scale) pairs of one shape (K5's dQ; K6's dK and dV): ``scale`` times
-    the sum over n, in bf16, one launch for all."""
+    the sum over n, one launch for all, written by the kernel in ``dtype``
+    (bf16, or fp32 with no bf16 step)."""
     parts = [p.float().contiguous() for p, _ in pairs]
     if len(parts) not in (1, 2) or any(p.shape != parts[0].shape for p in parts):
         raise ValueError("the sum pass takes one or two workspaces of one shape")
-    outs = [torch.empty(p.shape[1:], dtype=torch.bfloat16, device=p.device) for p in parts]
+    if dtype not in FLASH_DTYPES:
+        raise TypeError(f"the sum pass writes bfloat16 or float32, not {dtype}")
+    outs = [torch.empty(p.shape[1:], dtype=dtype, device=p.device) for p in parts]
     if outs[0].numel() % 4:
         raise ValueError("the sum pass takes a multiple of 4 elements per chunk")
     fn = c_function("flash_bwd", "hicom_flash_part_sum", [ctypes.c_void_p] * 2 + [ctypes.c_float]
-                    + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                               ctypes.c_void_p])
     second = (parts[1].data_ptr(), outs[1].data_ptr(), float(pairs[1][1])) if len(parts) == 2 else (None, None, 0.0)
     check(fn(parts[0].data_ptr(), outs[0].data_ptr(), float(pairs[0][1]), *second, parts[0].shape[0], outs[0].numel(),
-             torch.cuda.current_stream(parts[0].device).cuda_stream), "hicom_flash_part_sum")
+             int(dtype == torch.float32), torch.cuda.current_stream(parts[0].device).cuda_stream),
+          "hicom_flash_part_sum")
     return tuple(outs)
 
 
 def _launch_dkv(q, k, v, lens, do, lse, delta, scale, logit_bias, causal, n_split: Optional[int] = None
                 ) -> Tuple[Tensor, Tensor]:
-    """K6 (and its sum pass when split) on checked, contiguous CUDA tensors
-    (no launch count: see :func:`flash_backward`). ``n_split`` defaults to
-    :func:`dkv_splits`; tests force it."""
+    """K6 (and its sum pass when split) on checked, contiguous CUDA tensors,
+    its bf16 or fp32 instance by q's dtype (no launch count: see
+    :func:`flash_backward`). ``n_split`` defaults to :func:`dkv_splits`;
+    tests force it."""
     b, H, Lq, d = q.shape
     KVH, Lk = k.shape[1], k.shape[2]
     if n_split is None:
@@ -600,10 +616,11 @@ def _launch_dkv(q, k, v, lens, do, lse, delta, scale, logit_bias, causal, n_spli
     if n_split > 1:
         parts = tuple(torch.empty((n_split, b * KVH, Lk, d), dtype=torch.float32, device=q.device) for _ in range(2))
     head, tail = _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal)
-    fn = c_function("flash_bwd", "hicom_flash_bwd_dkv", _BWD_ARGS + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    source, symbol = _bwd_source(q.dtype, "dkv")
+    fn = c_function(source, symbol, _BWD_ARGS + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                     + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     check(fn(*head, dk.data_ptr(), dv.data_ptr(), *(t.data_ptr() if t is not None else None for t in parts),
-             *tail[:6], int(n_split), *tail[6:]), "hicom_flash_bwd_dkv")
+             *tail[:6], int(n_split), *tail[6:]), symbol)
     return dk, dv
 
 
@@ -611,14 +628,14 @@ def backward_operands(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tens
                       do: Tensor):
     """Check the backward's inputs and bring them to the kernels' layout:
     returns (q, k, v, int32 lengths or None, dO, lse, delta), contiguous, with
-    delta = rowsum(dO * O) in fp32 (one reduction, as ``_flash_bwd_impl``)."""
-    b, H, KVH, Lq, Lk, d, lens = _check(q, k, v, kv_lengths, "flash backward")
-    if not takes_flash_backward(d, (q.dtype, k.dtype, v.dtype), q.device.type):
-        raise TypeError(f"flash backward: {_backward_instance(d, q.dtype)}")
+    delta = rowsum(dO * O) in fp32 (one reduction, as ``_flash_bwd_impl``).
+    ``out`` and ``dO`` have q's dtype, bf16 or fp32; lse is fp32."""
+    b, H, KVH, Lq, Lk, d, lens = _check(q, k, v, kv_lengths, "flash backward")  # K5/K6 take what K1/K2 take
     if out.shape != q.shape or do.shape != q.shape or lse.shape != (b, H, Lq):
         raise ValueError(f"flash backward: out/dO must be {tuple(q.shape)} and lse {(b, H, Lq)}")
-    if out.dtype != torch.bfloat16 or do.dtype != torch.bfloat16 or lse.dtype != torch.float32:
-        raise TypeError("flash backward takes bfloat16 out and dO and a float32 lse")
+    if out.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"flash backward takes out and dO of q's dtype ({q.dtype}) and a float32 lse; got "
+                        f"{out.dtype}, {do.dtype}, {lse.dtype}")
     if any(t.device != q.device for t in (out, lse, do)):
         raise ValueError("flash backward: all inputs must be on one device")
     delta = (do.float() * out.float()).sum(dim=-1)
@@ -677,8 +694,9 @@ class FlashAttention(torch.autograd.Function):
 def attend(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float, logit_bias: float,
            causal: bool, fullblock: bool) -> Tensor:
     """:class:`FlashAttention` when a gradient is wanted, else the forward kernel
-    alone. A gradient that no K5/K6 instance computes (fp32, head dims 16, 48,
-    96 and 112 on a device) raises here, before the forward runs."""
+    alone. A gradient that no K5/K6 instance computes (a head dim past 128, or
+    fp16, on a device) raises here, naming the instance, before the forward
+    runs."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         d = q.shape[-1]
         if not takes_flash_backward(d, (q.dtype, k.dtype, v.dtype), q.device.type):

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""The fp32 serving phases of ``chip_smoke.py`` alone.
+"""The fp32 phases of ``chip_smoke.py`` alone.
 
-    python3 scripts/torch_fp32_phases.py [--phases kernels,fp32-serve,closed-loop]
+    python3 scripts/torch_fp32_phases.py [--phases kernels,fp32-serve,fp32-train,closed-loop]
 
-Runs on one CUDA card: builds the kernels, then (by default all three, in
+Runs on one CUDA card: builds the kernels, then (by default all four, in
 this order) ``[kernels]`` (every kernel row of the smoke's phase 3, the fp32
-instances and the head-dim 16 / 96 checks among them), ``[fp32-serve]``
-(HICom-7B in fp32 at full width and depth against the plain path on the
-card) and ``[closed-loop]`` (the selftest loop at HICom-7B width, then the
-eval runner with ``--dtype float32`` over its export). Each phase's lines are
+instances, forward and backward, and the new head-dim checks among them),
+``[fp32-serve]`` (HICom-7B in fp32 at full width and depth against the plain
+path on the card), ``[fp32-train]`` (3 stage-2 steps of HICom-7B in fp32,
+step 1's gradients against the plain path's) and ``[closed-loop]`` (the
+selftest loop at HICom-7B width, then the eval runner with ``--dtype
+float32`` over its export). Each phase's lines are
 ``chip_smoke.py``'s, followed by its wall time; any mismatch raises. The first
 line is the card's name and power limit.
 """
@@ -22,7 +24,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-PHASES = ("kernels", "fp32-serve", "closed-loop")
+PHASES = ("kernels", "fp32-serve", "fp32-train", "closed-loop")
 
 
 def main() -> int:
@@ -44,7 +46,8 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build_all()
     cs.log(f"[time] build {time.perf_counter() - t0:.1f} s")
-    run = {"kernels": cs.kernel_checks, "fp32-serve": cs.fp32_serve_phase, "closed-loop": cs.closed_loop_phase}
+    run = {"kernels": cs.kernel_checks, "fp32-serve": cs.fp32_serve_phase, "fp32-train": cs.fp32_train_phase,
+           "closed-loop": cs.closed_loop_phase}
     for name in phases:
         t0 = cs.PHASE_START[0] = time.perf_counter()
         cs.on_contract(name, run[name](card))

@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch twins, on the card.
 
 Marked ``cuda``: they skip without a CUDA device (so on the CPU test runs).
-The fp32 instances (``flash_fwd_f32.cu``, K4's and the merge's fp32 forms)
-are held to their fp32 twins at the fp32 gate (the end of this file).
+The fp32 instances (``flash_fwd_f32.cu``, ``flash_bwd_f32.cu``, K4's, the
+merge's and the sum pass's fp32 forms) are held to their fp32 twins at the
+fp32 gate (the end of this file), with the bf16 instances at head dims 16, 48,
+96 and 112, and a tiny ``train.cli`` stage 2 with ``--dtype float32``.
 On a machine with a card and no JAX, run them without the JAX-loading
 conftest: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
@@ -13,6 +15,8 @@ max than the twin), plus a 32nd of the output's typical size for elements near
 zero, whose error is that of the row's sum of rounded terms.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -21,7 +25,8 @@ from hicom_tpu_torch.ops.flash_attention import (DKV_BLOCK_K, _launch, _launch_d
                                                  flash_backward, flash_backward_reference, flash_forward,
                                                  flash_forward_partials, flash_reference, forward_splits,
                                                  fullblock_attention, merge_partials, merge_partials_reference,
-                                                 split_forward_reference, sum_partials_reference)
+                                                 split_dkv_reference, split_dq_reference, split_forward_reference,
+                                                 sum_partials_reference)
 from hicom_tpu_torch.ops.flash_decode import DECODE_CHUNK, decode_reference, flash_decode
 from hicom_tpu_torch.ops.local_attn import chunked_tile_reference, fused_tile_attention, tile_reference
 from hicom_tpu_torch.ops.pos_embed import get_3d_sincos_pos_embed, sincos_pos_embed_3d
@@ -214,9 +219,9 @@ def test_cuda_wrappers_refuse_what_they_cannot_take(rn):
     q = rn(2, 4, 16, 136)  # past head dim 128
     with pytest.raises(ValueError, match="head dim 136"):
         flash_forward(q, q, q, None, 0.1, 0.0, False)
-    q = rn(2, 4, 200, 72).float().requires_grad_()  # an fp32 forward that needs a gradient: no K5/K6 instance
+    q = rn(2, 4, 200, 136).float().requires_grad_()  # a forward that needs a gradient no K5/K6 instance computes
     before = flash_forward.launches
-    with pytest.raises(TypeError, match="K5/K6 have no float32 instance"):
+    with pytest.raises(TypeError, match="K5/K6 have no float32 instance at head dim 136"):
         flash_attention_gqa(q, q, q, is_causal=True)
     assert flash_forward.launches == before
 
@@ -1075,3 +1080,149 @@ def test_flash_forward_new_widths(rn, b, H, KVH, Lq, Lk, d, causal, lens, n_spli
     out, lse = _launch(q, k, v, kl, d**-0.5, 0.0, causal, n_split=n_split)
     ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.0, causal)
     assert _worst(*_valid_rows(out, ref, b, H, Lq, kl)) <= 1
+
+
+# --------------------------------------------------------------------------- #
+# the flash backward in fp32 (flash_bwd_f32.cu) and in bf16 at head dims 16, 48, 96 and 112
+# --------------------------------------------------------------------------- #
+
+FP32_BACKWARD = [
+    (2, 28, 4, 743, 743, 128, True, [743, 700], 0.0),  # the decoder prefill (K6 split in 3)
+    (2, 9, 9, 32, 23328, 128, False, None, 0.0),  # the global compressor at b 2 (K5 split in 14)
+    (2, 16, 16, 729, 729, 72, False, None, 0.1),  # the tower's width
+    (2, 4, 4, 300, 300, 96, True, [217, 300], 0.3),  # d 96, causal, lengths
+    (2, 6, 2, 130, 260, 112, True, [200, 260], 0.0),  # d 112, grouped, bottom-right diagonal
+    (2, 4, 4, 200, 200, 48, False, [150, 200], -0.2),
+    (1, 4, 2, 200, 200, 16, True, None, 0.0),
+    (2, 4, 4, 37, 130, 32, False, [0, 130], 0.0),  # a row with no valid key, one query tile of 32 rows
+]
+
+
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens,bias", FP32_BACKWARD)
+def test_flash_backward_fp32(rn32, b, H, KVH, Lq, Lk, d, causal, lens, bias):
+    q, k, v, do = rn32(b, H, Lq, d), rn32(b, KVH, Lk, d), rn32(b, KVH, Lk, d), rn32(b, H, Lq, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = flash_forward(q, k, v, kl, d**-0.5, bias, causal)
+    before = flash_backward.launches
+    got = flash_backward(q, k, v, kl, out, lse, do, d**-0.5, bias, causal)
+    assert flash_backward.launches == before + 1 and all(g.dtype == torch.float32 for g in got)
+    ref = flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, bias, causal)
+    assert max(_worst32(g, r) for g, r in zip(got, ref)) <= 1
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens", [
+    (2, 9, 9, 32, 3000, 128, False, None),  # the global compressor's 32-row query blocks
+    (2, 6, 2, 150, 150, 96, True, [150, 97]),  # GQA, chunks and unit ranges wholly masked
+    (1, 4, 4, 70, 200, 16, True, None),
+])
+def test_backward_fp32_forced_split(rn32, b, H, KVH, Lq, Lk, d, causal, lens, n_split):
+    """K5's key chunks and K6's unit ranges in fp32, summed by the fp32 sum
+    pass: the split twins' gradients (the same chunks in plain PyTorch on the
+    CPU) and the unsplit twin's within the fp32 gate."""
+    q, k, v, do = rn32(b, H, Lq, d), rn32(b, KVH, Lk, d), rn32(b, KVH, Lk, d), rn32(b, H, Lq, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = flash_forward(q, k, v, kl, d**-0.5, 0.1, causal)
+    ops = backward_operands(q, k, v, kl, out, lse, do)
+    dq = _launch_dq(*ops, d**-0.5, 0.1, causal, n_split=n_split)
+    dk, dv = _launch_dkv(*ops, d**-0.5, 0.1, causal, n_split=n_split)
+    cpu = [t.cpu() if t is not None else None for t in (q, k, v, kl, out, lse, do)]
+    want_dq = split_dq_reference(*cpu, d**-0.5, 0.1, causal, n_split)
+    want_dk, want_dv = split_dkv_reference(*cpu, d**-0.5, 0.1, causal, n_split)
+    ref = flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, 0.1, causal)
+    for got, split, whole in zip((dq, dk, dv), (want_dq, want_dk, want_dv), ref):
+        assert got.dtype == torch.float32
+        assert _worst32(got, split.cuda()) <= 1 and _worst32(got, whole) <= 1
+
+
+def test_sum_pass_writes_fp32(rn32):
+    """The sum pass in fp32 (K5's dQ, K6's dK and dV in one launch): the
+    chunks' sum with no bf16 step, within the fp32 gate of the twin."""
+    part, part2 = rn32(14, 2, 9, 32, 128), rn32(3, 2, 4, 100, 72)
+    dq, = _launch_part_sum((part, 0.125), dtype=torch.float32)
+    assert dq.dtype == torch.float32 and _worst32(dq, sum_partials_reference(part, 0.125, torch.float32)) <= 1
+    dk, dv = _launch_part_sum((part2, 0.125), (part2 * 2, 1.0), dtype=torch.float32)
+    assert _worst32(dk, sum_partials_reference(part2, 0.125, torch.float32)) <= 1
+    assert _worst32(dv, sum_partials_reference(part2 * 2, 1.0, torch.float32)) <= 1
+
+
+def test_fp32_function_backward_runs_the_kernels(rn32):
+    b, H, KVH, L, d = 2, 8, 2, 150, 128
+    q, k, v, do = rn32(b, H, L, d), rn32(b, KVH, L, d), rn32(b, KVH, L, d), rn32(b, H, L, d)
+    kl = torch.tensor([150, 120], device="cuda", dtype=torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (flash_forward.launches, flash_backward.launches)
+    out = flash_attention_gqa(*leaves, is_causal=True, kv_lengths=kl)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert (flash_forward.launches, flash_backward.launches) == (before[0] + 1, before[1] + 1)
+    _, lse = flash_reference(q, k, v, kl, d**-0.5, 0.0, True)
+    ref = flash_backward_reference(q, k, v, kl, out.detach(), lse, do, d**-0.5, 0.0, True)
+    assert max(_worst32(g, r) for g, r in zip(grads, ref)) <= 1
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens,bias", [
+    (2, 4, 4, 300, 300, 96, True, [217, 300], 0.3),
+    (2, 6, 2, 130, 260, 112, True, [200, 260], 0.0),
+    (2, 4, 4, 200, 200, 48, False, [150, 200], -0.2),
+    (1, 4, 2, 200, 200, 16, True, None, 0.0),
+    (2, 9, 9, 32, 5000, 96, False, None, 0.0),
+    (2, 8, 8, 729, 729, 16, False, None, 0.0),
+])
+def test_flash_backward_new_widths(rn, b, H, KVH, Lq, Lk, d, causal, lens, bias, n_split):
+    q, k, v, do = rn(b, H, Lq, d), rn(b, KVH, Lk, d), rn(b, KVH, Lk, d), rn(b, H, Lq, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = flash_forward(q, k, v, kl, d**-0.5, bias, causal)
+    ops = backward_operands(q, k, v, kl, out, lse, do)
+    got = (_launch_dq(*ops, d**-0.5, bias, causal, n_split=n_split),) + _launch_dkv(*ops, d**-0.5, bias, causal,
+                                                                                    n_split=n_split)
+    ref = flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, bias, causal)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    assert max(_worst(g, r) for g, r in zip(got, ref)) <= 1
+
+
+def fp32_cli_stage2(root: str, device: str = "cuda"):
+    """``train.cli`` stage 2 with ``--dtype float32`` at tiny widths whose
+    attention takes the kernels: a SigLIP tower of head dim 16 over 168 x 168
+    frames (144 tokens: K1), a non-grouped decoder of 2 heads of 96 over 16
+    frames' 96 visual tokens and a 64-token bucket (K2 forward, K5/K6 backward)
+    and the global compressor (32 queries over 16 x 144 keys: K5/K6). Inputs
+    from ``chip_smoke.write_cli_inputs``. Returns (losses, K5/K6 launches)."""
+    import dataclasses
+    import json
+    import os
+
+    import chip_smoke
+    from hicom_tpu_torch import config as tcfg
+    from hicom_tpu_torch.train import cli
+
+    c = tcfg.tiny_test_config(use_guide="direct", dtype="float32")
+    cfg = c.replace(text_config=dataclasses.replace(c.text_config, hidden_size=192, num_attention_heads=2,
+                                                    num_key_value_heads=2, head_dim=96),
+                    vision_config=dataclasses.replace(c.vision_config, image_size=168))
+    paths = chip_smoke.write_cli_inputs(root, cfg, frames=16, rows=4)
+    tok = chip_smoke.WordTokenizer(cfg.text_config.vocab_size)
+    guide_tok = chip_smoke.WordTokenizer(cfg.guide_text_config.vocab_size, cfg.guide_text_config.max_position_embeddings)
+    out = os.path.join(root, "stage2")
+    args = cli.build_parser().parse_args([
+        "--model-path", paths["llm"], "--vision-tower", paths["tower"], "--mm-projector-type", "local43_global32",
+        "--use-guide", "direct", "--data-path", paths["data"], "--data-folder", root, "--num-frames", "16",
+        "--per-device-train-batch-size", "2", "--logging-steps", "1", "--device", device, "--dtype", "float32",
+        "--mm-tunable-parts", "mm_projector", "--learning-rate", "1e-3", "--pretrain-weights", paths["bin"],
+        "--output-dir", out])
+    before = flash_backward.launches
+    cli.run(args, tok, guide_tok)
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line)["loss"] for line in f], flash_backward.launches - before
+
+
+def test_train_cli_stage2_in_fp32_on_the_card(tmp_path):
+    """2 steps of fp32 stage 2 through the CLI on the card: finite losses, and
+    K5/K6 (their fp32 instance) once per decoder layer and once for the global
+    compressor each step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    losses, launched = fp32_cli_stage2(str(tmp_path))
+    assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
+    assert launched == 2 * (2 + 1)

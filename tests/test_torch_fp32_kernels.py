@@ -19,7 +19,19 @@ numpy seed, in fp32 and at the head dims that now have kernels (16, 96):
   and equal greedy ids; then the same configuration on meta tensors through
   the wrappers' device branch, launches stubbed as in
   ``tests/test_torch_kernel_routes.py``: K1, K2 and K4 launch and nothing
-  raises.
+  raises;
+* the same tiny fp32 HICom trained one stage-2 step (``mm_projector``, the
+  direct guide): the loss and every trained parameter's gradient against
+  ``jax.value_and_grad`` of JAX's loss, on the port's CPU path and with the
+  card's routes taken on the CPU (``sdpa`` sending what JAX's rule sends to
+  Pallas through ``run_kernel``, so the decoder's d-96 prefill and the
+  global compressor train through ``FlashAttention`` and the K5/K6 twin):
+  the loss within rtol 1e-5 and each gradient within ``GRAD_TOL`` (the
+  train tests' 1e-4 of the grad norm, per element: the same fp32 arithmetic
+  through 2 tower, 2 guide and 2 decoder layers in another order); then its
+  backward on meta tensors through the wrappers' device branch: K5/K6 launch
+  ``flash_bwd_f32.cu``'s instances, once per decoder layer and once for the
+  global compressor, and a bf16 copy launches ``flash_bwd.cu``'s.
 
 Then the fp32 gate of ``chip_smoke.py`` (``agreement`` with ``FP32_GATE``) at a
 cut so400m shape: the fp32 twin passes against float64, the same twin on
@@ -40,22 +52,30 @@ import chip_smoke
 from hicom_tpu import config as jcfg
 from hicom_tpu.models.generate import generate_tokens as j_generate
 from hicom_tpu.models.hicom import HIComModel as JModel
+from hicom_tpu.train import train_step as jstep
 from hicom_tpu.ops import flash_attention as jfa
 from hicom_tpu.ops.local_attn import fused_tile_attention as j_fused_tile
 from hicom_tpu_torch import config as tcfg
 from hicom_tpu_torch.models.generate import generate_tokens as t_generate
+from hicom_tpu_torch.models import projector as tprojector
+from hicom_tpu_torch.models import qwen2 as tqwen2
 from hicom_tpu_torch.models.hicom import HIComModel as TModel
 from hicom_tpu_torch.ops import attention as tattn
 from hicom_tpu_torch.ops import flash_attention as tfa
 from hicom_tpu_torch.ops import flash_decode as tfd
 from hicom_tpu_torch.ops import local_attn as tla
 from hicom_tpu_torch.ops.cuda_build import plain_route
+from hicom_tpu_torch.train import optimizer as topt
+from hicom_tpu_torch.train import train_step as tstep
 from hicom_tpu_torch.weights import state_dict_from_jax
 
 TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_torch_ops.py
 MERGE_TOL = dict(rtol=1e-5, atol=1e-6)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_torch_decoder.py
-VIDEO = -201
+# each gradient element within 1e-4 of its value plus 1e-4 of its tensor's largest |value| (floored at 1e-6 of
+# the largest over the trained tensors: the keys' bias, whose exact gradient the softmax cancels, is fp32 noise)
+GRAD_TOL = 1e-4
+VIDEO, IGNORE = -201, -100
 
 
 @pytest.fixture(autouse=True)
@@ -232,6 +252,133 @@ def test_fp32_slice_launches_the_kernels_on_the_device_branch(monkeypatch):
     k1, k2, k4 = (f.launches - n for f, n in zip(wrappers, before))
     # K1: each tower layer, and the global compressor (32 queries over 4 x 12 x 12 keys fit one block)
     assert (k1, k2, k4) == (ct.vision_config.num_hidden_layers + 1, ct.text_config.num_hidden_layers, 1)
+    assert plain_route.counts["K3"] == 0
+
+
+# --------------------------------------------------------------------------- #
+# the slice: one fp32 stage-2 step of the tiny HICom
+# --------------------------------------------------------------------------- #
+
+def _train_batch(seed=3, L=120):
+    """b = 2 rows of ``L`` ids with a <video> sentinel (167 spliced tokens: the
+    decoder prefill takes K2 on the card), the second right-padded from 100;
+    the first 8 labels and the padding ignored; 4 frames of 168 x 168; guide ids."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, 500, (2, L))
+    ids[:, 2] = VIDEO
+    mask = np.ones((2, L), bool)
+    mask[1, 100:] = False
+    ids[1, 100:] = 0
+    labels = np.where(mask, ids, IGNORE)
+    labels[:, :8] = IGNORE
+    return dict(input_ids=ids, attention_mask=mask, labels=labels,
+                frames=rng.standard_normal((2, 4, 3, 168, 168)).astype(np.float32),
+                guide_ids=rng.integers(1, 250, (2, 16)))
+
+
+def _card_routes_on_the_cpu(monkeypatch):
+    """Make ``sdpa`` take, for CPU tensors too, the route the card takes: what
+    JAX's rule sends to Pallas goes through ``run_kernel`` (``FlashAttention``
+    with the twins under a gradient). Returns the routed calls as (kernel,
+    head dim, whether a gradient was wanted)."""
+    real, calls = tattn.sdpa, []
+
+    def routed(q, k, v, *, scale=None, logit_bias=0.0, mask=None, is_causal=False, kv_lengths=None, kv_group=None):
+        kernel = kv_group is None and tattn.flash_route(q.shape, k.shape, mask=mask, scale=scale,
+                                                         logit_bias=logit_bias, is_causal=is_causal,
+                                                         kv_lengths=kv_lengths)
+        if not kernel:
+            return real(q, k, v, scale=scale, logit_bias=logit_bias, mask=mask, is_causal=is_causal,
+                        kv_lengths=kv_lengths, kv_group=kv_group)
+        calls.append((kernel, q.shape[-1], torch.is_grad_enabled() and q.requires_grad))
+        return tfa.run_kernel(kernel, q, k, v, scale=float(scale) if scale is not None else q.shape[-1] ** -0.5,
+                              logit_bias=float(logit_bias), is_causal=is_causal, kv_lengths=kv_lengths)
+
+    for mod in (tattn, tqwen2, tprojector):
+        monkeypatch.setattr(mod, "sdpa", routed)
+    return calls
+
+
+@pytest.fixture(scope="module")
+def jax_step_grads(pair):
+    """JAX's stage-2 loss and gradients at the pair's parameters, in the port's names."""
+    jm, params, _ = pair
+    loss_fn = jstep.make_loss_fn(jm, tunable_parts="mm_projector", use_guide="direct")
+    batch = {k: jnp.asarray(v) for k, v in _train_batch().items()}
+    (loss, _), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params, batch)
+    return float(loss), state_dict_from_jax(jax.device_get(grads), _configs()[1])
+
+
+@pytest.mark.parametrize("route", ["cpu", "card"])
+def test_fp32_stage2_step_matches_jax(pair, jax_step_grads, route, monkeypatch):
+    _, _, tm = pair
+    want_loss, want = jax_step_grads
+    calls = _card_routes_on_the_cpu(monkeypatch) if route == "card" else []
+    twin_calls = []
+    real_twin = tfa.flash_backward_reference
+    monkeypatch.setattr(tfa, "flash_backward_reference", lambda *a: twin_calls.append(1) or real_twin(*a))
+    trained = [n for n, p in tm.named_parameters() if topt.is_tunable(n, "mm_projector", "direct")]
+    tm.train()
+    try:
+        for n, p in tm.named_parameters():
+            p.requires_grad_(n in trained)
+            p.grad = None
+        batch = tstep.batch_to_device(_train_batch(), torch.device("cpu"), torch.float32)
+        loss, metrics = tstep.make_loss_fn(tm)(batch)
+        loss.backward()
+        # a parameter the loss does not reach (the direct guide's learned query) has JAX's zero gradient
+        got = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in tm.named_parameters()
+               if n in trained}
+    finally:
+        for p in tm.parameters():
+            p.requires_grad_(False)
+            p.grad = None
+        tm.eval()
+    np.testing.assert_allclose(float(loss.detach()), want_loss, rtol=1e-5)
+    assert len(got) == len(trained) > 0
+    top = max(float(want[n].abs().max()) for n in got)
+    for n, g in got.items():
+        ref = want[n].numpy()
+        atol = GRAD_TOL * max(float(np.abs(ref).max()), 1e-6 * top)
+        np.testing.assert_allclose(g.numpy(), ref, rtol=GRAD_TOL, atol=atol, err_msg=n)
+    if route == "card":  # the global compressor (K1's route, d 64) and the 2 decoder prefills (K2, d 96)
+        assert [c[:2] for c in calls if c[2]] == [("fullblock", 64), ("flash", 96), ("flash", 96)], calls
+        assert len(twin_calls) == 3
+    else:
+        assert not twin_calls
+
+
+@pytest.mark.parametrize("dtype,symbol", [(torch.float32, "_f32"), (torch.bfloat16, "")])
+def test_fp32_step_backward_launches_k5_k6_on_the_device_branch(monkeypatch, dtype, symbol):
+    """The stage-2 step's backward on meta tensors: each decoder layer (d 96,
+    causal) and the global compressor (32 queries over 4 x 12 x 12 keys) run
+    K5/K6 once, through ``flash_bwd_f32.cu`` in fp32 and ``flash_bwd.cu`` in
+    bf16; K4 takes no gradient (the plain tile attention), nothing raises."""
+    symbols = []
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    for mod in (tfa, tfd, tla):
+        monkeypatch.setattr(mod, "c_function", lambda name, sym, *a, **k: symbols.append(sym) or (lambda *args: 0))
+    for mod in (tfa, tla):
+        monkeypatch.setattr(mod, "_sm_count", lambda index: 132)
+    _, ct = _configs()
+    ct = ct.replace(dtype="float32" if dtype == torch.float32 else "bfloat16")
+    with torch.device("meta"):
+        tm = TModel(ct)
+    for n, p in tm.named_parameters():
+        p.requires_grad_(topt.is_tunable(n, "mm_projector", "direct"))
+    before = tfa.flash_backward.launches, tla.fused_tile_attention.launches
+    dev = dict(device="meta")
+    b, L = 1, 150
+    ge = tm.encode_guide(torch.zeros((b, 16), dtype=torch.long, **dev))
+    vis = tm.encode_visual(torch.empty((b, 4, 3, 168, 168), dtype=dtype, **dev), ge, "video")
+    emb = torch.cat([vis.reshape(b, -1, vis.shape[-1]), torch.empty((b, L - 48, 192), dtype=dtype, **dev)], dim=1)
+    hidden = tm.model(emb, torch.arange(L, **dev)[None], padding_mask=torch.ones((b, L), dtype=torch.bool, **dev))
+    assert vis.requires_grad and hidden.dtype == dtype
+    hidden.backward(torch.empty_like(hidden))
+    launched = tfa.flash_backward.launches - before[0]
+    assert launched == ct.text_config.num_hidden_layers + 1 and tla.fused_tile_attention.launches == before[1]
+    bwd = [s for s in symbols if "bwd" in s]
+    assert bwd == [f"hicom_flash_bwd_{k}{symbol}" for _ in range(launched) for k in ("dq", "dkv")]
     assert plain_route.counts["K3"] == 0
 
 

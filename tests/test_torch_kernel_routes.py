@@ -10,10 +10,12 @@ before a one-token step and takes the plain masked attention for the rest
 other callers (``ops/attention.sdpa`` by JAX's ``auto`` rule, the split-key
 partials and merge, the projector's local compressor by its tiling) launch
 the kernel wherever JAX launches its Pallas kernel: K1/K2, the merge and K4
-take fp32 as well as bf16, and K1/K2 every head dim that is a multiple of 8
-up to 128, as JAX's dtype-generic kernels do. What no kernel takes raises in
-its wrapper: a head dim past 128, fp16, mixed dtypes, and a gradient that no
-K5/K6 instance computes (fp32, padded head dims 16, 48, 96 and 112).
+take fp32 as well as bf16, and K1/K2 (and K5/K6 behind them) every head dim
+that is a multiple of 8 up to 128, as JAX's dtype-generic kernels do: an fp32
+gradient launches ``flash_bwd_f32.cu``, a bf16 one ``flash_bwd.cu``'s
+instance of its width. What no kernel takes raises in its wrapper: a head dim
+past 128, fp16 and mixed dtypes, and (in ``attend``, before the forward) a
+gradient of such attention, naming the K5/K6 instance it lacks.
 
 The routes are driven on meta tensors, which take every wrapper's device
 branch (the CPU branch is for CPU tensors alone) through all its checks, with
@@ -44,14 +46,16 @@ BF16, F32 = torch.bfloat16, torch.float32
 def probe(monkeypatch):
     """Stub the launches (the C functions, the SM count, the stream) so that
     wrappers run to their end on meta tensors; returns a function giving the
-    launches and plain-route counts since the fixture began."""
+    launches and plain-route counts since the fixture began. The C symbols
+    asked for are kept in ``probe.symbols``."""
+    symbols = []
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     for mod in (tfa, tfd, tla):
-        monkeypatch.setattr(mod, "c_function", lambda *a, **k: (lambda *args: 0))
+        monkeypatch.setattr(mod, "c_function", lambda name, symbol, *a, **k: symbols.append(symbol) or (lambda *args: 0))
     for mod in (tfa, tla):
         monkeypatch.setattr(mod, "_sm_count", lambda index: 132)
     wrappers = {"K1": tfa.fullblock_attention, "K2": tfa.flash_forward, "K3": tfd.flash_decode,
-                "K4": tla.fused_tile_attention, "merge": tfa.merge_partials}
+                "K4": tla.fused_tile_attention, "merge": tfa.merge_partials, "K5/K6": tfa.flash_backward}
     before = {k: f.launches for k, f in wrappers.items()}
     plain_route.reset()
 
@@ -59,6 +63,7 @@ def probe(monkeypatch):
         launched = {k: f.launches - before[k] for k, f in wrappers.items()}
         return {k: n for k, n in launched.items() if n}, {k: n for k, n in plain_route.counts.items() if n}
 
+    counts.symbols = symbols
     yield counts
     plain_route.reset()
 
@@ -300,21 +305,27 @@ def test_projector_routes_on_the_tile_contract(probe, dtype, want):
 def test_wrappers_still_raise_off_their_contract(probe):
     """The route decides before the call; the wrappers keep refusing device
     operands outside their contract: a head dim past 128, fp16, and (before
-    its forward runs) an fp32 forward that needs a gradient, which names the
-    K5/K6 instance it lacks."""
+    its forward runs) a forward that needs a gradient no K5/K6 instance
+    computes, past head dim 128 or in fp16, which names the instance it
+    lacks. (fp32 and bf16 gradients at head dims to 128 compute:
+    ``test_gradients_reach_their_backward_instance``.)"""
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         tfa.flash_forward(meta(1, 4, 200, 128, dtype=torch.float16), meta(1, 4, 200, 128, dtype=torch.float16),
                           meta(1, 4, 200, 128, dtype=torch.float16), None, 0.1)
     with pytest.raises(ValueError, match="head dim 136"):
         tfa.fullblock_attention(meta(4, 200, 136), meta(4, 200, 136), meta(4, 200, 136), 0.1)
-    for d, dtype, instance in ((128, F32, "no float32 instance at head dim 128"),
-                               (96, BF16, "no bfloat16 instance at head dim 96")):
+    for d, dtype, instance in ((136, F32, "no float32 instance at head dim 136"),
+                               (136, BF16, "no bfloat16 instance at head dim 136"),
+                               (96, torch.float16, "no float16 instance at head dim 96")):
         q = meta(1, 4, 200, d, dtype=dtype).requires_grad_()
         with pytest.raises(TypeError, match=instance):
             tfa.flash_attention(q, q, q, is_causal=True)
-    q = meta(1, 4, 200, 128, dtype=F32)
-    with pytest.raises(TypeError, match="K5/K6 have no float32 instance"):
+    q = meta(1, 4, 200, 136, dtype=F32)
+    with pytest.raises(ValueError, match="flash backward: head dim 136"):
         tfa.flash_backward(q, q, q, None, q, meta(1, 4, 200, dtype=F32), q, 0.1)
+    q = meta(1, 4, 200, 128, dtype=F32)
+    with pytest.raises(TypeError, match="out and dO of q's dtype"):  # one dtype throughout
+        tfa.flash_backward(q, q, q, None, meta(1, 4, 200, 128), meta(1, 4, 200, dtype=F32), q, 0.1)
     with pytest.raises(TypeError, match="bfloat16"):
         tfd.flash_decode(meta(1, 4, 1, 128, dtype=F32), meta(1, 2, 64, 128), meta(1, 2, 64, 128),
                          torch.ones(1, 64, dtype=torch.bool, device="meta"))
@@ -328,3 +339,28 @@ def test_wrappers_still_raise_off_their_contract(probe):
         tla.fused_tile_attention(meta(2, 9, 9, 64, dtype=torch.float16), meta(8, 27, 27, 64, dtype=torch.float16),
                                  meta(8, 27, 27, 64, dtype=torch.float16), (4, 3, 3), 0.125)
     assert probe() == ({}, {})
+
+
+@pytest.mark.parametrize("d,dtype,gqa,symbols", [
+    # the cases test_wrappers_still_raise_off_their_contract held as raising before K5/K6 had them
+    (128, F32, False, ("hicom_flash_bwd_dq_f32", "hicom_flash_bwd_dkv_f32")),
+    (96, BF16, False, ("hicom_flash_bwd_dq", "hicom_flash_bwd_dkv")),
+    # fp32 at every padded width, and the other new bf16 widths
+    (16, F32, False, ("hicom_flash_bwd_dq_f32", "hicom_flash_bwd_dkv_f32")),
+    (72, F32, False, ("hicom_flash_bwd_dq_f32", "hicom_flash_bwd_dkv_f32")),
+    (112, F32, True, ("hicom_flash_bwd_dq_f32", "hicom_flash_bwd_dkv_f32")),
+    (16, BF16, False, ("hicom_flash_bwd_dq", "hicom_flash_bwd_dkv")),
+    (48, BF16, True, ("hicom_flash_bwd_dq", "hicom_flash_bwd_dkv")),
+    (112, BF16, False, ("hicom_flash_bwd_dq", "hicom_flash_bwd_dkv")),
+])
+def test_gradients_reach_their_backward_instance(probe, d, dtype, gqa, symbols):
+    """A gradient through ``flash_attention`` (or the GQA entry) on the device
+    branch: K2 forward, then one K5/K6 launch of the instance of its dtype,
+    fp32 gradients of fp32 operands; the split count comes from the shape."""
+    q = meta(2, 8, 300, d, dtype=dtype).requires_grad_()
+    k = meta(2, 2 if gqa else 8, 300, d, dtype=dtype).requires_grad_()
+    out = (tfa.flash_attention_gqa if gqa else tfa.flash_attention)(q, k, k, is_causal=True)
+    grads = torch.autograd.grad(out, (q, k), meta(*out.shape, dtype=dtype))
+    assert [g.dtype for g in grads] == [dtype, dtype] and grads[1].shape == k.shape
+    assert probe() == ({"K2": 1, "K5/K6": 1}, {})
+    assert tuple(s for s in probe.symbols if "bwd" in s) == symbols
