@@ -34,7 +34,12 @@ Phases:
      in fp32 at [fp32-train]'s shapes (K5 and K6 at the 7B decoder and the
      global compressor's b 2, the sum pass writing fp32) at the fp32 gate,
      with SDPA's fp32 backward beside them, and K5/K6 at head dims 16, 48, 96
-     and 112 in bf16 and at 16 and 96 in fp32 (checks only);
+     and 112 in bf16 and at 16 and 96 in fp32 (checks only); and past head
+     dim 128, in bf16 and fp32: K1 over 64 rows of 729 at d 192 and 256
+     (checks only), K2, K5 and K6 at [hd256]'s prefill (b 2, 14 / 2 heads of
+     256, 743 tokens, causal, lengths 743 / 700) and at d 192, K2 forced to 3
+     splits with its merge, K6 to 1 and 7 and K5 to 3, the merge and both sum
+     passes over d-256 rows;
   4. serving at the full width of the released HICom-7B (SigLIP-so400m,
      local43_global32 with direct guide, Qwen2.5-7B in bf16, weights from a seed
      on the card): 3 requests of a 32-frame 384x384 video through
@@ -103,6 +108,14 @@ Phases:
      depth, the flash backward (its fp32 instance) 29 times a step, step 1's
      trained gradients within the fp32 gate of the plain path's, frozen
      tensors' bits kept, trained tensors moved; step ms and peak memory;
+     [hd256]: HICom-7B with its decoder reshaped to 14 / 2 heads of 256
+     (Qwen2.5-7B's projection sizes; a width variant, not a published
+     checkpoint) at 4 layers, norms at 1: phase 4's 3 requests (K2 at d 256
+     per decoder layer, every decode step on the plain path by K3's
+     contract), 8 greedy ids and last-token logits against the plain path on
+     the card (past the gate, both against the fp32 plain path on the same
+     weights), then 2 stage-2 steps with K5/K6 at d 256, step 1's gradients
+     against the plain path's;
   5. training at the same width: 3 stage-2 steps (projector and guide injectors
      trained, towers and decoder frozen) on a seeded batch of 2, with finite
      losses, frozen weights bit-identical, trained weights moved, 29 flash
@@ -187,12 +200,13 @@ Phases:
 
 After every phase but [fp32-route], no decode step went to the plain path
 by K3's contract (``cuda_build.plain_route``: every other phase runs bf16 at
-head dims and groups K3 takes, or counts its fp32 decode steps and resets:
-[fp32-serve], [closed-loop]'s fp32 call). Prints one line per check, then a JSON object with the
-kernels (each row at a shape of the main paths, its launches counted in the
+head dims and groups K3 takes, or counts its decode steps that K3 does not
+take, fp32 or at head dim 256, and resets: [fp32-serve], [hd256],
+[closed-loop]'s fp32 call). Prints one line per check, then a JSON object with
+the kernels (each row at a shape of the main paths, its launches counted in the
 phase that runs that shape: serving, [serve-engine], [ring-prefill], stage 2,
 the 1.5B stage 3, [clip], [anyres], [anyres-train], [baseline-0.5b] and its
-image request, or [fp32-serve]), then the card's name and power limit,
+image request, [fp32-serve], or [hd256]), then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before that last line. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -320,14 +334,15 @@ def float64_referee(got, plain, exact, mantissa: int = 7):
     return mk, mp, ulp, rk, rp, mk <= (1 + 2**-3) * mp + ulp and rk <= (1 + 2**-3) * rp
 
 
-def kernel_checks(card: str):
+def kernel_checks(card: str, wide_only: bool = False):
     """Phase 3: returns {entry name: (kernel id, phase, record)} for the JSON
     line, ``phase`` naming the run of the main paths that gives the kernel this
     row's shape and whose launch count the row reports. Rows at a shape or call
     form that no phase runs (forced split counts, the int8 cache, the
     clip-scale form, the backward at the tower shape) are checks only: they
     print their line and fail the run on a disagreement, and stay out of the
-    JSON line."""
+    JSON line. ``wide_only``: the rows past head dim 128 alone
+    (:func:`wide_head_checks`)."""
     import torch
     import torch.nn.functional as F
 
@@ -400,6 +415,10 @@ def kernel_checks(card: str):
         if not ok:
             raise AssertionError(f"{name}: kernel further from float64 than its plain version (max {ek:.4g} "
                                  f"against {ep:.4g}, rms {rk:.4g} against {rp:.4g})")
+
+    if wide_only:
+        wide_head_checks(record, fwd_grid, sms)
+        return {name: r for name, r in records.items() if r[1] is not None}
 
     # K1: SigLIP tower self-attention, 32 frames x 16 heads, L = 729, d = 72; and one tp-2 rank's 8 heads
     # ([mesh-serve] runs tp 1 on one card: a check only)
@@ -634,6 +653,7 @@ def kernel_checks(card: str):
     backward_checks(rn, record)
     backward_checks(lambda *shape: torch.randn(*shape, generator=gen, device=dev), record, fp32=True)
     new_width_backward_checks(record)
+    wide_head_checks(record, fwd_grid, sms)
     return {name: r for name, r in records.items() if r[1] is not None}
 
 
@@ -1059,6 +1079,131 @@ def new_width_backward_checks(record):
                qd_bytes + 2 * kv_bytes, outputs=(1, 2),
                grid=(-(-L // DKV_BLOCK_K), b * KVH, dkv_splits(b, H, KVH, L, L, sms)), phase=None, **kw)
         del q, k, v, do, out, lse, ops, lq, lk, lv, lib_out, mask
+
+
+HD256_PREFILL = (2, 14, 2, 743, [743, 700])  # [hd256]'s prefill: b, H, KVH, tokens, kv lengths (phase 4's batch)
+
+
+def wide_head_checks(record, fwd_grid, sms):
+    """Phase 3, the instances past head dim 128 (``FLASH_HEAD_DIMS`` 192 and
+    256: ``flash_fwd.cu``, ``flash_fwd_f32.cu``, ``flash_bwd.cu``,
+    ``flash_bwd_f32.cu``), in bf16 and in fp32, each against its plain twin
+    on the card at its type's gate (fp32 bounds at the fp32 peak) beside SDPA
+    (its backward for K5/K6): K1 over 64 rows of 729 at d 192 and 256 (no
+    tower is that wide: checks only); K2 at [hd256]'s prefill (b 2, 14 / 2
+    heads of 256, 743 tokens, causal, lengths 743 / 700), with a forced split
+    of 3 and its merge, and the merge alone over 5 chunks of d-256 rows; K5
+    and K6 at the same shape, K6 at its default split with its sum pass, then
+    the sum pass alone, K6 forced to 1 and 7 splits and K5 to 3, with K5's sum
+    pass alone; and K2, K5 and K6 at d 192 grouped over the same prefill.
+    The bf16 rows at d 256 and the default split take their launches from
+    [hd256]; the rest are checks only."""
+    import torch
+    import torch.nn.functional as F
+
+    from hicom_tpu_torch.ops.flash_attention import (DKV_BLOCK_K, _launch, _launch_dkv, _launch_dq, _launch_merge,
+                                                     _launch_part_sum, backward_operands, dkv_splits, dq_block_q,
+                                                     dq_splits, flash_backward_reference, flash_forward,
+                                                     flash_reference, fullblock_attention, merge_partials_reference,
+                                                     sum_partials_reference)
+
+    gen = torch.Generator("cuda").manual_seed(19)
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        item, tag, f = (2, "bf16", "") if bf16 else (4, "fp32", "-f32")
+        kw = dict(gate=BF16_GATE) if bf16 else dict(gate=FP32_GATE, flops_rate=FP32_PEAK)
+        gate = kw["gate"]
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+        def blocks(b, H, Lq, Lk):  # the fp32 forward's blocks hold 64 query rows
+            grid = fwd_grid(b, H, Lq, Lk)
+            return grid if bf16 else (-(-Lq // 64),) + grid[1:]
+
+        for d in (192, 256):
+            bh, L = 64, 729
+            q, k, v = rn(bh, L, d), rn(bh, L, d), rn(bh, L, d)
+            record(f"fullblock_attention[64x729 d{d} {tag}]", f"K1{f}", lambda: fullblock_attention(q, k, v, d**-0.5),
+                   lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.0, False)[0][:, 0],
+                   lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
+                   4 * bh * L * L * d, 4 * bh * L * d * item + bh * L * 4, grid=blocks(bh, 1, L, L), phase=None, **kw)
+            del q, k, v
+
+        b, H, KVH, L, lens = HD256_PREFILL
+        kl = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        pos = torch.arange(L, device="cuda")
+        mask = (pos[None, :] <= pos[:, None])[None, None] & (pos[None, None, None, :] < kl[:, None, None, None])
+        valid = (pos[None, :] < kl[:, None])[:, None, :].expand(b, H, L)
+        pairs = sum(int(np.minimum(n, np.arange(L) + 1).sum()) for n in lens)
+        for d in (256, 192):
+            main = bf16 and d == 256  # the shape and type [hd256] runs
+            phase = "hd256" if main else None
+            label = f"prefill hd256 d{d} {tag}" if d == 256 else f"prefill 14/2 d{d} {tag}"
+            q, k, v, do = rn(b, H, L, d), rn(b, KVH, L, d), rn(b, KVH, L, d), rn(b, H, L, d)
+            fwd_bytes = 2 * b * H * L * d * item + 2 * KVH * sum(lens) * d * item + b * H * L * 4
+            record(f"flash_forward[{label}]", f"K2{f}", lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
+                   lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
+                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
+                   4 * H * d * pairs, fwd_bytes, valid, grid=blocks(b, H, L, L), phase=phase, **kw)
+            if d == 256:  # the split path at this width: 3 chunks of the key tiles, then the merge kernel
+                record(f"flash_forward[{label} split 3]", f"K2{f}",
+                       lambda: _launch(q, k, v, kl, d**-0.5, 0.0, True, n_split=3),
+                       lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True), None,
+                       4 * H * d * pairs, fwd_bytes, valid, grid=blocks(b, H, L, L)[:2] + (3,), phase=None, **kw)
+            out, lse = flash_forward(q, k, v, kl, d**-0.5, 0.0, True)
+            ops = backward_operands(q, k, v, kl, out, lse, do)
+            plain = lambda: flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, 0.0, True)  # noqa: E731
+            lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, scale=d**-0.5, enable_gqa=True)
+            library = lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do, retain_graph=True)  # noqa: E731
+            qd_bytes, kv_bytes = 2 * b * H * L * d * item + 2 * b * H * L * 4, 2 * b * KVH * L * d * item
+            dq_grid = (-(-L // dq_block_q(L)), b * H, dq_splits(b, H, L, L, sms))
+            dkv_grid = (-(-L // DKV_BLOCK_K), b * KVH, dkv_splits(b, H, KVH, L, L, sms))
+            dq_flops, dkv_flops = 6 * H * d * pairs, 8 * H * d * pairs
+            record(f"flash_backward_dq[{label}]", f"K5{f}", lambda: (_launch_dq(*ops, d**-0.5, 0.0, True),), plain,
+                   library, dq_flops, qd_bytes + kv_bytes + b * H * L * d * item, outputs=(0,), grid=dq_grid,
+                   phase="hd256" if main else None, **kw)
+            record(f"flash_backward_dkv[{label}]", f"K6{f}", lambda: _launch_dkv(*ops, d**-0.5, 0.0, True), plain,
+                   library, dkv_flops, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid,
+                   phase="hd256" if main else None, **kw)
+            if d == 256:
+                for n_split in (1, 7):
+                    record(f"flash_backward_dkv[{label} split {n_split}]", f"K6{f}",
+                           lambda: _launch_dkv(*ops, d**-0.5, 0.0, True, n_split=n_split), plain, None, dkv_flops,
+                           qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid[:2] + (n_split,), phase=None, **kw)
+                record(f"flash_backward_dq[{label} split 3]", f"K5{f}",
+                       lambda: (_launch_dq(*ops, d**-0.5, 0.0, True, n_split=3),), plain, None, dq_flops,
+                       qd_bytes + kv_bytes + b * H * L * d * item, outputs=(0,), grid=dq_grid[:2] + (3,),
+                       phase=None, **kw)
+                n, N = dkv_grid[2], b * KVH * L * d
+                dk_part, dv_part = (torch.randn(n, N, generator=gen, device="cuda") for _ in range(2))
+                record(f"flash_dkv_sum[{label}, {n} splits]", "K6-sum",
+                       lambda: _launch_part_sum((dk_part, d**-0.5), (dv_part, 1.0), dtype=dtype),
+                       lambda: (sum_partials_reference(dk_part, d**-0.5, dtype),
+                                sum_partials_reference(dv_part, 1.0, dtype)), None,
+                       2 * n * N, 2 * (n * N * 4 + N * item), outputs=2, grid=(-(-N // 4 // 128), 2),
+                       flops_rate=FP32_PEAK, phase="hd256" if main else None, gate=gate)
+                n, N = 3, b * H * L * d
+                part = torch.randn(n, N, generator=gen, device="cuda")
+                record(f"flash_dq_sum[{label}, {n} chunks]", "K5-sum", lambda: _launch_part_sum((part, d**-0.5),
+                                                                                              dtype=dtype),
+                       lambda: sum_partials_reference(part, d**-0.5, dtype), None, n * N, n * N * 4 + N * item,
+                       grid=(-(-N // 4 // 128), 1), flops_rate=FP32_PEAK, phase=None, gate=gate)
+                del dk_part, dv_part, part
+            del q, k, v, do, out, lse, ops, lq, lk, lv, lib_out
+            torch.cuda.empty_cache()
+        del mask
+        n, rows, d = 5, 14 * 743, 256  # the merge alone over d-256 rows, chunks with no tile or all masked
+        o = torch.randn(n, rows, d, generator=gen, device="cuda") * 50
+        m = torch.randn(n, rows, generator=gen, device="cuda") * 3
+        m[1], m[3, : rows // 2] = -1e30, float("-inf")
+        l = torch.rand(n, rows, generator=gen, device="cuda") * 50 + 1
+        record(f"flash_merge[14 x 743 rows d256 {tag}, {n} chunks]", "K2-merge", lambda: _launch_merge(o, m, l, dtype),
+               lambda: merge_partials_reference(o, m, l, dtype), None, 4 * n * rows * d,
+               n * rows * (d + 2) * 4 + rows * (d * item + 4), outputs=2, grid=(-(-rows // 4),), flops_rate=FP32_PEAK,
+               phase=None, gate=gate)
+        del o, m, l
 
 
 def cut_depth(cfg, layers: int = None):
@@ -1653,6 +1798,199 @@ def fp32_train_phase(card: str):
     del model, state, opt, params, trained_before, batch
     torch.cuda.empty_cache()
     return launches
+
+
+HD256_LAYERS = 4  # [hd256]'s depth: the tower, guide and decoder at full depth run in the other phases
+HD256_STEPS = 2
+
+
+def hd256_config(layers: int = HD256_LAYERS):
+    """HICom-7B (``serving_config``: so400m, ``local43_global32`` with the
+    direct guide, bf16) with its decoder's attention reshaped to 14 query and
+    2 kv heads of 256, which keeps Qwen2.5-7B's projection sizes (q and o
+    3,584 x 3,584, k and v 3,584 x 512): a width variant the JAX package
+    builds (``Qwen2Config.head_dim`` is a field of its own), not a published
+    checkpoint; decoder, tower and guide cut to ``layers``."""
+    from hicom_tpu_torch.config import Qwen2Config
+
+    return cut_depth(serving_config().replace(
+        text_config=Qwen2Config(num_attention_heads=14, num_key_value_heads=2, head_dim=256)), layers)
+
+
+def fp32_plain_logits(model, cfg, batch):
+    """:func:`last_logits` of ``model``'s weights in fp32 (each bf16 weight
+    exactly, TF32 off) on the plain path: the reference against which a bf16
+    kernel path and a bf16 plain path are weighed (:func:`float64_referee`)
+    where their logits exceed the gate between them."""
+    import torch
+
+    from hicom_tpu_torch.api import build_model
+
+    m32 = build_model(cfg.replace(dtype="float32"), device=DEVICE, seed=0)
+    m32.load_state_dict(model.state_dict())
+    with plain_path():
+        out = last_logits(m32, batch)
+    del m32
+    torch.cuda.empty_cache()
+    return out
+
+
+def hd256_phase(card: str) -> dict:
+    """[hd256]: attention at head dim 256 on the main paths, at HICom-7B's
+    full width (:func:`hd256_config`, seeded by ``build_model``, the decoder's
+    norms at 1) and 4 layers. Phase 4's 3 requests (a right-padded batch of 2,
+    then one alone, 16 new tokens) through ``HICom.generate``: K1 (each tower
+    layer), K2 (each decoder layer's d-256 prefill, and the global
+    compressor) and K4 launch as often as the phase reckons from the depth;
+    each one-token step takes the masked ``sdpa`` by K3's contract (K3 has
+    head dims 64 and 128), counted in ``plain_route`` once per layer and step
+    and reset here. The single request's 8 greedy ids against
+    ``plain_path()``'s on the card (equal, or first apart at a near-tie of
+    the plain run, ``NEAR_TIE``) and its last-token logits within
+    ``BF16_GATE``, or, past it, no further from the fp32 plain path on the
+    same weights than the bf16 plain path is (:func:`float64_referee`, the
+    rule of a kernel row above the gate). Then 2 stage-2 steps (``train_phase``'s recipe): K5/K6
+    once per decoder layer (d 256) and once for the global compressor
+    (d 128) a step; step 1's trained gradients against ``plain_path()``'s on
+    the same weights and batch, each tensor's difference within 5% of its
+    norm (the 2-layer comparison's rule, per tensor; a gradient the softmax
+    cancels, whose exact value is 0, held below 2^-16 of the largest gradient
+    element on both paths); frozen tensors keep their bits, trained ones
+    with a gradient move. Returns the serving launches of the 3 requests
+    and the flash backward's of the steps."""
+    import torch
+
+    from hicom_tpu_torch.api import HICom, build_model
+    from hicom_tpu_torch.ops.cuda_build import plain_route
+    from hicom_tpu_torch.train.optimizer import build_optimizer
+    from hicom_tpu_torch.train.train_step import batch_to_device, create_train_state, make_loss_fn, make_train_step
+
+    cfg = hd256_config()
+    tc = cfg.text_config
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE, seed=0)
+    norms_at_one(model)
+    q_proj = model.model.layers[0].self_attn.q_proj.weight
+    torch.cuda.synchronize()
+    log(f"[hd256] built HICom-7B with {tc.num_attention_heads} / {tc.num_key_value_heads} decoder heads of "
+        f"{tc.head_dim} (q_proj {tuple(q_proj.shape)}), {tc.num_hidden_layers} layers, seeded weights in "
+        f"{time.perf_counter() - t0:.1f} s, {sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
+    hc = HICom(config=cfg, model=model, eos_token_id=tc.eos_token_id, cache_len=4096)
+    batch, single = make_requests(cfg)
+    hc.generate(**single, max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+
+    steps = [0]
+    hook = model.model.register_forward_pre_hook(
+        lambda mod, args: steps.__setitem__(0, steps[0] + (args[0].shape[1] == 1)))
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    plain_route.reset()
+    try:
+        t0 = time.perf_counter()
+        out2 = hc.generate(**batch, max_new_tokens=16)
+        out1 = hc.generate(**single, max_new_tokens=16)
+        wall = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    launches = {name: f.launches for name, f in fns.items()}
+    k3_plain = plain_routes()["K3"]
+    plain_route.reset()
+    layers, calls = tc.num_hidden_layers, 2
+    reckoned = {"fullblock_attention": calls * cfg.vision_config.num_hidden_layers,
+                "flash_forward": calls * (layers + 1), "flash_decode": 0, "fused_tile_attention": calls}
+    log(f"[hd256] launches {launches} (reckoned {reckoned}) | decode steps {steps[0]}, K3 plain-route calls "
+        f"{k3_plain} (reckoned {steps[0] * layers}) | 3 requests {wall:.3f} s")
+    if launches != reckoned:
+        raise AssertionError(f"[hd256] launches {launches} are not the reckoned {reckoned}")
+    if steps[0] <= 0 or k3_plain != steps[0] * layers:
+        raise AssertionError(f"[hd256] {k3_plain} plain-route decode calls for {steps[0]} steps x {layers} layers")
+    for out in (out2, out1):
+        if not (out.min() >= 0 and out.max() < tc.vocab_size):
+            raise AssertionError(f"[hd256] generated ids out of range: {out}")
+    log(f"[hd256] batch of 2 ids: {out2.tolist()} | single ids: {out1.tolist()}")
+
+    got, _ = greedy_with_tops(hc, single, 8)
+    with plain_path():
+        ref, tops = greedy_with_tops(hc, single, 8)
+    div = first_divergence(got, ref, tops)
+    got_l = last_logits(model, with_mask(single))
+    with plain_path():
+        ref_l = last_logits(model, with_mask(single))
+    plain_route.reset()
+    err, ratio, rms, top = agreement(got_l, ref_l)
+    log(f"[hd256] 8 greedy ids, kernel path {got} vs plain path {ref}: "
+        + ("equal" if div is None else f"first apart at {div[0]}, top-2 gap there {div[1]:.4g} of |top logit| "
+           f"(allowed {NEAR_TIE:.3g})")
+        + f" | last-token logits: max_abs_err {err:.3g}, worst err/tol {ratio:.3f} (tol {gate_text(BF16_GATE)}, "
+        f"ref rms {rms:.3g}, max {top:.3g})")
+    close = ratio <= 1
+    if not close:  # decided as a kernel row above the gate is: both paths against the same weights in fp32
+        exact = fp32_plain_logits(model, cfg, with_mask(single))
+        ek, ep, ulp, rk, rp, close = float64_referee(got_l, ref_l, exact)
+        log(f"[referee] [hd256] logits: the gate is exceeded ({ratio:.3f}); against the fp32 plain path on the same "
+            f"weights: max error kernel path {ek:.4g}, plain path {ep:.4g}, one bf16 ulp at the kernel's worst element "
+            f"{ulp:.4g}; rms error kernel {rk:.4g}, plain {rp:.4g} | {'passes' if close else 'FAILS'} (kernel <= "
+            "(1 + 2^-3) plain + 1 ulp, rms <= (1 + 2^-3) plain's)")
+    if (div is not None and not div[1] <= NEAR_TIE) or not (torch.isfinite(got_l).all() and close):
+        raise AssertionError(f"[hd256] the kernel path departs from the plain path: ids {got} vs {ref}, logits "
+                             f"worst err/tol {ratio}")
+    del hc
+
+    opt = build_optimizer(model, learning_rate=1e-3, guide_injector_lr=1e-3, total_steps=HD256_STEPS,
+                          tunable_parts="mm_projector", use_guide="direct")
+    state = create_train_state(model, opt, device=DEVICE)
+    params = dict(model.named_parameters())
+    trained = sorted(n for n, p in params.items() if p.requires_grad)
+    frozen_before = bit_sums((n, p) for n, p in params.items() if n not in trained)
+    trained_before = {n: params[n].detach().clone() for n in trained}
+    tbatch = batch_to_device(make_train_batch(cfg), torch.device(DEVICE), torch.bfloat16)
+
+    def grads():
+        return {n: params[n].grad.detach().float() if params[n].grad is not None else
+                torch.zeros_like(params[n], dtype=torch.float32) for n in trained}
+
+    with plain_path():  # step 1's gradients on the plain path, from the same weights
+        loss_p, _ = make_loss_fn(model)(tbatch)
+        loss_p.backward()
+    plain = grads()
+    for p in model.parameters():
+        p.grad = None
+    step = make_train_step()
+    reset_counts()
+    times, metrics, fwd, per_step = run_steps(state, step, tbatch, n=1)
+    got_g = grads()
+    noise = 2**-16 * max(float(g.abs().max()) for g in plain.values())
+    cancelled = [n for n in trained if float(plain[n].abs().max()) <= noise]
+    loud = [n for n in cancelled if float(got_g[n].abs().max()) > noise]
+    rel = {n: float((got_g[n] - plain[n]).norm()) / float(plain[n].norm()) for n in trained if n not in cancelled}
+    worst = max((r, n) for n, r in rel.items())
+    log(f"[hd256] step 1's gradients, kernel vs plain path: loss {metrics[0]['loss']:.6f} vs "
+        f"{float(loss_p.detach()):.6f}, {len(trained)} tensors, worst |diff| / |plain| {worst[0]:.4g} ({worst[1]}; "
+        f"tol 0.05 of each tensor's norm); {len(cancelled)} cancelled tensors below {noise:.3g} on both paths: "
+        f"{'yes' if not loud else loud}")
+    if loud or not worst[0] <= 0.05:
+        raise AssertionError(f"[hd256] kernel-path gradients depart from the plain path's: {worst}, {loud}")
+    del plain, got_g, loss_p
+    more = run_steps(state, step, tbatch, n=HD256_STEPS - 1)
+    times, metrics, fwd, per_step = (a + b for a, b in zip((times, metrics, fwd, per_step), more))
+    with_grad = [n for n in trained if params[n].grad is not None and params[n].grad.abs().max().item() >= 1e-8]
+    trained_launches = log_steps("hd256", card, f"HICom-7B (heads of 256, {layers} layers) stage 2", model, cfg,
+                                 tbatch, times, metrics, fwd, per_step)
+    if per_step != [layers + 1] * HD256_STEPS:  # every decoder layer (d 256) + the global compressor (d 128)
+        raise AssertionError(f"[hd256] flash backward launched {per_step} times per step, not {layers + 1}")
+    after = bit_sums((n, params[n]) for n in frozen_before)
+    changed = [n for n in frozen_before if not torch.equal(after[n], frozen_before[n])]
+    still = [n for n in with_grad if torch.equal(params[n].detach(), trained_before[n])]
+    if changed or still or not with_grad:
+        raise AssertionError(f"[hd256] frozen tensors changed {changed[:3]}; trained tensors with a gradient that "
+                             f"did not move {still[:3]} (of {len(with_grad)})")
+    log(f"[hd256] checks: {len(frozen_before)} frozen tensors kept their bits; {len(with_grad)} of {len(trained)} "
+        f"trained tensors had a gradient >= AdamW's eps (1e-8) and all moved")
+    del model, state, opt, params, trained_before, tbatch
+    torch.cuda.empty_cache()
+    return dict(launches, flash_backward=trained_launches["flash_backward"])
 
 
 # ---------------------------------------------------------------------------
@@ -3483,6 +3821,25 @@ def exported_weights(name: str, state, args) -> dict:
     return {**sd, **{n: params[n].half().to(sd[n].dtype) for n in rounded}}
 
 
+@contextmanager
+def skipped_checkpoint(skip: bool):
+    """While inside, with ``skip``, the trainer's ``save_checkpoint`` writes
+    nothing: ``[cli]``'s resident full-SFT stage would write 19 GB of masters
+    and moments that the phase deletes unread (about 15 s of the smoke's
+    limit). ``sft-offload`` still writes its checkpoint, whose moments come
+    from pinned host memory through the copy streams; a checkpoint's round
+    trip is ``tests/test_torch_cli_port.py``'s and ``test_torch_offload.py``'s."""
+    from hicom_tpu_torch.train import checkpoints
+
+    saved = checkpoints.save_checkpoint
+    if skip:
+        checkpoints.save_checkpoint = lambda output_dir, state, step=None, max_to_keep=3: None
+    try:
+        yield
+    finally:
+        checkpoints.save_checkpoint = saved
+
+
 def cli_phase(card: str):
     """Phase 7: the trainer's CLI from files at the width of HICom-7B with 2
     tower and 2 decoder layers: stage 2 (``--pretrain-weights``, 2 steps ->
@@ -3550,7 +3907,8 @@ def cli_phase(card: str):
         args = cli.build_parser().parse_args(common + flags + ["--output-dir", out])
         reset_counts()
         t0 = time.perf_counter()
-        state = cli.run(args, tok, guide_tok)
+        with skipped_checkpoint(name == "sft"):
+            state = cli.run(args, tok, guide_tok)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3565,7 +3923,7 @@ def cli_phase(card: str):
         if len(losses) != 2 or not all(np.isfinite(losses)):
             raise AssertionError(f"[cli] {name}: expected 2 finite losses, got {losses}")
         kept[name] = losses
-        shutil.rmtree(os.path.join(out, "checkpoints"), ignore_errors=True)  # a full-SFT stage's: 19 GB
+        shutil.rmtree(os.path.join(out, "checkpoints"), ignore_errors=True)  # sft-offload's: 19 GB
         if name == "sft-offload":
             from hicom_tpu_torch.weights import load_hf_state_dict
 
@@ -4764,6 +5122,8 @@ def main() -> int:
     # fp32 HICom-7B; its decode steps' plain-route calls are checked and reset inside
     launches["fp32-serve"] = on_contract("fp32-serve", fp32_serve_phase(card))
     launches["fp32-train"] = on_contract("fp32-train", fp32_train_phase(card))
+    # heads of 256; its decode steps' plain-route calls (layers x steps) are checked and reset inside
+    launches["hd256"] = on_contract("hd256", hd256_phase(card))
     launches["serve-int8"] = on_contract("serve-int8", serve_quant_phase(card, "serve-int8", "int8"))
     launches["serve-w8a8"] = on_contract("serve-w8a8", serve_quant_phase(card, "serve-w8a8", "w8a8s", "w8a8s_mlp_qkv"))
     launches["model-init"] = on_contract("model-init", model_init_phase(card))

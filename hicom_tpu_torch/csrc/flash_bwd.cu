@@ -54,14 +54,29 @@
 //     keep one split.
 //   * dS and P are formed in the accumulator layout of S^T/dP (K6) or S/dP (K5) and reused directly
 //     as the A operand of the next product, as the forward does with P.
-//   * d is padded inside shared memory to DP (a multiple of 16): every padded head dim 16, 32, ..., 128 has
-//     an instance of each kernel. K5 takes DP / 16 k-steps of mma.sync; K6's tiles are the forward's
-//     (hopper.cuh Tile<DP>), the columns past the last whole 64-column box (all of them at d <= 48) arriving
-//     as 8-column chunks, and its dV/dK products over them one wgmma of N = 16 or 32, or 32 then 16 (a
-//     48-column tail: d 48, d 112). Rows past Lq / Lk load as zeros, and a query row past Lq reads
+//   * d is padded inside shared memory to DP (hopper.cuh padded_dim: a multiple of 16 up to 128, then 192 or
+//     256): every padded head dim 16, 32, ..., 128, 192, 256 has an instance of each kernel. K5 takes DP / 16
+//     k-steps of mma.sync; K6's tiles are the forward's (hopper.cuh Tile<DP>), the columns past the last whole
+//     64-column box (all of them at d <= 48) arriving as 8-column chunks, and its dV/dK products over them one
+//     wgmma of N = 16 or 32, or 32 then 16 (a 48-column tail: d 48, d 112); past 128 the last box reaches past
+//     d and TMA fills it with zeros. Rows past Lq / Lk load as zeros, and a query row past Lq reads
 //     lse = +inf, so its p is 0.
-//   * kv_lengths is a runtime argument of one instance per mask kind (causal or not): the masks test every
-//     key against the row's limit either way.
+//   * Past padded d 128 the registers run out, and both kernels change shape, not semantics:
+//       - K5: Q and dO (64 + 64 registers a thread at 256, beside dQ's 128) leave the registers for shared
+//         memory, copied once with the first K/V tile, and each k-step reads its A fragments with ldmatrix
+//         (202,752 bytes of shared memory at 256: one block per SM). Its tiles, rows per block and split
+//         chunks stay as they are, so split_dq_reference describes every width.
+//       - K6: dK and dV (2 x 128 registers at 256) no longer fit one warpgroup, so a block has two over its
+//         64 keys: warpgroup 0 computes S^T = K Q^T, P^T and dV += P^T dO; warpgroup 1 computes
+//         dP^T = V dO^T, takes P^T in fp32 from warpgroup 0 through shared memory (a named barrier), forms
+//         dS^T and dK += dS^T Q. Each issues its products through one code path with its operands chosen by
+//         warpgroup, so ptxas keeps them asynchronous. Units, splits and the sum pass stay as they are
+//         (214,040 bytes of shared memory at 256, one block per SM).
+//   * kv_lengths is a runtime argument of both kernels (the masks test every key against the row's limit
+//     either way), and so is causal in K5 (one uniform test beside its mask of every key): K5 has one instance
+//     per padded head dim and block height, K6 one per padded head dim and mask kind, 40 in all, where the
+//     wide instances made the build the smoke's longest wait. K6 keeps causal a template argument: at run
+//     time it cost K6 10-12% at the decoder and tower shapes on the H100 (PERF.md §6).
 //   * delta = rowsum(dO * O) is one fp32 reduction in the wrapper, as the JAX package computes it
 //     outside its kernels.
 #include <math.h>
@@ -86,8 +101,11 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c0, const flo
 
 constexpr int DKV_BK = 64;  // K6: keys per block, one warpgroup (16 per warp)
 constexpr int DKV_BQ = 64;  // K6: query rows per unit of its ring
-// K6's ring slots: 3 where the block is small (d <= 80), else 2; two blocks share an SM either way
+// K6's ring slots: 3 where the block is small (d <= 80), else 2; two blocks share an SM up to 128
 __host__ __device__ constexpr int dkv_stages(int dp) { return dp <= 80 ? 3 : 2; }
+// K6's warpgroups: one up to padded d 128; past it dK and dV (64 x DP fp32 each, 2 x 96 or 2 x 128 registers
+// a thread) cannot share one, so warpgroup 0 holds dV and warpgroup 1 dK (one block per SM)
+__host__ __device__ constexpr int dkv_warpgroups(int dp) { return dp <= 128 ? 1 : 2; }
 static_assert(WG_THREADS == 2 * DKV_BQ, "K6 copies lse (first half of the threads) and delta (second half)");
 
 // TMA maps of q and dO (d columns, Lq rows, B * H heads), k and v (d columns, Lk rows, B * KVH heads):
@@ -103,20 +121,34 @@ struct DkvParams {
   float scale, bias;
 };
 
+// K, V, the ring of Q and dO, each slot's lse and delta, past 128 the fp32 P^T that warpgroup 0 hands
+// warpgroup 1, then the mbarriers
 template <int DP>
-__host__ __device__ constexpr int dkv_smem_bytes() {  // K, V, the ring of Q and dO, each slot's lse and delta, the mbarriers
-  return 2 * DKV_BK * DP * 2 + dkv_stages(DP) * (2 * DKV_BQ * DP * 2 + 2 * DKV_BQ * 4 + 8) + 8;
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return 2 * DKV_BK * DP * 2 + dkv_stages(DP) * (2 * DKV_BQ * DP * 2 + 2 * DKV_BQ * 4) +
+         (dkv_warpgroups(DP) > 1 ? DKV_BK * DKV_BQ * 4 : 0) + (dkv_stages(DP) + 1) * 8;
 }
 
-// K6. grid (ceil(Lk / 64), B * KVH, n_split), one warpgroup, dkv_smem_bytes<DP>() of dynamic shared
-// memory. Writes scale * dK and dV in bf16 (n_split == 1) or the split's unscaled fp32 partials.
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// K6. grid (ceil(Lk / 64), B * KVH, n_split), dkv_warpgroups(DP) warpgroups, dkv_smem_bytes<DP>() of
+// dynamic shared memory. Writes scale * dK and dV in bf16 (n_split == 1) or the split's unscaled fp32
+// partials.
 template <int DP, bool CAUSAL>
-__global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
+__global__ void __launch_bounds__(WG_THREADS * dkv_warpgroups(DP), DP <= 128 ? 2 : 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
   constexpr int BK = DKV_BK, BQ = DKV_BQ;
   constexpr int KC = DP / 16;   // k16 steps of S^T and dP^T over d
   constexpr int NT_S = BQ / 8;  // 8-query tiles of S^T and dP^T
   constexpr int NACC = DP / 2;  // accumulator registers of dK, and of dV (64 x DP per warpgroup)
   constexpr int STAGES = dkv_stages(DP);
+  constexpr bool WIDE = dkv_warpgroups(DP) > 1;
+  constexpr int NTHREADS = WG_THREADS * dkv_warpgroups(DP);
   constexpr int TILE_K = BK * DP * 2, TILE_Q = BQ * DP * 2;  // bytes of a K or V tile, of a Q or dO tile
   typedef Tile<DP> T;
   static_assert(2 * BK * (DP * 4 + 16) <= dkv_smem_bytes<DP>(), "the epilogue stages dK and dV in fp32 rows");
@@ -125,7 +157,8 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __gr
   const uint32_t ring = sv + TILE_K;  // slot s: Q at ring + 2 s TILE_Q, dO TILE_Q bytes later
   float* s_lse = reinterpret_cast<float*>(smem + 2 * TILE_K + STAGES * 2 * TILE_Q);  // slot s at s * BQ
   float* s_delta = s_lse + STAGES * BQ;
-  const uint32_t bars = smem_u32(s_delta + STAGES * BQ);  // slot s's barrier at bars + 8 s, then K/V's
+  float* xchg = s_delta + STAGES * BQ;  // WIDE: P^T, each thread's 32 values as 8 float4s WG_THREADS apart
+  const uint32_t bars = smem_u32(xchg + (WIDE ? BK * BQ : 0));  // slot s's barrier at bars + 8 s, then K/V's
   const uint32_t kvbar = bars + STAGES * 8;
 
   const int bkv = blockIdx.y;  // b * KVH + kvh
@@ -133,7 +166,9 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __gr
   const int G = p.H / p.KVH;
   const int split = blockIdx.z;
   const int k0 = blockIdx.x * BK;
-  const int warp = threadIdx.x / 32;
+  const int wg = WIDE ? __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0) : 0;  // warp-uniform for ptxas
+  const int tid = threadIdx.x % WG_THREADS;  // within the warpgroup
+  const int warp = tid / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -160,8 +195,8 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __gr
     T::load(slot_q(i), &p.tq, &p.tq8, BQ, unit_q0(i), unit_head(i), bar(i), tail_loaded);
     T::load(slot_q(i) + TILE_Q, &p.tdo, &p.tdo8, BQ, unit_q0(i), unit_head(i), bar(i), tail_loaded);
   };
-  // lse and delta of unit i, row threadIdx.x % BQ: the first BQ threads take lse, less the bias and in
-  // the log2 domain, the others delta; rows past Lq get +inf and 0, so their p is 0
+  // lse and delta of unit i, row threadIdx.x % BQ, by the first warpgroup: its first BQ threads take
+  // lse, less the bias and in the log2 domain, the others delta; rows past Lq get +inf and 0, so their p is 0
   auto stat = [&](int i) {
     const int q = unit_q0(i) + threadIdx.x % BQ;
     const size_t at = (size_t)unit_head(i) * p.Lq + q;
@@ -169,15 +204,16 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __gr
     return q < p.Lq ? p.delta[at] : 0.f;
   };
   auto put_stat = [&](int i, float x) { (threadIdx.x < BQ ? s_lse : s_delta)[(i % STAGES) * BQ + threadIdx.x % BQ] = x; };
+  const bool stats = threadIdx.x < WG_THREADS;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s <= STAGES; ++s) mbar_init(bars + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // the tail chunks past d (columns 72-79 at d 72) are zero in K, V and every slot, once
-  T::zero_pad(sk, BK, tail_loaded, threadIdx.x, WG_THREADS);
-  T::zero_pad(sv, BK, tail_loaded, threadIdx.x, WG_THREADS);
-  for (int i = 0; i < 2 * STAGES; ++i) T::zero_pad(ring + i * TILE_Q, BQ, tail_loaded, threadIdx.x, WG_THREADS);
+  T::zero_pad(sk, BK, tail_loaded, threadIdx.x, NTHREADS);
+  T::zero_pad(sv, BK, tail_loaded, threadIdx.x, NTHREADS);
+  for (int i = 0; i < 2 * STAGES; ++i) T::zero_pad(ring + i * TILE_Q, BQ, tail_loaded, threadIdx.x, NTHREADS);
   fence_proxy_async();
   __syncthreads();
   if (threadIdx.x == 0 && n > 0) {
@@ -186,83 +222,136 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __gr
     T::load(sv, &p.tv, &p.tv8, BK, k0, bkv, kvbar, tail_loaded);
     for (int s = 0; s < STAGES && s < n; ++s) issue(s);
   }
-  for (int s = 0; s < STAGES && s < n; ++s) put_stat(s, stat(s));
+  if (stats)
+    for (int s = 0; s < STAGES && s < n; ++s) put_stat(s, stat(s));
   __syncthreads();  // the first slots' lse and delta
   if (n > 0) mbar_wait(kvbar, 0);
 
-  float dk[NACC], dv[NACC], s[NT_S * 4], dp[NT_S * 4];
+  // dK and dV; WIDE: acc_a is this warpgroup's one accumulator, dV (warpgroup 0) or dK (warpgroup 1)
+  float acc_a[NACC], acc_b[WIDE ? 1 : NACC], s[NT_S * 4], dp[WIDE ? 1 : NT_S * 4];
+  float* dv = acc_a;
+  float* dk = WIDE ? acc_a : acc_b;
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < NACC; ++i) acc_a[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < NT_S * 4; ++i) s[i] = dp[i] = 0.f;
+  for (int i = 0; i < (WIDE ? 1 : NACC); ++i) acc_b[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NT_S * 4; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (WIDE ? 1 : NT_S * 4); ++i) dp[i] = 0.f;
   const float scale2 = p.scale * LOG2E;
 
   for (int i = 0; i < n; ++i) {
     const bool refill = i + STAGES < n;
-    const float next = refill ? stat(i + STAGES) : 0.f;  // its load is in flight through this unit
+    const float next = refill && stats ? stat(i + STAGES) : 0.f;  // its load is in flight through this unit
     mbar_wait(bar(i), (i / STAGES) & 1);
     const uint32_t sq = slot_q(i), sdo = sq + TILE_Q;
-    // S^T = K Q^T and dP^T = V dO^T: rows are the block's 64 keys, columns the unit's 64 queries
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) wgmma_ss_n64(s, T::kmajor(sk, BK, 0, kc), T::kmajor(sq, BQ, 0, kc), kc > 0);
-    wgmma_commit();
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) wgmma_ss_n64(dp, T::kmajor(sv, BK, 0, kc), T::kmajor(sdo, BQ, 0, kc), kc > 0);
-    wgmma_commit();
     const int q0 = unit_q0(i);
     bool need_mask = k0 + BK > kv_limit;
     if (CAUSAL) need_mask = need_mask || k0 + BK - 1 > q0 + diag;
     const float* lse2 = s_lse + (i % STAGES) * BQ;
     const float* dl = s_delta + (i % STAGES) * BQ;
-
-    // P^T = exp(S^T scale + bias - lse) over S^T while dP^T is in flight
-    wgmma_wait<1>();
-    fence_regs<NT_S * 4>(s);
+    // P^T = exp(S^T scale + bias - lse) over S^T, masked
+    auto probabilities = [&]() {
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
+      for (int nt = 0; nt < NT_S; ++nt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + t * 2 + (e & 1);
-        float x = exp2_approx(s[nt * 4 + e] * scale2 - lse2[col]);
-        if (need_mask) {
-          bool ok = key[e >> 1] < kv_limit;
-          if (CAUSAL) ok = ok && key[e >> 1] <= q0 + col + diag;
-          x = ok ? x : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int col = nt * 8 + t * 2 + (e & 1);
+          float x = exp2_approx(s[nt * 4 + e] * scale2 - lse2[col]);
+          if (need_mask) {
+            bool ok = key[e >> 1] < kv_limit;
+            if (CAUSAL) ok = ok && key[e >> 1] <= q0 + col + diag;
+            x = ok ? x : 0.f;
+          }
+          s[nt * 4 + e] = x;
         }
-        s[nt * 4 + e] = x;
       }
-    }
-    // dS^T = P^T (dP^T - delta) over dP^T; both in bf16 as the A operands of dV and dK
-    wgmma_wait<0>();
-    fence_regs<NT_S * 4>(dp);
+    };
+    uint32_t pa[BQ / 16][4];
+    auto pack = [&](uint32_t (*a)[4], const float* x) {
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt)
+      for (int kc = 0; kc < BQ / 16; ++kc)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[nt * 4 + e] = s[nt * 4 + e] * (dp[nt * 4 + e] - dl[nt * 8 + t * 2 + (e & 1)]);
-    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-#pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pa[kc][j] = pack_bf16(s[8 * kc + 2 * j], s[8 * kc + 2 * j + 1]);
-        da[kc][j] = pack_bf16(dp[8 * kc + 2 * j], dp[8 * kc + 2 * j + 1]);
-      }
+        for (int j = 0; j < 4; ++j) a[kc][j] = pack_bf16(x[8 * kc + 2 * j], x[8 * kc + 2 * j + 1]);
+    };
 
-    // dV += P^T dO and dK += dS^T Q: the k-dimension is the unit's 64 queries
-    wgmma_fence();
+    if constexpr (!WIDE) {
+      // S^T = K Q^T and dP^T = V dO^T: rows are the block's 64 keys, columns the unit's 64 queries
+      wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      T::rs_mn(dv, pa[kc], sdo, BQ, kc);
-      T::rs_mn(dk, da[kc], sq, BQ, kc);
+      for (int kc = 0; kc < KC; ++kc) wgmma_ss_n64(s, T::kmajor(sk, BK, 0, kc), T::kmajor(sq, BQ, 0, kc), kc > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) wgmma_ss_n64(dp, T::kmajor(sv, BK, 0, kc), T::kmajor(sdo, BQ, 0, kc), kc > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // P^T over S^T while dP^T is in flight
+      fence_regs<NT_S * 4>(s);
+      probabilities();
+      // dS^T = P^T (dP^T - delta) over dP^T; both in bf16 as the A operands of dV and dK
+      wgmma_wait<0>();
+      fence_regs<NT_S * 4>(dp);
+#pragma unroll
+      for (int nt = 0; nt < NT_S; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[nt * 4 + e] = s[nt * 4 + e] * (dp[nt * 4 + e] - dl[nt * 8 + t * 2 + (e & 1)]);
+      uint32_t da[BQ / 16][4];
+      pack(pa, s);
+      pack(da, dp);
+
+      // dV += P^T dO and dK += dS^T Q: the k-dimension is the unit's 64 queries
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        T::rs_mn(dv, pa[kc], sdo, BQ, kc);
+        T::rs_mn(dk, da[kc], sq, BQ, kc);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<NACC>(dk);
+      fence_regs<NACC>(dv);
+    } else {
+      // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T. One code path with the operands chosen by
+      // warpgroup, so that every wgmma lies on a path ptxas finds warpgroup-uniform.
+      const uint32_t rows_tile = wg == 0 ? sk : sv, cols_tile = wg == 0 ? sq : sdo;
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        wgmma_ss_n64(s, T::kmajor(rows_tile, BK, 0, kc), T::kmajor(cols_tile, BQ, 0, kc), kc > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<NT_S * 4>(s);
+      float4* x = reinterpret_cast<float4*>(xchg) + tid;
+      if (wg == 0) {  // P^T to warpgroup 1 through shared memory, fp32 (its thread tid holds the same elements)
+        probabilities();
+#pragma unroll
+        for (int j = 0; j < NT_S; ++j) x[j * WG_THREADS] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+        named_bar_arrive(1, NTHREADS);
+      } else {  // dS^T = P^T (dP^T - delta) over dP^T
+        named_bar_sync(1, NTHREADS);
+#pragma unroll
+        for (int j = 0; j < NT_S; ++j) {
+          const float4 pt = x[j * WG_THREADS];
+          const float d0 = dl[j * 8 + t * 2], d1 = dl[j * 8 + t * 2 + 1];
+          s[4 * j] = pt.x * (s[4 * j] - d0);
+          s[4 * j + 1] = pt.y * (s[4 * j + 1] - d1);
+          s[4 * j + 2] = pt.z * (s[4 * j + 2] - d0);
+          s[4 * j + 3] = pt.w * (s[4 * j + 3] - d1);
+        }
+      }
+      pack(pa, s);
+      // warpgroup 0: dV += P^T dO; warpgroup 1: dK += dS^T Q
+      const uint32_t mn = wg == 0 ? sdo : sq;
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) T::rs_mn(acc_a, pa[kc], mn, BQ, kc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<NACC>(acc_a);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<NACC>(dk);
-    fence_regs<NACC>(dv);
-    __syncthreads();  // every warp is done with the slot: refill it
+    __syncthreads();  // every warp is done with the slot (and the P^T exchange): refill it
     if (refill) {
-      put_stat(i + STAGES, next);
+      if (stats) put_stat(i + STAGES, next);
       if (threadIdx.x == 0) issue(i + STAGES);
     }
   }
@@ -270,11 +359,12 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __gr
   // The epilogue through shared memory, which the walk no longer needs: this thread's rows key[r] of dK
   // and dV (accumulator nt * 4 + 2 r (+1) holds columns nt * 8 + 2 t (+1)) go to whole rows there, scaled
   // and in bf16 (n_split == 1) or as fp32 partials, and the tile's rows, one contiguous run of device
-  // memory each for dK and dV, leave in coalesced 16-byte stores.
+  // memory each for dK and dV, leave in coalesced 16-byte stores. WIDE: warpgroup 0 stages dV, 1 dK.
   const bool direct = p.n_split == 1;
   const int row_bytes = DP * (direct ? 2 : 4) + 16;  // a 16-byte pad spreads the rows over the banks
   unsigned char* st_k = smem;
   unsigned char* st_v = smem + BK * row_bytes;
+  const bool put_k = !WIDE || wg == 1, put_v = !WIDE || wg == 0;
   __syncthreads();  // every warp is done with K, V and the ring
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -285,11 +375,12 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __gr
       const float* kk = dk + nt * 4 + 2 * r;
       const float* vv = dv + nt * 4 + 2 * r;
       if (direct) {
-        *reinterpret_cast<__nv_bfloat162*>(st_k + row * row_bytes + c * 2) = __floats2bfloat162_rn(kk[0] * p.scale, kk[1] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(st_v + row * row_bytes + c * 2) = __floats2bfloat162_rn(vv[0], vv[1]);
+        if (put_k)
+          *reinterpret_cast<__nv_bfloat162*>(st_k + row * row_bytes + c * 2) = __floats2bfloat162_rn(kk[0] * p.scale, kk[1] * p.scale);
+        if (put_v) *reinterpret_cast<__nv_bfloat162*>(st_v + row * row_bytes + c * 2) = __floats2bfloat162_rn(vv[0], vv[1]);
       } else {
-        *reinterpret_cast<float2*>(st_k + row * row_bytes + c * 4) = make_float2(kk[0], kk[1]);
-        *reinterpret_cast<float2*>(st_v + row * row_bytes + c * 4) = make_float2(vv[0], vv[1]);
+        if (put_k) *reinterpret_cast<float2*>(st_k + row * row_bytes + c * 4) = make_float2(kk[0], kk[1]);
+        if (put_v) *reinterpret_cast<float2*>(st_v + row * row_bytes + c * 4) = make_float2(vv[0], vv[1]);
       }
     }
   }
@@ -298,7 +389,7 @@ __global__ void __launch_bounds__(WG_THREADS, 2) flash_bwd_dkv_kernel(const __gr
   char* gk = direct ? reinterpret_cast<char*>(p.dk + first) : reinterpret_cast<char*>(p.dk_part + first);
   char* gv = direct ? reinterpret_cast<char*>(p.dv + first) : reinterpret_cast<char*>(p.dv_part + first);
   const int chunks = p.d * (direct ? 2 : 4) / 16;  // 16-byte chunks of a row in device memory
-  for (int i = threadIdx.x; i < min(BK, p.Lk - k0) * chunks; i += WG_THREADS) {
+  for (int i = threadIdx.x; i < min(BK, p.Lk - k0) * chunks; i += NTHREADS) {
     const int r = i / chunks, c = i % chunks;
     *reinterpret_cast<uint4*>(gk + (size_t)i * 16) = *reinterpret_cast<const uint4*>(st_k + r * row_bytes + c * 16);
     *reinterpret_cast<uint4*>(gv + (size_t)i * 16) = *reinterpret_cast<const uint4*>(st_v + r * row_bytes + c * 16);
@@ -312,12 +403,13 @@ cudaError_t launch_dkv(const DkvParams& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Lk + DKV_BK - 1) / DKV_BK, p.B * p.KVH, p.n_split);
-  kernel<<<grid, WG_THREADS, smem, stream>>>(p);
+  kernel<<<grid, WG_THREADS * dkv_warpgroups(DP), smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return err;
   return part_sum(PartSum<bf16>{{p.dk_part, p.dv_part}, {p.dk, p.dv}, {p.scale, 1.f}}, 2, p.n_split,
                   (size_t)p.B * p.KVH * p.Lk * p.d, stream);
 }
+
 
 // K6 at padded head dim DP, causal or not.
 template <int DP>
@@ -331,18 +423,22 @@ struct DqParams {
   const float *lse, *delta;         // (B, H, Lq)
   bf16* dq;                         // (B, H, Lq, d), n_split == 1
   float* dq_part;                   // (n_split, B * H, Lq, d), n_split > 1
-  int B, H, KVH, Lq, Lk, d, n_split;
+  int B, H, KVH, Lq, Lk, d, n_split, causal;
   float scale, bias;
 };
 
-template <int DP>
-constexpr int dq_smem_bytes() {
-  return DQ_STAGES * 2 * BK_DQ * (DP + 8) * 2;
+// K5 keeps Q and dO in registers up to padded d 128; past it (16 x DP fp32 of dQ a warp is 128
+// registers a thread at 256) they wait in shared memory and each k-step reads its A fragments there.
+__host__ __device__ constexpr bool dq_qa_in_smem(int dp) { return dp > 128; }
+
+template <int DP, int NW>
+constexpr int dq_smem_bytes() {  // the K/V ring, then Q and dO of the block's 16 NW rows past 128
+  return DQ_STAGES * 2 * BK_DQ * (DP + 8) * 2 + (dq_qa_in_smem(DP) ? 2 * 16 * NW * (DP + 8) * 2 : 0);
 }
 
-// K5. grid (ceil(Lq / (16 NW)), B * H, n_split), 32 NW threads, dq_smem_bytes<DP>() of dynamic
+// K5. grid (ceil(Lq / (16 NW)), B * H, n_split), 32 NW threads, dq_smem_bytes<DP, NW>() of dynamic
 // shared memory. Writes scale * dQ in bf16 (n_split == 1) or the chunk's unscaled fp32 sum.
-template <int DP, bool CAUSAL, int NW>
+template <int DP, int NW>
 __global__ void __launch_bounds__(NW * 32)
 flash_bwd_dq_kernel(const DqParams p) {
   constexpr int BQ = 16 * NW;        // query rows per block
@@ -352,8 +448,10 @@ flash_bwd_dq_kernel(const DqParams p) {
   constexpr int NT_S = BK_DQ / 8;    // n-tiles of S and dP
   constexpr int CH = DP / 8;         // 16-byte chunks of a padded row
   constexpr int TILE = BK_DQ * LDS;  // elements of one K or V tile
+  constexpr bool QA_SMEM = dq_qa_in_smem(DP);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // slot s: K at 2 s TILE, V TILE later
+  bf16* sqa = ring + DQ_STAGES * 2 * TILE;           // QA_SMEM: Q (BQ rows of LDS), then dO
 
   const int bh = blockIdx.y;
   const int b = bh / p.H;
@@ -370,7 +468,7 @@ flash_bwd_dq_kernel(const DqParams p) {
   if (p.kv_lengths != nullptr) kv_limit = max(0, min(p.Lk, p.kv_lengths[b]));
   const int diag = p.Lk - p.Lq;  // bottom-right causal offset
   int n_tiles = (kv_limit + BK_DQ - 1) / BK_DQ;
-  if (CAUSAL) {
+  if (p.causal) {
     const int max_key = min(q0 + BQ - 1, p.Lq - 1) + diag;
     n_tiles = max_key < 0 ? 0 : min(n_tiles, max_key / BK_DQ + 1);
   }
@@ -392,6 +490,17 @@ flash_bwd_dq_kernel(const DqParams p) {
       cp_async16(smem_u32(slot + TILE + r * LDS + c), in ? vb + off : vb, in);
     }
   };
+  const size_t qoff = (size_t)bh * p.Lq * p.d;
+  if constexpr (QA_SMEM) {  // Q and dO of the block's rows join the first tile's copies; zeros past Lq and d
+    for (int idx = threadIdx.x; idx < BQ * CH; idx += NW * 32) {
+      const int r = idx / CH;
+      const int c = (idx % CH) * 8;
+      const bool in = q0 + r < p.Lq && c < p.d;
+      const size_t off = qoff + (size_t)(q0 + r) * p.d + c;
+      cp_async16(smem_u32(sqa + r * LDS + c), in ? p.q + off : p.q, in);
+      cp_async16(smem_u32(sqa + BQ * LDS + r * LDS + c), in ? p.dout + off : p.dout, in);
+    }
+  }
 #pragma unroll
   for (int s = 0; s < DQ_STAGES - 1; ++s) {
     if (t_begin + s < t_end) issue(t_begin + s);
@@ -399,19 +508,23 @@ flash_bwd_dq_kernel(const DqParams p) {
   }
 
   // Q and dO as A operands, straight from device memory: rows row[j & 1], columns kc * 16 + 2t
-  // (+1), + 8 for j >= 2; zero past Lq and d
-  uint32_t qa[KC][4], da[KC][4];
-  const size_t qoff = (size_t)bh * p.Lq * p.d;
+  // (+1), + 8 for j >= 2; zero past Lq and d. Past 128 they are read from shared memory per k-step.
+  uint32_t qa[QA_SMEM ? 1 : KC][4], da[QA_SMEM ? 1 : KC][4];
+  if constexpr (!QA_SMEM) {
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc)
+    for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = row[j & 1];
-      const int c = kc * 16 + t * 2 + (j >> 1) * 8;
-      const bool in = r < p.Lq && c < p.d;
-      qa[kc][j] = in ? ld32(p.q + qoff + (size_t)r * p.d + c) : 0u;
-      da[kc][j] = in ? ld32(p.dout + qoff + (size_t)r * p.d + c) : 0u;
-    }
+      for (int j = 0; j < 4; ++j) {
+        const int r = row[j & 1];
+        const int c = kc * 16 + t * 2 + (j >> 1) * 8;
+        const bool in = r < p.Lq && c < p.d;
+        qa[kc][j] = in ? ld32(p.q + qoff + (size_t)r * p.d + c) : 0u;
+        da[kc][j] = in ? ld32(p.dout + qoff + (size_t)r * p.d + c) : 0u;
+      }
+  }
+  // ldmatrix lanes for an A fragment: rows warp * 16 + lane % 16, columns kc * 16 + 8 (lane / 16), so
+  // r[0..3] are the fragment's rows g / g + 8 at columns 2t and 2t + 8, as the registers above hold them
+  const uint32_t a_off = ((warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8) * 2;
   float row_lse[2], row_delta[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -442,16 +555,22 @@ flash_bwd_dq_kernel(const DqParams p) {
     }
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
+      const uint32_t* qfr = qa[QA_SMEM ? 0 : kc];
+      const uint32_t* dfr = da[QA_SMEM ? 0 : kc];
+      if constexpr (QA_SMEM) {
+        ldmatrix_x4(qa[0], smem_u32(sqa) + a_off + kc * 32);
+        ldmatrix_x4(da[0], smem_u32(sqa + BQ * LDS) + a_off + kc * 32);
+      }
 #pragma unroll
       for (int nt = 0; nt < NT_S; nt += 2) {
         const uint32_t off = (((nt + (lane >> 4)) * 8 + (lane & 7)) * LDS + kc * 16 + ((lane >> 3) & 1) * 8) * 2;
         uint32_t kf[4], vf[4];
         ldmatrix_x4(kf, sk + off);
         ldmatrix_x4(vf, sv + off);
-        mma_bf16(s[nt], qa[kc], kf[0], kf[1]);
-        mma_bf16(s[nt + 1], qa[kc], kf[2], kf[3]);
-        mma_bf16(dp[nt], da[kc], vf[0], vf[1]);
-        mma_bf16(dp[nt + 1], da[kc], vf[2], vf[3]);
+        mma_bf16(s[nt], qfr, kf[0], kf[1]);
+        mma_bf16(s[nt + 1], qfr, kf[2], kf[3]);
+        mma_bf16(dp[nt], dfr, vf[0], vf[1]);
+        mma_bf16(dp[nt + 1], dfr, vf[2], vf[3]);
       }
     }
 
@@ -462,8 +581,7 @@ flash_bwd_dq_kernel(const DqParams p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + nt * 8 + t * 2 + (e & 1);
-        bool ok = key < kv_limit;
-        if (CAUSAL) ok = ok && key <= row[e >> 1] + diag;
+        const bool ok = key < kv_limit && (!p.causal || key <= row[e >> 1] + diag);
         const float pr = ok ? __expf(s[nt][e] * p.scale + p.bias - row_lse[e >> 1]) : 0.f;
         s[nt][e] = pr * (dp[nt][e] - row_delta[e >> 1]);
       }
@@ -486,6 +604,7 @@ flash_bwd_dq_kernel(const DqParams p) {
     }
     __syncthreads();  // the slot is free before the next iteration copies into it
   }
+  cp_async_wait<0>();  // Q's and dO's copies, when the chunk walked no tile
 
   const size_t prow = ((size_t)split * gridDim.y + bh) * p.Lq;
 #pragma unroll
@@ -505,10 +624,10 @@ flash_bwd_dq_kernel(const DqParams p) {
   }
 }
 
-template <int DP, bool CAUSAL, int NW>
+template <int DP, int NW>
 cudaError_t launch_dq_nw(const DqParams& p, cudaStream_t stream) {
-  constexpr int smem = dq_smem_bytes<DP>();
-  auto kernel = flash_bwd_dq_kernel<DP, CAUSAL, NW>;
+  constexpr int smem = dq_smem_bytes<DP, NW>();
+  auto kernel = flash_bwd_dq_kernel<DP, NW>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Lq + 16 * NW - 1) / (16 * NW), p.B * p.H, p.n_split);
@@ -519,22 +638,21 @@ cudaError_t launch_dq_nw(const DqParams& p, cudaStream_t stream) {
                   (size_t)p.B * p.H * p.Lq * p.d, stream);
 }
 
-// K5 at padded head dim DP, causal or not: 32-row query tiles (2 warps) when Lq <= 32, else 64 (4 warps).
+// K5 at padded head dim DP: 32-row query tiles (2 warps) when Lq <= 32, else 64 (4 warps).
 template <int DP>
-cudaError_t dispatch_dq(const DqParams& p, bool causal, cudaStream_t stream) {
-  if (p.Lq <= 32) return causal ? launch_dq_nw<DP, true, 2>(p, stream) : launch_dq_nw<DP, false, 2>(p, stream);
-  return causal ? launch_dq_nw<DP, true, 4>(p, stream) : launch_dq_nw<DP, false, 4>(p, stream);
+cudaError_t dispatch_dq(const DqParams& p, cudaStream_t stream) {
+  return p.Lq <= 32 ? launch_dq_nw<DP, 2>(p, stream) : launch_dq_nw<DP, 4>(p, stream);
 }
 
 bool bad_shape(int d, int H, int KVH, int Lq, int Lk) {
-  return d % 8 != 0 || d > 128 || KVH <= 0 || H % KVH != 0 || Lq <= 0 || Lk <= 0;
+  return d % 8 != 0 || d > 256 || KVH <= 0 || H % KVH != 0 || Lq <= 0 || Lk <= 0;
 }
 
 }  // namespace
 
 // q/dout (B, H, Lq, d), k/v (B, KVH, Lk, d) bf16 contiguous; kv_lengths (B,) int32 or null;
 // lse/delta (B, H, Lq) fp32; dq (B, H, Lq, d) bf16. n_split >= 1 chunks of the key axis; for
-// n_split > 1, an fp32 workspace dq_part (n_split, B * H, Lq, d). d % 8 == 0, d <= 128, H % KVH == 0.
+// n_split > 1, an fp32 workspace dq_part (n_split, B * H, Lq, d). d % 8 == 0, d <= 256, H % KVH == 0.
 extern "C" int hicom_flash_bwd_dq(const void* q, const void* k, const void* v, const int* kv_lengths,
                                   const void* dout, const float* lse, const float* delta, void* dq, float* dq_part,
                                   int B, int H, int KVH, int Lq, int Lk, int d, int n_split, float scale, float bias,
@@ -543,17 +661,19 @@ extern "C" int hicom_flash_bwd_dq(const void* q, const void* k, const void* v, c
     return (int)cudaErrorInvalidValue;
   DqParams p{static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
              static_cast<const bf16*>(dout), kv_lengths, lse, delta, static_cast<bf16*>(dq), dq_part,
-             B, H, KVH, Lq, Lk, d, n_split, scale, bias};
+             B, H, KVH, Lq, Lk, d, n_split, causal != 0, scale, bias};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 15) / 16 * 16) {
-    case 16: return (int)dispatch_dq<16>(p, causal != 0, s);
-    case 32: return (int)dispatch_dq<32>(p, causal != 0, s);
-    case 48: return (int)dispatch_dq<48>(p, causal != 0, s);
-    case 64: return (int)dispatch_dq<64>(p, causal != 0, s);
-    case 80: return (int)dispatch_dq<80>(p, causal != 0, s);
-    case 96: return (int)dispatch_dq<96>(p, causal != 0, s);
-    case 112: return (int)dispatch_dq<112>(p, causal != 0, s);
-    case 128: return (int)dispatch_dq<128>(p, causal != 0, s);
+  switch (padded_dim(d)) {
+    case 16: return (int)dispatch_dq<16>(p, s);
+    case 32: return (int)dispatch_dq<32>(p, s);
+    case 48: return (int)dispatch_dq<48>(p, s);
+    case 64: return (int)dispatch_dq<64>(p, s);
+    case 80: return (int)dispatch_dq<80>(p, s);
+    case 96: return (int)dispatch_dq<96>(p, s);
+    case 112: return (int)dispatch_dq<112>(p, s);
+    case 128: return (int)dispatch_dq<128>(p, s);
+    case 192: return (int)dispatch_dq<192>(p, s);
+    case 256: return (int)dispatch_dq<256>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -598,7 +718,7 @@ extern "C" int hicom_flash_bwd_dkv(const void* q, const void* k, const void* v, 
   if (err == cudaSuccess) err = tile_maps(&p.tv, &p.tv8, v, d, Lk, B * KVH, DKV_BK);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 15) / 16 * 16) {
+  switch (padded_dim(d)) {
     case 16: return (int)dispatch_dkv<16>(p, causal != 0, s);
     case 32: return (int)dispatch_dkv<32>(p, causal != 0, s);
     case 48: return (int)dispatch_dkv<48>(p, causal != 0, s);
@@ -607,6 +727,8 @@ extern "C" int hicom_flash_bwd_dkv(const void* q, const void* k, const void* v, 
     case 96: return (int)dispatch_dkv<96>(p, causal != 0, s);
     case 112: return (int)dispatch_dkv<112>(p, causal != 0, s);
     case 128: return (int)dispatch_dkv<128>(p, causal != 0, s);
+    case 192: return (int)dispatch_dkv<192>(p, causal != 0, s);
+    case 256: return (int)dispatch_dkv<256>(p, causal != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

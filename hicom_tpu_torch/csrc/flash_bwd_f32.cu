@@ -9,7 +9,7 @@
 // dS (p.astype(do.dtype), ds.astype(k.dtype)) are no-ops, and here nothing is rounded either. Same contract,
 // masks and split paths as flash_bwd.cu: a bottom-right causal rule k <= q + Lk - Lq, keys at or past
 // kv_lengths[b] masked (p = 0), query rows past kv_lengths not masked; every head dim that is a multiple of 8
-// up to 128, padded to 16, 32, ..., 128.
+// up to 256, padded to 16, 32, ..., 128 and then to 192 or 256 (hopper.cuh padded_dim).
 //
 // What bounds it on the H100 (67 TFLOP/s fp32 on the CUDA cores, 3.35 TB/s): at the decoder prefill,
 // operations (3 products of 2 d flops per unmasked (q, k) pair for dQ, 4 for dK and dV); at the global
@@ -20,8 +20,10 @@
 //   * 256 threads, thread (ty, tx) = (tid / 16, tid % 16); shared rows of DP + 4 floats (16-byte reads of 8
 //     consecutive rows fall in distinct banks at every DP); columns past d and rows past Lq or Lk arrive by
 //     cp.async as zeros. Products over d read float4 along d; products over keys or queries read a float4 of
-//     P or dS and float2 pairs of columns tx + 16 c. Two blocks share an SM at every width (99 KB of shared
-//     memory at d 128 for K5, 108 KB for K6), so one block's loads run under the other's arithmetic.
+//     P or dS and float2 pairs of columns tx + 16 c. Two blocks share an SM up to d 128 (99 KB of shared
+//     memory at d 128 for K5, 108 KB for K6), so one block's loads run under the other's arithmetic; at
+//     192 and 256 one block holds an SM (K5 147 and 195 KB, K6 156 and 204 KB) with up to 255 registers a
+//     thread for K6's 2 x 64 accumulators of dK and dV at 256.
 //   * K5: one block = BQ = 16 R query rows of one (batch, q head) (R = 2 when Lq <= 32, as at the global
 //     compressor, else 4: dq_block_q's 32 or 64 rows), thread rows ty + 16 i; the key tiles of 32 keys
 //     (the bf16 kernel's tiles, so dq_splits, tile_range and split_dq_reference hold for both types) come
@@ -126,7 +128,7 @@ constexpr int dq_smem_bytes() {  // Q, dO, K, then V (or dS over it)
 // K5. grid (ceil(Lq / (16 R)), B * H, n_split), NTHREADS threads, dq_smem_bytes<DP, R>() of dynamic shared
 // memory. Writes scale * dQ (n_split == 1) or the chunk's unscaled partial.
 template <int DP, int R>
-__global__ void __launch_bounds__(NTHREADS, 2) flash_bwd_dq_f32_kernel(const __grid_constant__ Params p) {
+__global__ void __launch_bounds__(NTHREADS, DP <= 128 ? 2 : 1) flash_bwd_dq_f32_kernel(const __grid_constant__ Params p) {
   constexpr int BQ = 16 * R;
   constexpr int DS = DP + PAD;
   constexpr int NC = (DP / 2 + 15) / 16;  // column pairs per thread: pairs tx + 16 c
@@ -280,7 +282,7 @@ constexpr int dkv_smem_bytes() {  // K, V, then Q and dO of a half unit, then P^
 // K6. grid (ceil(Lk / 64), B * KVH, n_split), NTHREADS threads, dkv_smem_bytes<DP>() of dynamic shared memory.
 // Writes scale * dK and dV (n_split == 1) or the range's unscaled partials.
 template <int DP>
-__global__ void __launch_bounds__(NTHREADS, 2) flash_bwd_dkv_f32_kernel(const __grid_constant__ Params p) {
+__global__ void __launch_bounds__(NTHREADS, DP <= 128 ? 2 : 1) flash_bwd_dkv_f32_kernel(const __grid_constant__ Params p) {
   constexpr int DS = DP + PAD;
   constexpr int NC = (DP / 2 + 15) / 16;
   extern __shared__ __align__(16) float smem[];
@@ -433,14 +435,14 @@ cudaError_t dispatch_dkv(const Params& p, cudaStream_t stream) {
 
 bool bad_args(const void* q, const void* k, const void* v, const void* dout, int B, int H, int KVH, int Lq, int Lk,
               int d, int n_split) {
-  return d % 8 != 0 || d <= 0 || d > 128 || KVH <= 0 || H % KVH != 0 || B <= 0 || Lq <= 0 || Lk <= 0 ||
+  return d % 8 != 0 || d <= 0 || d > 256 || KVH <= 0 || H % KVH != 0 || B <= 0 || Lq <= 0 || Lk <= 0 ||
          n_split < 1 ||
          (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
           reinterpret_cast<uintptr_t>(dout)) % 16 != 0;
 }
 
 #define HICOM_F32_WIDTHS(CALL)                  \
-  switch ((p.d + 15) / 16 * 16) {               \
+  switch (padded_dim(p.d)) {                    \
     case 16: return (int)CALL<16>(p, s);        \
     case 32: return (int)CALL<32>(p, s);        \
     case 48: return (int)CALL<48>(p, s);        \
@@ -449,6 +451,8 @@ bool bad_args(const void* q, const void* k, const void* v, const void* dout, int
     case 96: return (int)CALL<96>(p, s);        \
     case 112: return (int)CALL<112>(p, s);      \
     case 128: return (int)CALL<128>(p, s);      \
+    case 192: return (int)CALL<192>(p, s);      \
+    case 256: return (int)CALL<256>(p, s);      \
     default: return (int)cudaErrorInvalidValue; \
   }
 
@@ -457,7 +461,7 @@ bool bad_args(const void* q, const void* k, const void* v, const void* dout, int
 // As hicom_flash_bwd_dq (flash_bwd.cu), in fp32: q/dout (B, H, Lq, d), k/v (B, KVH, Lk, d) fp32 contiguous and
 // 16-byte aligned; kv_lengths (B,) int32 or null; lse/delta (B, H, Lq) fp32; dq (B, H, Lq, d) fp32. n_split >= 1
 // chunks of the key axis; for n_split > 1, an fp32 workspace dq_part (n_split, B * H, Lq, d). d % 8 == 0,
-// d <= 128, H % KVH == 0. Returns a CUDA error code (0 when every launch was accepted).
+// d <= 256, H % KVH == 0. Returns a CUDA error code (0 when every launch was accepted).
 extern "C" int hicom_flash_bwd_dq_f32(const float* q, const float* k, const float* v, const int* kv_lengths,
                                       const float* dout, const float* lse, const float* delta, float* dq,
                                       float* dq_part, int B, int H, int KVH, int Lq, int Lk, int d, int n_split,

@@ -3,7 +3,7 @@
 //
 // Replaces two Pallas TPU kernels of hicom_tpu/ops/flash_attention.py:
 //   * _fullblock_kernel (K1): unmasked softmax(q k^T * scale + bias) v over whole rows, the SigLIP
-//     tower (rows of L = 729, d = 72). Instantiated with CAUSAL = false, HAS_LEN = false.
+//     tower (rows of L = 729, d = 72). Instantiated with CAUSAL = false, and no kv_lengths.
 //   * _flash_kernel (K2): blocked online softmax with per-row kv_lengths, a bottom-right causal mask
 //     (k <= q + Lk - Lq) and GQA (kv head h / (H / KVH)): the decoder prefill (b 2, 28 q / 4 kv
 //     heads, 743 tokens, d = 128) and the global compressor (9 heads, 32 queries over 23,328 keys).
@@ -22,14 +22,20 @@
 //     S with Q and K both read from shared memory, P V with P, S's accumulator layout rounded to
 //     bf16, as the register A operand and V as an MN-major (transposed) B, so V needs no transpose.
 //   * Q and the K/V tiles of 64 keys come by TMA into shared memory (a ring of 4 tiles at d <= 80,
-//     where two blocks share an SM, else 5), one thread issuing the copies and an mbarrier per slot
+//     where two blocks share an SM, 5 up to 128, 3 at padded d 192 and 2 at 256, where Q and the ring
+//     take 196,640 and 196,632 of the 232,448 bytes a block may have), one thread issuing the copies and an mbarrier per slot
 //     signalling their arrival. A tile's columns 0-63 (0-127 at d 128) arrive as boxes of 64
 //     columns, rows of 128 B in the 128-byte swizzle that wgmma reads; d 72's columns 64-71 (a
 //     144-byte row has no swizzle of its width) arrive as a 16-byte box without swizzle, read with
 //     a second descriptor and a 16-column P V product, and columns 72-79 are zeros written once.
-//     Every padded head dim 16, 32, ..., 128 (d % 8 == 0) has an instance: the columns past the last
+//     Every padded head dim 16, 32, ..., 128, 192, 256 (d % 8 == 0) has an instance: the columns past the last
 //     whole box (all of them at d <= 48) arrive so, in chunks of 8 columns, and P V over them is one
 //     product of 16 or 32 columns, or 32 and then 16 (a 48-column tail: d 48, d 112).
+//     Past 128 the head dim pads to 192 or 256 (hopper.cuh padded_dim): 3 or 4 boxes of 64 columns,
+//     the last reaching past d where d is not 192 or 256 (d 136: TMA fills columns 136-191 with
+//     zeros), and P V is one N = 64 product per box and k-step. O's accumulator is then 96 or 128
+//     registers a thread beside S's 32 and P's 16. 256 is the ceiling of this layout: wgmma's N stops
+//     at 256, and O past it would not fit the 255 registers a thread may hold.
 //     Rows past Lq or Lk arrive as zeros. Device memory is never padded.
 //   * Per key tile, S of the tile and P V of the previous one are in flight together, and the
 //     softmax of the tile runs while P V of the previous one does; nothing is in flight from one
@@ -49,6 +55,9 @@
 //     merged with these by one merge pass, all in fp32 (ops/flash_attention.py
 //     flash_forward_partials).
 //
+// kv_lengths is a runtime argument (one instance per head dim and mask kind, causal or not: the masks test a
+// tile's keys against the row's limit either way), which halves the instances the build compiles.
+//
 // Masking follows the Pallas kernel: masked logits are -1e30, so a row with no valid key yet carries
 // p = 1 until a real maximum arrives and wipes it (alpha = 0); keys past Lk are -inf (p = 0). Tiles
 // wholly above the causal diagonal or past kv_lengths are skipped, except in a block that holds a
@@ -67,8 +76,8 @@ constexpr int NWG = 2;                    // warpgroups per block
 constexpr int NTHREADS = NWG * WG_THREADS;
 constexpr int BQ = 64 * NWG;              // query rows per block
 constexpr int BK = 64;                    // keys per tile
-// K/V tiles in the ring: 4 where two blocks share an SM (d <= 80), else 5
-__host__ __device__ constexpr int stages_for(int dp) { return dp <= 80 ? 4 : 5; }
+// K/V tiles in the ring: 4 where two blocks share an SM (d <= 80), 5 up to 128, then what fits: 3 at 192, 2 at 256
+__host__ __device__ constexpr int stages_for(int dp) { return dp <= 80 ? 4 : dp <= 128 ? 5 : dp <= 192 ? 3 : 2; }
 constexpr float NEG = -1e30f;
 constexpr float NEG2 = NEG * LOG2E;       // the -1e30 mask in the log2 domain (NEG2 * LN2 == NEG)
 
@@ -92,7 +101,7 @@ constexpr int fwd_smem_bytes() {  // Q, the ring, then one mbarrier per slot and
 
 // grid (ceil(Lq / BQ), B * H, n_split), NTHREADS threads, fwd_smem_bytes<DP>() of dynamic shared
 // memory.
-template <int DP, bool CAUSAL, bool HAS_LEN>
+template <int DP, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS, DP <= 80 ? 2 : 1) flash_fwd_kernel(const __grid_constant__ Params p) {
   constexpr int KC = DP / 16;        // k16 steps of Q K^T
   constexpr int NT_O = DP / 8;       // 8-column tiles of O
@@ -119,7 +128,7 @@ __global__ void __launch_bounds__(NTHREADS, DP <= 80 ? 2 : 1) flash_fwd_kernel(c
   const int row[2] = {wq0 + warp * 16 + g, wq0 + warp * 16 + g + 8};
 
   int kv_limit = p.Lk;
-  if (HAS_LEN) kv_limit = __shfl_sync(0xffffffffu, max(0, min(p.Lk, p.kv_lengths[b])), 0);
+  if (p.kv_lengths != nullptr) kv_limit = __shfl_sync(0xffffffffu, max(0, min(p.Lk, p.kv_lengths[b])), 0);
   const int diag = p.Lk - p.Lq;  // bottom-right causal offset
   int n_tiles = (kv_limit + BK - 1) / BK;
   if (CAUSAL) {
@@ -318,10 +327,10 @@ __global__ void __launch_bounds__(NTHREADS, DP <= 80 ? 2 : 1) flash_fwd_kernel(c
   }
 }
 
-template <int DP, bool CAUSAL, bool HAS_LEN>
+template <int DP, bool CAUSAL>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int smem = fwd_smem_bytes<DP>();
-  auto kernel = flash_fwd_kernel<DP, CAUSAL, HAS_LEN>;
+  auto kernel = flash_fwd_kernel<DP, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Lq + BQ - 1) / BQ, p.B * p.H, p.n_split);
@@ -333,11 +342,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 template <int DP>
 cudaError_t dispatch(const Params& p, bool causal, cudaStream_t stream) {
-  const bool has_len = p.kv_lengths != nullptr;
-  if (causal && has_len) return launch<DP, true, true>(p, stream);
-  if (causal) return launch<DP, true, false>(p, stream);
-  if (has_len) return launch<DP, false, true>(p, stream);
-  return launch<DP, false, false>(p, stream);
+  return causal ? launch<DP, true>(p, stream) : launch<DP, false>(p, stream);
 }
 
 }  // namespace
@@ -346,12 +351,12 @@ cudaError_t dispatch(const Params& p, bool causal, cudaStream_t stream) {
 // bf16; lse (B, H, Lq) fp32. n_split >= 1 chunks of the key axis; for n_split > 1, fp32 workspaces
 // o_part (n_split, B * H, Lq, d), m_part and l_part (n_split, B * H, Lq). With o null the kernel
 // writes those partials (needed then at any n_split) and no merge runs; lse is unused. d % 8 == 0,
-// d <= 128, H % KVH == 0. Returns a CUDA error code (0 when both launches were accepted).
+// d <= 256, H % KVH == 0. Returns a CUDA error code (0 when both launches were accepted).
 extern "C" int hicom_flash_fwd(const void* q, const void* k, const void* v, const int* kv_lengths, void* o,
                                float* lse, float* o_part, float* m_part, float* l_part, int B, int H, int KVH,
                                int Lq, int Lk, int d, int n_split, float scale, float bias, int causal,
                                void* stream) {
-  if (d % 8 != 0 || d > 128 || KVH <= 0 || H % KVH != 0 || B <= 0 || Lq <= 0 || Lk <= 0 || n_split < 1 ||
+  if (d % 8 != 0 || d > 256 || KVH <= 0 || H % KVH != 0 || B <= 0 || Lq <= 0 || Lk <= 0 || n_split < 1 ||
       ((n_split > 1 || o == nullptr) && (o_part == nullptr || m_part == nullptr || l_part == nullptr)))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
@@ -371,7 +376,7 @@ extern "C" int hicom_flash_fwd(const void* q, const void* k, const void* v, cons
   if (err == cudaSuccess) err = tile_maps(&p.tv, &p.tv8, v, d, Lk, B * KVH, BK);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 15) / 16 * 16) {
+  switch (padded_dim(d)) {
     case 16: return (int)dispatch<16>(p, causal != 0, s);
     case 32: return (int)dispatch<32>(p, causal != 0, s);
     case 48: return (int)dispatch<48>(p, causal != 0, s);
@@ -380,6 +385,8 @@ extern "C" int hicom_flash_fwd(const void* q, const void* k, const void* v, cons
     case 96: return (int)dispatch<96>(p, causal != 0, s);
     case 112: return (int)dispatch<112>(p, causal != 0, s);
     case 128: return (int)dispatch<128>(p, causal != 0, s);
+    case 192: return (int)dispatch<192>(p, causal != 0, s);
+    case 256: return (int)dispatch<256>(p, causal != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

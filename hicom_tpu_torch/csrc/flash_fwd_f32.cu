@@ -6,7 +6,8 @@
 // _flash_kernel (K2: causal aligned bottom-right, kv_lengths, GQA; the decoder prefill at d 128 and the
 // global compressor's 32 queries over 23,328 keys). JAX's kernels are dtype-generic: in fp32 they keep
 // every operand in fp32, and so does this one. Same contract, masks and split path as flash_fwd.cu; every
-// head dim that is a multiple of 8 up to 128, padded to 16, 32, ..., 128.
+// head dim that is a multiple of 8 up to 256, padded to 16, 32, ..., 128 and then to 192 or 256
+// (hopper.cuh padded_dim).
 //
 // What bounds it on the H100 (67 TFLOP/s fp32 on the CUDA cores, 3.35 TB/s): the tower and the prefill are
 // operations (4 Lq Lk d flops per head against 4 (Lq + Lk) d bytes); the global compressor is bytes (its keys
@@ -23,12 +24,15 @@
 //     the 16 threads that hold it (lanes of one warp, shuffles 8, 4, 2, 1).
 //   * P goes to shared memory over the K tile (read out by then); O += P V with the thread's 4 rows and
 //     column pairs tx + 16 c, 16-byte reads of P and 8-byte reads of V.
-//   * Two blocks share an SM at every width (101 KB of shared memory at d 128), so one block's loads run
-//     under the other's arithmetic.
+//   * Two blocks share an SM up to d 128 (101 KB of shared memory there), so one block's loads run under
+//     the other's arithmetic; at 192 and 256 (147 and 195 KB) one block holds an SM, and its 255
+//     registers a thread keep O's 48 or 64 accumulators with no spill.
 //   * The key tiles a block walks are those of its 128-row group, the bf16 kernel's query block, so the
 //     split path's chunks (ops/flash_attention.py forward_splits, tile_range) are the same tiles in both
 //     types and split_forward_reference describes both. Each chunk writes its fp32 partials; the merge pass
 //     (flash_merge.cuh) writes fp32 rows.
+//
+// kv_lengths is a runtime argument, as in flash_fwd.cu.
 //
 // Masking as flash_fwd.cu: masked logits -1e30, keys past Lk -inf, a group holding a row with no valid key
 // walks every tile (the row ends as the mean of all Lk values), an empty chunk writes max -inf and
@@ -64,8 +68,8 @@ constexpr int smem_bytes() {  // Q, then K (or P over it), then V
 }
 
 // grid (ceil(Lq / BQ), B * H, n_split), NTHREADS threads, smem_bytes<DP>() of dynamic shared memory.
-template <int DP, bool CAUSAL, bool HAS_LEN>
-__global__ void __launch_bounds__(NTHREADS, 2) flash_fwd_f32_kernel(const __grid_constant__ Params p) {
+template <int DP, bool CAUSAL>
+__global__ void __launch_bounds__(NTHREADS, DP <= 128 ? 2 : 1) flash_fwd_f32_kernel(const __grid_constant__ Params p) {
   constexpr int DS = DP + PAD;  // row stride of Q, K and V in shared memory, in floats
   constexpr int PS = BK + PAD;  // row stride of P
   constexpr int NC = (DP / 2 + 15) / 16;  // column pairs per thread: pairs tx + 16 c
@@ -83,7 +87,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_fwd_f32_kernel(const __grid
   const int g0 = q0 / GROUP_Q * GROUP_Q;
 
   int kv_limit = p.Lk;
-  if (HAS_LEN) kv_limit = max(0, min(p.Lk, p.kv_lengths[b]));
+  if (p.kv_lengths != nullptr) kv_limit = max(0, min(p.Lk, p.kv_lengths[b]));
   const int diag = p.Lk - p.Lq;  // bottom-right causal offset
   int n_tiles = (kv_limit + BK - 1) / BK;
   if (CAUSAL) {
@@ -261,10 +265,10 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_fwd_f32_kernel(const __grid
   }
 }
 
-template <int DP, bool CAUSAL, bool HAS_LEN>
+template <int DP, bool CAUSAL>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DP>();
-  auto kernel = flash_fwd_f32_kernel<DP, CAUSAL, HAS_LEN>;
+  auto kernel = flash_fwd_f32_kernel<DP, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Lq + BQ - 1) / BQ, p.B * p.H, p.n_split);
@@ -276,11 +280,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 template <int DP>
 cudaError_t dispatch(const Params& p, bool causal, cudaStream_t stream) {
-  const bool has_len = p.kv_lengths != nullptr;
-  if (causal && has_len) return launch<DP, true, true>(p, stream);
-  if (causal) return launch<DP, true, false>(p, stream);
-  if (has_len) return launch<DP, false, true>(p, stream);
-  return launch<DP, false, false>(p, stream);
+  return causal ? launch<DP, true>(p, stream) : launch<DP, false>(p, stream);
 }
 
 }  // namespace
@@ -289,12 +289,12 @@ cudaError_t dispatch(const Params& p, bool causal, cudaStream_t stream) {
 // aligned; kv_lengths (B,) int32 or null; o (B, H, Lq, d) fp32; lse (B, H, Lq) fp32. n_split >= 1 chunks of the
 // key axis; for n_split > 1, fp32 workspaces o_part (n_split, B * H, Lq, d), m_part and l_part (n_split, B * H,
 // Lq). With o null the kernel writes those partials (needed then at any n_split) and no merge runs. d % 8 == 0,
-// d <= 128, H % KVH == 0. Returns a CUDA error code (0 when every launch was accepted).
+// d <= 256, H % KVH == 0. Returns a CUDA error code (0 when every launch was accepted).
 extern "C" int hicom_flash_fwd_f32(const float* q, const float* k, const float* v, const int* kv_lengths, float* o,
                                    float* lse, float* o_part, float* m_part, float* l_part, int B, int H, int KVH,
                                    int Lq, int Lk, int d, int n_split, float scale, float bias, int causal,
                                    void* stream) {
-  if (d % 8 != 0 || d <= 0 || d > 128 || KVH <= 0 || H % KVH != 0 || B <= 0 || Lq <= 0 || Lk <= 0 || n_split < 1 ||
+  if (d % 8 != 0 || d <= 0 || d > 256 || KVH <= 0 || H % KVH != 0 || B <= 0 || Lq <= 0 || Lk <= 0 || n_split < 1 ||
       ((n_split > 1 || o == nullptr) && (o_part == nullptr || m_part == nullptr || l_part == nullptr)))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
@@ -307,7 +307,7 @@ extern "C" int hicom_flash_fwd_f32(const float* q, const float* k, const float* 
   p.B = B, p.H = H, p.KVH = KVH, p.Lq = Lq, p.Lk = Lk, p.d = d, p.n_split = n_split;
   p.scale = scale, p.bias = bias;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 15) / 16 * 16) {
+  switch (padded_dim(d)) {
     case 16: return (int)dispatch<16>(p, causal != 0, s);
     case 32: return (int)dispatch<32>(p, causal != 0, s);
     case 48: return (int)dispatch<48>(p, causal != 0, s);
@@ -316,6 +316,8 @@ extern "C" int hicom_flash_fwd_f32(const float* q, const float* k, const float* 
     case 96: return (int)dispatch<96>(p, causal != 0, s);
     case 112: return (int)dispatch<112>(p, causal != 0, s);
     case 128: return (int)dispatch<128>(p, causal != 0, s);
+    case 192: return (int)dispatch<192>(p, causal != 0, s);
+    case 256: return (int)dispatch<256>(p, causal != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,11 +2,15 @@
 // mma.sync fragments (flash_bwd.cu's K5, flash_decode.cu), and mbarriers, TMA tile loads, wgmma
 // descriptors and products with the shared-memory tile layout they agree on (flash_fwd.cu, K6).
 //
+// Padded head dims (padded_dim): d up to 128 pads to a multiple of 16, d past 128 to one of 64 (192 or
+// 256), so that the wide instances are two.
+//
 // Tile layout: a tile of R rows and DP (padded d) bf16 columns holds NB = DP / 64 boxes of 64 columns,
 // R rows of 128 B each in the 128-byte swizzle (8-row atoms of 1 KB), then the TAIL = DP % 64 columns
 // past them as 16-byte chunks of R rows without swizzle (d 72: one box, the chunk of columns 64-71 and
-// a chunk of zeros for 72-79; d 16 and 48: no box, 2 and 6 chunks). TMA writes both forms; rows past
-// the tensor's extent arrive as zeros.
+// a chunk of zeros for 72-79; d 16 and 48: no box, 2 and 6 chunks). Past 128 there is no tail: the last
+// box reaches past d (d 136: columns 128-191, of which 136-191 lie past the tensor) and TMA fills its
+// columns past d with zeros. TMA writes both forms; rows past the tensor's extent arrive as zeros.
 // Tiles start on 1 KB boundaries.
 #pragma once
 
@@ -22,6 +26,9 @@ typedef __nv_bfloat16 bf16;
 constexpr int WG_THREADS = 128;  // one warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// The padded width of head dim d (d % 8 == 0): 16, 32, ..., 128, then 192 and 256.
+__host__ __device__ constexpr int padded_dim(int d) { return d <= 128 ? (d + 15) / 16 * 16 : (d + 63) / 64 * 64; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -254,9 +261,9 @@ cudaError_t tile_map(CUtensorMap* map, const void* base, int d, int rows, int he
 
 // The swizzled map (64-column boxes) and the narrow map (8-column boxes, for the columns past the last
 // whole box) of one (heads, rows, d) tensor, with box_rows rows per box; either is left unset when the
-// width has no columns for it.
+// width has no columns for it (past 128, the last box reaches past d and there is no narrow map).
 cudaError_t tile_maps(CUtensorMap* sw, CUtensorMap* narrow, const void* base, int d, int rows, int heads, int box_rows) {
-  const int boxes = (d + 15) / 16 * 16 / 64;
+  const int boxes = padded_dim(d) / 64;
   cudaError_t err = cudaSuccess;
   if (boxes > 0) err = tile_map(sw, base, d, rows, heads, 64, box_rows);
   if (err == cudaSuccess && d > boxes * 64) err = tile_map(narrow, base, d, rows, heads, 8, box_rows);

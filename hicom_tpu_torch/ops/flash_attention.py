@@ -51,12 +51,13 @@ otherwise (serving under ``torch.inference_mode()`` saves nothing).
 
 The forward's contract is :func:`takes_flash_kernel` (bf16 or fp32 q, k and
 v of one dtype, as JAX's dtype-generic kernels take them; a head dim that is a
-multiple of 8 up to 128); the backward's, :func:`takes_flash_backward`, is the
-same: K5/K6 have an instance of each type at every padded head dim 16-128, and
-a gradient reaches the fp32 instances with fp32 ``out`` and ``dO``. The
-wrappers raise for device operands outside them (fp16, a head dim past 128),
-and :func:`attend` raises before the forward when a gradient is wanted that no
-backward instance computes.
+multiple of 8 up to 256); the backward's, :func:`takes_flash_backward`, is the
+same: K5/K6 have an instance of each type at every padded head dim (16-128 in
+steps of 16, then 192 and 256), and a gradient reaches the fp32 instances with
+fp32 ``out`` and ``dO``. The wrappers raise for device operands outside them
+(fp16, a head dim past 256, which JAX's ``d % 64`` rule still sends to its
+Pallas kernels: open kernel work), and :func:`attend` raises before the
+forward when a gradient is wanted that no backward instance computes.
 """
 
 from __future__ import annotations
@@ -78,12 +79,15 @@ DKV_BLOCK_K, DKV_BLOCK_Q = 64, 64  # K6's keys per block, query rows per unit
 H100_SMS = 132
 
 Tensor = torch.Tensor
-FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # the forward's instances, each head dim padded to 16
+# the kernels' instances: each head dim padded to 16 up to 128, past it to 64 (csrc/hopper.cuh padded_dim)
+FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 192, 256)
 FLASH_DTYPES = (torch.bfloat16, torch.float32)  # the forward's operand types: flash_fwd.cu, flash_fwd_f32.cu
 
 
 def _padded(d: int) -> int:
-    return (d + 15) // 16 * 16
+    """The instance that computes head dim ``d``: a multiple of 16 up to 128,
+    of 64 past it (d 136 runs the 192 instance on zero columns)."""
+    return (d + 15) // 16 * 16 if d <= 128 else (d + 63) // 64 * 64
 
 
 def takes_flash_kernel(d: int, dtypes, device_type: str) -> bool:
@@ -694,7 +698,7 @@ class FlashAttention(torch.autograd.Function):
 def attend(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float, logit_bias: float,
            causal: bool, fullblock: bool) -> Tensor:
     """:class:`FlashAttention` when a gradient is wanted, else the forward kernel
-    alone. A gradient that no K5/K6 instance computes (a head dim past 128, or
+    alone. A gradient that no K5/K6 instance computes (a head dim past 256, or
     fp16, on a device) raises here, naming the instance, before the forward
     runs."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -3,8 +3,11 @@
 Marked ``cuda``: they skip without a CUDA device (so on the CPU test runs).
 The fp32 instances (``flash_fwd_f32.cu``, ``flash_bwd_f32.cu``, K4's, the
 merge's and the sum pass's fp32 forms) are held to their fp32 twins at the
-fp32 gate (the end of this file), with the bf16 instances at head dims 16, 48,
-96 and 112, and a tiny ``train.cli`` stage 2 with ``--dtype float32``.
+fp32 gate, with the bf16 instances at head dims 16, 48, 96 and 112, and a tiny
+``train.cli`` stage 2 with ``--dtype float32``; at the end of the file, the
+head dims past 128 (the 192 and 256 instances, d 136 on zero columns) in both
+types, forward, backward, split and merged, and a tiny HICom whose decoder has
+heads of 256 on the card.
 On a machine with a card and no JAX, run them without the JAX-loading
 conftest: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
@@ -216,12 +219,12 @@ def test_cuda_wrappers_refuse_what_they_cannot_take(rn):
     q = rn(2, 4, 16, 72).half()  # fp16: the kernels take bf16 and fp32
     with pytest.raises(TypeError):
         flash_forward(q, q, q, None, 0.1, 0.0, False)
-    q = rn(2, 4, 16, 136)  # past head dim 128
-    with pytest.raises(ValueError, match="head dim 136"):
+    q = rn(2, 4, 16, 264)  # past head dim 256
+    with pytest.raises(ValueError, match="head dim 264"):
         flash_forward(q, q, q, None, 0.1, 0.0, False)
-    q = rn(2, 4, 200, 136).float().requires_grad_()  # a forward that needs a gradient no K5/K6 instance computes
+    q = rn(2, 4, 200, 264).float().requires_grad_()  # a forward that needs a gradient no K5/K6 instance computes
     before = flash_forward.launches
-    with pytest.raises(TypeError, match="K5/K6 have no float32 instance at head dim 136"):
+    with pytest.raises(TypeError, match="K5/K6 have no float32 instance at head dim 264"):
         flash_attention_gqa(q, q, q, is_causal=True)
     assert flash_forward.launches == before
 
@@ -1226,3 +1229,217 @@ def test_train_cli_stage2_in_fp32_on_the_card(tmp_path):
     losses, launched = fp32_cli_stage2(str(tmp_path))
     assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
     assert launched == 2 * (2 + 1)
+
+
+# --------------------------------------------------------------------------- #
+# head dims past 128: the 192 and 256 instances of K1/K2 and K5/K6, in bf16 and fp32
+# --------------------------------------------------------------------------- #
+
+WIDE_DTYPES = {"bf16": (torch.bfloat16, _worst), "fp32": (torch.float32, _worst32)}
+
+
+def _wide_rn(dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator("cuda").manual_seed(19)
+    return lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+@pytest.mark.parametrize("bh,L,d", [(4, 300, 136), (4, 200, 192), (4, 300, 256), (64, 729, 256)])
+def test_fullblock_wide_heads(rn, tag, bh, L, d):
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    q, k, v = r(bh, L, d), r(bh, L, d), r(bh, L, d)
+    before = fullblock_attention.launches
+    out, lse = fullblock_attention(q, k, v, d**-0.5, 0.1)
+    ref, ref_lse = flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.1, False)
+    assert fullblock_attention.launches == before + 1 and out.dtype == dtype
+    assert worst(out, ref[:, 0]) <= 1 and (lse - ref_lse[:, 0]).abs().max().item() <= 1e-3
+
+
+WIDE_FORWARD = [
+    (2, 14, 2, 300, 300, 256, True, [300, 217]),  # the d-256 decoder's heads, GQA 7:1, causal, lengths
+    (2, 4, 4, 200, 200, 192, False, [150, 200]),
+    (1, 4, 4, 200, 260, 136, True, None),  # d 136 on the 192 instance, bottom-right diagonal
+    (1, 9, 9, 32, 3000, 256, False, None),  # 32 queries over many keys: split by default
+    (2, 7, 1, 150, 150, 200, True, [150, 97]),  # d 200 on the 256 instance
+]
+
+
+@pytest.mark.parametrize("n_split", [None, 1, 3])
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens", WIDE_FORWARD)
+def test_flash_forward_wide_heads(rn, tag, b, H, KVH, Lq, Lk, d, causal, lens, n_split):
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    q, k, v = r(b, H, Lq, d), r(b, KVH, Lk, d), r(b, KVH, Lk, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = _launch(q, k, v, kl, d**-0.5, 0.0, causal, n_split=n_split)
+    ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.0, causal)
+    assert out.dtype == dtype
+    assert worst(*_valid_rows(out, ref, b, H, Lq, kl)) <= 1
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    if n_split is not None and n_split > 1:
+        cpu = [t.cpu() if t is not None else None for t in (q, k, v, kl)]
+        split, _ = split_forward_reference(*cpu, d**-0.5, 0.0, causal, n_split)
+        assert worst(*_valid_rows(out, split.cuda(), b, H, Lq, kl)) <= 1
+
+
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+def test_forward_partials_merge_wide_heads(rn, tag):
+    """K2's partials alone at d 256 and the merge kernel over two key halves
+    (as a two-rank split-key call gives them), in the caller's dtype."""
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    q, k, v = r(1, 8, 32, 256), r(1, 8, 2000, 256), r(1, 8, 2000, 256)
+    halves = [flash_forward_partials(q, k[:, :, i:i + 1000], v[:, :, i:i + 1000], None, 256**-0.5, 0.0, False)
+              for i in (0, 1000)]
+    before = merge_partials.launches
+    out, lse = merge_partials(*(torch.cat(x) for x in zip(*halves)), dtype)
+    assert merge_partials.launches == before + 1 and out.dtype == dtype
+    ref, ref_lse = flash_reference(q, k, v, None, 256**-0.5, 0.0, False)
+    assert worst(out, ref) <= 1 and (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+WIDE_BACKWARD = [
+    (2, 14, 2, 300, 300, 256, True, [300, 217], 0.0),  # the d-256 decoder's heads
+    (2, 4, 4, 200, 200, 192, False, [150, 200], 0.1),
+    (1, 4, 4, 130, 260, 136, True, None, -0.2),  # d 136 on the 192 instance, bottom-right diagonal
+    (2, 9, 9, 32, 3000, 256, False, None, 0.0),  # 32-row query blocks, K5 split by default
+    (2, 7, 1, 150, 150, 200, True, [150, 97], 0.0),  # d 200 on the 256 instance
+]
+
+
+@pytest.mark.parametrize("n_split", [None, 1, 3])
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens,bias", WIDE_BACKWARD)
+def test_flash_backward_wide_heads(rn, tag, b, H, KVH, Lq, Lk, d, causal, lens, bias, n_split):
+    """K5 (Q and dO from shared memory past 128) and K6 (two warpgroups past
+    128) against the unsplit twin, and with forced splits against the split
+    twins too (the same chunks and unit ranges, then the sum pass)."""
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    q, k, v, do = r(b, H, Lq, d), r(b, KVH, Lk, d), r(b, KVH, Lk, d), r(b, H, Lq, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = flash_forward(q, k, v, kl, d**-0.5, bias, causal)
+    ops = backward_operands(q, k, v, kl, out, lse, do)
+    got = (_launch_dq(*ops, d**-0.5, bias, causal, n_split=n_split),) + _launch_dkv(*ops, d**-0.5, bias, causal,
+                                                                                    n_split=n_split)
+    ref = flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, bias, causal)
+    assert all(g.dtype == dtype for g in got)
+    assert max(worst(g, r) for g, r in zip(got, ref)) <= 1
+    if n_split is not None and n_split > 1:
+        cpu = [t.cpu() if t is not None else None for t in (q, k, v, kl, out, lse, do)]
+        split = (split_dq_reference(*cpu, d**-0.5, bias, causal, n_split),) + split_dkv_reference(
+            *cpu, d**-0.5, bias, causal, n_split)
+        assert max(worst(g, s.cuda()) for g, s in zip(got, split)) <= 1
+
+
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+def test_wide_function_backward_runs_the_kernels(rn, tag):
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    b, H, KVH, L, d = 2, 14, 2, 150, 256
+    q, k, v, do = r(b, H, L, d), r(b, KVH, L, d), r(b, KVH, L, d), r(b, H, L, d)
+    kl = torch.tensor([150, 120], device="cuda", dtype=torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (flash_forward.launches, flash_backward.launches)
+    out = flash_attention_gqa(*leaves, is_causal=True, kv_lengths=kl)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert (flash_forward.launches, flash_backward.launches) == (before[0] + 1, before[1] + 1)
+    _, lse = flash_reference(q, k, v, kl, d**-0.5, 0.0, True)
+    ref = flash_backward_reference(q, k, v, kl, out.detach(), lse.float(), do, d**-0.5, 0.0, True)
+    assert max(worst(g, r) for g, r in zip(grads, ref)) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sum_pass_wide_heads(rn, dtype):
+    """The sum pass over d-256 rows: K5's dQ chunks and K6's dK/dV ranges."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    part, part2 = (torch.randn(n, 2, 9, 32, 256, generator=gen, device="cuda") for n in (14, 3))
+    worst = _worst if dtype == torch.bfloat16 else _worst32
+    dq, = _launch_part_sum((part, 0.0625), dtype=dtype)
+    assert dq.dtype == dtype and worst(dq, sum_partials_reference(part, 0.0625, dtype)) <= 1
+    dk, dv = _launch_part_sum((part2, 0.0625), (part2 * 2, 1.0), dtype=dtype)
+    assert worst(dk, sum_partials_reference(part2, 0.0625, dtype)) <= 1
+    assert worst(dv, sum_partials_reference(part2 * 2, 1.0, dtype)) <= 1
+
+
+def _tiny_d256_config(dtype: str):
+    """``tiny_test_config`` with the decoder at 2 query heads and 1 kv head of
+    256, over 12 frames of 168 x 168 (144 tower tokens: K1; a 143-token
+    prefill: K2 at d 256; the global compressor's 32 queries over 12 x 144
+    keys: K2 at d 16)."""
+    import dataclasses
+
+    from hicom_tpu_torch import config as tcfg
+
+    c = tcfg.tiny_test_config(use_guide="direct", dtype=dtype)
+    return c.replace(text_config=dataclasses.replace(c.text_config, num_attention_heads=2, num_key_value_heads=1,
+                                                     head_dim=256), num_frames=12,
+                     vision_config=dataclasses.replace(c.vision_config, image_size=168))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_d256_tiny_model_on_the_card(rn, dtype):
+    """A tiny HICom whose decoder has heads of 256, on the card's kernels
+    against the plain path on the card: the single request's last-token
+    logits (at the type's gate), 8 greedy ids (equal, or first apart at a
+    near-tie), K2 launched at each decoder layer's prefill with the one-token
+    steps on K3's plain route; one stage-2 loss's trained gradients, K5/K6
+    launched once per decoder layer and once for the global compressor
+    (each tensor within 5% of its norm in bf16; at the fp32 gate in fp32; a
+    gradient the softmax cancels held below the noise of the largest)."""
+    import chip_smoke as cs
+    from hicom_tpu_torch.api import HICom, build_model
+    from hicom_tpu_torch.ops.cuda_build import plain_route
+    from hicom_tpu_torch.train.optimizer import build_optimizer
+    from hicom_tpu_torch.train.train_step import batch_to_device, make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tiny_d256_config(dtype)
+    fp32 = dtype == "float32"
+    model = build_model(cfg, device="cuda", seed=0)
+    cs.norms_at_one(model)
+    hc = HICom(config=cfg, model=model, eos_token_id=-1, cache_len=512)
+    _, single = cs.make_requests(cfg)
+    plain_route.reset()
+    before = flash_forward.launches
+    got, _ = cs.greedy_with_tops(hc, single, 8)
+    layers = cfg.text_config.num_hidden_layers
+    assert flash_forward.launches - before == layers + 1  # each decoder layer's prefill, the global compressor
+    assert plain_route.counts["K3"] == 7 * layers  # the 7 one-token steps after the prefill
+    with cs.plain_path():
+        ref, tops = cs.greedy_with_tops(hc, single, 8)
+    div = cs.first_divergence(got, ref, tops)
+    assert div is None or div[1] <= cs.NEAR_TIE, (got, ref)
+    got_l = cs.last_logits(model, cs.with_mask(single))
+    with cs.plain_path():
+        ref_l = cs.last_logits(model, cs.with_mask(single))
+    assert cs.agreement(got_l, ref_l, cs.FP32_GATE if fp32 else cs.BF16_GATE)[1] <= 1
+    plain_route.reset()
+
+    build_optimizer(model, learning_rate=1e-3, tunable_parts="mm_projector", use_guide="direct").init(model)
+    batch = batch_to_device(cs.make_train_batch(cfg), torch.device("cuda"), getattr(torch, dtype))
+    trained = [n for n, p in model.named_parameters() if p.requires_grad]
+
+    def grads():
+        for p in model.parameters():
+            p.grad = None
+        make_loss_fn(model)(batch)[0].backward()
+        return {n: p.grad.float() if p.grad is not None else torch.zeros_like(p, dtype=torch.float32)
+                for n, p in model.named_parameters() if n in trained}
+
+    before = flash_backward.launches
+    got_g = grads()
+    assert flash_backward.launches - before == layers + 1
+    with cs.plain_path():
+        ref_g = grads()
+    noise = (2**-20 if fp32 else 2**-16) * max(float(g.abs().max()) for g in ref_g.values())
+    for n in trained:
+        if float(ref_g[n].abs().max()) <= noise:
+            assert float(got_g[n].abs().max()) <= noise, n
+        elif fp32:
+            assert cs.agreement(got_g[n], ref_g[n], cs.FP32_GATE)[1] <= 1, n
+        else:
+            assert float((got_g[n] - ref_g[n]).norm()) <= 0.05 * float(ref_g[n].norm()), n

@@ -11,10 +11,10 @@ other callers (``ops/attention.sdpa`` by JAX's ``auto`` rule, the split-key
 partials and merge, the projector's local compressor by its tiling) launch
 the kernel wherever JAX launches its Pallas kernel: K1/K2, the merge and K4
 take fp32 as well as bf16, and K1/K2 (and K5/K6 behind them) every head dim
-that is a multiple of 8 up to 128, as JAX's dtype-generic kernels do: an fp32
+that is a multiple of 8 up to 256, as JAX's dtype-generic kernels do: an fp32
 gradient launches ``flash_bwd_f32.cu``, a bf16 one ``flash_bwd.cu``'s
 instance of its width. What no kernel takes raises in its wrapper: a head dim
-past 128, fp16 and mixed dtypes, and (in ``attend``, before the forward) a
+past 256, fp16 and mixed dtypes, and (in ``attend``, before the forward) a
 gradient of such attention, naming the K5/K6 instance it lacks.
 
 The routes are driven on meta tensors, which take every wrapper's device
@@ -85,7 +85,13 @@ def meta(*shape, dtype=BF16):
     (128, (BF16, BF16, F32), False),  # mixed dtypes
     (16, (BF16,) * 3, True),  # the selftest's decoder
     (96, (BF16,) * 3, True),  # pads to 96
-    (136, (BF16,) * 3, False),  # past 128: JAX's d % 64 rule admits 192 and 256, no instance here
+    (136, (BF16,) * 3, True),  # past 128: the 192 instance on zero columns (JAX's rule: one block only)
+    (192, (BF16,) * 3, True),  # JAX's d % 64 rule at any length
+    (256, (BF16,) * 3, True),
+    (192, (F32,) * 3, True),
+    (256, (F32,) * 3, True),
+    (264, (BF16,) * 3, False),  # past 256: JAX's d % 64 rule admits 320, 384, ...; no instance here
+    (264, (F32,) * 3, False),
     (16, (F32,) * 3, True),
     (112, (F32,) * 3, True),
     (72, (torch.float16,) * 3, False),
@@ -192,8 +198,14 @@ SDPA_CASES = {
     "head dim 16": ((1, 4, 200, 16), (1, 4, 200, 16), BF16, {}, "K1", None),
     "head dim 96": ((1, 4, 200, 96), (1, 4, 200, 96), BF16, {}, "K1", None),
     "head dim 96 fp32": ((1, 4, 200, 96), (1, 4, 200, 96), F32, dict(is_causal=True), "K2", None),
+    # past 128: the 192 and 256 instances (d 136 in one block, K1; d 256 grouped at the prefill, K2)
+    "head dim 136": ((1, 4, 200, 136), (1, 4, 200, 136), BF16, {}, "K1", None),
+    "prefill 14/2 d 256": ((2, 14, 743, 256), (2, 2, 743, 256), BF16, dict(is_causal=True, lens=[743, 700]),
+                           "K2", None),
+    "prefill 14/2 d 256 fp32": ((2, 14, 743, 256), (2, 2, 743, 256), F32, dict(is_causal=True), "K2", None),
+    "global d 192": ((1, 9, 32, 192), (1, 9, 23328, 192), BF16, {}, "K2", None),
     # JAX's rule picks a kernel that no instance computes: the wrapper raises
-    "head dim 136": ((1, 4, 200, 136), (1, 4, 200, 136), BF16, {}, None, ValueError),
+    "head dim 264": ((1, 4, 200, 264), (1, 4, 200, 264), BF16, {}, None, ValueError),
     "so400m fp16": ((32, 16, 729, 72), (32, 16, 729, 72), torch.float16, {}, None, TypeError),
     "masked": ((1, 4, 200, 128), (1, 4, 200, 128), BF16, dict(mask=True), None, None),  # JAX's rule: plain
 }
@@ -250,6 +262,10 @@ def _decoder(H, KVH, d, dtype, layers=2):
     ("bf16 0.5b int8 cache", 14, 2, 64, BF16, True, ({"K2": 2, "K3": 2}, {})),
     ("bf16 12/4", 12, 4, 128, BF16, False, ({"K2": 2, "K3": 2}, {})),
     ("bf16 d 96", 4, 2, 96, BF16, False, ({}, {"K3": 2})),  # grouped d 96: JAX's rule keeps the prefill plain
+    # heads of 256 (HICom-7B's decoder reshaped to 14 / 2 heads of 256): the grouped prefill takes K2's 256
+    # instance by JAX's d % 64 rule, the one-token step the plain route (K3 has head dims 64 and 128)
+    ("bf16 14/2 d 256", 14, 2, 256, BF16, False, ({"K2": 2}, {"K3": 2})),
+    ("fp32 2/1 d 256", 2, 1, 256, F32, False, ({"K2": 2}, {"K3": 2})),
 ])
 def test_decoder_step_routes_on_the_contract(probe, case, H, KVH, d, dtype, quantized, want):
     """A prefill of 130 tokens into an empty cache, then one decode step, on
@@ -304,24 +320,24 @@ def test_projector_routes_on_the_tile_contract(probe, dtype, want):
 
 def test_wrappers_still_raise_off_their_contract(probe):
     """The route decides before the call; the wrappers keep refusing device
-    operands outside their contract: a head dim past 128, fp16, and (before
+    operands outside their contract: a head dim past 256, fp16, and (before
     its forward runs) a forward that needs a gradient no K5/K6 instance
-    computes, past head dim 128 or in fp16, which names the instance it
-    lacks. (fp32 and bf16 gradients at head dims to 128 compute:
+    computes, past head dim 256 or in fp16, which names the instance it
+    lacks. (fp32 and bf16 gradients at head dims to 256 compute:
     ``test_gradients_reach_their_backward_instance``.)"""
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         tfa.flash_forward(meta(1, 4, 200, 128, dtype=torch.float16), meta(1, 4, 200, 128, dtype=torch.float16),
                           meta(1, 4, 200, 128, dtype=torch.float16), None, 0.1)
-    with pytest.raises(ValueError, match="head dim 136"):
-        tfa.fullblock_attention(meta(4, 200, 136), meta(4, 200, 136), meta(4, 200, 136), 0.1)
-    for d, dtype, instance in ((136, F32, "no float32 instance at head dim 136"),
-                               (136, BF16, "no bfloat16 instance at head dim 136"),
+    with pytest.raises(ValueError, match="head dim 264"):
+        tfa.fullblock_attention(meta(4, 200, 264), meta(4, 200, 264), meta(4, 200, 264), 0.1)
+    for d, dtype, instance in ((264, F32, "no float32 instance at head dim 264"),
+                               (264, BF16, "no bfloat16 instance at head dim 264"),
                                (96, torch.float16, "no float16 instance at head dim 96")):
         q = meta(1, 4, 200, d, dtype=dtype).requires_grad_()
         with pytest.raises(TypeError, match=instance):
             tfa.flash_attention(q, q, q, is_causal=True)
-    q = meta(1, 4, 200, 136, dtype=F32)
-    with pytest.raises(ValueError, match="flash backward: head dim 136"):
+    q = meta(1, 4, 200, 264, dtype=F32)
+    with pytest.raises(ValueError, match="flash backward: head dim 264"):
         tfa.flash_backward(q, q, q, None, q, meta(1, 4, 200, dtype=F32), q, 0.1)
     q = meta(1, 4, 200, 128, dtype=F32)
     with pytest.raises(TypeError, match="out and dO of q's dtype"):  # one dtype throughout
@@ -352,6 +368,11 @@ def test_wrappers_still_raise_off_their_contract(probe):
     (16, BF16, False, ("hicom_flash_bwd_dq", "hicom_flash_bwd_dkv")),
     (48, BF16, True, ("hicom_flash_bwd_dq", "hicom_flash_bwd_dkv")),
     (112, BF16, False, ("hicom_flash_bwd_dq", "hicom_flash_bwd_dkv")),
+    # past 128: the 192 and 256 instances (d 136 on the 192 one)
+    (256, BF16, True, ("hicom_flash_bwd_dq", "hicom_flash_bwd_dkv")),
+    (192, F32, True, ("hicom_flash_bwd_dq_f32", "hicom_flash_bwd_dkv_f32")),
+    (136, BF16, False, ("hicom_flash_bwd_dq", "hicom_flash_bwd_dkv")),
+    (256, F32, False, ("hicom_flash_bwd_dq_f32", "hicom_flash_bwd_dkv_f32")),
 ])
 def test_gradients_reach_their_backward_instance(probe, d, dtype, gqa, symbols):
     """A gradient through ``flash_attention`` (or the GQA entry) on the device
