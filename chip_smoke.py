@@ -39,7 +39,13 @@ Phases:
      (checks only), K2, K5 and K6 at [hd256]'s prefill (b 2, 14 / 2 heads of
      256, 743 tokens, causal, lengths 743 / 700) and at d 192, K2 forced to 3
      splits with its merge, K6 to 1 and 7 and K5 to 3, the merge and both sum
-     passes over d-256 rows;
+     passes over d-256 rows; and past head dim 256 (the wide kernels,
+     ``flash_wide.cu`` and ``flash_wide_f32.cu``), in bf16 and fp32: K1 over
+     64 rows of 729 at d 288, 320, 512 and 1,024, K2, K5 and K6 at [hd512]'s
+     prefill (b 2, 7 / 1 heads of 512, 743 tokens, causal, lengths 743 / 700),
+     K2 forced to 3 splits with its merge, K6 to 1 and 7 and K5 to 3, both sum
+     passes and the merge over d-512 rows, and K2, K5 and K6 at d 320 (8 / 2
+     heads) and d 1,024 (4 / 1 heads) over the same prefill;
   4. serving at the full width of the released HICom-7B (SigLIP-so400m,
      local43_global32 with direct guide, Qwen2.5-7B in bf16, weights from a seed
      on the card): 3 requests of a 32-frame 384x384 video through
@@ -115,7 +121,10 @@ Phases:
      contract), 8 greedy ids and last-token logits against the plain path on
      the card (past the gate, both against the fp32 plain path on the same
      weights), then 2 stage-2 steps with K5/K6 at d 256, step 1's gradients
-     against the plain path's;
+     against the plain path's; [hd512]: the same with the decoder at 7 / 1
+     heads of 512 and the SigLIP tower at 4 heads of 288 (so400m's 1,152
+     width; its 729-token attention on K1 at d 288 by JAX's one-block rule),
+     the prefill on K2 and the backward on K5/K6 at d 512 (the wide kernels);
   5. training at the same width: 3 stage-2 steps (projector and guide injectors
      trained, towers and decoder frozen) on a seeded batch of 2, with finite
      losses, frozen weights bit-identical, trained weights moved, 29 flash
@@ -201,12 +210,12 @@ Phases:
 After every phase but [fp32-route], no decode step went to the plain path
 by K3's contract (``cuda_build.plain_route``: every other phase runs bf16 at
 head dims and groups K3 takes, or counts its decode steps that K3 does not
-take, fp32 or at head dim 256, and resets: [fp32-serve], [hd256],
+take, fp32 or at head dim 256 or 512, and resets: [fp32-serve], [hd256], [hd512],
 [closed-loop]'s fp32 call). Prints one line per check, then a JSON object with
 the kernels (each row at a shape of the main paths, its launches counted in the
 phase that runs that shape: serving, [serve-engine], [ring-prefill], stage 2,
 the 1.5B stage 3, [clip], [anyres], [anyres-train], [baseline-0.5b] and its
-image request, [fp32-serve], or [hd256]), then the card's name and power limit,
+image request, [fp32-serve], [hd256] or [hd512]), then the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before that last line. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -227,7 +236,8 @@ import numpy as np
 # H100 data-sheet peaks (dense bf16 tensor-core FLOP/s, HBM bytes/s) by card name
 PEAKS = {"PCIe": (756e12, 2.0e12), "NVL": (835e12, 3.9e12), "": (989e12, 3.35e12)}
 FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (the split path's second passes)
-# kernel: (its wrapper, whose launch count it reports; source; the TPU kernel it replaces)
+# kernel: (the count its row reports: its wrapper's launches, or, past head dim 256, the launches of its
+# (kernel, library) in flash_attention.source_launches; source; the TPU kernel it replaces)
 KERNELS = {
     "K1": ("fullblock_attention", "hicom_tpu_torch/csrc/flash_fwd.cu", "hicom_tpu/ops/flash_attention.py:141"),
     "K2": ("flash_forward", "hicom_tpu_torch/csrc/flash_fwd.cu", "hicom_tpu/ops/flash_attention.py:31"),
@@ -246,6 +256,14 @@ KERNELS["K6-sum"] = ("flash_backward", "hicom_tpu_torch/csrc/flash_part_sum.cuh"
 # the fp32 instances, in their own sources
 for _k, _src in (("K1", "flash_fwd_f32"), ("K2", "flash_fwd_f32"), ("K5", "flash_bwd_f32"), ("K6", "flash_bwd_f32")):
     KERNELS[f"{_k}-f32"] = (KERNELS[_k][0], f"hicom_tpu_torch/csrc/{_src}.cu", KERNELS[_k][2])
+KERNELS["K5-f32-sum"], KERNELS["K6-f32-sum"] = KERNELS["K5-sum"], KERNELS["K6-sum"]
+# past head dim 256: the wide kernels, one source per type, counted by (kernel, library) where they launch,
+# apart from the same wrappers' launches at other head dims (the global compressor's d 128)
+for _k in ("K1", "K2", "K5", "K6"):
+    for _f, _lib in (("-wide", "flash_wide"), ("-wide-f32", "flash_wide_f32")):
+        KERNELS[f"{_k}{_f}"] = ((_k, _lib), f"hicom_tpu_torch/csrc/{_lib}.cu", KERNELS[_k][2])
+        if _k in ("K5", "K6"):  # the sum pass, run by the wide entry point when split
+            KERNELS[f"{_k}{_f}-sum"] = ((f"{_k}-sum", _lib), KERNELS[f"{_k}-sum"][1], KERNELS[_k][2])
 TRAIN_STEPS = 3
 # [baseline-0.5b]'s batch of 2: prompts of 64 and 41 ids, each with its <video> sentinel replaced by the 162
 # visual tokens of 8 frames (local43: 2 x 9 x 9 tiles); the spliced lengths, which its K2 and K3 rows take
@@ -342,13 +360,14 @@ def kernel_checks(card: str, wide_only: bool = False):
     clip-scale form, the backward at the tower shape) are checks only: they
     print their line and fail the run on a disagreement, and stay out of the
     JSON line. ``wide_only``: the rows past head dim 128 alone
-    (:func:`wide_head_checks`)."""
+    (:func:`head_dim_checks`)."""
     import torch
     import torch.nn.functional as F
 
-    from hicom_tpu_torch.ops.flash_attention import (FWD_BLOCK_Q, _launch, flash_forward, flash_forward_partials,
-                                                     flash_partials_reference, flash_reference, forward_splits,
-                                                     fullblock_attention)
+    from hicom_tpu_torch.ops.flash_attention import (FWD_BLOCK_Q, WIDE_BLOCK_Q, WIDE_FROM, _launch, flash_forward,
+                                                     flash_forward_partials, flash_partials_reference,
+                                                     flash_reference, forward_splits, fullblock_attention,
+                                                     wide_column_blocks)
     from hicom_tpu_torch.ops.flash_decode import DECODE_CHUNK, decode_reference, flash_decode
     from hicom_tpu_torch.ops.grouping import tile_thw
     from hicom_tpu_torch.ops.local_attn import fused_tile_attention, tile_reference
@@ -363,8 +382,13 @@ def kernel_checks(card: str, wide_only: bool = False):
     records = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def fwd_grid(b, H, Lq, Lk, n_split=None):
-        return (-(-Lq // FWD_BLOCK_Q), b * H, n_split or forward_splits(b, H, Lq, Lk, sms))
+    def fwd_grid(b, H, Lq, Lk, d, n_split=None, fp32=False):
+        """The forward kernel's grid at head dim ``d``: blocks of 128 query
+        rows (64 in fp32, and past 256, where z also counts the column
+        blocks), times the key chunks on z."""
+        rows = WIDE_BLOCK_Q if d > WIDE_FROM else 64 if fp32 else FWD_BLOCK_Q
+        splits = n_split or forward_splits(b, H, Lq, Lk, sms, d=d)
+        return -(-Lq // rows), b * H, splits * wide_column_blocks(d, "fwd")
 
     def record(name, kid, kernel_fn, plain_fn, library_fn, flops, nbytes, valid=None, outputs=1, grid=None,
                flops_rate=None, phase="", exact_fn=None, gate=BF16_GATE):
@@ -417,7 +441,8 @@ def kernel_checks(card: str, wide_only: bool = False):
                                  f"against {ep:.4g}, rms {rk:.4g} against {rp:.4g})")
 
     if wide_only:
-        wide_head_checks(record, fwd_grid, sms)
+        head_dim_checks(record, fwd_grid, sms, UP_TO_256)
+        head_dim_checks(record, fwd_grid, sms, PAST_256)
         return {name: r for name, r in records.items() if r[1] is not None}
 
     # K1: SigLIP tower self-attention, 32 frames x 16 heads, L = 729, d = 72; and one tp-2 rank's 8 heads
@@ -431,7 +456,7 @@ def kernel_checks(card: str, wide_only: bool = False):
                lambda: fullblock_attention(q, k, v, d**-0.5),
                lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.0, False)[0][:, 0],
                lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
-               4 * bh * L * L * d, 4 * bh * L * d * 2 + bh * L * 4, grid=fwd_grid(bh, 1, L, L), phase=phase)
+               4 * bh * L * L * d, 4 * bh * L * d * 2 + bh * L * 4, grid=fwd_grid(bh, 1, L, L, d), phase=phase)
         del q, k, v
 
     # K2 prefill: 28 q / 4 kv heads (7B), a tp-2 rank's 14 / 2 of them (a check only) and 12 / 2 (1.5B),
@@ -450,14 +475,14 @@ def kernel_checks(card: str, wide_only: bool = False):
                lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
                4 * H * d * pairs, 2 * b * H * L * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * L * 4, valid,
-               grid=fwd_grid(b, H, L, L), phase={"1.5b": "stage3-sft", "7b tp2 shard": None}.get(label, ""))
+               grid=fwd_grid(b, H, L, L, d), phase={"1.5b": "stage3-sft", "7b tp2 shard": None}.get(label, ""))
         del q, k, v, mask
 
     # K2 at the ring block shape: one rank's 2,048-token chunk of a 16,384-token prompt split over 8 ranks
     # ([ring-prefill] runs them): the diagonal block, causal, and a block below it, full; the ring takes
     # K2's fp32 partials (unnormalised output, max, denominator), held to the plain version's
     b, H, KVH, L, d = 1, 28, 4, 2048, 128
-    if forward_splits(b, H, L, L) != 1:
+    if forward_splits(b, H, L, L, d=d) != 1:
         raise AssertionError("the ring block's K2 was to run unsplit")
     q, k, v = rn(b, H, L, d), rn(b, KVH, L, d), rn(b, KVH, L, d)
     for label, causal in (("causal", True), ("full", False)):
@@ -467,7 +492,7 @@ def kernel_checks(card: str, wide_only: bool = False):
                lambda: flash_partials_reference(q, k, v, None, d**-0.5, 0.0, causal),
                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=d**-0.5, enable_gqa=True),
                4 * H * d * pairs, b * H * L * d * (2 + 4) + 2 * b * KVH * L * d * 2 + 2 * b * H * L * 4, outputs=3,
-               grid=fwd_grid(b, H, L, L), phase="ring-prefill")
+               grid=fwd_grid(b, H, L, L, d), phase="ring-prefill")
     del q, k, v
 
     # K2 global compressor: 9 heads, 32 queries over 32 x 27 x 27 = 23,328 keys, d = 128, split
@@ -480,8 +505,8 @@ def kernel_checks(card: str, wide_only: bool = False):
                lambda: flash_reference(q, k, v, None, d**-0.5, 0.0, False),
                lambda: F.scaled_dot_product_attention(q, k, v, scale=d**-0.5),
                4 * b * H * Lq * Lk * d, 2 * b * H * Lq * d * 2 + 2 * b * H * Lk * d * 2 + b * H * Lq * 4,
-               outputs=2, grid=fwd_grid(b, H, Lq, Lk))
-        if b * H * fwd_grid(b, H, Lq, Lk)[2] < sms:
+               outputs=2, grid=fwd_grid(b, H, Lq, Lk, d))
+        if b * H * fwd_grid(b, H, Lq, Lk, d)[2] < sms:
             raise AssertionError(f"the global compressor's forward at b {b} does not fill the card")
         del q, k, v
 
@@ -501,7 +526,7 @@ def kernel_checks(card: str, wide_only: bool = False):
                    lambda: _launch(q, k, v, kl, d**-0.5, 0.1, causal, n_split=n_split),
                    lambda: flash_reference(q, k, v, kl, d**-0.5, 0.1, causal), None,
                    4 * H * d * pairs, 2 * b * H * Lq * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * Lq * 4,
-                   outputs=2, grid=fwd_grid(b, H, Lq, Lk, n_split), phase=None)
+                   outputs=2, grid=fwd_grid(b, H, Lq, Lk, d, n_split), phase=None)
         del q, k, v
     split_pass_checks(rn, record)
 
@@ -606,7 +631,7 @@ def kernel_checks(card: str, wide_only: bool = False):
            lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
            4 * H * d * pairs, 2 * b * H * L * d * 2 + 2 * KVH * sum(lens) * d * 2 + b * H * L * 4, valid,
-           grid=fwd_grid(b, H, L, L), phase="baseline-0.5b")
+           grid=fwd_grid(b, H, L, L, d), phase="baseline-0.5b")
     del q, k, v, mask
 
     # K4: local compressor, key/value (32 b, 27, 27, 1152), one query per 4x3x3 tile, in the main path's call
@@ -653,7 +678,8 @@ def kernel_checks(card: str, wide_only: bool = False):
     backward_checks(rn, record)
     backward_checks(lambda *shape: torch.randn(*shape, generator=gen, device=dev), record, fp32=True)
     new_width_backward_checks(record)
-    wide_head_checks(record, fwd_grid, sms)
+    head_dim_checks(record, fwd_grid, sms, UP_TO_256)
+    head_dim_checks(record, fwd_grid, sms, PAST_256)
     return {name: r for name, r in records.items() if r[1] is not None}
 
 
@@ -681,9 +707,6 @@ def fp32_checks(record, fwd_grid, sms):
     gen = torch.Generator("cuda").manual_seed(17)
     f32 = dict(gate=FP32_GATE, flops_rate=FP32_PEAK)
 
-    def grid32(b, H, Lq, Lk):  # the fp32 kernel's blocks hold 64 query rows
-        return (-(-Lq // 64),) + fwd_grid(b, H, Lq, Lk)[1:]
-
     def rn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -692,7 +715,8 @@ def fp32_checks(record, fwd_grid, sms):
     record("fullblock_attention[siglip 32f fp32]", "K1-f32", lambda: fullblock_attention(q, k, v, d**-0.5),
            lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.0, False)[0][:, 0],
            lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
-           4 * bh * L * L * d, 4 * bh * L * d * 4 + bh * L * 4, grid=grid32(bh, 1, L, L), phase="fp32-serve", **f32)
+           4 * bh * L * L * d, 4 * bh * L * d * 4 + bh * L * 4, grid=fwd_grid(bh, 1, L, L, d, fp32=True),
+           phase="fp32-serve", **f32)
     del q, k, v
 
     b, H, KVH, L, d, lens = 2, 28, 4, 743, 128, [743, 700]
@@ -706,12 +730,12 @@ def fp32_checks(record, fwd_grid, sms):
            lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
            4 * H * d * pairs, 2 * b * H * L * d * 4 + 2 * KVH * sum(lens) * d * 4 + b * H * L * 4, valid,
-           grid=grid32(b, H, L, L), phase="fp32-serve", **f32)
+           grid=fwd_grid(b, H, L, L, d, fp32=True), phase="fp32-serve", **f32)
     del q, k, v, mask
 
     H, Lq, Lk, d = 9, 32, 23328, 128
     q, k, v = rn(1, H, Lq, d), rn(1, H, Lk, d), rn(1, H, Lk, d)
-    grid = grid32(1, H, Lq, Lk)
+    grid = fwd_grid(1, H, Lq, Lk, d, fp32=True)
     record("flash_forward[global 32f b1 fp32]", "K2-f32", lambda: flash_forward(q, k, v, None, d**-0.5, 0.0, False),
            lambda: flash_reference(q, k, v, None, d**-0.5, 0.0, False),
            lambda: F.scaled_dot_product_attention(q, k, v, scale=d**-0.5),
@@ -750,7 +774,7 @@ def fp32_checks(record, fwd_grid, sms):
 
     # head dims 16 and 96 (the selftest's decoder, a non-grouped decoder of 96): checks only, no phase runs them
     for dtype, kw, tag in ((torch.bfloat16, dict(gate=BF16_GATE), "bf16"), (torch.float32, f32, "fp32")):
-        item, blocks = (2, fwd_grid) if dtype == torch.bfloat16 else (4, grid32)
+        item, fp32 = (2, False) if dtype == torch.bfloat16 else (4, True)
         f = "" if dtype == torch.bfloat16 else "-f32"
         for d in (16, 96):
             bh, L = 64, 729
@@ -759,8 +783,8 @@ def fp32_checks(record, fwd_grid, sms):
             record(f"fullblock_attention[d{d} {tag}]", f"K1{f}", lambda: fullblock_attention(q, k, v, d**-0.5, 0.1),
                    lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.1, False)[0][:, 0],
                    lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
-                   4 * bh * L * L * d, 4 * bh * L * d * item + bh * L * 4, grid=blocks(bh, 1, L, L),
-                   phase=None, **kw)
+                   4 * bh * L * L * d, 4 * bh * L * d * item + bh * L * 4,
+                   grid=fwd_grid(bh, 1, L, L, d, fp32=fp32), phase=None, **kw)
             for H, KVH in ((8, 8), (8, 2)):
                 b, L, lens = 2, 600, [600, 517]
                 q, k, v = rn(b, H, L, d, dtype=dtype), rn(b, KVH, L, d, dtype=dtype), rn(b, KVH, L, d, dtype=dtype)
@@ -775,7 +799,7 @@ def fp32_checks(record, fwd_grid, sms):
                        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5,
                                                               enable_gqa=True),
                        4 * H * d * pairs, 2 * b * H * L * d * item + 2 * KVH * sum(lens) * d * item + b * H * L * 4,
-                       valid, grid=blocks(b, H, L, L), phase=None, **kw)
+                       valid, grid=fwd_grid(b, H, L, L, d, fp32=fp32), phase=None, **kw)
                 del mask
             del q, k, v
 
@@ -824,7 +848,7 @@ def anyres_clip_checks(rn, record, fwd_grid, sms):
         record(f"fullblock_attention[{label}]", "K1", lambda: fullblock_attention(q, k, v, d**-0.5),
                lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.0, False)[0][:, 0],
                lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
-               4 * bh * L * L * d, 4 * bh * L * d * 2 + bh * L * 4, grid=fwd_grid(bh, 1, L, L), phase=phase)
+               4 * bh * L * L * d, 4 * bh * L * d * 2 + bh * L * 4, grid=fwd_grid(bh, 1, L, L, d), phase=phase)
         del q, k, v
 
     # K2 anyres prefill: one right-padded row (mm_infer's 64-id bucket)
@@ -839,7 +863,7 @@ def anyres_clip_checks(rn, record, fwd_grid, sms):
     record("flash_forward[prefill anyres 7b]", "K2", lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
            lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
-           4 * H * d * pairs, 2 * H * L * d * 2 + 2 * KVH * n * d * 2 + H * L * 4, valid, grid=fwd_grid(1, H, L, L),
+           4 * H * d * pairs, 2 * H * L * d * 2 + 2 * KVH * n * d * 2 + H * L * 4, valid, grid=fwd_grid(1, H, L, L, d),
            phase="anyres", exact_fn=lambda: exact_prefill(q, k, v, kl))
     del q, k, v, mask
 
@@ -850,7 +874,7 @@ def anyres_clip_checks(rn, record, fwd_grid, sms):
            lambda: flash_reference(q, k, v, None, d**-0.5, 0.0, False),
            lambda: F.scaled_dot_product_attention(q, k, v, scale=d**-0.5),
            4 * H * Lq * Lk * d, 2 * H * Lq * d * 2 + 2 * H * Lk * d * 2 + H * Lq * 4, outputs=2,
-           grid=fwd_grid(1, H, Lq, Lk), phase="clip")
+           grid=fwd_grid(1, H, Lq, Lk, d), phase="clip")
     del q, k, v
 
     # K3 over the anyres request's 8,192-slot cache, midway through its decode: the prompt's
@@ -999,11 +1023,11 @@ def backward_checks(rn, record, fp32: bool = False):
         pairs = int(sum(np.clip(x, 0, None).sum() for x in visible))
         qd_bytes = 2 * b * H * Lq * d * item + 2 * b * H * Lq * 4  # q and dO read, lse and delta read
         kv_bytes = 2 * b * KVH * Lk * d * item  # k and v (read), or dk and dv (written)
-        dq_grid = (-(-Lq // dq_block_q(Lq)), b * H, dq_splits(b, H, Lq, Lk, sms))
+        dq_grid = (-(-Lq // dq_block_q(Lq)), b * H, dq_splits(b, H, Lq, Lk, sms, d=d))
         record(f"flash_backward_dq[{label}]", f"K5{f}", lambda: (_launch_dq(*ops, scale, 0.0, causal),), plain,
                library, 6 * H * d * pairs, qd_bytes + kv_bytes + b * H * Lq * d * item, outputs=(0,), grid=dq_grid,
                phase=phase, **kw)
-        dkv_grid = (-(-Lk // DKV_BLOCK_K), b * KVH, dkv_splits(b, H, KVH, Lq, Lk, sms))
+        dkv_grid = (-(-Lk // DKV_BLOCK_K), b * KVH, dkv_splits(b, H, KVH, Lq, Lk, sms, d=d))
         record(f"flash_backward_dkv[{label}]", f"K6{f}", lambda: _launch_dkv(*ops, scale, 0.0, causal), plain,
                library, 8 * H * d * pairs, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid, phase=phase, **kw)
         gen = torch.Generator(dev).manual_seed(3)
@@ -1073,84 +1097,103 @@ def new_width_backward_checks(record):
         record(f"flash_backward_dq[d{d} {H}/{KVH} causal lengths {tag}]", f"K5{f}",
                lambda: (_launch_dq(*ops, d**-0.5, 0.0, True),), plain, library, 6 * H * d * pairs,
                qd_bytes + kv_bytes + b * H * L * d * item, outputs=(0,),
-               grid=(-(-L // dq_block_q(L)), b * H, dq_splits(b, H, L, L, sms)), phase=None, **kw)
+               grid=(-(-L // dq_block_q(L)), b * H, dq_splits(b, H, L, L, sms, d=d)), phase=None, **kw)
         record(f"flash_backward_dkv[d{d} {H}/{KVH} causal lengths {tag}]", f"K6{f}",
                lambda: _launch_dkv(*ops, d**-0.5, 0.0, True), plain, library, 8 * H * d * pairs,
                qd_bytes + 2 * kv_bytes, outputs=(1, 2),
-               grid=(-(-L // DKV_BLOCK_K), b * KVH, dkv_splits(b, H, KVH, L, L, sms)), phase=None, **kw)
+               grid=(-(-L // DKV_BLOCK_K), b * KVH, dkv_splits(b, H, KVH, L, L, sms, d=d)), phase=None, **kw)
         del q, k, v, do, out, lse, ops, lq, lk, lv, lib_out, mask
 
 
-HD256_PREFILL = (2, 14, 2, 743, [743, 700])  # [hd256]'s prefill: b, H, KVH, tokens, kv lengths (phase 4's batch)
+# phase 3's rows past head dim 128 (head_dim_checks), by instance: K1's rows (head dim, rows of 729 tokens,
+# the phase that runs the bf16 row at that shape or None); the prefill (b, tokens, kv lengths: phase 4's
+# batch) and its (head dim, query heads, kv heads), the first the phase's own; the phase; the kernel ids'
+# suffixes in bf16 and fp32; the generator's seed
+UP_TO_256 = dict(k1=((192, 64, None), (256, 64, None)), prefill=(2, 743, [743, 700]),
+                 rows=((256, 14, 2), (192, 14, 2)), phase="hd256", ids=("", "-f32"), seed=19)
+# [hd512]'s tower runs K1 at d 288 over 32 frames x 4 heads for its single request
+PAST_256 = dict(k1=((288, 32 * 4, "hd512"), (320, 64, None), (512, 64, None), (1024, 64, None)),
+                prefill=(2, 743, [743, 700]), rows=((512, 7, 1), (320, 8, 2), (1024, 4, 1)), phase="hd512",
+                ids=("-wide", "-wide-f32"), seed=20)
 
 
-def wide_head_checks(record, fwd_grid, sms):
-    """Phase 3, the instances past head dim 128 (``FLASH_HEAD_DIMS`` 192 and
-    256: ``flash_fwd.cu``, ``flash_fwd_f32.cu``, ``flash_bwd.cu``,
-    ``flash_bwd_f32.cu``), in bf16 and in fp32, each against its plain twin
-    on the card at its type's gate (fp32 bounds at the fp32 peak) beside SDPA
-    (its backward for K5/K6): K1 over 64 rows of 729 at d 192 and 256 (no
-    tower is that wide: checks only); K2 at [hd256]'s prefill (b 2, 14 / 2
-    heads of 256, 743 tokens, causal, lengths 743 / 700), with a forced split
-    of 3 and its merge, and the merge alone over 5 chunks of d-256 rows; K5
-    and K6 at the same shape, K6 at its default split with its sum pass, then
-    the sum pass alone, K6 forced to 1 and 7 splits and K5 to 3, with K5's sum
-    pass alone; and K2, K5 and K6 at d 192 grouped over the same prefill.
-    The bf16 rows at d 256 and the default split take their launches from
-    [hd256]; the rest are checks only."""
+def head_dim_checks(record, fwd_grid, sms, spec):
+    """Phase 3, the instances past head dim 128, in bf16 and in fp32 (``spec``:
+    :data:`UP_TO_256`, the 192 and 256 instances of ``flash_fwd.cu``,
+    ``flash_fwd_f32.cu``, ``flash_bwd.cu`` and ``flash_bwd_f32.cu``; or
+    :data:`PAST_256`, the wide kernels of ``flash_wide.cu`` and
+    ``flash_wide_f32.cu``, whose head dim is a runtime argument), each against
+    its plain twin on the card at its type's gate (past it,
+    :func:`float64_referee` against the float64 twin where the row has one),
+    beside SDPA (its backward for K5/K6), fp32 bounds at the fp32 peak: K1
+    over rows of 729 at each of ``spec["k1"]``'s head dims; K2, K5 and K6 at
+    the prefill (b 2, 743 tokens, causal, lengths 743 / 700) with each of
+    ``spec["rows"]``'s heads; at the first of them, the phase's own shape, K2
+    forced to 3 chunks with its merge, K6 at its default split with its sum
+    pass and forced to 1 and 7 splits, K5 forced to 3, K5's sum pass alone,
+    and the merge alone over 5 chunks of 10,402 rows, chunks with no tile or
+    all masked among them. The bf16 rows at the phase's own shapes (K1 where
+    ``spec["k1"]`` names the phase, the first prefill at the default split)
+    take their launches from it; the rest are checks only."""
     import torch
     import torch.nn.functional as F
 
-    from hicom_tpu_torch.ops.flash_attention import (DKV_BLOCK_K, _launch, _launch_dkv, _launch_dq, _launch_merge,
-                                                     _launch_part_sum, backward_operands, dkv_splits, dq_block_q,
-                                                     dq_splits, flash_backward_reference, flash_forward,
-                                                     flash_reference, fullblock_attention, merge_partials_reference,
-                                                     sum_partials_reference)
+    from hicom_tpu_torch.ops.flash_attention import (DKV_BLOCK_K, WIDE_BLOCK_Q, WIDE_FROM, _launch, _launch_dkv,
+                                                     _launch_dq, _launch_merge, _launch_part_sum, backward_operands,
+                                                     dkv_splits, dq_block_q, dq_splits, flash_backward_reference,
+                                                     flash_forward, flash_reference, fullblock_attention,
+                                                     merge_partials_reference, sum_partials_reference,
+                                                     wide_column_blocks)
 
-    gen = torch.Generator("cuda").manual_seed(19)
-    for dtype in (torch.bfloat16, torch.float32):
+    gen = torch.Generator("cuda").manual_seed(spec["seed"])
+
+    def exact_forward(q, k, v, kl, d, causal):  # the float64 twin, for a row past its gate
+        return lambda: flash_reference(q.double(), k.double(), v.double(), kl, d**-0.5, 0.0, causal)[0]
+
+    for dtype, f in zip((torch.bfloat16, torch.float32), spec["ids"]):
         bf16 = dtype == torch.bfloat16
-        item, tag, f = (2, "bf16", "") if bf16 else (4, "fp32", "-f32")
+        item, tag = (2, "bf16") if bf16 else (4, "fp32")
         kw = dict(gate=BF16_GATE) if bf16 else dict(gate=FP32_GATE, flops_rate=FP32_PEAK)
         gate = kw["gate"]
 
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-        def blocks(b, H, Lq, Lk):  # the fp32 forward's blocks hold 64 query rows
-            grid = fwd_grid(b, H, Lq, Lk)
-            return grid if bf16 else (-(-Lq // 64),) + grid[1:]
-
-        for d in (192, 256):
-            bh, L = 64, 729
+        for d, bh, phase in spec["k1"]:
+            L = 729
             q, k, v = rn(bh, L, d), rn(bh, L, d), rn(bh, L, d)
-            record(f"fullblock_attention[64x729 d{d} {tag}]", f"K1{f}", lambda: fullblock_attention(q, k, v, d**-0.5),
+            record(f"fullblock_attention[{bh}x729 d{d} {tag}]", f"K1{f}", lambda: fullblock_attention(q, k, v, d**-0.5),
                    lambda: flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.0, False)[0][:, 0],
                    lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
-                   4 * bh * L * L * d, 4 * bh * L * d * item + bh * L * 4, grid=blocks(bh, 1, L, L), phase=None, **kw)
+                   4 * bh * L * L * d, 4 * bh * L * d * item + bh * L * 4,
+                   grid=fwd_grid(bh, 1, L, L, d, fp32=not bf16), phase=phase if bf16 else None,
+                   exact_fn=lambda: exact_forward(q[:, None], k[:, None], v[:, None], None, d, False)()[:, 0], **kw)
             del q, k, v
 
-        b, H, KVH, L, lens = HD256_PREFILL
+        b, L, lens = spec["prefill"]
         kl = torch.tensor(lens, device="cuda", dtype=torch.int32)
         pos = torch.arange(L, device="cuda")
         mask = (pos[None, :] <= pos[:, None])[None, None] & (pos[None, None, None, :] < kl[:, None, None, None])
-        valid = (pos[None, :] < kl[:, None])[:, None, :].expand(b, H, L)
         pairs = sum(int(np.minimum(n, np.arange(L) + 1).sum()) for n in lens)
-        for d in (256, 192):
-            main = bf16 and d == 256  # the shape and type [hd256] runs
-            phase = "hd256" if main else None
-            label = f"prefill hd256 d{d} {tag}" if d == 256 else f"prefill 14/2 d{d} {tag}"
+        for i, (d, H, KVH) in enumerate(spec["rows"]):
+            main = i == 0
+            phase = spec["phase"] if bf16 and main else None
+            label = f"prefill {spec['phase']} d{d} {tag}" if main else f"prefill {H}/{KVH} d{d} {tag}"
+            valid = (pos[None, :] < kl[:, None])[:, None, :].expand(b, H, L)
             q, k, v, do = rn(b, H, L, d), rn(b, KVH, L, d), rn(b, KVH, L, d), rn(b, H, L, d)
             fwd_bytes = 2 * b * H * L * d * item + 2 * KVH * sum(lens) * d * item + b * H * L * 4
+            exact = exact_forward(q, k, v, kl, d, True)
             record(f"flash_forward[{label}]", f"K2{f}", lambda: flash_forward(q, k, v, kl, d**-0.5, 0.0, True),
                    lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
-                   4 * H * d * pairs, fwd_bytes, valid, grid=blocks(b, H, L, L), phase=phase, **kw)
-            if d == 256:  # the split path at this width: 3 chunks of the key tiles, then the merge kernel
+                   4 * H * d * pairs, fwd_bytes, valid, grid=fwd_grid(b, H, L, L, d, fp32=not bf16), phase=phase,
+                   exact_fn=exact, **kw)
+            if main:  # the split path at this width: 3 chunks of the key tiles, then the merge kernel
                 record(f"flash_forward[{label} split 3]", f"K2{f}",
                        lambda: _launch(q, k, v, kl, d**-0.5, 0.0, True, n_split=3),
                        lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True), None,
-                       4 * H * d * pairs, fwd_bytes, valid, grid=blocks(b, H, L, L)[:2] + (3,), phase=None, **kw)
+                       4 * H * d * pairs, fwd_bytes, valid, grid=fwd_grid(b, H, L, L, d, 3, fp32=not bf16),
+                       phase=None, exact_fn=exact, **kw)
             out, lse = flash_forward(q, k, v, kl, d**-0.5, 0.0, True)
             ops = backward_operands(q, k, v, kl, out, lse, do)
             plain = lambda: flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, 0.0, True)  # noqa: E731
@@ -1158,48 +1201,53 @@ def wide_head_checks(record, fwd_grid, sms):
             lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, scale=d**-0.5, enable_gqa=True)
             library = lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do, retain_graph=True)  # noqa: E731
             qd_bytes, kv_bytes = 2 * b * H * L * d * item + 2 * b * H * L * 4, 2 * b * KVH * L * d * item
-            dq_grid = (-(-L // dq_block_q(L)), b * H, dq_splits(b, H, L, L, sms))
-            dkv_grid = (-(-L // DKV_BLOCK_K), b * KVH, dkv_splits(b, H, KVH, L, L, sms))
+            dq_bytes, dkv_bytes = qd_bytes + kv_bytes + b * H * L * d * item, qd_bytes + 2 * kv_bytes
             dq_flops, dkv_flops = 6 * H * d * pairs, 8 * H * d * pairs
+            n_dq, n_dkv = dq_splits(b, H, L, L, sms, d=d), dkv_splits(b, H, KVH, L, L, sms, d=d)
+
+            def dq_grid(n):  # K5's blocks of query rows (64 past 256, times the column blocks on z)
+                rows = WIDE_BLOCK_Q if d > WIDE_FROM else dq_block_q(L)
+                return -(-L // rows), b * H, n * wide_column_blocks(d, "dq")
+
+            def dkv_grid(n):  # K6's blocks of 64 keys
+                return -(-L // DKV_BLOCK_K), b * KVH, n * wide_column_blocks(d, "dkv")
+
             record(f"flash_backward_dq[{label}]", f"K5{f}", lambda: (_launch_dq(*ops, d**-0.5, 0.0, True),), plain,
-                   library, dq_flops, qd_bytes + kv_bytes + b * H * L * d * item, outputs=(0,), grid=dq_grid,
-                   phase="hd256" if main else None, **kw)
+                   library, dq_flops, dq_bytes, outputs=(0,), grid=dq_grid(n_dq), phase=phase, **kw)
             record(f"flash_backward_dkv[{label}]", f"K6{f}", lambda: _launch_dkv(*ops, d**-0.5, 0.0, True), plain,
-                   library, dkv_flops, qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid,
-                   phase="hd256" if main else None, **kw)
-            if d == 256:
+                   library, dkv_flops, dkv_bytes, outputs=(1, 2), grid=dkv_grid(n_dkv), phase=phase, **kw)
+            if main:
                 for n_split in (1, 7):
                     record(f"flash_backward_dkv[{label} split {n_split}]", f"K6{f}",
                            lambda: _launch_dkv(*ops, d**-0.5, 0.0, True, n_split=n_split), plain, None, dkv_flops,
-                           qd_bytes + 2 * kv_bytes, outputs=(1, 2), grid=dkv_grid[:2] + (n_split,), phase=None, **kw)
+                           dkv_bytes, outputs=(1, 2), grid=dkv_grid(n_split), phase=None, **kw)
                 record(f"flash_backward_dq[{label} split 3]", f"K5{f}",
-                       lambda: (_launch_dq(*ops, d**-0.5, 0.0, True, n_split=3),), plain, None, dq_flops,
-                       qd_bytes + kv_bytes + b * H * L * d * item, outputs=(0,), grid=dq_grid[:2] + (3,),
-                       phase=None, **kw)
-                n, N = dkv_grid[2], b * KVH * L * d
-                dk_part, dv_part = (torch.randn(n, N, generator=gen, device="cuda") for _ in range(2))
-                record(f"flash_dkv_sum[{label}, {n} splits]", "K6-sum",
+                       lambda: (_launch_dq(*ops, d**-0.5, 0.0, True, n_split=3),), plain, None, dq_flops, dq_bytes,
+                       outputs=(0,), grid=dq_grid(3), phase=None, **kw)
+                N = b * KVH * L * d
+                dk_part, dv_part = (torch.randn(n_dkv, N, generator=gen, device="cuda") for _ in range(2))
+                record(f"flash_dkv_sum[{label}, {n_dkv} splits]", f"K6{f}-sum",
                        lambda: _launch_part_sum((dk_part, d**-0.5), (dv_part, 1.0), dtype=dtype),
                        lambda: (sum_partials_reference(dk_part, d**-0.5, dtype),
                                 sum_partials_reference(dv_part, 1.0, dtype)), None,
-                       2 * n * N, 2 * (n * N * 4 + N * item), outputs=2, grid=(-(-N // 4 // 128), 2),
-                       flops_rate=FP32_PEAK, phase="hd256" if main else None, gate=gate)
+                       2 * n_dkv * N, 2 * (n_dkv * N * 4 + N * item), outputs=2, grid=(-(-N // 4 // 128), 2),
+                       flops_rate=FP32_PEAK, phase=phase, gate=gate)
                 n, N = 3, b * H * L * d
                 part = torch.randn(n, N, generator=gen, device="cuda")
-                record(f"flash_dq_sum[{label}, {n} chunks]", "K5-sum", lambda: _launch_part_sum((part, d**-0.5),
-                                                                                              dtype=dtype),
+                record(f"flash_dq_sum[{label}, {n} chunks]", f"K5{f}-sum",
+                       lambda: _launch_part_sum((part, d**-0.5), dtype=dtype),
                        lambda: sum_partials_reference(part, d**-0.5, dtype), None, n * N, n * N * 4 + N * item,
                        grid=(-(-N // 4 // 128), 1), flops_rate=FP32_PEAK, phase=None, gate=gate)
                 del dk_part, dv_part, part
             del q, k, v, do, out, lse, ops, lq, lk, lv, lib_out
             torch.cuda.empty_cache()
         del mask
-        n, rows, d = 5, 14 * 743, 256  # the merge alone over d-256 rows, chunks with no tile or all masked
+        n, rows, d = 5, 14 * 743, spec["rows"][0][0]  # the merge alone, chunks with no tile or all masked
         o = torch.randn(n, rows, d, generator=gen, device="cuda") * 50
         m = torch.randn(n, rows, generator=gen, device="cuda") * 3
         m[1], m[3, : rows // 2] = -1e30, float("-inf")
         l = torch.rand(n, rows, generator=gen, device="cuda") * 50 + 1
-        record(f"flash_merge[14 x 743 rows d256 {tag}, {n} chunks]", "K2-merge", lambda: _launch_merge(o, m, l, dtype),
+        record(f"flash_merge[{rows} rows d{d} {tag}, {n} chunks]", "K2-merge", lambda: _launch_merge(o, m, l, dtype),
                lambda: merge_partials_reference(o, m, l, dtype), None, 4 * n * rows * d,
                n * rows * (d + 2) * 4 + rows * (d * item + 4), outputs=2, grid=(-(-rows // 4),), flops_rate=FP32_PEAK,
                phase=None, gate=gate)
@@ -1641,7 +1689,7 @@ def fp32_serve_phase(card: str) -> dict:
     layers, calls = cfg.text_config.num_hidden_layers, 2
     reckoned = {"fullblock_attention": calls * cfg.vision_config.num_hidden_layers,
                 "flash_forward": calls * (layers + 1), "flash_decode": 0, "fused_tile_attention": calls}
-    splits = [forward_splits(b, 9, 32, 32 * 27 * 27) for b in (2, 1)]
+    splits = [forward_splits(b, 9, 32, 32 * 27 * 27, d=128) for b in (2, 1)]
     log(f"[fp32-serve] launches {launches} (reckoned {reckoned}; the global compressor split into {splits} chunks "
         f"and merged) | decode steps {steps[0]}, K3 plain-route calls {k3_plain} (reckoned {steps[0] * layers})")
     if launches != reckoned or min(splits) < 2:
@@ -1817,6 +1865,24 @@ def hd256_config(layers: int = HD256_LAYERS):
         text_config=Qwen2Config(num_attention_heads=14, num_key_value_heads=2, head_dim=256)), layers)
 
 
+def hd512_config(layers: int = HD256_LAYERS):
+    """HICom-7B (``serving_config``) with its decoder's attention reshaped to
+    7 query heads and 1 kv head of 512, which keeps Qwen2.5-7B's projection
+    sizes (q and o 3,584 x 3,584, k and v 3,584 x 512), and its SigLIP tower
+    to 4 heads of 288, which keeps so400m's 1,152 width and sends the tower's
+    729-token attention to K1 at d 288 by JAX's one-block ``d % 8`` rule: a
+    width variant the JAX package builds, not a published checkpoint;
+    decoder, tower and guide cut to ``layers``."""
+    import dataclasses
+
+    from hicom_tpu_torch.config import Qwen2Config
+
+    cfg = serving_config()
+    return cut_depth(cfg.replace(
+        text_config=Qwen2Config(num_attention_heads=7, num_key_value_heads=1, head_dim=512),
+        vision_config=dataclasses.replace(cfg.vision_config, num_attention_heads=4)), layers)
+
+
 def fp32_plain_logits(model, cfg, batch):
     """:func:`last_logits` of ``model``'s weights in fp32 (each bf16 weight
     exactly, TF32 off) on the plain path: the reference against which a bf16
@@ -1836,11 +1902,24 @@ def fp32_plain_logits(model, cfg, batch):
 
 
 def hd256_phase(card: str) -> dict:
-    """[hd256]: attention at head dim 256 on the main paths, at HICom-7B's
-    full width (:func:`hd256_config`, seeded by ``build_model``, the decoder's
-    norms at 1) and 4 layers. Phase 4's 3 requests (a right-padded batch of 2,
-    then one alone, 16 new tokens) through ``HICom.generate``: K1 (each tower
-    layer), K2 (each decoder layer's d-256 prefill, and the global
+    """[hd256]: :func:`wide_heads_phase` on :func:`hd256_config`."""
+    return wide_heads_phase(card, "hd256", hd256_config())
+
+
+def hd512_phase(card: str) -> dict:
+    """[hd512]: :func:`wide_heads_phase` on :func:`hd512_config`: the tower's
+    attention on K1 at d 288, the decoder's prefill on K2 and its stage-2
+    backward on K5/K6 at d 512 (``flash_wide.cu``)."""
+    return wide_heads_phase(card, "hd512", hd512_config())
+
+
+def wide_heads_phase(card: str, label: str, cfg) -> dict:
+    """[hd256] or [hd512] (``label``): attention at a wide head dim on the
+    main paths, at HICom-7B's full width (``cfg``: :func:`hd256_config` or
+    :func:`hd512_config`, seeded by ``build_model``, the decoder's norms at 1)
+    and 4 layers. Phase 4's 3 requests (a right-padded batch of 2, then one
+    alone, 16 new tokens) through ``HICom.generate``: K1 (each tower layer),
+    K2 (each decoder layer's prefill at the wide head dim, and the global
     compressor) and K4 launch as often as the phase reckons from the depth;
     each one-token step takes the masked ``sdpa`` by K3's contract (K3 has
     head dims 64 and 128), counted in ``plain_route`` once per layer and step
@@ -1850,30 +1929,33 @@ def hd256_phase(card: str) -> dict:
     ``BF16_GATE``, or, past it, no further from the fp32 plain path on the
     same weights than the bf16 plain path is (:func:`float64_referee`, the
     rule of a kernel row above the gate). Then 2 stage-2 steps (``train_phase``'s recipe): K5/K6
-    once per decoder layer (d 256) and once for the global compressor
-    (d 128) a step; step 1's trained gradients against ``plain_path()``'s on
+    once per decoder layer (the wide head dim) and once for the global
+    compressor (d 128) a step; step 1's trained gradients against ``plain_path()``'s on
     the same weights and batch, each tensor's difference within 5% of its
     norm (the 2-layer comparison's rule, per tensor; a gradient the softmax
     cancels, whose exact value is 0, held below 2^-16 of the largest gradient
     element on both paths); frozen tensors keep their bits, trained ones
     with a gradient move. Returns the serving launches of the 3 requests
-    and the flash backward's of the steps."""
+    and the flash backward's of the steps, by wrapper and by (kernel,
+    library) (``flash_attention.source_launches``: past head dim 256 the wide
+    kernels' own, apart from the global compressor's d 128)."""
     import torch
 
     from hicom_tpu_torch.api import HICom, build_model
     from hicom_tpu_torch.ops.cuda_build import plain_route
+    from hicom_tpu_torch.ops.flash_attention import source_launches
     from hicom_tpu_torch.train.optimizer import build_optimizer
     from hicom_tpu_torch.train.train_step import batch_to_device, create_train_state, make_loss_fn, make_train_step
 
-    cfg = hd256_config()
-    tc = cfg.text_config
+    tc, vc = cfg.text_config, cfg.vision_config
     t0 = time.perf_counter()
     model = build_model(cfg, device=DEVICE, seed=0)
     norms_at_one(model)
     q_proj = model.model.layers[0].self_attn.q_proj.weight
     torch.cuda.synchronize()
-    log(f"[hd256] built HICom-7B with {tc.num_attention_heads} / {tc.num_key_value_heads} decoder heads of "
-        f"{tc.head_dim} (q_proj {tuple(q_proj.shape)}), {tc.num_hidden_layers} layers, seeded weights in "
+    log(f"[{label}] built HICom-7B with {tc.num_attention_heads} / {tc.num_key_value_heads} decoder heads of "
+        f"{tc.head_dim} (q_proj {tuple(q_proj.shape)}), tower heads of {vc.head_dim}, {tc.num_hidden_layers} "
+        "layers, seeded weights in "
         f"{time.perf_counter() - t0:.1f} s, {sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
     hc = HICom(config=cfg, model=model, eos_token_id=tc.eos_token_id, cache_len=4096)
     batch, single = make_requests(cfg)
@@ -1887,6 +1969,7 @@ def hd256_phase(card: str) -> dict:
     for f in fns.values():
         f.launches = 0
     plain_route.reset()
+    source_launches.clear()
     try:
         t0 = time.perf_counter()
         out2 = hc.generate(**batch, max_new_tokens=16)
@@ -1895,21 +1978,22 @@ def hd256_phase(card: str) -> dict:
     finally:
         hook.remove()
     launches = {name: f.launches for name, f in fns.items()}
+    fwd_sources = {key: n for key, n in source_launches.items() if key[0][:2] in ("K1", "K2")}
     k3_plain = plain_routes()["K3"]
     plain_route.reset()
     layers, calls = tc.num_hidden_layers, 2
     reckoned = {"fullblock_attention": calls * cfg.vision_config.num_hidden_layers,
                 "flash_forward": calls * (layers + 1), "flash_decode": 0, "fused_tile_attention": calls}
-    log(f"[hd256] launches {launches} (reckoned {reckoned}) | decode steps {steps[0]}, K3 plain-route calls "
-        f"{k3_plain} (reckoned {steps[0] * layers}) | 3 requests {wall:.3f} s")
+    log(f"[{label}] launches {launches} (reckoned {reckoned}); by kernel and library {fwd_sources} | decode steps "
+        f"{steps[0]}, K3 plain-route calls {k3_plain} (reckoned {steps[0] * layers}) | 3 requests {wall:.3f} s")
     if launches != reckoned:
-        raise AssertionError(f"[hd256] launches {launches} are not the reckoned {reckoned}")
+        raise AssertionError(f"[{label}] launches {launches} are not the reckoned {reckoned}")
     if steps[0] <= 0 or k3_plain != steps[0] * layers:
-        raise AssertionError(f"[hd256] {k3_plain} plain-route decode calls for {steps[0]} steps x {layers} layers")
+        raise AssertionError(f"[{label}] {k3_plain} plain-route decode calls for {steps[0]} steps x {layers} layers")
     for out in (out2, out1):
         if not (out.min() >= 0 and out.max() < tc.vocab_size):
-            raise AssertionError(f"[hd256] generated ids out of range: {out}")
-    log(f"[hd256] batch of 2 ids: {out2.tolist()} | single ids: {out1.tolist()}")
+            raise AssertionError(f"[{label}] generated ids out of range: {out}")
+    log(f"[{label}] batch of 2 ids: {out2.tolist()} | single ids: {out1.tolist()}")
 
     got, _ = greedy_with_tops(hc, single, 8)
     with plain_path():
@@ -1920,7 +2004,7 @@ def hd256_phase(card: str) -> dict:
         ref_l = last_logits(model, with_mask(single))
     plain_route.reset()
     err, ratio, rms, top = agreement(got_l, ref_l)
-    log(f"[hd256] 8 greedy ids, kernel path {got} vs plain path {ref}: "
+    log(f"[{label}] 8 greedy ids, kernel path {got} vs plain path {ref}: "
         + ("equal" if div is None else f"first apart at {div[0]}, top-2 gap there {div[1]:.4g} of |top logit| "
            f"(allowed {NEAR_TIE:.3g})")
         + f" | last-token logits: max_abs_err {err:.3g}, worst err/tol {ratio:.3f} (tol {gate_text(BF16_GATE)}, "
@@ -1929,12 +2013,12 @@ def hd256_phase(card: str) -> dict:
     if not close:  # decided as a kernel row above the gate is: both paths against the same weights in fp32
         exact = fp32_plain_logits(model, cfg, with_mask(single))
         ek, ep, ulp, rk, rp, close = float64_referee(got_l, ref_l, exact)
-        log(f"[referee] [hd256] logits: the gate is exceeded ({ratio:.3f}); against the fp32 plain path on the same "
+        log(f"[referee] [{label}] logits: the gate is exceeded ({ratio:.3f}); against the fp32 plain path on the same "
             f"weights: max error kernel path {ek:.4g}, plain path {ep:.4g}, one bf16 ulp at the kernel's worst element "
             f"{ulp:.4g}; rms error kernel {rk:.4g}, plain {rp:.4g} | {'passes' if close else 'FAILS'} (kernel <= "
             "(1 + 2^-3) plain + 1 ulp, rms <= (1 + 2^-3) plain's)")
     if (div is not None and not div[1] <= NEAR_TIE) or not (torch.isfinite(got_l).all() and close):
-        raise AssertionError(f"[hd256] the kernel path departs from the plain path: ids {got} vs {ref}, logits "
+        raise AssertionError(f"[{label}] the kernel path departs from the plain path: ids {got} vs {ref}, logits "
                              f"worst err/tol {ratio}")
     del hc
 
@@ -1966,31 +2050,33 @@ def hd256_phase(card: str) -> dict:
     loud = [n for n in cancelled if float(got_g[n].abs().max()) > noise]
     rel = {n: float((got_g[n] - plain[n]).norm()) / float(plain[n].norm()) for n in trained if n not in cancelled}
     worst = max((r, n) for n, r in rel.items())
-    log(f"[hd256] step 1's gradients, kernel vs plain path: loss {metrics[0]['loss']:.6f} vs "
+    log(f"[{label}] step 1's gradients, kernel vs plain path: loss {metrics[0]['loss']:.6f} vs "
         f"{float(loss_p.detach()):.6f}, {len(trained)} tensors, worst |diff| / |plain| {worst[0]:.4g} ({worst[1]}; "
         f"tol 0.05 of each tensor's norm); {len(cancelled)} cancelled tensors below {noise:.3g} on both paths: "
         f"{'yes' if not loud else loud}")
     if loud or not worst[0] <= 0.05:
-        raise AssertionError(f"[hd256] kernel-path gradients depart from the plain path's: {worst}, {loud}")
+        raise AssertionError(f"[{label}] kernel-path gradients depart from the plain path's: {worst}, {loud}")
     del plain, got_g, loss_p
     more = run_steps(state, step, tbatch, n=HD256_STEPS - 1)
     times, metrics, fwd, per_step = (a + b for a, b in zip((times, metrics, fwd, per_step), more))
     with_grad = [n for n in trained if params[n].grad is not None and params[n].grad.abs().max().item() >= 1e-8]
-    trained_launches = log_steps("hd256", card, f"HICom-7B (heads of 256, {layers} layers) stage 2", model, cfg,
+    trained_launches = log_steps(label, card, f"HICom-7B (heads of {tc.head_dim}, {layers} layers) stage 2", model, cfg,
                                  tbatch, times, metrics, fwd, per_step)
-    if per_step != [layers + 1] * HD256_STEPS:  # every decoder layer (d 256) + the global compressor (d 128)
-        raise AssertionError(f"[hd256] flash backward launched {per_step} times per step, not {layers + 1}")
+    bwd_sources = {key: n for key, n in source_launches.items() if key[0][:2] in ("K5", "K6")}
+    log(f"[{label}] flash backward by kernel and library {bwd_sources}")
+    if per_step != [layers + 1] * HD256_STEPS:  # every decoder layer (wide) + the global compressor (d 128)
+        raise AssertionError(f"[{label}] flash backward launched {per_step} times per step, not {layers + 1}")
     after = bit_sums((n, params[n]) for n in frozen_before)
     changed = [n for n in frozen_before if not torch.equal(after[n], frozen_before[n])]
     still = [n for n in with_grad if torch.equal(params[n].detach(), trained_before[n])]
     if changed or still or not with_grad:
-        raise AssertionError(f"[hd256] frozen tensors changed {changed[:3]}; trained tensors with a gradient that "
+        raise AssertionError(f"[{label}] frozen tensors changed {changed[:3]}; trained tensors with a gradient that "
                              f"did not move {still[:3]} (of {len(with_grad)})")
-    log(f"[hd256] checks: {len(frozen_before)} frozen tensors kept their bits; {len(with_grad)} of {len(trained)} "
+    log(f"[{label}] checks: {len(frozen_before)} frozen tensors kept their bits; {len(with_grad)} of {len(trained)} "
         f"trained tensors had a gradient >= AdamW's eps (1e-8) and all moved")
     del model, state, opt, params, trained_before, tbatch
     torch.cuda.empty_cache()
-    return dict(launches, flash_backward=trained_launches["flash_backward"])
+    return {**launches, "flash_backward": trained_launches["flash_backward"], **fwd_sources, **bwd_sources}
 
 
 # ---------------------------------------------------------------------------
@@ -2469,8 +2555,11 @@ def run_steps(state, step, batch, n: int = TRAIN_STEPS):
 def reset_counts():
     import torch
 
+    from hicom_tpu_torch.ops.flash_attention import source_launches
+
     for f in counters(train=True).values():
         f.launches = 0
+    source_launches.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -5124,6 +5213,8 @@ def main() -> int:
     launches["fp32-train"] = on_contract("fp32-train", fp32_train_phase(card))
     # heads of 256; its decode steps' plain-route calls (layers x steps) are checked and reset inside
     launches["hd256"] = on_contract("hd256", hd256_phase(card))
+    # heads of 512 in the decoder and of 288 in the tower, likewise
+    launches["hd512"] = on_contract("hd512", hd512_phase(card))
     launches["serve-int8"] = on_contract("serve-int8", serve_quant_phase(card, "serve-int8", "int8"))
     launches["serve-w8a8"] = on_contract("serve-w8a8", serve_quant_phase(card, "serve-w8a8", "w8a8s", "w8a8s_mlp_qkv"))
     launches["model-init"] = on_contract("model-init", model_init_phase(card))
@@ -5147,7 +5238,7 @@ def main() -> int:
 
     kernels = []
     for name, (kid, phase, rec) in records.items():
-        rec["launches"] = launches[phase][KERNELS[kid][0]]
+        rec["launches"] = launches[phase].get(KERNELS[kid][0], 0)
         if rec["launches"] <= 0:
             raise AssertionError(f"{name}: [{phase}] never launched {KERNELS[kid][0]}")
         kernels.append(rec)

@@ -1,0 +1,30 @@
+// Flash attention past head dim 256 in fp32 (K1/K2 forward, K5 and K6 backward): flash_wide.cuh's kernels with
+// every product an FFMA on fp32 operands (no TF32, no bf16 step). The entry points take the arguments of
+// hicom_flash_fwd_f32, hicom_flash_bwd_dq_f32 and hicom_flash_bwd_dkv_f32 (flash_fwd_f32.cu, flash_bwd_f32.cu),
+// for d % 8 == 0 past 256.
+#include "flash_wide.cuh"
+
+extern "C" int hicom_flash_fwd_wide_f32(const void* q, const void* k, const void* v, const int* kv_lengths, void* o,
+                                        float* lse, float* o_part, float* m_part, float* l_part, int B, int H,
+                                        int KVH, int Lq, int Lk, int d, int n_split, float scale, float bias,
+                                        int causal, void* stream) {
+  return wide::forward<float>(q, k, v, kv_lengths, o, lse, o_part, m_part, l_part, B, H, KVH, Lq, Lk, d, n_split,
+                              scale, bias, causal, stream);
+}
+
+extern "C" int hicom_flash_bwd_dq_wide_f32(const void* q, const void* k, const void* v, const int* kv_lengths,
+                                           const void* dout, const float* lse, const float* delta, void* dq,
+                                           float* dq_part, int B, int H, int KVH, int Lq, int Lk, int d, int n_split,
+                                           float scale, float bias, int causal, void* stream) {
+  return wide::backward_dq<float>(q, k, v, kv_lengths, dout, lse, delta, dq, dq_part, B, H, KVH, Lq, Lk, d, n_split,
+                                  scale, bias, causal, stream);
+}
+
+extern "C" int hicom_flash_bwd_dkv_wide_f32(const void* q, const void* k, const void* v, const int* kv_lengths,
+                                            const void* dout, const float* lse, const float* delta, void* dk,
+                                            void* dv, float* dk_part, float* dv_part, int B, int H, int KVH, int Lq,
+                                            int Lk, int d, int n_split, float scale, float bias, int causal,
+                                            void* stream) {
+  return wide::backward_dkv<float>(q, k, v, kv_lengths, dout, lse, delta, dk, dv, dk_part, dv_part, B, H, KVH, Lq,
+                                   Lk, d, n_split, scale, bias, causal, stream);
+}

@@ -2,8 +2,9 @@
 // mma.sync fragments (flash_bwd.cu's K5, flash_decode.cu), and mbarriers, TMA tile loads, wgmma
 // descriptors and products with the shared-memory tile layout they agree on (flash_fwd.cu, K6).
 //
-// Padded head dims (padded_dim): d up to 128 pads to a multiple of 16, d past 128 to one of 64 (192 or
-// 256), so that the wide instances are two.
+// Padded head dims (padded_dim): d up to 128 pads to a multiple of 16, d past 128 to one of 64 with no
+// upper limit: 192 or 256 for the instances up to 256 (two of them), any multiple of 64 for the kernels past
+// 256 (flash_wide.cuh), which take it at run time.
 //
 // Tile layout: a tile of R rows and DP (padded d) bf16 columns holds NB = DP / 64 boxes of 64 columns,
 // R rows of 128 B each in the 128-byte swizzle (8-row atoms of 1 KB), then the TAIL = DP % 64 columns
@@ -27,7 +28,7 @@ constexpr int WG_THREADS = 128;  // one warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// The padded width of head dim d (d % 8 == 0): 16, 32, ..., 128, then 192 and 256.
+// The padded width of head dim d (d % 8 == 0): 16, 32, ..., 128, then 192, 256, 320, ...
 __host__ __device__ constexpr int padded_dim(int d) { return d <= 128 ? (d + 15) / 16 * 16 : (d + 63) / 64 * 64; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_fwd", "flash_fwd_f32", "flash_bwd", "flash_bwd_f32", "flash_decode", "local_attn")
+SOURCES = ("flash_fwd", "flash_fwd_f32", "flash_bwd", "flash_bwd_f32", "flash_wide", "flash_wide_f32", "flash_decode",
+           "local_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

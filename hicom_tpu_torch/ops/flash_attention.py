@@ -3,9 +3,10 @@ plain twins, and the ``torch.autograd.Function`` that joins them.
 
 Four CUDA sources take the place of four Pallas TPU kernels of
 ``hicom_tpu/ops/flash_attention.py`` (``flash_fwd_f32.cu`` and
-``flash_bwd_f32.cu`` are the fp32 instances, on the CUDA cores; the split
-paths' merge and sum passes are ``flash_merge.cuh`` and
-``flash_part_sum.cuh``, shared by both types):
+``flash_bwd_f32.cu`` are the fp32 instances, on the CUDA cores; past head dim
+256 all four kernels are ``flash_wide.cu`` and ``flash_wide_f32.cu``; the
+split paths' merge and sum passes are ``flash_merge.cuh`` and
+``flash_part_sum.cuh``, shared by every source):
 
 * :func:`fullblock_attention` replaces ``_fullblock_kernel`` (K1): unmasked
   attention with every row seeing the whole kv, the SigLIP tower shape;
@@ -19,7 +20,8 @@ paths' merge and sum passes are ``flash_merge.cuh`` and
 The forwards return ``(out, lse)``. Each wrapper runs the plain PyTorch twin
 for CPU tensors and launches its kernels for CUDA tensors, or raises;
 ``launches`` counts wrapper calls that launched kernels (a split launch and
-its merge or sum pass count once).
+its merge or sum pass count once); :data:`source_launches` counts each
+kernel's launches by the library it ran from.
 
 When a grid of one block per query tile cannot fill the card (the global
 compressor's 32 queries), the forward and K5 split the key axis into chunks
@@ -50,18 +52,21 @@ otherwise (serving under ``torch.inference_mode()`` saves nothing).
 ``_flash_fwd_impl`` chooses on the TPU.
 
 The forward's contract is :func:`takes_flash_kernel` (bf16 or fp32 q, k and
-v of one dtype, as JAX's dtype-generic kernels take them; a head dim that is a
-multiple of 8 up to 256); the backward's, :func:`takes_flash_backward`, is the
-same: K5/K6 have an instance of each type at every padded head dim (16-128 in
-steps of 16, then 192 and 256), and a gradient reaches the fp32 instances with
-fp32 ``out`` and ``dO``. The wrappers raise for device operands outside them
-(fp16, a head dim past 256, which JAX's ``d % 64`` rule still sends to its
-Pallas kernels: open kernel work), and :func:`attend` raises before the
-forward when a gradient is wanted that no backward instance computes.
+v of one dtype, as JAX's dtype-generic kernels take them; any head dim that is
+a multiple of 8, as JAX's Pallas kernels have no width limit); the backward's,
+:func:`takes_flash_backward`, is the same. Up to 256 each type has an instance
+at every padded head dim (16-128 in steps of 16, then 192 and 256); past 256
+the head dim is a runtime argument of ``flash_wide.cu`` (bf16) and
+``flash_wide_f32.cu`` (fp32), which cut the output's columns into blocks
+(``flash_wide.cuh``). A gradient reaches the fp32 kernels with fp32 ``out`` and
+``dO``. The wrappers raise for device operands outside the contract (fp16,
+mixed dtypes, a head dim that is not a multiple of 8), and :func:`attend`
+raises before the forward when a gradient is wanted that no backward computes.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional, Tuple
@@ -77,16 +82,25 @@ FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64  # the forward kernel's query rows per block,
 DQ_BLOCK_K = 32  # K5's keys per tile
 DKV_BLOCK_K, DKV_BLOCK_Q = 64, 64  # K6's keys per block, query rows per unit
 H100_SMS = 132
+WIDE_BLOCK_Q = 64  # past head dim 256: the forward's and K5's query rows per block (flash_wide.cuh)
+WIDE_COLUMNS = {"fwd": 256, "dq": 256, "dkv": 128}  # ... and each kernel's output columns per block
 
 Tensor = torch.Tensor
-# the kernels' instances: each head dim padded to 16 up to 128, past it to 64 (csrc/hopper.cuh padded_dim)
-FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 192, 256)
+# up to WIDE_FROM each head dim runs an instance of its padded width (a multiple of 16 up to 128, then 192
+# or 256: csrc/hopper.cuh padded_dim); past it one kernel of each type takes the head dim at run time
+WIDE_FROM = 256
 FLASH_DTYPES = (torch.bfloat16, torch.float32)  # the forward's operand types: flash_fwd.cu, flash_fwd_f32.cu
+# launches on the card by (kernel, library), counted where each kernel launches: "K1" or "K2" and the split
+# forward's "K2-merge" (K1's "K1-merge") in _launch, "K5" / "K5-sum" in _launch_dq, "K6" / "K6-sum" in
+# _launch_dkv; so a wrapper's calls at one head dim are told from those at another (flash_wide against
+# flash_fwd, say), where the wrappers' ``launches`` count every call
+source_launches = collections.Counter()
 
 
 def _padded(d: int) -> int:
-    """The instance that computes head dim ``d``: a multiple of 16 up to 128,
-    of 64 past it (d 136 runs the 192 instance on zero columns)."""
+    """The padded width that computes head dim ``d``: a multiple of 16 up to
+    128, of 64 past it (d 136 runs the 192 instance on zero columns, d 264 the
+    wide kernels over 320 columns)."""
     return (d + 15) // 16 * 16 if d <= 128 else (d + 63) // 64 * 64
 
 
@@ -94,27 +108,40 @@ def takes_flash_kernel(d: int, dtypes, device_type: str) -> bool:
     """Whether the forward wrappers (K1, K2) compute attention of head dim
     ``d`` over q, k and v of ``dtypes`` on ``device_type``: always on the CPU
     (the plain twins); elsewhere the kernels' contract: operands of one dtype
-    of :data:`FLASH_DTYPES`, ``d`` a multiple of 8 that pads to one of
-    :data:`FLASH_HEAD_DIMS`."""
+    of :data:`FLASH_DTYPES` and ``d`` a positive multiple of 8, with no upper
+    limit (an instance of its padded width up to :data:`WIDE_FROM`, the wide
+    kernels past it)."""
     if device_type == "cpu":
         return True
     dtypes = tuple(dtypes)
-    return (dtypes[0] in FLASH_DTYPES and all(dt == dtypes[0] for dt in dtypes) and d % 8 == 0
-            and _padded(d) in FLASH_HEAD_DIMS)
+    return dtypes[0] in FLASH_DTYPES and all(dt == dtypes[0] for dt in dtypes) and d > 0 and d % 8 == 0
 
 
 def takes_flash_backward(d: int, dtypes, device_type: str) -> bool:
     """Whether K5/K6 (:func:`flash_backward`) take a gradient of attention of
     head dim ``d`` over ``dtypes`` on ``device_type``: what the forward
-    kernels take (:func:`takes_flash_kernel`), with an instance of each type
-    at every padded head dim (bf16 in ``flash_bwd.cu``, fp32 in
-    ``flash_bwd_f32.cu``)."""
+    kernels take (:func:`takes_flash_kernel`): an instance of each type at
+    every padded head dim up to 256 (bf16 in ``flash_bwd.cu``, fp32 in
+    ``flash_bwd_f32.cu``), and past it the wide kernels (``flash_wide.cu``,
+    ``flash_wide_f32.cu``)."""
     return takes_flash_kernel(d, dtypes, device_type)
 
 
 def _backward_instance(d: int, dtype) -> str:
     """The K5/K6 instance that a gradient of (d, dtype) would need."""
-    return f"K5/K6 have no {str(dtype).replace('torch.', '')} instance at head dim {d} (padded {_padded(d)})"
+    return f"K5/K6 have no {str(dtype).replace('torch.', '')} instance at head dim {d}"
+
+
+def _source(kind: str, dtype: torch.dtype, d: int) -> Tuple[str, str]:
+    """(library, symbol) of the forward (``kind`` "fwd"), K5 ("bwd_dq") or K6
+    ("bwd_dkv") for operands of ``dtype`` at head dim ``d``: ``flash_fwd.cu``
+    / ``flash_bwd.cu`` and their ``_f32`` sources up to :data:`WIDE_FROM`,
+    ``flash_wide.cu`` / ``flash_wide_f32.cu`` past it. Each takes the same
+    arguments."""
+    f32 = "_f32" if dtype == torch.float32 else ""
+    if d > WIDE_FROM:
+        return f"flash_wide{f32}", f"hicom_flash_{kind}_wide{f32}"
+    return f"flash_{kind.split('_')[0]}{f32}", f"hicom_flash_{kind}{f32}"
 
 
 def _acc_dtype(x: Tensor) -> torch.dtype:
@@ -202,6 +229,13 @@ def dq_block_q(lq: int) -> int:
     return 32 if lq <= 32 else 64
 
 
+def wide_column_blocks(d: int, kind: str) -> int:
+    """The column blocks of the wide kernels' grid (``kind`` "fwd", "dq" or
+    "dkv") at head dim ``d``: 1 up to :data:`WIDE_FROM`, where the other
+    kernels hold a whole row."""
+    return -(-_padded(d) // WIDE_COLUMNS[kind]) if d > WIDE_FROM else 1
+
+
 def _splits(blocks: int, units: int, sms: int) -> int:
     """One chunk when ``blocks`` fill the card, else about two blocks per SM,
     never more chunks than a block has ``units`` (key tiles, or K6's units)."""
@@ -210,25 +244,32 @@ def _splits(blocks: int, units: int, sms: int) -> int:
     return max(1, min(units, 2 * sms // blocks))
 
 
-def forward_splits(b: int, H: int, lq: int, lk: int, sms: int = H100_SMS) -> int:
+def forward_splits(b: int, H: int, lq: int, lk: int, sms: int = H100_SMS, *, d: int) -> int:
     """Chunks of the key axis for the forward kernel (K1/K2): 1 at the tower
-    and prefill shapes, 29 at the global compressor's b 1 and 14 at b 2."""
-    return _splits(-(-lq // FWD_BLOCK_Q) * b * H, -(-lk // FWD_BLOCK_K), sms)
+    and prefill shapes, 29 at the global compressor's b 1 and 14 at b 2.
+    Past head dim 256 (``d``) the grid is the wide kernel's: blocks of 64
+    rows, times its column blocks."""
+    rows = -(-lq // WIDE_BLOCK_Q) * wide_column_blocks(d, "fwd") if d > WIDE_FROM else -(-lq // FWD_BLOCK_Q)
+    return _splits(rows * b * H, -(-lk // FWD_BLOCK_K), sms)
 
 
-def dq_splits(b: int, H: int, lq: int, lk: int, sms: int = H100_SMS) -> int:
+def dq_splits(b: int, H: int, lq: int, lk: int, sms: int = H100_SMS, *, d: int) -> int:
     """Chunks of the key axis for K5: 1 at the tower and prefill shapes, 14
-    at the global compressor's b 2 (252 blocks of 32 query rows)."""
-    return _splits(-(-lq // dq_block_q(lq)) * b * H, -(-lk // DQ_BLOCK_K), sms)
+    at the global compressor's b 2 (252 blocks of 32 query rows). Past head
+    dim 256 the wide kernel's grid: blocks of 64 rows times its column blocks."""
+    rows = -(-lq // WIDE_BLOCK_Q) * wide_column_blocks(d, "dq") if d > WIDE_FROM else -(-lq // dq_block_q(lq))
+    return _splits(rows * b * H, -(-lk // DQ_BLOCK_K), sms)
 
 
-def dkv_splits(b: int, H: int, KVH: int, lq: int, lk: int, sms: int = H100_SMS) -> int:
+def dkv_splits(b: int, H: int, KVH: int, lq: int, lk: int, sms: int = H100_SMS, *, d: int) -> int:
     """Ranges of each K6 block's units: one where the blocks of 64 keys fill
     the card (the global compressor, the tower), else at least two blocks per
     SM, rounded up because a causal mask leaves the blocks uneven (the first
     key tile is seen by every query tile, the last by one): 3 at the decoder
-    prefill's b 2, whose 96 blocks become 288, never more than a block's units."""
-    blocks = -(-lk // DKV_BLOCK_K) * b * KVH
+    prefill's b 2, whose 96 blocks become 288, never more than a block's units.
+    Past head dim 256 each block of keys is one per column block of the wide
+    kernel's."""
+    blocks = -(-lk // DKV_BLOCK_K) * b * KVH * wide_column_blocks(d, "dkv")
     if blocks >= sms:
         return 1
     return max(1, min(H // KVH * -(-lq // DKV_BLOCK_Q), -(-2 * sms // blocks)))
@@ -430,17 +471,18 @@ def _check(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], what: 
 
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float,
-            logit_bias: float, causal: bool, n_split: Optional[int] = None, partials: bool = False
-            ) -> Tuple[Tensor, ...]:
+            logit_bias: float, causal: bool, n_split: Optional[int] = None, partials: bool = False,
+            kernel: str = "K2") -> Tuple[Tensor, ...]:
     """The forward kernel (and its merge pass when split) on CUDA tensors:
     (out, lse). With ``partials`` the kernel alone, returning its fp32
     partials (o_part, m_part, l_part) over ``n_split`` chunks, shaped
     (n_split, b, H, Lq, d) and (n_split, b, H, Lq). ``n_split`` defaults to
-    :func:`forward_splits`; tests force it."""
+    :func:`forward_splits`; tests force it. ``kernel`` ("K1" for
+    :func:`fullblock_attention`) names the launch in :data:`source_launches`."""
     b, H, KVH, Lq, Lk, d, lens = _check(q, k, v, kv_lengths, "flash kernel")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if n_split is None:
-        n_split = forward_splits(b, H, Lq, Lk, _sm_count(q.device.index or 0))
+        n_split = forward_splits(b, H, Lq, Lk, _sm_count(q.device.index or 0), d=d)
     out = None if partials else torch.empty_like(q)
     lse = None if partials else torch.empty((b, H, Lq), dtype=torch.float32, device=q.device)
     parts = (None, None, None)
@@ -448,8 +490,7 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale
         parts = (torch.empty((n_split, b * H, Lq, d), dtype=torch.float32, device=q.device),
                  torch.empty((n_split, b * H, Lq), dtype=torch.float32, device=q.device),
                  torch.empty((n_split, b * H, Lq), dtype=torch.float32, device=q.device))
-    source, symbol = ("flash_fwd_f32", "hicom_flash_fwd_f32") if q.dtype == torch.float32 else \
-        ("flash_fwd", "hicom_flash_fwd")
+    source, symbol = _source("fwd", q.dtype, d)
     fn = c_function(source, symbol, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                     + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr() if lens is not None else None,
@@ -457,6 +498,9 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale
                 b, H, KVH, Lq, Lk, d, int(n_split), float(scale), float(logit_bias), int(causal),
                 torch.cuda.current_stream(q.device).cuda_stream)
     check(status, symbol)
+    source_launches[kernel, source] += 1
+    if n_split > 1 and not partials:
+        source_launches[f"{kernel}-merge", source] += 1
     if partials:
         o_part, m_part, l_part = parts
         return o_part.view(n_split, b, H, Lq, d), m_part.view(n_split, b, H, Lq), l_part.view(n_split, b, H, Lq)
@@ -489,7 +533,7 @@ def fullblock_attention(q: Tensor, k: Tensor, v: Tensor, scale: float, logit_bia
     if q.device.type == "cpu":
         out, lse = flash_reference(q[:, None], k[:, None], v[:, None], None, scale, logit_bias, False)
         return out[:, 0], lse[:, 0]
-    out, lse = _launch(q[:, None], k[:, None], v[:, None], None, scale, logit_bias, False)
+    out, lse = _launch(q[:, None], k[:, None], v[:, None], None, scale, logit_bias, False, kernel="K1")
     fullblock_attention.launches += 1
     return out[:, 0], lse[:, 0]
 
@@ -556,29 +600,25 @@ def _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal):
              torch.cuda.current_stream(q.device).cuda_stream))
 
 
-def _bwd_source(dtype: torch.dtype, kernel: str) -> Tuple[str, str]:
-    """(library, symbol) of K5 (``kernel`` "dq") or K6 ("dkv") for operands of ``dtype``."""
-    if dtype == torch.float32:
-        return "flash_bwd_f32", f"hicom_flash_bwd_{kernel}_f32"
-    return "flash_bwd", f"hicom_flash_bwd_{kernel}"
-
-
 def _launch_dq(q, k, v, lens, do, lse, delta, scale, logit_bias, causal, n_split: Optional[int] = None) -> Tensor:
     """K5 (and its sum pass when split) on checked, contiguous CUDA tensors,
-    its bf16 or fp32 instance by q's dtype (no launch count: see
+    its bf16 or fp32 instance by q's dtype and head dim (no launch count: see
     :func:`flash_backward`). ``n_split`` defaults to :func:`dq_splits`; tests
     force it."""
     b, H, Lq, d = q.shape
     if n_split is None:
-        n_split = dq_splits(b, H, Lq, k.shape[2], _sm_count(q.device.index or 0))
+        n_split = dq_splits(b, H, Lq, k.shape[2], _sm_count(q.device.index or 0), d=d)
     dq = torch.empty_like(q)
     part = torch.empty((n_split, b * H, Lq, d), dtype=torch.float32, device=q.device) if n_split > 1 else None
     head, tail = _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal)
-    source, symbol = _bwd_source(q.dtype, "dq")
+    source, symbol = _source("bwd_dq", q.dtype, d)
     fn = c_function(source, symbol, _BWD_ARGS + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
                     + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     check(fn(*head, dq.data_ptr(), part.data_ptr() if part is not None else None, *tail[:6], int(n_split), *tail[6:]),
           symbol)
+    source_launches["K5", source] += 1
+    if n_split > 1:
+        source_launches["K5-sum", source] += 1
     return dq
 
 
@@ -608,23 +648,26 @@ def _launch_part_sum(*pairs: Tuple[Tensor, float], dtype: torch.dtype = torch.bf
 def _launch_dkv(q, k, v, lens, do, lse, delta, scale, logit_bias, causal, n_split: Optional[int] = None
                 ) -> Tuple[Tensor, Tensor]:
     """K6 (and its sum pass when split) on checked, contiguous CUDA tensors,
-    its bf16 or fp32 instance by q's dtype (no launch count: see
+    its bf16 or fp32 instance by q's dtype and head dim (no launch count: see
     :func:`flash_backward`). ``n_split`` defaults to :func:`dkv_splits`;
     tests force it."""
     b, H, Lq, d = q.shape
     KVH, Lk = k.shape[1], k.shape[2]
     if n_split is None:
-        n_split = dkv_splits(b, H, KVH, Lq, Lk, _sm_count(q.device.index or 0))
+        n_split = dkv_splits(b, H, KVH, Lq, Lk, _sm_count(q.device.index or 0), d=d)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     parts = (None, None)
     if n_split > 1:
         parts = tuple(torch.empty((n_split, b * KVH, Lk, d), dtype=torch.float32, device=q.device) for _ in range(2))
     head, tail = _bwd_args(q, k, v, lens, do, lse, delta, scale, logit_bias, causal)
-    source, symbol = _bwd_source(q.dtype, "dkv")
+    source, symbol = _source("bwd_dkv", q.dtype, d)
     fn = c_function(source, symbol, _BWD_ARGS + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                     + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     check(fn(*head, dk.data_ptr(), dv.data_ptr(), *(t.data_ptr() if t is not None else None for t in parts),
              *tail[:6], int(n_split), *tail[6:]), symbol)
+    source_launches["K6", source] += 1
+    if n_split > 1:
+        source_launches["K6-sum", source] += 1
     return dk, dv
 
 
@@ -698,9 +741,9 @@ class FlashAttention(torch.autograd.Function):
 def attend(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale: float, logit_bias: float,
            causal: bool, fullblock: bool) -> Tensor:
     """:class:`FlashAttention` when a gradient is wanted, else the forward kernel
-    alone. A gradient that no K5/K6 instance computes (a head dim past 256, or
-    fp16, on a device) raises here, naming the instance, before the forward
-    runs."""
+    alone. A gradient that no K5/K6 instance computes (fp16 or mixed dtypes,
+    or a head dim that is not a multiple of 8, on a device) raises here,
+    naming the instance, before the forward runs."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         d = q.shape[-1]
         if not takes_flash_backward(d, (q.dtype, k.dtype, v.dtype), q.device.type):

@@ -7,7 +7,9 @@ fp32 gate, with the bf16 instances at head dims 16, 48, 96 and 112, and a tiny
 ``train.cli`` stage 2 with ``--dtype float32``; at the end of the file, the
 head dims past 128 (the 192 and 256 instances, d 136 on zero columns) in both
 types, forward, backward, split and merged, and a tiny HICom whose decoder has
-heads of 256 on the card.
+heads of 256 on the card; then the head dims past 256 (``flash_wide.cu``,
+``flash_wide_f32.cu``: d 264 to 2,048) in both types and a tiny HICom whose
+decoder has heads of 512 and whose tower has a head of 288.
 On a machine with a card and no JAX, run them without the JAX-loading
 conftest: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
@@ -219,14 +221,18 @@ def test_cuda_wrappers_refuse_what_they_cannot_take(rn):
     q = rn(2, 4, 16, 72).half()  # fp16: the kernels take bf16 and fp32
     with pytest.raises(TypeError):
         flash_forward(q, q, q, None, 0.1, 0.0, False)
-    q = rn(2, 4, 16, 264)  # past head dim 256
-    with pytest.raises(ValueError, match="head dim 264"):
+    q = rn(2, 4, 16, 36)  # a head dim that is not a multiple of 8 (past 256 the wide kernels compute)
+    with pytest.raises(ValueError, match="head dim 36"):
         flash_forward(q, q, q, None, 0.1, 0.0, False)
-    q = rn(2, 4, 200, 264).float().requires_grad_()  # a forward that needs a gradient no K5/K6 instance computes
+    q = rn(2, 4, 200, 36).float().requires_grad_()  # a forward that needs a gradient no K5/K6 instance computes
     before = flash_forward.launches
-    with pytest.raises(TypeError, match="K5/K6 have no float32 instance at head dim 264"):
+    with pytest.raises(TypeError, match="K5/K6 have no float32 instance at head dim 36"):
         flash_attention_gqa(q, q, q, is_causal=True)
     assert flash_forward.launches == before
+    q = rn(2, 4, 16, 264)  # the d-264 call that raised here before the wide kernels: it launches now
+    out, _ = flash_forward(q, q, q, None, 0.1, 0.0, False)
+    assert flash_forward.launches == before + 1
+    assert _worst(out, flash_reference(q, q, q, None, 0.1, 0.0, False)[0]) <= 1
 
 
 @pytest.mark.parametrize("n_split", [1, 2, 3, 7])
@@ -254,7 +260,7 @@ def test_flash_forward_rows_without_keys(rn, causal, lens, n_split):
 
 
 def test_global_shape_splits_fill_the_card():
-    assert 2 * 9 * forward_splits(2, 9, 32, 23328) >= 132 and 9 * forward_splits(1, 9, 32, 23328) >= 132
+    assert 2 * 9 * forward_splits(2, 9, 32, 23328, d=128) >= 132 and 9 * forward_splits(1, 9, 32, 23328, d=128) >= 132
 
 
 @pytest.mark.parametrize("n_split", [1, 2, 5, 14])
@@ -339,7 +345,7 @@ def test_dkv_sum_kernel_matches_its_plain_version():
 
 
 def test_decoder_dkv_grid_fills_the_card():
-    assert -(-743 // DKV_BLOCK_K) * 2 * 4 * dkv_splits(2, 28, 4, 743, 743) >= 132
+    assert -(-743 // DKV_BLOCK_K) * 2 * 4 * dkv_splits(2, 28, 4, 743, 743, d=128) >= 132
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -1390,6 +1396,13 @@ def test_d256_tiny_model_on_the_card(rn, dtype):
     launched once per decoder layer and once for the global compressor
     (each tensor within 5% of its norm in bf16; at the fp32 gate in fp32; a
     gradient the softmax cancels held below the noise of the largest)."""
+    _tiny_model_on_the_card(_tiny_d256_config(dtype), dtype)
+
+
+def _tiny_model_on_the_card(cfg, dtype: str, compressor_kernel: bool = True):
+    """The checks of :func:`test_d256_tiny_model_on_the_card` on ``cfg``;
+    ``compressor_kernel``: whether JAX's rule sends the global compressor to
+    K2 (else it takes the plain path and launches no flash kernel)."""
     import chip_smoke as cs
     from hicom_tpu_torch.api import HICom, build_model
     from hicom_tpu_torch.ops.cuda_build import plain_route
@@ -1397,7 +1410,6 @@ def test_d256_tiny_model_on_the_card(rn, dtype):
     from hicom_tpu_torch.train.train_step import batch_to_device, make_loss_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _tiny_d256_config(dtype)
     fp32 = dtype == "float32"
     model = build_model(cfg, device="cuda", seed=0)
     cs.norms_at_one(model)
@@ -1407,7 +1419,8 @@ def test_d256_tiny_model_on_the_card(rn, dtype):
     before = flash_forward.launches
     got, _ = cs.greedy_with_tops(hc, single, 8)
     layers = cfg.text_config.num_hidden_layers
-    assert flash_forward.launches - before == layers + 1  # each decoder layer's prefill, the global compressor
+    # each decoder layer's prefill, the global compressor
+    assert flash_forward.launches - before == layers + compressor_kernel
     assert plain_route.counts["K3"] == 7 * layers  # the 7 one-token steps after the prefill
     with cs.plain_path():
         ref, tops = cs.greedy_with_tops(hc, single, 8)
@@ -1432,7 +1445,7 @@ def test_d256_tiny_model_on_the_card(rn, dtype):
 
     before = flash_backward.launches
     got_g = grads()
-    assert flash_backward.launches - before == layers + 1
+    assert flash_backward.launches - before == layers + compressor_kernel
     with cs.plain_path():
         ref_g = grads()
     noise = (2**-20 if fp32 else 2**-16) * max(float(g.abs().max()) for g in ref_g.values())
@@ -1443,3 +1456,157 @@ def test_d256_tiny_model_on_the_card(rn, dtype):
             assert cs.agreement(got_g[n], ref_g[n], cs.FP32_GATE)[1] <= 1, n
         else:
             assert float((got_g[n] - ref_g[n]).norm()) <= 0.05 * float(ref_g[n].norm()), n
+
+
+# --------------------------------------------------------------------------- #
+# head dims past 256: flash_wide.cu (bf16) and flash_wide_f32.cu (fp32), K1/K2 and K5/K6 with the head dim a
+# runtime argument, in column blocks
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+@pytest.mark.parametrize("bh,L,d", [(4, 300, 264), (8, 729, 288), (4, 200, 320), (4, 300, 512), (2, 200, 1024)])
+def test_fullblock_past_256(rn, tag, bh, L, d):
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    q, k, v = r(bh, L, d), r(bh, L, d), r(bh, L, d)
+    before = fullblock_attention.launches
+    out, lse = fullblock_attention(q, k, v, d**-0.5, 0.1)
+    ref, ref_lse = flash_reference(q[:, None], k[:, None], v[:, None], None, d**-0.5, 0.1, False)
+    assert fullblock_attention.launches == before + 1 and out.dtype == dtype
+    assert worst(out, ref[:, 0]) <= 1 and (lse - ref_lse[:, 0]).abs().max().item() <= 1e-3
+
+
+PAST_256_FORWARD = [
+    (2, 7, 1, 300, 300, 512, True, [300, 217]),  # the d-512 decoder's heads, GQA 7:1, causal, lengths
+    (2, 8, 2, 200, 200, 320, True, None),
+    (2, 4, 4, 200, 200, 384, False, [150, 200]),
+    (1, 4, 1, 150, 260, 1024, True, [260]),  # bottom-right diagonal, four column blocks
+    (1, 4, 4, 32, 3000, 512, False, None),  # 32 queries over many keys: split by default
+    (1, 2, 2, 100, 100, 2048, True, None),
+]
+
+
+@pytest.mark.parametrize("n_split", [None, 1, 3])
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens", PAST_256_FORWARD)
+def test_flash_forward_past_256(rn, tag, b, H, KVH, Lq, Lk, d, causal, lens, n_split):
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    q, k, v = r(b, H, Lq, d), r(b, KVH, Lk, d), r(b, KVH, Lk, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = _launch(q, k, v, kl, d**-0.5, 0.2, causal, n_split=n_split)
+    ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.2, causal)
+    assert out.dtype == dtype
+    assert worst(*_valid_rows(out, ref, b, H, Lq, kl)) <= 1
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    if n_split is not None and n_split > 1:
+        cpu = [t.cpu() if t is not None else None for t in (q, k, v, kl)]
+        split, _ = split_forward_reference(*cpu, d**-0.5, 0.2, causal, n_split)
+        assert worst(*_valid_rows(out, split.cuda(), b, H, Lq, kl)) <= 1
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("causal,lens", [(True, None), (False, [0, 60])])
+def test_flash_forward_past_256_rows_without_keys(rn, causal, lens, n_split):
+    """Rows with no valid key (Lq > Lk causal; a batch row of kv length 0)
+    end as the twin's: the mean of every value."""
+    r = _wide_rn(torch.float32)
+    q, k, v = r(2, 2, 200, 320), r(2, 2, 80, 320), r(2, 2, 80, 320)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = _launch(q, k, v, kl, 320**-0.5, 0.0, causal, n_split=n_split)
+    ref, ref_lse = flash_reference(q, k, v, kl, 320**-0.5, 0.0, causal)
+    assert _worst32(out, ref) <= 1 and (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+@pytest.mark.parametrize("d", [512, 1024])
+def test_forward_partials_merge_past_256(rn, tag, d):
+    """K2's partials alone past 256 and the merge kernel over two key halves,
+    in the caller's dtype, on rows of 512 and 1,024 columns."""
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    q, k, v = r(1, 4, 32, d), r(1, 4, 2000, d), r(1, 4, 2000, d)
+    halves = [flash_forward_partials(q, k[:, :, i:i + 1000], v[:, :, i:i + 1000], None, d**-0.5, 0.0, False)
+              for i in (0, 1000)]
+    before = merge_partials.launches
+    out, lse = merge_partials(*(torch.cat(x) for x in zip(*halves)), dtype)
+    assert merge_partials.launches == before + 1 and out.dtype == dtype
+    ref, ref_lse = flash_reference(q, k, v, None, d**-0.5, 0.0, False)
+    assert worst(out, ref) <= 1 and (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+PAST_256_BACKWARD = [
+    (2, 7, 1, 300, 300, 512, True, [300, 217], 0.0),  # the d-512 decoder's heads
+    (2, 8, 2, 200, 200, 320, True, None, 0.1),
+    (2, 4, 4, 200, 200, 288, False, [150, 200], -0.2),
+    (1, 4, 1, 130, 260, 1024, True, [260], 0.0),  # bottom-right diagonal
+    (2, 4, 4, 32, 2000, 512, False, None, 0.0),  # 32-row query blocks, K5 split by default
+]
+
+
+@pytest.mark.parametrize("n_split", [None, 1, 3])
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+@pytest.mark.parametrize("b,H,KVH,Lq,Lk,d,causal,lens,bias", PAST_256_BACKWARD)
+def test_flash_backward_past_256(rn, tag, b, H, KVH, Lq, Lk, d, causal, lens, bias, n_split):
+    """K5 and K6 in column blocks against the unsplit twin, and with forced
+    splits against the split twins (the same chunks and unit ranges, then the
+    sum pass)."""
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    q, k, v, do = r(b, H, Lq, d), r(b, KVH, Lk, d), r(b, KVH, Lk, d), r(b, H, Lq, d)
+    kl = torch.tensor(lens, device="cuda", dtype=torch.int32) if lens else None
+    out, lse = flash_forward(q, k, v, kl, d**-0.5, bias, causal)
+    ops = backward_operands(q, k, v, kl, out, lse, do)
+    got = (_launch_dq(*ops, d**-0.5, bias, causal, n_split=n_split),) + _launch_dkv(*ops, d**-0.5, bias, causal,
+                                                                                    n_split=n_split)
+    ref = flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, bias, causal)
+    assert all(g.dtype == dtype for g in got)
+    assert max(worst(g, r) for g, r in zip(got, ref)) <= 1
+    if n_split is not None and n_split > 1:
+        cpu = [t.cpu() if t is not None else None for t in (q, k, v, kl, out, lse, do)]
+        split = (split_dq_reference(*cpu, d**-0.5, bias, causal, n_split),) + split_dkv_reference(
+            *cpu, d**-0.5, bias, causal, n_split)
+        assert max(worst(g, s.cuda()) for g, s in zip(got, split)) <= 1
+
+
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+@pytest.mark.parametrize("d", [288, 512])
+def test_past_256_function_backward_runs_the_kernels(rn, tag, d):
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    b, H, KVH, L = 2, 7, 1, 150
+    q, k, v, do = r(b, H, L, d), r(b, KVH, L, d), r(b, KVH, L, d), r(b, H, L, d)
+    kl = torch.tensor([150, 120], device="cuda", dtype=torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (flash_forward.launches, flash_backward.launches)
+    out = flash_attention_gqa(*leaves, is_causal=True, kv_lengths=kl)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert (flash_forward.launches, flash_backward.launches) == (before[0] + 1, before[1] + 1)
+    _, lse = flash_reference(q, k, v, kl, d**-0.5, 0.0, True)
+    ref = flash_backward_reference(q, k, v, kl, out.detach(), lse.float(), do, d**-0.5, 0.0, True)
+    assert max(worst(g, r) for g, r in zip(grads, ref)) <= 1
+
+
+def _tiny_d512_config(dtype: str):
+    """:func:`_tiny_d256_config` with the decoder at 2 query heads and 1 kv
+    head of 512 and the tower at one head of 288 (hidden 288, and the guide's
+    projection with it: the 144 tower tokens take K1 at d 288 by JAX's
+    one-block rule)."""
+    import dataclasses
+
+    c = _tiny_d256_config(dtype)
+    return c.replace(text_config=dataclasses.replace(c.text_config, head_dim=512),
+                     vision_config=dataclasses.replace(c.vision_config, hidden_size=288, num_attention_heads=1),
+                     guide_text_config=dataclasses.replace(c.guide_text_config, projection_size=288))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_d512_tiny_model_on_the_card(rn, dtype):
+    """The checks of :func:`test_d256_tiny_model_on_the_card` on a tiny
+    HICom whose decoder has heads of 512 and whose tower has a head of 288:
+    K1 at d 288, K2 at d 512, K5/K6's wide kernels in the backward. Its
+    global compressor (2 heads of 144 over 1,728 keys) takes the plain path by
+    JAX's rule, so the flash kernels launch once per decoder layer."""
+    before = fullblock_attention.launches
+    _tiny_model_on_the_card(_tiny_d512_config(dtype), dtype, compressor_kernel=False)
+    assert fullblock_attention.launches > before

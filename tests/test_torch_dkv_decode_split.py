@@ -105,13 +105,13 @@ def test_dkv_unit_ranges_cover_every_unit_once(lk, lq, causal, limit, g, n_split
 def test_dkv_split_rule(b):
     # the decoder prefill: 12 key tiles x b * 4 kv heads do not fill the card; the split brings at
     # least two blocks per SM's worth of work (192 blocks at b 2)
-    n = tfa.dkv_splits(b, 28, 4, 743, 743)
+    n = tfa.dkv_splits(b, 28, 4, 743, 743, d=128)
     assert -(-743 // tfa.DKV_BLOCK_K) * b * 4 * n >= 192 and n <= 7 * 12
     # the global compressor (365 key tiles x b * 9 heads) and the tower (512 rows) fill it alone
-    assert tfa.dkv_splits(b, 9, 9, 32, 23328) == 1 and tfa.dkv_splits(512 * b, 1, 1, 729, 729) == 1
+    assert tfa.dkv_splits(b, 9, 9, 32, 23328, d=128) == 1 and tfa.dkv_splits(512 * b, 1, 1, 729, 729, d=72) == 1
     # never more splits than a block has units
     for lq, lk, heads, kvh in ((32, 64, 1, 1), (1, 64, 7, 1), (100, 700, 28, 4)):
-        assert 1 <= tfa.dkv_splits(b, heads, kvh, lq, lk) <= heads // kvh * -(-lq // tfa.DKV_BLOCK_Q)
+        assert 1 <= tfa.dkv_splits(b, heads, kvh, lq, lk, d=128) <= heads // kvh * -(-lq // tfa.DKV_BLOCK_Q)
 
 
 def _decode_inputs(rng, quantized, bitmap):

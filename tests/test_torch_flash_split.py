@@ -126,15 +126,15 @@ def test_merge_weighs_empty_and_masked_chunks_zero():
 @pytest.mark.parametrize("b", [1, 2])
 def test_split_rules(b):
     # one split where one block per query tile fills the card: the decoder prefill and the tower
-    assert tfa.forward_splits(b, 28, 743, 743) == 1 and tfa.dq_splits(b, 28, 743, 743) == 1
+    assert tfa.forward_splits(b, 28, 743, 743, d=128) == 1 and tfa.dq_splits(b, 28, 743, 743, d=128) == 1
     for rows in (32 * 16 * b, 64 * 16):
-        assert tfa.forward_splits(rows, 1, 729, 729) == 1 and tfa.dq_splits(rows, 1, 729, 729) == 1
+        assert tfa.forward_splits(rows, 1, 729, 729, d=72) == 1 and tfa.dq_splits(rows, 1, 729, 729, d=72) == 1
     # at least one wave of blocks at the global compressor's shape
-    fwd, dq = tfa.forward_splits(b, 9, 32, 23328), tfa.dq_splits(b, 9, 32, 23328)
+    fwd, dq = tfa.forward_splits(b, 9, 32, 23328, d=128), tfa.dq_splits(b, 9, 32, 23328, d=128)
     assert b * 9 * fwd >= tfa.H100_SMS and b * 9 * dq >= tfa.H100_SMS
     # never more splits than key tiles
     for lq in (1, 32, 100):
         for lk in (1, 63, 64, 65, 130, 1000, 23328):
             for heads in (1, 9, 28):
-                assert 1 <= tfa.forward_splits(b, heads, lq, lk) <= -(-lk // tfa.FWD_BLOCK_K)
-                assert 1 <= tfa.dq_splits(b, heads, lq, lk) <= -(-lk // tfa.DQ_BLOCK_K)
+                assert 1 <= tfa.forward_splits(b, heads, lq, lk, d=128) <= -(-lk // tfa.FWD_BLOCK_K)
+                assert 1 <= tfa.dq_splits(b, heads, lq, lk, d=128) <= -(-lk // tfa.DQ_BLOCK_K)

@@ -151,7 +151,7 @@ def test_split_forward_and_merge_fp32_global_shape():
     b, H, Lq, Lk, d = 1, 2, 32, 2916, 128
     q, k, v = _rand(rng, b, H, Lq, d), _rand(rng, b, H, Lk, d), _rand(rng, b, H, Lk, d)
     ref = np.asarray(jfa.flash_attention(*map(jnp.asarray, (q, k, v)), interpret=True))
-    n_split = tfa.forward_splits(1, 9, Lq, Lk)
+    n_split = tfa.forward_splits(1, 9, Lq, Lk, d=d)
     assert n_split == 29
     out, _ = tfa.split_forward_reference(*_t(q, k, v), None, d**-0.5, 0.0, False, n_split)
     assert out.dtype == torch.float32

@@ -90,8 +90,10 @@ def meta(*shape, dtype=BF16):
     (256, (BF16,) * 3, True),
     (192, (F32,) * 3, True),
     (256, (F32,) * 3, True),
-    (264, (BF16,) * 3, False),  # past 256: JAX's d % 64 rule admits 320, 384, ...; no instance here
-    (264, (F32,) * 3, False),
+    (264, (BF16,) * 3, True),  # past 256: the wide kernels (flash_wide.cu), head dim a runtime argument
+    (264, (F32,) * 3, True),  # ... and flash_wide_f32.cu
+    (512, (BF16,) * 3, True),  # JAX's d % 64 rule at any length: 320, 384, 512, ...
+    (2048, (F32,) * 3, True),
     (16, (F32,) * 3, True),
     (112, (F32,) * 3, True),
     (72, (torch.float16,) * 3, False),
@@ -204,8 +206,12 @@ SDPA_CASES = {
                            "K2", None),
     "prefill 14/2 d 256 fp32": ((2, 14, 743, 256), (2, 2, 743, 256), F32, dict(is_causal=True), "K2", None),
     "global d 192": ((1, 9, 32, 192), (1, 9, 23328, 192), BF16, {}, "K2", None),
+    # past 256: the wide kernels (d 264 in one block, K1; d 512 grouped at the prefill, K2)
+    "head dim 264": ((1, 4, 200, 264), (1, 4, 200, 264), BF16, {}, "K1", None),
+    "prefill 7/1 d 512": ((2, 7, 743, 512), (2, 1, 743, 512), BF16, dict(is_causal=True, lens=[743, 700]),
+                          "K2", None),
+    "prefill 7/1 d 512 fp32": ((2, 7, 743, 512), (2, 1, 743, 512), F32, dict(is_causal=True), "K2", None),
     # JAX's rule picks a kernel that no instance computes: the wrapper raises
-    "head dim 264": ((1, 4, 200, 264), (1, 4, 200, 264), BF16, {}, None, ValueError),
     "so400m fp16": ((32, 16, 729, 72), (32, 16, 729, 72), torch.float16, {}, None, TypeError),
     "masked": ((1, 4, 200, 128), (1, 4, 200, 128), BF16, dict(mask=True), None, None),  # JAX's rule: plain
 }
@@ -320,24 +326,29 @@ def test_projector_routes_on_the_tile_contract(probe, dtype, want):
 
 def test_wrappers_still_raise_off_their_contract(probe):
     """The route decides before the call; the wrappers keep refusing device
-    operands outside their contract: a head dim past 256, fp16, and (before
-    its forward runs) a forward that needs a gradient no K5/K6 instance
-    computes, past head dim 256 or in fp16, which names the instance it
-    lacks. (fp32 and bf16 gradients at head dims to 256 compute:
-    ``test_gradients_reach_their_backward_instance``.)"""
+    operands outside their contract: a head dim that is not a multiple of 8,
+    fp16, mixed dtypes, and (before its forward runs) a forward that needs a
+    gradient no K5/K6 instance computes, at such a head dim or in fp16, which
+    names the instance it lacks. (fp32 and bf16 gradients at every head dim
+    that is a multiple of 8 compute, past 256 too:
+    ``test_gradients_reach_their_backward_instance``,
+    ``test_head_dims_past_256_launch_the_wide_kernels``.)"""
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         tfa.flash_forward(meta(1, 4, 200, 128, dtype=torch.float16), meta(1, 4, 200, 128, dtype=torch.float16),
                           meta(1, 4, 200, 128, dtype=torch.float16), None, 0.1)
-    with pytest.raises(ValueError, match="head dim 264"):
-        tfa.fullblock_attention(meta(4, 200, 264), meta(4, 200, 264), meta(4, 200, 264), 0.1)
-    for d, dtype, instance in ((264, F32, "no float32 instance at head dim 264"),
-                               (264, BF16, "no bfloat16 instance at head dim 264"),
-                               (96, torch.float16, "no float16 instance at head dim 96")):
+    with pytest.raises(ValueError, match="head dim 36"):
+        tfa.fullblock_attention(meta(4, 200, 36), meta(4, 200, 36), meta(4, 200, 36), 0.1)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa.flash_forward(meta(1, 4, 200, 512), meta(1, 4, 200, 512, dtype=F32), meta(1, 4, 200, 512), None, 0.1)
+    for d, dtype, instance in ((36, F32, "no float32 instance at head dim 36"),
+                               (36, BF16, "no bfloat16 instance at head dim 36"),
+                               (96, torch.float16, "no float16 instance at head dim 96"),
+                               (512, torch.float16, "no float16 instance at head dim 512")):
         q = meta(1, 4, 200, d, dtype=dtype).requires_grad_()
         with pytest.raises(TypeError, match=instance):
             tfa.flash_attention(q, q, q, is_causal=True)
-    q = meta(1, 4, 200, 264, dtype=F32)
-    with pytest.raises(ValueError, match="flash backward: head dim 264"):
+    q = meta(1, 4, 200, 36, dtype=F32)
+    with pytest.raises(ValueError, match="flash backward: head dim 36"):
         tfa.flash_backward(q, q, q, None, q, meta(1, 4, 200, dtype=F32), q, 0.1)
     q = meta(1, 4, 200, 128, dtype=F32)
     with pytest.raises(TypeError, match="out and dO of q's dtype"):  # one dtype throughout
@@ -373,6 +384,11 @@ def test_wrappers_still_raise_off_their_contract(probe):
     (192, F32, True, ("hicom_flash_bwd_dq_f32", "hicom_flash_bwd_dkv_f32")),
     (136, BF16, False, ("hicom_flash_bwd_dq", "hicom_flash_bwd_dkv")),
     (256, F32, False, ("hicom_flash_bwd_dq_f32", "hicom_flash_bwd_dkv_f32")),
+    # past 256: the wide kernels of each type (the d-264 cases test_wrappers_still_raise_off_their_contract held)
+    (264, F32, False, ("hicom_flash_bwd_dq_wide_f32", "hicom_flash_bwd_dkv_wide_f32")),
+    (264, BF16, False, ("hicom_flash_bwd_dq_wide", "hicom_flash_bwd_dkv_wide")),
+    (512, BF16, True, ("hicom_flash_bwd_dq_wide", "hicom_flash_bwd_dkv_wide")),
+    (1024, F32, True, ("hicom_flash_bwd_dq_wide_f32", "hicom_flash_bwd_dkv_wide_f32")),
 ])
 def test_gradients_reach_their_backward_instance(probe, d, dtype, gqa, symbols):
     """A gradient through ``flash_attention`` (or the GQA entry) on the device
@@ -385,3 +401,17 @@ def test_gradients_reach_their_backward_instance(probe, d, dtype, gqa, symbols):
     assert [g.dtype for g in grads] == [dtype, dtype] and grads[1].shape == k.shape
     assert probe() == ({"K2": 1, "K5/K6": 1}, {})
     assert tuple(s for s in probe.symbols if "bwd" in s) == symbols
+
+
+@pytest.mark.parametrize("dtype,symbol", [(BF16, "hicom_flash_fwd_wide"), (F32, "hicom_flash_fwd_wide_f32")])
+def test_head_dims_past_256_launch_the_wide_kernels(probe, dtype, symbol):
+    """The d-264 calls that raised before the wide kernels: K1 over rows of
+    264 and K2 at d 264 now launch the wide forward of their dtype."""
+    out, lse = tfa.fullblock_attention(meta(4, 200, 264, dtype=dtype), meta(4, 200, 264, dtype=dtype),
+                                       meta(4, 200, 264, dtype=dtype), 0.1)
+    assert out.shape == (4, 200, 264) and out.dtype == dtype and lse.shape == (4, 200)
+    q = meta(1, 4, 200, 264, dtype=dtype)
+    out, _ = tfa.flash_forward(q, q, q, None, 0.1, causal=True)
+    assert out.shape == q.shape
+    assert probe() == ({"K1": 1, "K2": 1}, {})
+    assert [s for s in probe.symbols if "fwd" in s] == [symbol, symbol]
