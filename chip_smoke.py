@@ -236,6 +236,7 @@ import numpy as np
 # H100 data-sheet peaks (dense bf16 tensor-core FLOP/s, HBM bytes/s) by card name
 PEAKS = {"PCIe": (756e12, 2.0e12), "NVL": (835e12, 3.9e12), "": (989e12, 3.35e12)}
 FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (the split path's second passes)
+TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (the wide fp32 forward and K6: 3xTF32)
 # kernel: (the count its row reports: its wrapper's launches, or, past head dim 256, the launches of its
 # (kernel, library) in flash_attention.source_launches; source; the TPU kernel it replaces)
 KERNELS = {
@@ -1108,13 +1109,13 @@ def new_width_backward_checks(record):
 # phase 3's rows past head dim 128 (head_dim_checks), by instance: K1's rows (head dim, rows of 729 tokens,
 # the phase that runs the bf16 row at that shape or None); the prefill (b, tokens, kv lengths: phase 4's
 # batch) and its (head dim, query heads, kv heads), the first the phase's own; the phase; the kernel ids'
-# suffixes in bf16 and fp32; the generator's seed
+# suffixes in bf16 and fp32; the generator's seed; tf32: the fp32 K1/K2/K6 rows' bound is 3xTF32's
 UP_TO_256 = dict(k1=((192, 64, None), (256, 64, None)), prefill=(2, 743, [743, 700]),
                  rows=((256, 14, 2), (192, 14, 2)), phase="hd256", ids=("", "-f32"), seed=19)
 # [hd512]'s tower runs K1 at d 288 over 32 frames x 4 heads for its single request
 PAST_256 = dict(k1=((288, 32 * 4, "hd512"), (320, 64, None), (512, 64, None), (1024, 64, None)),
                 prefill=(2, 743, [743, 700]), rows=((512, 7, 1), (320, 8, 2), (1024, 4, 1)), phase="hd512",
-                ids=("-wide", "-wide-f32"), seed=20)
+                ids=("-wide", "-wide-f32"), seed=20, tf32=True)
 
 
 def head_dim_checks(record, fwd_grid, sms, spec):
@@ -1125,7 +1126,8 @@ def head_dim_checks(record, fwd_grid, sms, spec):
     ``flash_wide_f32.cu``, whose head dim is a runtime argument), each against
     its plain twin on the card at its type's gate (past it,
     :func:`float64_referee` against the float64 twin where the row has one),
-    beside SDPA (its backward for K5/K6), fp32 bounds at the fp32 peak: K1
+    beside SDPA (its backward for K5/K6), fp32 bounds at the fp32 peak (past
+    256, K1, K2 and K6 at a third of the TF32 peak: 3xTF32): K1
     over rows of 729 at each of ``spec["k1"]``'s head dims; K2, K5 and K6 at
     the prefill (b 2, 743 tokens, causal, lengths 743 / 700) with each of
     ``spec["rows"]``'s heads; at the first of them, the phase's own shape, K2
@@ -1154,6 +1156,8 @@ def head_dim_checks(record, fwd_grid, sms, spec):
         bf16 = dtype == torch.bfloat16
         item, tag = (2, "bf16") if bf16 else (4, "fp32")
         kw = dict(gate=BF16_GATE) if bf16 else dict(gate=FP32_GATE, flops_rate=FP32_PEAK)
+        # the wide fp32 forward and K6 multiply in 3xTF32: three TF32 products a product
+        kw3 = dict(kw, flops_rate=TF32_PEAK / 3) if spec.get("tf32") and not bf16 else kw
         gate = kw["gate"]
 
         def rn(*shape):
@@ -1167,7 +1171,7 @@ def head_dim_checks(record, fwd_grid, sms, spec):
                    lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=d**-0.5),
                    4 * bh * L * L * d, 4 * bh * L * d * item + bh * L * 4,
                    grid=fwd_grid(bh, 1, L, L, d, fp32=not bf16), phase=phase if bf16 else None,
-                   exact_fn=lambda: exact_forward(q[:, None], k[:, None], v[:, None], None, d, False)()[:, 0], **kw)
+                   exact_fn=lambda: exact_forward(q[:, None], k[:, None], v[:, None], None, d, False)()[:, 0], **kw3)
             del q, k, v
 
         b, L, lens = spec["prefill"]
@@ -1187,13 +1191,13 @@ def head_dim_checks(record, fwd_grid, sms, spec):
                    lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True),
                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5, enable_gqa=True),
                    4 * H * d * pairs, fwd_bytes, valid, grid=fwd_grid(b, H, L, L, d, fp32=not bf16), phase=phase,
-                   exact_fn=exact, **kw)
+                   exact_fn=exact, **kw3)
             if main:  # the split path at this width: 3 chunks of the key tiles, then the merge kernel
                 record(f"flash_forward[{label} split 3]", f"K2{f}",
                        lambda: _launch(q, k, v, kl, d**-0.5, 0.0, True, n_split=3),
                        lambda: flash_reference(q, k, v, kl, d**-0.5, 0.0, True), None,
                        4 * H * d * pairs, fwd_bytes, valid, grid=fwd_grid(b, H, L, L, d, 3, fp32=not bf16),
-                       phase=None, exact_fn=exact, **kw)
+                       phase=None, exact_fn=exact, **kw3)
             out, lse = flash_forward(q, k, v, kl, d**-0.5, 0.0, True)
             ops = backward_operands(q, k, v, kl, out, lse, do)
             plain = lambda: flash_backward_reference(q, k, v, kl, out, lse, do, d**-0.5, 0.0, True)  # noqa: E731
@@ -1215,12 +1219,12 @@ def head_dim_checks(record, fwd_grid, sms, spec):
             record(f"flash_backward_dq[{label}]", f"K5{f}", lambda: (_launch_dq(*ops, d**-0.5, 0.0, True),), plain,
                    library, dq_flops, dq_bytes, outputs=(0,), grid=dq_grid(n_dq), phase=phase, **kw)
             record(f"flash_backward_dkv[{label}]", f"K6{f}", lambda: _launch_dkv(*ops, d**-0.5, 0.0, True), plain,
-                   library, dkv_flops, dkv_bytes, outputs=(1, 2), grid=dkv_grid(n_dkv), phase=phase, **kw)
+                   library, dkv_flops, dkv_bytes, outputs=(1, 2), grid=dkv_grid(n_dkv), phase=phase, **kw3)
             if main:
                 for n_split in (1, 7):
                     record(f"flash_backward_dkv[{label} split {n_split}]", f"K6{f}",
                            lambda: _launch_dkv(*ops, d**-0.5, 0.0, True, n_split=n_split), plain, None, dkv_flops,
-                           dkv_bytes, outputs=(1, 2), grid=dkv_grid(n_split), phase=None, **kw)
+                           dkv_bytes, outputs=(1, 2), grid=dkv_grid(n_split), phase=None, **kw3)
                 record(f"flash_backward_dq[{label} split 3]", f"K5{f}",
                        lambda: (_launch_dq(*ops, d**-0.5, 0.0, True, n_split=3),), plain, None, dq_flops, dq_bytes,
                        outputs=(0,), grid=dq_grid(3), phase=None, **kw)

@@ -9,10 +9,11 @@ filled with -inf); ``kv_lengths`` and boolean ``mask`` filled with
 ``sdpa`` sends device tensors to the flash kernels exactly where the JAX
 ``auto`` rule sends TPU arrays to Pallas (:func:`flash_route`), and everything
 else to the plain path. The kernels, forward and backward, take bf16 or fp32
-at every head dim that is a multiple of 8 up to 256
-(:func:`~.flash_attention.takes_flash_kernel`), as JAX's dtype-generic Pallas
-kernels do; their wrappers raise for other device operands (fp16, a head dim
-past 256): those instances are open kernel work, never a silent plain path.
+at every head dim that is a multiple of 8, with no upper limit (past 256 the
+wide kernels of ``flash_wide.cuh``;
+:func:`~.flash_attention.takes_flash_kernel`), as JAX's dtype-generic Pallas
+kernels do; their wrappers raise for other device operands (fp16, mixed
+dtypes, a head dim that is not a multiple of 8), never a silent plain path.
 
 ``sdpa(..., kv_group=)`` is attention over a KV sequence split across the
 ranks of a process group, q the same on every rank (JAX's ``kv_axis_name``):

@@ -58,10 +58,13 @@ a multiple of 8, as JAX's Pallas kernels have no width limit); the backward's,
 at every padded head dim (16-128 in steps of 16, then 192 and 256); past 256
 the head dim is a runtime argument of ``flash_wide.cu`` (bf16) and
 ``flash_wide_f32.cu`` (fp32), which cut the output's columns into blocks
-(``flash_wide.cuh``). A gradient reaches the fp32 kernels with fp32 ``out`` and
-``dO``. The wrappers raise for device operands outside the contract (fp16,
-mixed dtypes, a head dim that is not a multiple of 8), and :func:`attend`
-raises before the forward when a gradient is wanted that no backward computes.
+(``flash_wide.cuh``): the forward's and K6's blocks are the CTAs of a
+thread-block cluster that share the contraction over d
+(:func:`wide_cluster`), and their fp32 products are 3xTF32. A gradient
+reaches the fp32 kernels with fp32 ``out`` and ``dO``. The wrappers raise
+for device operands outside the contract (fp16, mixed dtypes, a head dim
+that is not a multiple of 8), and :func:`attend` raises before the forward
+when a gradient is wanted that no backward computes.
 """
 
 from __future__ import annotations
@@ -84,6 +87,7 @@ DKV_BLOCK_K, DKV_BLOCK_Q = 64, 64  # K6's keys per block, query rows per unit
 H100_SMS = 132
 WIDE_BLOCK_Q = 64  # past head dim 256: the forward's and K5's query rows per block (flash_wide.cuh)
 WIDE_COLUMNS = {"fwd": 256, "dq": 256, "dkv": 128}  # ... and each kernel's output columns per block
+WIDE_MAX_CLUSTER = 8  # the largest cluster of the wide forward and K6 (flash_wide.cuh max_cluster: portable)
 
 Tensor = torch.Tensor
 # up to WIDE_FROM each head dim runs an instance of its padded width (a multiple of 16 up to 128, then 192
@@ -229,11 +233,42 @@ def dq_block_q(lq: int) -> int:
     return 32 if lq <= 32 else 64
 
 
+def wide_cluster(d: int, kind: str) -> Tuple[int, int]:
+    """(CTAs in a cluster, passes) of the wide forward (``kind`` "fwd") or
+    K6 ("dkv") at head dim ``d`` past :data:`WIDE_FROM`, as
+    ``flash_wide.cuh``'s ``clusters_of`` computes them: the output's blocks of
+    at most ``WIDE_COLUMNS[kind]`` columns, in passes of at most
+    :data:`WIDE_MAX_CLUSTER` CTAs, as many CTAs in each pass as the blocks
+    need (d 1,024: K6 one pass of 8; d 1,088: two of 5)."""
+    blocks = -(-_padded(d) // WIDE_COLUMNS[kind])
+    passes = -(-blocks // WIDE_MAX_CLUSTER)
+    return -(-blocks // passes), passes
+
+
 def wide_column_blocks(d: int, kind: str) -> int:
     """The column blocks of the wide kernels' grid (``kind`` "fwd", "dq" or
-    "dkv") at head dim ``d``: 1 up to :data:`WIDE_FROM`, where the other
-    kernels hold a whole row."""
-    return -(-_padded(d) // WIDE_COLUMNS[kind]) if d > WIDE_FROM else 1
+    "dkv") at head dim ``d``, per split: 1 up to :data:`WIDE_FROM`, where the
+    other kernels hold a whole row; K5's blocks of 256 columns; the forward's
+    and K6's clusters times their passes (:func:`wide_cluster`)."""
+    if d <= WIDE_FROM:
+        return 1
+    if kind == "dq":
+        return -(-_padded(d) // WIDE_COLUMNS[kind])
+    size, passes = wide_cluster(d, kind)
+    return size * passes
+
+
+def set_wide_max_cluster(n: int) -> int:
+    """Set the largest cluster that the wide forward and K6 launch, in both
+    libraries and in :func:`wide_cluster`; returns the value before. For
+    tests: 1 takes the passes at any width, and a cluster past the card's
+    portable 8 is refused at launch, which raises in the wrapper."""
+    global WIDE_MAX_CLUSTER
+    before = WIDE_MAX_CLUSTER
+    for source in ("flash_wide", "flash_wide_f32"):
+        c_function(source, f"hicom_{source}_max_cluster", [ctypes.c_int])(int(n))
+    WIDE_MAX_CLUSTER = int(n)
+    return before
 
 
 def _splits(blocks: int, units: int, sms: int) -> int:

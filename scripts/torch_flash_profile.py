@@ -9,7 +9,11 @@ or ``fused_tile_attention``) ``--iters`` times under
 torch.profiler after a warm-up, and prints every CUDA kernel's mean device
 time per call, so a split launch shows its main kernel and its merge or sum
 pass apart, and the sum beside the CUDA-event time of the same calls (which
-also holds launch gaps). The last line is the card's name and power limit.
+also holds launch gaps). The cases past head dim 256 (labels "wide ...", in
+bf16 and fp32: K1 at d 288 over 128 rows of 729 and at d 320 / 512 / 1,024
+over 64, K2 / K5 / K6 at [hd512]'s prefill and at 8 / 2 heads of 320 and 4 /
+1 of 1,024) are ``--cases wide``. The last line is the card's name and power
+limit.
 ``--root`` imports ``hicom_tpu_torch`` from another checkout (its kernels
 build into that checkout's ``build/``), so two versions can be timed in turns
 in one call on one card. ``--cases`` keeps the cases whose label contains one
@@ -122,6 +126,30 @@ def cases(torch, fa, fd, la, want):
         ops_anyres = fa.backward_operands(qy, ky, vy, kly, oy, lsey, doy)
         out.append(("K5 anyres train", lambda: fa._launch_dq(*ops_anyres, 128**-0.5, 0.0, True)))
         out.append(("K6 anyres train", lambda: fa._launch_dkv(*ops_anyres, 128**-0.5, 0.0, True)))
+    # past head dim 256 (flash_wide.cu, flash_wide_f32.cu), in bf16 and fp32: K1 over [hd512]'s tower rows (d 288,
+    # 128 rows of 729) and over 64 rows at d 320 / 512 / 1,024; K2, K5 and K6 at [hd512]'s prefill (b 2, 7 / 1
+    # heads of 512, 743 tokens, causal, lengths 743 / 700) and with 8 / 2 heads of 320 and 4 / 1 of 1,024
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        def rw(*shape, dtype=dtype):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+        for d, rows in ((288, 128), (320, 64), (512, 64), (1024, 64)):
+            if want(f"wide K1 d{d} {tag}"):
+                qw, kw, vw = rw(rows, 729, d), rw(rows, 729, d), rw(rows, 729, d)
+                out.append((f"wide K1 d{d} {tag}",
+                            lambda qw=qw, kw=kw, vw=vw, d=d: fa.fullblock_attention(qw, kw, vw, d**-0.5)))
+        for d, H, KVH in ((512, 7, 1), (320, 8, 2), (1024, 4, 1)):
+            names = [f"wide {k} d{d} {tag}" for k in ("K2", "K5", "K6")]
+            if not any_of(*names):
+                continue
+            qw, kw, vw, dow = rw(2, H, 743, d), rw(2, KVH, 743, d), rw(2, KVH, 743, d), rw(2, H, 743, d)
+            klw = torch.tensor([743, 700], device="cuda", dtype=torch.int32)
+            out.append((names[0], lambda qw=qw, kw=kw, vw=vw, klw=klw, d=d:
+                        fa.flash_forward(qw, kw, vw, klw, d**-0.5, 0.0, True)))
+            ow, lsew = fa.flash_forward(qw, kw, vw, klw, d**-0.5, 0.0, True)
+            opw = fa.backward_operands(qw, kw, vw, klw, ow, lsew, dow)
+            out.append((names[1], lambda opw=opw, d=d: fa._launch_dq(*opw, d**-0.5, 0.0, True)))
+            out.append((names[2], lambda opw=opw, d=d: fa._launch_dkv(*opw, d**-0.5, 0.0, True)))
     return [(label, call) for label, call in out if want(label)]
 
 

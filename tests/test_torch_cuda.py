@@ -1610,3 +1610,96 @@ def test_d512_tiny_model_on_the_card(rn, dtype):
     before = fullblock_attention.launches
     _tiny_model_on_the_card(_tiny_d512_config(dtype), dtype, compressor_kernel=False)
     assert fullblock_attention.launches > before
+
+
+# --------------------------------------------------------------------------- #
+# the wide forward and K6 in thread-block clusters (3xTF32 in fp32): the cluster's edges, passes past the
+# largest cluster, and a refused cluster
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("n_split", [1, 3, 7])
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+@pytest.mark.parametrize("d", [1024, 1032, 1088, 2048])
+def test_wide_cluster_edges(rn, tag, d, n_split):
+    """d 1,024: K6 in one cluster of exactly 8 CTAs (the forward 4); d 1,032
+    and 1,088, just past it: K6 in two passes of 5, the forward in one
+    cluster of 5 with 4 / 3-chunk shares (1,032's last chunk 8 columns
+    wide); d 2,048: the forward's 8, K6's two passes of 8. Forward and dK/dV
+    against the twins, and at 3 and 7 splits against the split twins."""
+    from hicom_tpu_torch.ops.flash_attention import wide_cluster
+
+    assert wide_cluster(d, "dkv") == {1024: (8, 1), 1032: (5, 2), 1088: (5, 2), 2048: (8, 2)}[d]
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    b, H, KVH, L = 2, 4, 1, 130
+    q, k, v, do = r(b, H, L, d), r(b, KVH, L, d), r(b, KVH, L, d), r(b, H, L, d)
+    kl = torch.tensor([130, 75], device="cuda", dtype=torch.int32)
+    out, lse = _launch(q, k, v, kl, d**-0.5, 0.1, True, n_split=n_split)
+    ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.1, True)
+    assert worst(*_valid_rows(out, ref, b, H, L, kl)) <= 1
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    ops = backward_operands(q, k, v, kl, ref, ref_lse.float(), do)
+    got = _launch_dkv(*ops, d**-0.5, 0.1, True, n_split=n_split)
+    _, dk, dv = flash_backward_reference(q, k, v, kl, ref, ref_lse.float(), do, d**-0.5, 0.1, True)
+    assert max(worst(got[0], dk), worst(got[1], dv)) <= 1
+    if n_split > 1:
+        cpu = [t.cpu() for t in (q, k, v, kl)]
+        split, _ = split_forward_reference(*cpu, d**-0.5, 0.1, True, n_split)
+        assert worst(*_valid_rows(out, split.cuda(), b, H, L, kl)) <= 1
+        sdk, sdv = split_dkv_reference(*cpu, ref.cpu(), ref_lse.float().cpu(), do.cpu(), d**-0.5, 0.1, True, n_split)
+        assert max(worst(got[0], sdk.cuda()), worst(got[1], sdv.cuda())) <= 1
+
+
+@pytest.fixture
+def max_cluster():
+    """Set the largest cluster of the wide forward and K6 for one test."""
+    from hicom_tpu_torch.ops.flash_attention import WIDE_MAX_CLUSTER, set_wide_max_cluster
+
+    yield set_wide_max_cluster
+    set_wide_max_cluster(WIDE_MAX_CLUSTER)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3])
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+def test_wide_passes_past_a_smaller_cluster(rn, max_cluster, tag, cap):
+    """With the largest cluster cut to 1, 2 or 3 CTAs the forward and K6 at
+    d 512 / 1,024 take passes (1: a pass per column block, S in each from
+    the whole d; the forward then streams Q with K) and agree with the
+    twins."""
+    max_cluster(cap)
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    for d in (512, 1024):
+        b, H, KVH, L = 1, 4, 2, 150
+        q, k, v, do = r(b, H, L, d), r(b, KVH, L, d), r(b, KVH, L, d), r(b, H, L, d)
+        kl = torch.tensor([140], device="cuda", dtype=torch.int32)
+        out, lse = _launch(q, k, v, kl, d**-0.5, 0.0, True)
+        ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.0, True)
+        assert worst(*_valid_rows(out, ref, b, H, L, kl)) <= 1
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+        ops = backward_operands(q, k, v, kl, ref, ref_lse.float(), do)
+        got = _launch_dkv(*ops, d**-0.5, 0.0, True)
+        _, dk, dv = flash_backward_reference(q, k, v, kl, ref, ref_lse.float(), do, d**-0.5, 0.0, True)
+        assert max(worst(got[0], dk), worst(got[1], dv)) <= 1
+
+
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+def test_refused_cluster_raises_in_the_wrapper(rn, max_cluster, tag):
+    """A cluster the card cannot schedule is refused at launch and raises in
+    the wrapper, with no plain path: K6 at d 2,048 in one cluster of 16 CTAs
+    (past the portable 8, without the non-portable opt-in), and at d 2,176 in
+    one of 17 (past any cluster of the card). At the default the same calls
+    launch."""
+    dtype, _ = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    for d, cap in ((2048, 16), (2176, 32)):
+        q, k, v, do = r(1, 2, 64, d), r(1, 1, 64, d), r(1, 1, 64, d), r(1, 2, 64, d)
+        out, lse = flash_forward(q, k, v, None, d**-0.5, 0.0, True)
+        ops = backward_operands(q, k, v, None, out, lse, do)
+        max_cluster(cap)
+        with pytest.raises(RuntimeError, match="hicom_flash_bwd_dkv_wide"):
+            _launch_dkv(*ops, d**-0.5, 0.0, True)
+        max_cluster(8)
+        dk, dv = _launch_dkv(*ops, d**-0.5, 0.0, True)
+        torch.cuda.synchronize()
+        assert dk.isfinite().all() and dv.isfinite().all()

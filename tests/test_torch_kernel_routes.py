@@ -11,11 +11,13 @@ other callers (``ops/attention.sdpa`` by JAX's ``auto`` rule, the split-key
 partials and merge, the projector's local compressor by its tiling) launch
 the kernel wherever JAX launches its Pallas kernel: K1/K2, the merge and K4
 take fp32 as well as bf16, and K1/K2 (and K5/K6 behind them) every head dim
-that is a multiple of 8 up to 256, as JAX's dtype-generic kernels do: an fp32
-gradient launches ``flash_bwd_f32.cu``, a bf16 one ``flash_bwd.cu``'s
-instance of its width. What no kernel takes raises in its wrapper: a head dim
-past 256, fp16 and mixed dtypes, and (in ``attend``, before the forward) a
-gradient of such attention, naming the K5/K6 instance it lacks.
+that is a multiple of 8, with no upper limit, as JAX's dtype-generic kernels
+do: an fp32 gradient launches ``flash_bwd_f32.cu``, a bf16 one
+``flash_bwd.cu``'s instance of its width, and past 256 the wide kernels of
+``flash_wide.cu`` / ``flash_wide_f32.cu``. What no kernel takes raises in its
+wrapper: fp16, mixed dtypes and a head dim that is not a multiple of 8, and
+(in ``attend``, before the forward) a gradient of such attention, naming the
+K5/K6 instance it lacks.
 
 The routes are driven on meta tensors, which take every wrapper's device
 branch (the CPU branch is for CPU tensors alone) through all its checks, with
