@@ -236,7 +236,7 @@ import numpy as np
 # H100 data-sheet peaks (dense bf16 tensor-core FLOP/s, HBM bytes/s) by card name
 PEAKS = {"PCIe": (756e12, 2.0e12), "NVL": (835e12, 3.9e12), "": (989e12, 3.35e12)}
 FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (the split path's second passes)
-TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (the wide fp32 forward and K6: 3xTF32)
+TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (the wide fp32 kernels: 3xTF32)
 # kernel: (the count its row reports: its wrapper's launches, or, past head dim 256, the launches of its
 # (kernel, library) in flash_attention.source_launches; source; the TPU kernel it replaces)
 KERNELS = {
@@ -388,7 +388,7 @@ def kernel_checks(card: str, wide_only: bool = False):
         rows (64 in fp32, and past 256, where z also counts the column
         blocks), times the key chunks on z."""
         rows = WIDE_BLOCK_Q if d > WIDE_FROM else 64 if fp32 else FWD_BLOCK_Q
-        splits = n_split or forward_splits(b, H, Lq, Lk, sms, d=d)
+        splits = n_split or forward_splits(b, H, Lq, Lk, sms, d=d, dtype=torch.float32 if fp32 else torch.bfloat16)
         return -(-Lq // rows), b * H, splits * wide_column_blocks(d, "fwd")
 
     def record(name, kid, kernel_fn, plain_fn, library_fn, flops, nbytes, valid=None, outputs=1, grid=None,
@@ -1109,7 +1109,7 @@ def new_width_backward_checks(record):
 # phase 3's rows past head dim 128 (head_dim_checks), by instance: K1's rows (head dim, rows of 729 tokens,
 # the phase that runs the bf16 row at that shape or None); the prefill (b, tokens, kv lengths: phase 4's
 # batch) and its (head dim, query heads, kv heads), the first the phase's own; the phase; the kernel ids'
-# suffixes in bf16 and fp32; the generator's seed; tf32: the fp32 K1/K2/K6 rows' bound is 3xTF32's
+# suffixes in bf16 and fp32; the generator's seed; tf32: the fp32 K1/K2/K5/K6 rows' bound is 3xTF32's
 UP_TO_256 = dict(k1=((192, 64, None), (256, 64, None)), prefill=(2, 743, [743, 700]),
                  rows=((256, 14, 2), (192, 14, 2)), phase="hd256", ids=("", "-f32"), seed=19)
 # [hd512]'s tower runs K1 at d 288 over 32 frames x 4 heads for its single request
@@ -1127,7 +1127,7 @@ def head_dim_checks(record, fwd_grid, sms, spec):
     its plain twin on the card at its type's gate (past it,
     :func:`float64_referee` against the float64 twin where the row has one),
     beside SDPA (its backward for K5/K6), fp32 bounds at the fp32 peak (past
-    256, K1, K2 and K6 at a third of the TF32 peak: 3xTF32): K1
+    256, K1, K2, K5 and K6 at a third of the TF32 peak: 3xTF32): K1
     over rows of 729 at each of ``spec["k1"]``'s head dims; K2, K5 and K6 at
     the prefill (b 2, 743 tokens, causal, lengths 743 / 700) with each of
     ``spec["rows"]``'s heads; at the first of them, the phase's own shape, K2
@@ -1156,7 +1156,7 @@ def head_dim_checks(record, fwd_grid, sms, spec):
         bf16 = dtype == torch.bfloat16
         item, tag = (2, "bf16") if bf16 else (4, "fp32")
         kw = dict(gate=BF16_GATE) if bf16 else dict(gate=FP32_GATE, flops_rate=FP32_PEAK)
-        # the wide fp32 forward and K6 multiply in 3xTF32: three TF32 products a product
+        # the wide fp32 kernels multiply in 3xTF32: three TF32 products a product
         kw3 = dict(kw, flops_rate=TF32_PEAK / 3) if spec.get("tf32") and not bf16 else kw
         gate = kw["gate"]
 
@@ -1209,7 +1209,7 @@ def head_dim_checks(record, fwd_grid, sms, spec):
             dq_flops, dkv_flops = 6 * H * d * pairs, 8 * H * d * pairs
             n_dq, n_dkv = dq_splits(b, H, L, L, sms, d=d), dkv_splits(b, H, KVH, L, L, sms, d=d)
 
-            def dq_grid(n):  # K5's blocks of query rows (64 past 256, times the column blocks on z)
+            def dq_grid(n):  # K5's blocks of query rows (64 past 256, times its clusters' CTAs on z)
                 rows = WIDE_BLOCK_Q if d > WIDE_FROM else dq_block_q(L)
                 return -(-L // rows), b * H, n * wide_column_blocks(d, "dq")
 
@@ -1217,7 +1217,7 @@ def head_dim_checks(record, fwd_grid, sms, spec):
                 return -(-L // DKV_BLOCK_K), b * KVH, n * wide_column_blocks(d, "dkv")
 
             record(f"flash_backward_dq[{label}]", f"K5{f}", lambda: (_launch_dq(*ops, d**-0.5, 0.0, True),), plain,
-                   library, dq_flops, dq_bytes, outputs=(0,), grid=dq_grid(n_dq), phase=phase, **kw)
+                   library, dq_flops, dq_bytes, outputs=(0,), grid=dq_grid(n_dq), phase=phase, **kw3)
             record(f"flash_backward_dkv[{label}]", f"K6{f}", lambda: _launch_dkv(*ops, d**-0.5, 0.0, True), plain,
                    library, dkv_flops, dkv_bytes, outputs=(1, 2), grid=dkv_grid(n_dkv), phase=phase, **kw3)
             if main:
@@ -1227,7 +1227,7 @@ def head_dim_checks(record, fwd_grid, sms, spec):
                            dkv_bytes, outputs=(1, 2), grid=dkv_grid(n_split), phase=None, **kw3)
                 record(f"flash_backward_dq[{label} split 3]", f"K5{f}",
                        lambda: (_launch_dq(*ops, d**-0.5, 0.0, True, n_split=3),), plain, None, dq_flops, dq_bytes,
-                       outputs=(0,), grid=dq_grid(3), phase=None, **kw)
+                       outputs=(0,), grid=dq_grid(3), phase=None, **kw3)
                 N = b * KVH * L * d
                 dk_part, dv_part = (torch.randn(n_dkv, N, generator=gen, device="cuda") for _ in range(2))
                 record(f"flash_dkv_sum[{label}, {n_dkv} splits]", f"K6{f}-sum",

@@ -27,9 +27,10 @@
 //   * Two blocks share an SM up to d 128 (101 KB of shared memory there), so one block's loads run under
 //     the other's arithmetic; at 192 and 256 (147 and 195 KB) one block holds an SM, and its 255
 //     registers a thread keep O's 48 or 64 accumulators with no spill.
-//   * The key tiles a block walks are those of its 128-row group, the bf16 kernel's query block, so the
-//     split path's chunks (ops/flash_attention.py forward_splits, tile_range) are the same tiles in both
-//     types and split_forward_reference describes both. Each chunk writes its fp32 partials; the merge pass
+//   * The key tiles a block walks are those of its 128-row group, the bf16 kernel's query block, 64 keys
+//     each (bf16 at padded 192 walks 96-key tiles: ops/flash_attention.py fwd_block_k), so the split
+//     path's chunks (forward_splits, tile_range) follow the kernel of each type and split_forward_reference
+//     describes both. Each chunk writes its fp32 partials; the merge pass
 //     (flash_merge.cuh) writes fp32 rows.
 //
 // kv_lengths is a runtime argument, as in flash_fwd.cu.

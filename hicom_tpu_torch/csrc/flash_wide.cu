@@ -1,5 +1,5 @@
 // Flash attention past head dim 256 in bf16 (K1/K2 forward, K5 and K6 backward): flash_wide.cuh's kernels with
-// their products on the tensor cores (mma.sync m16n8k16, fp32 accumulators), the forward and K6 in clusters. The entry points take the
+// their products on the tensor cores (mma.sync m16n8k16, fp32 accumulators), each in clusters. The entry points take the
 // arguments of hicom_flash_fwd, hicom_flash_bwd_dq and hicom_flash_bwd_dkv (flash_fwd.cu, flash_bwd.cu), for
 // d % 8 == 0 past 256.
 #include "flash_wide.cuh"
@@ -28,7 +28,7 @@ extern "C" int hicom_flash_bwd_dkv_wide(const void* q, const void* k, const void
                                   Lk, d, n_split, scale, bias, causal, stream);
 }
 
-// The largest cluster that this library's forward and K6 launch (wide::max_cluster): sets it to n when n > 0 and
+// The largest cluster that this library's kernels launch (wide::max_cluster): sets it to n when n > 0 and
 // returns the value before. Tests only.
 extern "C" int hicom_flash_wide_max_cluster(int n) {
   const int before = wide::max_cluster;

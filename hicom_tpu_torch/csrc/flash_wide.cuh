@@ -2,7 +2,7 @@
 // csrc/flash_fwd.cu and csrc/flash_bwd.cu (bf16) and their fp32 instances (flash_fwd_f32.cu,
 // flash_bwd_f32.cu), for every head dim d % 8 == 0 past 256, with d a runtime argument and no upper limit.
 // flash_wide.cu instantiates these templates in bf16 (mma.sync m16n8k16, fp32 accumulators), flash_wide_f32.cu
-// in fp32 (the forward and K6 as 3xTF32 m16n8k8 products, K5 as FFMA; no operand below fp32 precision).
+// in fp32 (every product as 3xTF32 m16n8k8 products; no operand below fp32 precision).
 //
 // Replaces, past head dim 256, four Pallas TPU kernels of hicom_tpu/ops/flash_attention.py: _fullblock_kernel
 // (K1), _flash_kernel (K2), _bwd_dq_kernel (K5) and _bwd_dkv_kernel (K6). The TPU kernels have no width limit:
@@ -23,20 +23,21 @@
 // of d columns must still be cut into blocks that fit a thread's registers (at most 256 columns for O and dQ,
 // 128 for K6's dK and dV), but the contraction over d that gives S = Q K^T (and dP = dO V^T) should be done
 // once, not once per block, and fp32 products should reach the tensor cores. The design:
-//   * Clusters (forward and K6). The output's column blocks of one (row or key block, split) are one thread-block
+//   * Clusters (every kernel). The output's column blocks of one (row or key block, split) are one thread-block
 //     cluster of C CTAs along grid z (z = (split * passes + pass) * C + rank, launched with cudaLaunchKernelEx
 //     and a cluster dimension, refused with an error when cudaOccupancyMaxActiveClusters finds no room). The
 //     padded d's chunks of 64 columns are cut into C near-equal shares (d 288: 2 and 3 of 5): CTA r loads only
-//     its share of Q and K (K6: K, V, Q and dO), computes a partial S (K6: S^T and dP^T) over it, and the
-//     partials meet in distributed shared memory (cluster_sum: mapa, ld.shared::cluster, barrier.cluster),
-//     summed in rank order, so m, l and the lse are the same bits in every CTA and rank 0 alone writes them.
-//     Each CTA then computes its own output columns, the same share (the forward's O += P V; K6's dV += P^T dO
-//     and dK += dS^T Q). The bf16 forward keeps Q's share in shared memory for the whole walk; fp32 streams it
-//     with K, so that two CTAs fit an SM.
+//     its share of Q and K (K5: Q, K, dO and V; K6: K, V, Q and dO), computes a partial S (K5: S and dP; K6: S^T
+//     and dP^T) over it, and the partials meet in distributed shared memory (cluster_sum: mapa,
+//     ld.shared::cluster, barrier.cluster), summed in rank order, so m, l and the lse (K5 and K6: P and dS) are
+//     the same bits in every CTA and rank 0 alone writes the row statistics. Each CTA then computes its own
+//     output columns, the same share (the forward's O += P V; K5's dQ += dS K; K6's dV += P^T dO and dK += dS^T
+//     Q). The bf16 forward keeps Q's share in shared memory for the whole walk; fp32 streams it with K, and K5
+//     streams Q and dO in both types, so that two CTAs fit an SM.
 //   * Past the largest cluster (max_cluster, 8: the portable size) the blocks go in passes: the grid holds
 //     `passes` clusters of C CTAs per (row block, split); cluster `pass` writes its C blocks of the output, and
 //     every pass computes S again over shares of the whole d. K6 takes passes past d 1,024 (16 chunks of 128
-//     columns), the forward past 2,048.
+//     columns), the forward and K5 past 2,048.
 //   * fp32: 3xTF32 (mma.sync m16n8k8): each operand x splits into hi, x rounded to TF32 as cvt.rna.tf32.f32
 //     rounds, and lo = x - hi (split_tf32), as its fragment is read, and the product is lo hi + hi lo + hi hi
 //     (lo lo, below 2^-21 of the product, is dropped): within the fp32 gate where one TF32 product is not
@@ -56,14 +57,13 @@
 //   * Tiles as the kernels up to 256 walk them, so the split twins hold: the forward walks 64-key tiles over
 //     its 128-row group (blocks of 64 rows, as flash_fwd_f32.cu), K5 32-key tiles from 64-row blocks, K6 64-key
 //     blocks over (query head, 64-row query tile) units.
-//   * K5 keeps the first design: column blocks of 256 on grid z, S and dP recomputed in each from streamed
-//     chunks, FFMA in fp32.
 //
-// Shared memory, registers and spill (ptxas, sm_90a; PERF.md, PR 21): forward 106,496 B in bf16 (Q's share, 2
-// slots of two chunks, two exchange buffers: two CTAs an SM; 255 registers, 20 B spill) and 102,400 in fp32 (2
-// slots, two CTAs an SM; 255, 408 B); K6 103,424 in bf16 (2 slots of two chunks, two buffers of S^T and dP^T,
-// two units' lse and delta: two CTAs an SM; 255, none) and 171,008 in fp32 (3 slots; 255, 500 B); K5 92,160 /
-// 121,856 (254, none / 255, 84 B).
+// Shared memory, registers and spill (ptxas, sm_90a; PERF.md, PRs 21-22): forward 106,496 B in bf16 (Q's share,
+// 2 slots of two chunks, two exchange buffers: two CTAs an SM; 255 registers, 20 B spill) and 102,400 in fp32 (2
+// slots, two CTAs an SM; 255, 408 B); K5 88,064 in bf16 (3 slots of two chunks, two exchange buffers: two CTAs an
+// SM; 255, 72 B) and 102,400 in fp32 (2 slots; 255, 28 B); K6 103,424 in bf16 (2 slots of two chunks, two
+// buffers of S^T and dP^T, two units' lse and delta: two CTAs an SM; 255, none) and 171,008 in fp32 (3 slots;
+// 255, 500 B).
 #pragma once
 
 #include <math.h>
@@ -108,10 +108,9 @@ __device__ __forceinline__ void put2(bf16* p, float x, float y) {
 }
 __device__ __forceinline__ void put2(float* p, float x, float y) { *reinterpret_cast<float2*>(p) = make_float2(x, y); }
 
-// The warp's products. acc[nt] is this thread's part of an 8-column tile of a 16-row accumulator (rows g and
-// g + 8, columns 2t and 2t + 1; c[0], c[1] on row g). a: the warp's 16 rows of A ([m][k], LD apart).
-//   mma_nt: acc (16 x 8 NT) += A (16 x KK) B^T, B's 8 NT rows at b ([n][k]);
-//   mma_nn: acc (16 x 8 NT) += A (16 x KK) B, B's KK rows at b ([k][n]).
+// The warp's bf16 product: acc[nt] is this thread's part of an 8-column tile of a 16-row accumulator (rows g
+// and g + 8, columns 2t and 2t + 1; c[0], c[1] on row g); acc (16 x 8 NT) += A (16 x KK, the warp's 16 rows at
+// a, [m][k], LD apart) B^T, B's 8 NT rows at b ([n][k]).
 template <int NT, int KK>
 __device__ __forceinline__ void mma_nt(float (*acc)[4], const bf16* a, const bf16* b) {
   constexpr int LD = Layout<bf16>::LD;
@@ -130,76 +129,6 @@ __device__ __forceinline__ void mma_nt(float (*acc)[4], const bf16* a, const bf1
       ldmatrix_x4(bf, b0 + (nt * 8 * LD + kc * 16) * 2);
       mma_bf16(acc[nt], af, bf[0], bf[1]);
       mma_bf16(acc[nt + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-template <int NT, int KK>
-__device__ __forceinline__ void mma_nn(float (*acc)[4], const bf16* a, const bf16* b) {
-  constexpr int LD = Layout<bf16>::LD;
-  const int lane = threadIdx.x % 32;
-  // ldmatrix.trans lanes: B rows (k) 8 (lane / 8 % 2) + lane % 8, columns (lane / 16) * 8 of an n-tile pair
-  const uint32_t a0 = smem_u32(a) + ((lane & 15) * LD + (lane >> 4) * 8) * 2;
-  const uint32_t b0 = smem_u32(b) + ((((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8) * 2;
-#pragma unroll
-  for (int kc = 0; kc < KK / 16; ++kc) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a0 + kc * 32);
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, b0 + (kc * 16 * LD + nt * 8) * 2);
-      mma_bf16(acc[nt], af, bf[0], bf[1]);
-      mma_bf16(acc[nt + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
-}
-
-template <int NT, int KK>
-__device__ __forceinline__ void mma_nt(float (*acc)[4], const float* a, const float* b) {
-  constexpr int LD = Layout<float>::LD;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const float* a0 = a + g * LD;
-  const float* b0 = b + 2 * t * LD;
-#pragma unroll 2
-  for (int k = 0; k < KK; k += 4) {
-    const float4 x0 = ld4(a0 + k), x1 = ld4(a0 + 8 * LD + k);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float4 y0 = ld4(b0 + nt * 8 * LD + k), y1 = ld4(b0 + (nt * 8 + 1) * LD + k);
-      acc[nt][0] = dot4(x0, y0, acc[nt][0]);
-      acc[nt][1] = dot4(x0, y1, acc[nt][1]);
-      acc[nt][2] = dot4(x1, y0, acc[nt][2]);
-      acc[nt][3] = dot4(x1, y1, acc[nt][3]);
-    }
-  }
-}
-
-template <int NT, int KK>
-__device__ __forceinline__ void mma_nn(float (*acc)[4], const float* a, const float* b) {
-  constexpr int LD = Layout<float>::LD;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const float* a0 = a + g * LD;
-  const float* b0 = b + 2 * t;
-#pragma unroll 2
-  for (int k = 0; k < KK; k += 4) {
-    const float4 x0 = ld4(a0 + k), x1 = ld4(a0 + 8 * LD + k);
-    const float u0[4] = {x0.x, x0.y, x0.z, x0.w}, u1[4] = {x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float2 y = *reinterpret_cast<const float2*>(b0 + (k + kk) * LD + nt * 8);
-        acc[nt][0] = fmaf(u0[kk], y.x, acc[nt][0]);
-        acc[nt][1] = fmaf(u0[kk], y.y, acc[nt][1]);
-        acc[nt][2] = fmaf(u1[kk], y.x, acc[nt][2]);
-        acc[nt][3] = fmaf(u1[kk], y.y, acc[nt][3]);
-      }
     }
   }
 }
@@ -265,34 +194,38 @@ __device__ __forceinline__ void mma3x4(float (*acc)[4], const uint32_t* ah, cons
 // one with one rounded add: the tensor cores' fp32 accumulation does not round to nearest, and its error grows
 // with the chain (K6's dK over a walk of 35 units, 840 products into one register, missed the fp32 gate by
 // 1.46x; with a chain of a chunk, 24 products, K6 at d 320 read 0.957 of it, as dS = P (dP - delta) cancels;
-// half a chunk, 12 products, keeps a margin).
+// half a chunk, 12 products, keeps a margin). NT 8-column tiles.
+template <int NT>
 __device__ __forceinline__ void add_fresh(float (*acc)[4], float (*tmp)[4]) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] += tmp[nt][e], tmp[nt][e] = 0.f;
 }
 
-// S-type products of the forward and K6: acc (16 x 64) += A (the warp's 16 rows at a, [m][k]) B^T (64 rows at
-// b, [n][k]) over one chunk of 64 columns. bf16: ldmatrix and m16n8k16 (mma_nt). fp32: 3xTF32 m16n8k8, each
-// thread reading its rows g and g + 8 at columns t and t + 4 of each step of 8 (banks 4g + t at LD 68: distinct).
-__device__ __forceinline__ void s_product(float (*acc)[4], const bf16* a, const bf16* b) { mma_nt<8, CW>(acc, a, b); }
+// S-type products: acc (16 x 8 NT) += A (the warp's 16 rows at a, [m][k]) B^T (8 NT rows at b, [n][k]) over one
+// chunk of 64 columns: the forward's and K6's 64 keys (NT 8), K5's 32 (NT 4). bf16: ldmatrix and m16n8k16
+// (mma_nt). fp32: 3xTF32 m16n8k8, each thread reading its rows g and g + 8 at columns t and t + 4 of each step of
+// 8 (banks 4g + t at LD 68: distinct).
+template <int NT = 8>
+__device__ __forceinline__ void s_product(float (*acc)[4], const bf16* a, const bf16* b) { mma_nt<NT, CW>(acc, a, b); }
+template <int NT = 8>
 __device__ __forceinline__ void s_product(float (*acc)[4], const float* a, const float* b) {
   constexpr int LD = Layout<float>::LD;
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const float* a0 = a + g * LD + t;
   const float* b0 = b + g * LD + t;
-  float tmp[8][4] = {};
+  float tmp[NT][4] = {};
 #pragma unroll 2
   for (int k = 0; k < CW; k += 8) {
-    if (k == CW / 2) add_fresh(acc, tmp);
+    if (k == CW / 2) add_fresh<NT>(acc, tmp);
     uint32_t ah[4], al[4];
     split_tf32(a0[k], ah[0], al[0]);
     split_tf32(a0[8 * LD + k], ah[1], al[1]);
     split_tf32(a0[k + 4], ah[2], al[2]);
     split_tf32(a0[8 * LD + k + 4], ah[3], al[3]);
 #pragma unroll
-    for (int n0 = 0; n0 < 8; n0 += 4) {
+    for (int n0 = 0; n0 < NT; n0 += 4) {
       uint32_t bh[4][2], bl[4][2];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -302,22 +235,24 @@ __device__ __forceinline__ void s_product(float (*acc)[4], const float* a, const
       mma3x4(tmp + n0, ah, al, bh, bl);
     }
   }
-  add_fresh(acc, tmp);
+  add_fresh<NT>(acc, tmp);
 }
 
-// P V-type products: acc (16 x 64 of one output chunk) += P (16 x 64: this thread's accumulator fragments p, as
-// an S-type product leaves them) B (64 x 64 at b, [k][n]); P never goes through shared memory. bf16 packs two
+// P V-type products: acc (16 x 64 of one output chunk) += P (16 x KK: this thread's accumulator fragments p, as
+// an S-type product leaves them; the forward's and K6's 64 keys or queries, K5's dS over 32 keys) B (KK x 64 at
+// b, [k][n]); P never goes through shared memory. bf16 packs two
 // 8-column tiles into m16n8k16's A fragment (rounding p to bf16, as the plain twins round it to v's dtype) and
 // reads B with ldmatrix.trans. fp32 takes the k order 2t, 2t + 1 for the fragment's columns t, t + 4 of each step
 // of 8: the accumulator's c[0], c[2], c[1], c[3] are then m16n8k8's A fragment, and B's rows 2t and 2t + 1 at
 // column g fall in banks 8t + g and 8t + 4 + g at LD 68 (distinct; k order t, t + 4 would give 4t + g, which
 // is not).
+template <int KK = CW>
 __device__ __forceinline__ void pv_product(float (*acc)[4], const float (*p)[4], const bf16* b) {
   constexpr int LD = Layout<bf16>::LD;
   const int lane = threadIdx.x % 32;
   const uint32_t b0 = smem_u32(b) + ((((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8) * 2;
 #pragma unroll
-  for (int kc = 0; kc < CW / 16; ++kc) {
+  for (int kc = 0; kc < KK / 16; ++kc) {
     const uint32_t af[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]), pack_bf16(p[2 * kc][2], p[2 * kc][3]),
                             pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
                             pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
@@ -330,14 +265,15 @@ __device__ __forceinline__ void pv_product(float (*acc)[4], const float (*p)[4],
     }
   }
 }
+template <int KK = CW>
 __device__ __forceinline__ void pv_product(float (*acc)[4], const float (*p)[4], const float* b) {
   constexpr int LD = Layout<float>::LD;
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const float* b0 = b + 2 * t * LD + g;
   float tmp[8][4] = {};
 #pragma unroll
-  for (int kk = 0; kk < CW / 8; ++kk) {
-    if (kk == CW / 16) add_fresh(acc, tmp);
+  for (int kk = 0; kk < KK / 8; ++kk) {
+    if (kk > 0 && kk % 4 == 0) add_fresh<8>(acc, tmp);  // a fresh accumulator every 32 keys
     uint32_t ah[4], al[4];
     split_tf32(p[kk][0], ah[0], al[0]);
     split_tf32(p[kk][2], ah[1], al[1]);
@@ -354,7 +290,7 @@ __device__ __forceinline__ void pv_product(float (*acc)[4], const float (*p)[4],
       mma3x4(tmp + n0, ah, al, bh, bl);
     }
   }
-  add_fresh(acc, tmp);
+  add_fresh<8>(acc, tmp);
 }
 
 // ---- the thread-block cluster ---------------------------------------------------------------------------------
@@ -464,7 +400,7 @@ struct Params {
   void *dq, *dk, *dv;               // the backward's outputs, n_split == 1
   float *dq_part, *dk_part, *dv_part;  // (n_split, B * H, Lq, d), (n_split, B * KVH, Lk, d) x 2
   int B, H, KVH, Lq, Lk, d, n_split, causal;
-  int passes;  // the forward's and K6's clusters per (block, split)
+  int passes;  // clusters per (block, split)
   float scale, bias;
 };
 
@@ -655,23 +591,25 @@ __global__ void __launch_bounds__(NTHREADS) fwd_kernel(const Params p) {
 }
 
 // ------------------------------------------------------------------------------------------------------------
-// K5. grid (ceil(Lq / 64), B * H, n_split * ceil(DP / 256)); a slot holds Q and dO (64 rows each) and K and V
-// (32 rows each) over 64 columns of d (S and dP steps), or four 32-row chunks of K in the column block (the
-// dQ step); then dS.
-constexpr int DQ_BQ = 64, DQ_BK = 32, DQ_DC = 256;
+// K5. grid (ceil(Lq / 64), B * H, n_split * passes * C), clusters of C along z. Per 32-key tile: the partial S = Q
+// K^T and dP = dO V^T over the CTA's share of d, the cluster's sum of both (one 16 x 64 partial a warp: S's 32
+// keys, then dP's), P and dS = P (dP - delta) in registers, then dQ += dS K over the CTA's output block. A slot
+// holds two chunks: Q's (64 rows) and K's (32) at one chunk of the share (an S step), dO's and V's (a dP step), or
+// the output block's chunks of K (32 rows each: the dQ step); beside the ring, the two exchange buffers.
+constexpr int DQ_BQ = 64, DQ_BK = 32, DQ_NCH = 4;  // DQ_NCH: output chunks a CTA holds
 template <typename T>
 __host__ __device__ constexpr int dq_stages() { return sizeof(T) == 2 ? 3 : 2; }
 template <typename T>
-__host__ __device__ constexpr int dq_smem() { return (dq_stages<T>() * 3 + 1) * Layout<T>::BYTES; }
+__host__ __device__ constexpr int dq_smem() { return dq_stages<T>() * 2 * Layout<T>::BYTES + 2 * XF * 4; }
 
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
-  constexpr int LD = Layout<T>::LD, CH = Layout<T>::CH, NCH = DQ_DC / CW;
+  constexpr int LD = Layout<T>::LD, CH = Layout<T>::CH;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
-  T* dsw = ring + dq_stages<T>() * 3 * CH + (threadIdx.x / 32) * 16 * LD;  // this warp's 16 rows of dS
+  float* xbuf = reinterpret_cast<float*>(ring + dq_stages<T>() * 2 * CH);
 
-  const int split = blockIdx.z % p.n_split, cb = blockIdx.z / p.n_split;
+  const Shares sh(p);
   const int bh = blockIdx.y, b = bh / p.H, kvh = (bh % p.H) / (p.H / p.KVH);
   const int q0 = blockIdx.x * DQ_BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
@@ -685,10 +623,9 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
     const int max_key = min(q0 + DQ_BQ - 1, p.Lq - 1) + diag;
     n_tiles = max_key < 0 ? 0 : min(n_tiles, max_key / DQ_BK + 1);
   }
-  const int t_begin = n_tiles * split / p.n_split, t_end = n_tiles * (split + 1) / p.n_split;
+  const int t_begin = n_tiles * sh.split / p.n_split, t_end = n_tiles * (sh.split + 1) / p.n_split;
 
-  const int ndc = padded_dim(p.d) / CW, c_first = cb * NCH, nvc = min(NCH, ndc - c_first);
-  const int spt = ndc + 1;
+  const int spt = 2 * sh.nc + 1;  // steps per key tile: S and dP at each chunk of the share, then dQ
   const size_t qoff = (size_t)bh * p.Lq * p.d, kv_off = (size_t)(b * p.KVH + kvh) * p.Lk * p.d;
   const T* qg = static_cast<const T*>(p.q) + qoff;
   const T* dog = static_cast<const T*>(p.dout) + qoff;
@@ -696,16 +633,15 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
   const T* vg = static_cast<const T*>(p.v) + kv_off;
   auto issue = [&](int s, T* slot) {
     const int k0 = (t_begin + s / spt) * DQ_BK, j = s % spt;
-    if (j < ndc) {
-      load_chunk(slot, qg, q0, 64, p.Lq, j * CW, p.d);
-      load_chunk(slot + CH, dog, q0, 64, p.Lq, j * CW, p.d);
-      load_chunk(slot + 2 * CH, kg, k0, DQ_BK, p.Lk, j * CW, p.d);
-      load_chunk(slot + 2 * CH + DQ_BK * LD, vg, k0, DQ_BK, p.Lk, j * CW, p.d);
+    if (j < 2 * sh.nc) {
+      const int c = (sh.cs + j / 2) * CW;
+      load_chunk(slot, j % 2 == 0 ? qg : dog, q0, 64, p.Lq, c, p.d);
+      load_chunk(slot + CH, j % 2 == 0 ? kg : vg, k0, DQ_BK, p.Lk, c, p.d);
     } else {
-      for (int c = 0; c < nvc; ++c) load_chunk(slot + c * DQ_BK * LD, kg, k0, DQ_BK, p.Lk, (c_first + c) * CW, p.d);
+      for (int c = 0; c < sh.nvc; ++c) load_chunk(slot + c * DQ_BK * LD, kg, k0, DQ_BK, p.Lk, (sh.os + c) * CW, p.d);
     }
   };
-  Ring<T, dq_stages<T>(), 3 * CH, decltype(issue)> ring_(ring, (t_end - t_begin) * spt, issue);
+  Ring<T, dq_stages<T>(), 2 * CH, decltype(issue)> ring_(ring, (t_end - t_begin) * spt, issue);
 
   // per row: the log2-domain offset (bias - lse) log2 e (-inf past Lq: p = 0) and delta
   float off[2], dl[2];
@@ -715,62 +651,57 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
     off[r] = in ? (p.bias - p.lse[(size_t)bh * p.Lq + row[r]]) * LOG2E : -INFINITY;
     dl[r] = in ? p.delta[(size_t)bh * p.Lq + row[r]] : 0.f;
   }
-  float acc[NCH][8][4];
+  float acc[DQ_NCH][8][4];
 #pragma unroll
-  for (int c = 0; c < NCH; ++c)
+  for (int c = 0; c < DQ_NCH; ++c)
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) acc[c][nt][0] = acc[c][nt][1] = acc[c][nt][2] = acc[c][nt][3] = 0.f;
   const float scale2 = p.scale * LOG2E;
 
   for (int kt = t_begin; kt < t_end; ++kt) {
-    float s[4][4], dp[4][4];
+    float sd[8][4] = {};  // S (tiles 0-3: the key tile's 32 keys), then dP (4-7)
+    for (int j = 0; j < sh.nc; ++j) {  // the partial S and dP over the share
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    for (int j = 0; j < ndc; ++j) {  // S = Q K^T and dP = dO V^T over d
-      const T* slot = ring_.advance();
-      mma_nt<4, CW>(s, slot + warp * 16 * LD, slot + 2 * CH);
-      mma_nt<4, CW>(dp, slot + CH + warp * 16 * LD, slot + 2 * CH + DQ_BK * LD);
-      ring_.release();
+      for (int x = 0; x < 2; ++x) {
+        const T* slot = ring_.advance();
+        s_product<4>(sd + 4 * x, slot + warp * 16 * LD, slot + CH);
+        ring_.release();
+      }
     }
-    // P = exp(S scale + bias - lse), masked; dS = P (dP - delta) in T to the warp's rows
+    if (sh.C > 1) cluster_sum<1, 0>(&sd, xbuf, kt - t_begin, sh.C);
+    // P = exp(S scale + bias - lse), masked; dS = P (dP - delta) in S's tiles, rounded to T by the dQ product
     const int k0 = kt * DQ_BK;
     const bool need_mask = k0 + DQ_BK > kv_limit || (p.causal && k0 + DQ_BK - 1 > q0 + diag);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float pr = exp2_approx(fmaf(s[nt][e], scale2, off[e >> 1]));
+        float pr = exp2_approx(fmaf(sd[nt][e], scale2, off[e >> 1]));
         if (need_mask) {
           const int key = k0 + nt * 8 + t * 2 + (e & 1);
           const bool ok = key < kv_limit && (!p.causal || key <= row[e >> 1] + diag);
           pr = ok ? pr : 0.f;
         }
-        s[nt][e] = pr * (dp[nt][e] - dl[e >> 1]);
+        sd[nt][e] = pr * (sd[nt + 4][e] - dl[e >> 1]);
       }
-      put2(dsw + g * LD + nt * 8 + 2 * t, s[nt][0], s[nt][1]);
-      put2(dsw + (g + 8) * LD + nt * 8 + 2 * t, s[nt][2], s[nt][3]);
-    }
-    __syncwarp();
-    const T* slot = ring_.advance();  // dQ += dS K over the column block: k over the tile's 32 keys
+    const T* slot = ring_.advance();  // dQ += dS K over the output block: k over the tile's 32 keys
 #pragma unroll
-    for (int c = 0; c < NCH; ++c)
-      if (c < nvc) mma_nn<8, DQ_BK>(acc[c], dsw, slot + c * DQ_BK * LD);
+    for (int c = 0; c < DQ_NCH; ++c)
+      if (c < sh.nvc) pv_product<DQ_BK>(acc[c], sd, slot + c * DQ_BK * LD);
     ring_.release();
   }
   cp_async_wait<0>();
 
-  const size_t prow = ((size_t)split * gridDim.y + bh) * p.Lq;
+  const size_t prow = ((size_t)sh.split * gridDim.y + bh) * p.Lq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= p.Lq) continue;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c)
+    for (int c = 0; c < DQ_NCH; ++c)
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        const int col = (c_first + c) * CW + nt * 8 + 2 * t;
-        if (col >= p.d) continue;
+        const int col = (sh.os + c) * CW + nt * 8 + 2 * t;
+        if (c >= sh.nvc || col >= p.d) continue;
         if (p.n_split == 1)
           put2(static_cast<T*>(p.dq) + ((size_t)bh * p.Lq + row[r]) * p.d + col, acc[c][nt][2 * r] * p.scale,
                acc[c][nt][2 * r + 1] * p.scale);
@@ -778,6 +709,7 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(const Params p) {
           put2(p.dq_part + (prow + row[r]) * p.d + col, acc[c][nt][2 * r], acc[c][nt][2 * r + 1]);
       }
   }
+  if (sh.C > 1) cluster_sync();  // no CTA leaves while the others may still read its last partial
 }
 
 // ------------------------------------------------------------------------------------------------------------
@@ -921,7 +853,7 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(const Params p) {
 // Launches: each returns a CUDA error code (0 when every launch was accepted).
 inline int blocks_of(int d, int dc) { return (padded_dim(d) + dc - 1) / dc; }
 
-// The largest cluster the forward and K6 launch (8, the portable size: past it a launch needs
+// The largest cluster the kernels launch (8, the portable size: past it a launch needs
 // cudaFuncAttributeNonPortableClusterSizeAllowed, which these launches do not set). Tests lower it to take the
 // passes at small widths, or raise it to see a refused cluster raise.
 int max_cluster = 8;
@@ -934,14 +866,6 @@ struct Clusters {
 inline Clusters clusters_of(int d, int nch) {
   const int blocks = (padded_dim(d) / CW + nch - 1) / nch, passes = (blocks + max_cluster - 1) / max_cluster;
   return {(blocks + passes - 1) / passes, passes};
-}
-
-template <typename K>
-cudaError_t start(K kernel, dim3 grid, int smem, const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
 }
 
 // A launch in clusters of `cluster` CTAs along z, refused (an error, no launch) when the card cannot hold one
@@ -1015,9 +939,12 @@ int backward_dq(const void* q, const void* k, const void* v, const int* kv_lengt
   p.scale = scale, p.bias = bias;
   if (bad(p) || dq == nullptr || reinterpret_cast<uintptr_t>(dout) % 16 != 0 || (n_split > 1 && dq_part == nullptr))
     return (int)cudaErrorInvalidValue;
+  static unsigned long long accepted = 0;
+  const Clusters cl = clusters_of(d, DQ_NCH);
+  p.passes = cl.passes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = start(dq_kernel<T>, dim3((Lq + DQ_BQ - 1) / DQ_BQ, B * H, n_split * blocks_of(d, DQ_DC)),
-                          dq_smem<T>(), p, s);
+  cudaError_t err = start_cluster(dq_kernel<T>, dim3((Lq + DQ_BQ - 1) / DQ_BQ, B * H, n_split * cl.passes * cl.size),
+                                  cl.size, dq_smem<T>(), p, s, accepted);
   if (err != cudaSuccess || n_split == 1) return (int)err;
   return (int)part_sum(PartSum<T>{{dq_part, nullptr}, {static_cast<T*>(dq), nullptr}, {scale, 0.f}}, 1, n_split,
                        (size_t)B * H * Lq * d, s);

@@ -1,6 +1,6 @@
-// Flash attention past head dim 256 in fp32 (K1/K2 forward, K5 and K6 backward): flash_wide.cuh's kernels, the
-// forward and K6 in clusters with 3xTF32 tensor-core products (each operand split into two TF32 parts, three
-// products: fp32 accuracy), K5 with every product an FFMA on fp32 operands. The entry points take the arguments of
+// Flash attention past head dim 256 in fp32 (K1/K2 forward, K5 and K6 backward): flash_wide.cuh's kernels, each
+// in clusters with 3xTF32 tensor-core products (each operand split into two TF32 parts, three products: fp32
+// accuracy). The entry points take the arguments of
 // hicom_flash_fwd_f32, hicom_flash_bwd_dq_f32 and hicom_flash_bwd_dkv_f32 (flash_fwd_f32.cu, flash_bwd_f32.cu),
 // for d % 8 == 0 past 256.
 #include "flash_wide.cuh"
@@ -30,7 +30,7 @@ extern "C" int hicom_flash_bwd_dkv_wide_f32(const void* q, const void* k, const 
                                    Lk, d, n_split, scale, bias, causal, stream);
 }
 
-// The largest cluster that this library's forward and K6 launch (wide::max_cluster): sets it to n when n > 0 and
+// The largest cluster that this library's kernels launch (wide::max_cluster): sets it to n when n > 0 and
 // returns the value before. Tests only.
 extern "C" int hicom_flash_wide_f32_max_cluster(int n) {
   const int before = wide::max_cluster;

@@ -58,9 +58,9 @@ a multiple of 8, as JAX's Pallas kernels have no width limit); the backward's,
 at every padded head dim (16-128 in steps of 16, then 192 and 256); past 256
 the head dim is a runtime argument of ``flash_wide.cu`` (bf16) and
 ``flash_wide_f32.cu`` (fp32), which cut the output's columns into blocks
-(``flash_wide.cuh``): the forward's and K6's blocks are the CTAs of a
-thread-block cluster that share the contraction over d
-(:func:`wide_cluster`), and their fp32 products are 3xTF32. A gradient
+(``flash_wide.cuh``): each kernel's blocks are the CTAs of a thread-block
+cluster that share the contraction over d (:func:`wide_cluster`), and their
+fp32 products are 3xTF32. A gradient
 reaches the fp32 kernels with fp32 ``out`` and ``dO``. The wrappers raise
 for device operands outside the contract (fp16, mixed dtypes, a head dim
 that is not a multiple of 8), and :func:`attend` raises before the forward
@@ -81,13 +81,13 @@ from .cuda_build import c_function, check, plain_operands
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 256
 NEG_INF = -1e30
-FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64  # the forward kernel's query rows per block, keys per tile
+FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64  # the forward kernel's query rows per block, keys per tile (fwd_block_k)
 DQ_BLOCK_K = 32  # K5's keys per tile
 DKV_BLOCK_K, DKV_BLOCK_Q = 64, 64  # K6's keys per block, query rows per unit
 H100_SMS = 132
 WIDE_BLOCK_Q = 64  # past head dim 256: the forward's and K5's query rows per block (flash_wide.cuh)
 WIDE_COLUMNS = {"fwd": 256, "dq": 256, "dkv": 128}  # ... and each kernel's output columns per block
-WIDE_MAX_CLUSTER = 8  # the largest cluster of the wide forward and K6 (flash_wide.cuh max_cluster: portable)
+WIDE_MAX_CLUSTER = 8  # the largest cluster of the wide kernels (flash_wide.cuh max_cluster: portable)
 
 Tensor = torch.Tensor
 # up to WIDE_FROM each head dim runs an instance of its padded width (a multiple of 16 up to 128, then 192
@@ -234,8 +234,8 @@ def dq_block_q(lq: int) -> int:
 
 
 def wide_cluster(d: int, kind: str) -> Tuple[int, int]:
-    """(CTAs in a cluster, passes) of the wide forward (``kind`` "fwd") or
-    K6 ("dkv") at head dim ``d`` past :data:`WIDE_FROM`, as
+    """(CTAs in a cluster, passes) of the wide forward (``kind`` "fwd"), K5
+    ("dq") or K6 ("dkv") at head dim ``d`` past :data:`WIDE_FROM`, as
     ``flash_wide.cuh``'s ``clusters_of`` computes them: the output's blocks of
     at most ``WIDE_COLUMNS[kind]`` columns, in passes of at most
     :data:`WIDE_MAX_CLUSTER` CTAs, as many CTAs in each pass as the blocks
@@ -248,18 +248,16 @@ def wide_cluster(d: int, kind: str) -> Tuple[int, int]:
 def wide_column_blocks(d: int, kind: str) -> int:
     """The column blocks of the wide kernels' grid (``kind`` "fwd", "dq" or
     "dkv") at head dim ``d``, per split: 1 up to :data:`WIDE_FROM`, where the
-    other kernels hold a whole row; K5's blocks of 256 columns; the forward's
-    and K6's clusters times their passes (:func:`wide_cluster`)."""
+    other kernels hold a whole row; past it the clusters times their passes
+    (:func:`wide_cluster`)."""
     if d <= WIDE_FROM:
         return 1
-    if kind == "dq":
-        return -(-_padded(d) // WIDE_COLUMNS[kind])
     size, passes = wide_cluster(d, kind)
     return size * passes
 
 
 def set_wide_max_cluster(n: int) -> int:
-    """Set the largest cluster that the wide forward and K6 launch, in both
+    """Set the largest cluster that the wide kernels launch, in both
     libraries and in :func:`wide_cluster`; returns the value before. For
     tests: 1 takes the passes at any width, and a cluster past the card's
     portable 8 is refused at launch, which raises in the wrapper."""
@@ -279,19 +277,29 @@ def _splits(blocks: int, units: int, sms: int) -> int:
     return max(1, min(units, 2 * sms // blocks))
 
 
-def forward_splits(b: int, H: int, lq: int, lk: int, sms: int = H100_SMS, *, d: int) -> int:
+def fwd_block_k(d: int, dtype: torch.dtype) -> int:
+    """The forward kernel's keys per tile at head dim ``d`` for operands of
+    ``dtype``: 96 for bf16 at the padded width 192 (d 136-192, whose S
+    product is m64n96k16), else :data:`FWD_BLOCK_K`."""
+    return 96 if dtype == torch.bfloat16 and 128 < d <= 192 else FWD_BLOCK_K
+
+
+def forward_splits(b: int, H: int, lq: int, lk: int, sms: int = H100_SMS, *, d: int,
+                   dtype: torch.dtype = torch.bfloat16) -> int:
     """Chunks of the key axis for the forward kernel (K1/K2): 1 at the tower
     and prefill shapes, 29 at the global compressor's b 1 and 14 at b 2.
     Past head dim 256 (``d``) the grid is the wide kernel's: blocks of 64
-    rows, times its column blocks."""
+    rows, times its column blocks. Never more chunks than key tiles
+    (:func:`fwd_block_k` keys each)."""
     rows = -(-lq // WIDE_BLOCK_Q) * wide_column_blocks(d, "fwd") if d > WIDE_FROM else -(-lq // FWD_BLOCK_Q)
-    return _splits(rows * b * H, -(-lk // FWD_BLOCK_K), sms)
+    return _splits(rows * b * H, -(-lk // fwd_block_k(d, dtype)), sms)
 
 
 def dq_splits(b: int, H: int, lq: int, lk: int, sms: int = H100_SMS, *, d: int) -> int:
     """Chunks of the key axis for K5: 1 at the tower and prefill shapes, 14
     at the global compressor's b 2 (252 blocks of 32 query rows). Past head
-    dim 256 the wide kernel's grid: blocks of 64 rows times its column blocks."""
+    dim 256 the wide kernel's grid: blocks of 64 rows times its clusters'
+    CTAs and passes (:func:`wide_column_blocks`)."""
     rows = -(-lq // WIDE_BLOCK_Q) * wide_column_blocks(d, "dq") if d > WIDE_FROM else -(-lq // dq_block_q(lq))
     return _splits(rows * b * H, -(-lk // DQ_BLOCK_K), sms)
 
@@ -374,12 +382,14 @@ def split_forward_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optiona
                             logit_bias: float, causal: bool, n_split: int) -> Tuple[Tensor, Tensor]:
     """The forward's split path in plain PyTorch: for every query block of
     128 rows, batch row and chunk, the partial (unnormalised output, max,
-    denominator) over that chunk's 64-key tiles (:func:`tile_range`), masked
-    logits at -1e30 and p rounded to v's dtype as the kernel does; then
-    :func:`merge_partials_reference`. Shapes and result as :func:`flash_reference`."""
+    denominator) over that chunk's key tiles (:func:`tile_range`, of
+    :func:`fwd_block_k` keys), masked logits at -1e30 and p rounded to v's
+    dtype as the kernel does; then :func:`merge_partials_reference`. Shapes
+    and result as :func:`flash_reference`."""
     b, H, Lq, d = q.shape
     KVH, Lk = k.shape[1], k.shape[2]
     acc = _acc_dtype(q)
+    bk = fwd_block_k(d, q.dtype)
     o_part = torch.zeros((n_split, b, H, Lq, d), dtype=acc)
     m_part = torch.full((n_split, b, H, Lq), float("-inf"), dtype=acc)
     l_part = torch.zeros((n_split, b, H, Lq), dtype=acc)
@@ -388,10 +398,10 @@ def split_forward_reference(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optiona
             rows = slice(q0, min(q0 + FWD_BLOCK_Q, Lq))
             qs = q[bi, :, rows].reshape(KVH, H // KVH, -1, d).to(acc)
             for s in range(n_split):
-                t0, t1 = tile_range(q0, FWD_BLOCK_Q, Lq, Lk, limit, causal, FWD_BLOCK_K, s, n_split, True)
+                t0, t1 = tile_range(q0, FWD_BLOCK_Q, Lq, Lk, limit, causal, bk, s, n_split, True)
                 if t0 >= t1:
                     continue
-                keys = slice(t0 * FWD_BLOCK_K, min(t1 * FWD_BLOCK_K, Lk))
+                keys = slice(t0 * bk, min(t1 * bk, Lk))
                 logits = torch.einsum("kgqd,ksd->kgqs", qs, k[bi, :, keys].to(acc)) * scale + logit_bias
                 valid = _chunk_valid(rows, keys, limit, causal, Lq, Lk, q.device)
                 logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
@@ -517,7 +527,7 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, kv_lengths: Optional[Tensor], scale
     b, H, KVH, Lq, Lk, d, lens = _check(q, k, v, kv_lengths, "flash kernel")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if n_split is None:
-        n_split = forward_splits(b, H, Lq, Lk, _sm_count(q.device.index or 0), d=d)
+        n_split = forward_splits(b, H, Lq, Lk, _sm_count(q.device.index or 0), d=d, dtype=q.dtype)
     out = None if partials else torch.empty_like(q)
     lse = None if partials else torch.empty((b, H, Lq), dtype=torch.float32, device=q.device)
     parts = (None, None, None)

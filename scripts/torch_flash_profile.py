@@ -12,8 +12,10 @@ pass apart, and the sum beside the CUDA-event time of the same calls (which
 also holds launch gaps). The cases past head dim 256 (labels "wide ...", in
 bf16 and fp32: K1 at d 288 over 128 rows of 729 and at d 320 / 512 / 1,024
 over 64, K2 / K5 / K6 at [hd512]'s prefill and at 8 / 2 heads of 320 and 4 /
-1 of 1,024) are ``--cases wide``. The last line is the card's name and power
-limit.
+1 of 1,024, K5 there also forced to 3 splits) are ``--cases wide``; the bf16
+instances at padded 192 and 256 (K1 over 64 rows of 729, K2 at [hd256]'s
+prefill, 14 / 2 heads of 256, and with heads of 192) are ``--cases
+d192,d256``. The last line is the card's name and power limit.
 ``--root`` imports ``hicom_tpu_torch`` from another checkout (its kernels
 build into that checkout's ``build/``), so two versions can be timed in turns
 in one call on one card. ``--cases`` keeps the cases whose label contains one
@@ -126,6 +128,18 @@ def cases(torch, fa, fd, la, want):
         ops_anyres = fa.backward_operands(qy, ky, vy, kly, oy, lsey, doy)
         out.append(("K5 anyres train", lambda: fa._launch_dq(*ops_anyres, 128**-0.5, 0.0, True)))
         out.append(("K6 anyres train", lambda: fa._launch_dkv(*ops_anyres, 128**-0.5, 0.0, True)))
+    # the bf16 forward's warp-specialised instances (flash_fwd.cu at padded 192 and 256): K1 over 64 rows of 729,
+    # K2 at [hd256]'s prefill (b 2, 14 / 2 heads of 256, 743 tokens, causal, lengths 743 / 700) and at 192
+    for d in (192, 256):
+        if want(f"K1 d{d} 64 rows"):
+            q1, k1, v1 = rn(64, 729, d), rn(64, 729, d), rn(64, 729, d)
+            out.append((f"K1 d{d} 64 rows",
+                        lambda q1=q1, k1=k1, v1=v1, d=d: fa.fullblock_attention(q1, k1, v1, d**-0.5)))
+        if want(f"K2 prefill 14/2 d{d}"):
+            q2, k2, v2 = rn(2, 14, 743, d), rn(2, 2, 743, d), rn(2, 2, 743, d)
+            kl2 = torch.tensor([743, 700], device="cuda", dtype=torch.int32)
+            out.append((f"K2 prefill 14/2 d{d}", lambda q2=q2, k2=k2, v2=v2, kl2=kl2, d=d:
+                        fa.flash_forward(q2, k2, v2, kl2, d**-0.5, 0.0, True)))
     # past head dim 256 (flash_wide.cu, flash_wide_f32.cu), in bf16 and fp32: K1 over [hd512]'s tower rows (d 288,
     # 128 rows of 729) and over 64 rows at d 320 / 512 / 1,024; K2, K5 and K6 at [hd512]'s prefill (b 2, 7 / 1
     # heads of 512, 743 tokens, causal, lengths 743 / 700) and with 8 / 2 heads of 320 and 4 / 1 of 1,024
@@ -139,7 +153,7 @@ def cases(torch, fa, fd, la, want):
                 out.append((f"wide K1 d{d} {tag}",
                             lambda qw=qw, kw=kw, vw=vw, d=d: fa.fullblock_attention(qw, kw, vw, d**-0.5)))
         for d, H, KVH in ((512, 7, 1), (320, 8, 2), (1024, 4, 1)):
-            names = [f"wide {k} d{d} {tag}" for k in ("K2", "K5", "K6")]
+            names = [f"wide {k} d{d} {tag}" for k in ("K2", "K5", "K6", "K5 split 3")]
             if not any_of(*names):
                 continue
             qw, kw, vw, dow = rw(2, H, 743, d), rw(2, KVH, 743, d), rw(2, KVH, 743, d), rw(2, H, 743, d)
@@ -150,6 +164,8 @@ def cases(torch, fa, fd, la, want):
             opw = fa.backward_operands(qw, kw, vw, klw, ow, lsew, dow)
             out.append((names[1], lambda opw=opw, d=d: fa._launch_dq(*opw, d**-0.5, 0.0, True)))
             out.append((names[2], lambda opw=opw, d=d: fa._launch_dkv(*opw, d**-0.5, 0.0, True)))
+            if d == 512:
+                out.append((names[3], lambda opw=opw, d=d: fa._launch_dq(*opw, d**-0.5, 0.0, True, n_split=3)))
     return [(label, call) for label, call in out if want(label)]
 
 

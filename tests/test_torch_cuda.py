@@ -1703,3 +1703,107 @@ def test_refused_cluster_raises_in_the_wrapper(rn, max_cluster, tag):
         dk, dv = _launch_dkv(*ops, d**-0.5, 0.0, True)
         torch.cuda.synchronize()
         assert dk.isfinite().all() and dv.isfinite().all()
+
+
+# --------------------------------------------------------------------------- #
+# K5 past 256 in clusters (S and dP once over the cluster's shares, 3xTF32 in fp32), and the bf16 forward at
+# the padded widths 192 / 256 (a producer warpgroup, K and V rings of their own)
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("n_split", [1, 3, 7])
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+@pytest.mark.parametrize("d", [264, 320, 1024, 1032, 1088, 2048])
+def test_clustered_dq_edges(rn, tag, d, n_split):
+    """K5's clusters at their edges: d 264 and 320 (two CTAs, shares of 2
+    and 3 chunks, 264's last chunk 8 columns wide), 1,024 (4), 1,032 and
+    1,088 (5, the last CTA's block 1 chunk), 2,048 (8, the largest). dQ
+    against the twin, and at 3 and 7 splits against the split twin."""
+    from hicom_tpu_torch.ops.flash_attention import wide_cluster
+
+    assert wide_cluster(d, "dq") == {264: (2, 1), 320: (2, 1), 1024: (4, 1), 1032: (5, 1), 1088: (5, 1),
+                                     2048: (8, 1)}[d]
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    b, H, KVH, L = 2, 4, 1, 130
+    q, k, v, do = r(b, H, L, d), r(b, KVH, L, d), r(b, KVH, L, d), r(b, H, L, d)
+    kl = torch.tensor([130, 75], device="cuda", dtype=torch.int32)
+    ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.1, True)
+    ops = backward_operands(q, k, v, kl, ref, ref_lse.float(), do)
+    got = _launch_dq(*ops, d**-0.5, 0.1, True, n_split=n_split)
+    dq, _, _ = flash_backward_reference(q, k, v, kl, ref, ref_lse.float(), do, d**-0.5, 0.1, True)
+    assert got.dtype == dtype and worst(got, dq) <= 1
+    if n_split > 1:
+        cpu = [t.cpu() for t in (q, k, v, kl, ref, ref_lse.float(), do)]
+        assert worst(got, split_dq_reference(*cpu, d**-0.5, 0.1, True, n_split).cuda()) <= 1
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3])
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+def test_clustered_dq_passes_past_a_smaller_cluster(rn, max_cluster, tag, cap):
+    """With the largest cluster cut to 1, 2 or 3 CTAs K5 at d 512 / 1,024
+    takes passes (1: a pass per block of 256 columns, S and dP in each over
+    the whole d) and agrees with the twin, at the default split and at 3."""
+    max_cluster(cap)
+    dtype, worst = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    for d in (512, 1024):
+        b, H, KVH, L = 1, 4, 2, 150
+        q, k, v, do = r(b, H, L, d), r(b, KVH, L, d), r(b, KVH, L, d), r(b, H, L, d)
+        kl = torch.tensor([140], device="cuda", dtype=torch.int32)
+        ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.0, True)
+        ops = backward_operands(q, k, v, kl, ref, ref_lse.float(), do)
+        dq, _, _ = flash_backward_reference(q, k, v, kl, ref, ref_lse.float(), do, d**-0.5, 0.0, True)
+        for n_split in (None, 3):
+            assert worst(_launch_dq(*ops, d**-0.5, 0.0, True, n_split=n_split), dq) <= 1
+
+
+@pytest.mark.parametrize("tag", sorted(WIDE_DTYPES))
+def test_refused_dq_cluster_raises_in_the_wrapper(rn, max_cluster, tag):
+    """K5 in one cluster of 16 CTAs (d 4,096 with the cap at 16, past the
+    portable 8) is refused at launch and raises in the wrapper; at the
+    default the same call launches in two passes of 8."""
+    dtype, _ = WIDE_DTYPES[tag]
+    r = _wide_rn(dtype)
+    d = 4096
+    q, k, v, do = r(1, 2, 64, d), r(1, 1, 64, d), r(1, 1, 64, d), r(1, 2, 64, d)
+    out, lse = flash_forward(q, k, v, None, d**-0.5, 0.0, True)
+    ops = backward_operands(q, k, v, None, out, lse, do)
+    max_cluster(16)
+    with pytest.raises(RuntimeError, match="hicom_flash_bwd_dq_wide"):
+        _launch_dq(*ops, d**-0.5, 0.0, True)
+    max_cluster(8)
+    dq = _launch_dq(*ops, d**-0.5, 0.0, True)
+    torch.cuda.synchronize()
+    assert dq.isfinite().all()
+
+
+@pytest.mark.parametrize("n_split", [None, 2, 5])
+@pytest.mark.parametrize("d", [136, 192, 200, 256])
+def test_warp_specialised_forward_192_256(rn, d, n_split):
+    """The bf16 K1/K2 instances at padded 192 and 256 (d 136 and 200 on zero
+    columns): K2 over 333 query rows (not a multiple of the 128-row block),
+    7:1 grouped and causal with lengths 333 / 250 / 0 (a row with no key), at
+    the default split and forced to 2 and 5 chunks against the split twin;
+    the partials-only launch against the twin's partials; K1 over 3 x 300
+    rows."""
+    r = _wide_rn(torch.bfloat16)
+    b, H, KVH, L = 3, 7, 1, 333
+    q, k, v = r(b, H, L, d), r(b, KVH, L, d), r(b, KVH, L, d)
+    kl = torch.tensor([333, 250, 0], device="cuda", dtype=torch.int32)
+    out, lse = _launch(q, k, v, kl, d**-0.5, 0.1, True, n_split=n_split)
+    ref, ref_lse = flash_reference(q, k, v, kl, d**-0.5, 0.1, True)
+    assert out.dtype == torch.bfloat16 and _worst(out, ref) <= 1
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    if n_split is not None:
+        cpu = [t.cpu() for t in (q, k, v, kl)]
+        split, _ = split_forward_reference(*cpu, d**-0.5, 0.1, True, n_split)
+        assert _worst(out, split.cuda()) <= 1
+        o_part, m_part, l_part = _launch(q, k, v, kl, d**-0.5, 0.1, True, n_split=n_split, partials=True)
+        merged, merged_lse = merge_partials_reference(o_part, m_part, l_part, torch.bfloat16)
+        assert _worst(merged, ref) <= 1 and (merged_lse - ref_lse).abs().max().item() <= 1e-3
+    merged, _ = merge_partials_reference(*flash_forward_partials(q, k, v, kl, d**-0.5, 0.1, True), torch.bfloat16)
+    assert _worst(merged, ref) <= 1
+    qf, kf, vf = r(3, 300, d), r(3, 300, d), r(3, 300, d)
+    o1, lse1 = fullblock_attention(qf, kf, vf, d**-0.5, 0.1)
+    ref1, ref1_lse = flash_reference(qf[:, None], kf[:, None], vf[:, None], None, d**-0.5, 0.1, False)
+    assert _worst(o1, ref1[:, 0]) <= 1 and (lse1 - ref1_lse[:, 0]).abs().max().item() <= 1e-3

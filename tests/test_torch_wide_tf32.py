@@ -1,26 +1,28 @@
-"""The arithmetic and the grids of the wide forward and K6 (``csrc/flash_wide.cuh``), on the CPU.
+"""The arithmetic and the grids of the wide forward, K5 and K6 (``csrc/flash_wide.cuh``), on the CPU.
 
-Past head dim 256 the forward (K1/K2) and K6 run as thread-block clusters:
-the padded d's chunks of 64 columns are cut into one near-equal share per
-CTA, each CTA computes a partial S (K6: S^T and dP^T) over its share, and
-the cluster adds the partials in rank order. Their fp32 instances multiply in
-3xTF32 (each operand split into TF32 hi and lo parts, lo hi + hi lo + hi hi
-in fp32 accumulators). Here:
+Past head dim 256 the forward (K1/K2), K5 and K6 run as thread-block
+clusters: the padded d's chunks of 64 columns are cut into one near-equal
+share per CTA, each CTA computes a partial S (K5: S and dP; K6: S^T and
+dP^T) over its share, and the cluster adds the partials in rank order. Their
+fp32 instances multiply in 3xTF32 (each operand split into TF32 hi and lo
+parts, lo hi + hi lo + hi hi in fp32 accumulators). Here:
 
 * a test-local emulation of that arithmetic (TF32 rounding to nearest, ties
   away, by integer masking of the fp32 bits, as ``cvt.rna.tf32.f32`` rounds;
   each share's partial product exact in float64 and rounded to fp32, the
-  partials added in fp32 in rank order) of the forward and of K6's dK and
-  dV, held to the fp32 twins (``flash_reference``,
+  partials added in fp32 in rank order) of the forward, of K5's dQ and of
+  K6's dK and dV, held to the fp32 twins (``flash_reference``,
   ``flash_backward_reference``) within ``chip_smoke.FP32_GATE`` at d 288,
   512 and 1,024, causal with kv_lengths and GQA; one TF32 product (1xTF32)
   fails the same gate;
 * the Python side of the grids: ``wide_cluster`` (CTAs a cluster and passes
   past the largest cluster), ``wide_column_blocks`` and the shares the
   kernels derive from them;
-* ``forward_splits`` / ``dkv_splits`` at the wide shapes, and the split twins
-  (``split_forward_reference``, ``split_dkv_reference``), which walk the
-  kernels' key tiles and units, against the unsplit twins at d 512.
+* ``forward_splits`` / ``dq_splits`` / ``dkv_splits`` at the wide shapes, and
+  the split twins (``split_forward_reference``, ``split_dq_reference``,
+  ``split_dkv_reference``), which walk the kernels' key tiles and units,
+  against the unsplit twins at d 512; and the bf16 forward's 96-key tiles
+  at the padded width 192 (``fwd_block_k``) in the split rule and twin.
 
 No JAX and no card; one torch thread.
 """
@@ -114,6 +116,22 @@ def emulated_dkv(q, k, v, lens, out, lse, do, scale, bias, passes):
     return dk, dv
 
 
+def emulated_dq(q, k, v, lens, out, lse, do, scale, bias, passes):
+    """K5's dQ in TF32 arithmetic from the forward's lse: S and dP from the
+    cluster's partials over the shares, added in rank order, then P, dS = P
+    (dP - delta) and dQ = scale dS K."""
+    b, H, Lq, d = q.shape
+    KVH, Lk = k.shape[1], k.shape[2]
+    qg, dog = grouped(q, KVH), grouped(do, KVH)
+    s = contraction(qg, k[:, :, None], d, "dq", passes)  # (b, KVH, g, Lq, Lk)
+    dp = contraction(dog, v[:, :, None], d, "dq", passes)
+    valid = tfa._valid(b, Lq, Lk, lens, True, q.device)
+    delta = grouped((do * out).sum(dim=-1, keepdim=True), KVH)
+    p = torch.where(valid, torch.exp(s * scale + bias - grouped(lse[..., None], KVH)), torch.zeros_like(s))
+    dq = scale * product(p * (dp - delta), k[:, :, None], passes)
+    return dq.reshape(b, H, Lq, d)
+
+
 def draw(d, seed):
     """b 2, 4 query heads over 1 kv head, 96 tokens, lengths 96 / 70."""
     gen = torch.Generator().manual_seed(seed)
@@ -132,6 +150,20 @@ def test_three_tf32_products_keep_the_fp32_gate(d):
     dk, dv = emulated_dkv(q, k, v, lens, ref, lse, do, scale, bias, 3)
     for g, r in ((got, ref), (dk, dk_ref), (dv, dv_ref)):
         assert chip_smoke.agreement(g, r, chip_smoke.FP32_GATE)[1] <= 0.5
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("d", [288, 512, 1024])
+def test_k5_clustered_dq_in_tf32_against_the_fp32_gate(d, passes):
+    """K5's dQ with S and dP summed over the cluster's shares: within the
+    fp32 gate in 3xTF32, past it four times over in one TF32 product."""
+    q, k, v, lens, do = draw(d, d + 1)
+    scale, bias = d**-0.5, 0.1
+    ref, lse = tfa.flash_reference(q, k, v, lens, scale, bias, True)
+    dq_ref, _, _ = tfa.flash_backward_reference(q, k, v, lens, ref, lse, do, scale, bias, True)
+    ratio = chip_smoke.agreement(emulated_dq(q, k, v, lens, ref, lse, do, scale, bias, passes), dq_ref,
+                                 chip_smoke.FP32_GATE)[1]
+    assert ratio <= 0.5 if passes == 3 else ratio > 4
 
 
 @pytest.mark.parametrize("d", [288, 512, 1024])
@@ -166,7 +198,8 @@ def test_wide_clusters_and_passes(d, fwd, dkv):
     assert tfa.wide_cluster(d, "fwd") == fwd and tfa.wide_cluster(d, "dkv") == dkv
     assert tfa.wide_column_blocks(d, "fwd") == fwd[0] * fwd[1]
     assert tfa.wide_column_blocks(d, "dkv") == dkv[0] * dkv[1]
-    assert tfa.wide_column_blocks(d, "dq") == -(-tfa._padded(d) // 256)  # K5 keeps its column blocks on z
+    assert tfa.wide_cluster(d, "dq") == fwd  # K5's output blocks are the forward's 256 columns
+    assert tfa.wide_column_blocks(d, "dq") == fwd[0] * fwd[1]
 
 
 def test_wide_grids_up_to_256_hold_whole_rows():
@@ -180,7 +213,7 @@ def test_passes_past_the_largest_cluster(monkeypatch):
     assert tfa.wide_cluster(2048, "dkv") == (16, 1) and tfa.wide_cluster(4096, "dkv") == (16, 2)
 
 
-@pytest.mark.parametrize("kind,columns", [("fwd", 256), ("dkv", 128)])
+@pytest.mark.parametrize("kind,columns", [("fwd", 256), ("dkv", 128), ("dq", 256)])
 def test_every_width_balances_its_blocks_and_shares(kind, columns):
     """At every d % 8 == 0 from 264 to 4,096: at most 8 CTAs a cluster, every
     output block at most ``columns`` wide and at least one chunk, blocks and
@@ -224,3 +257,61 @@ def test_split_twins_describe_the_wide_kernels(n_split):
     dk, dv = tfa.split_dkv_reference(q, k, v, lens, ref, lse, do, scale, 0.0, True, n_split)
     assert chip_smoke.agreement(dk, dk_ref, chip_smoke.FP32_GATE)[1] <= 1
     assert chip_smoke.agreement(dv, dv_ref, chip_smoke.FP32_GATE)[1] <= 1
+
+
+def test_dq_splits_count_the_clustered_grid():
+    """K5's key splits count its clusters' CTAs and passes at every d % 8 ==
+    0 from 264 to 4,096: one split where the grid fills the card, else about
+    two CTAs an SM and never more splits than key tiles; z within the
+    grid's limit."""
+    for d in range(264, 4097, 8):
+        size, passes = tfa.wide_cluster(d, "dq")
+        ctas = size * passes
+        assert tfa.wide_column_blocks(d, "dq") == ctas
+        for b, H, lq, lk in ((2, 7, 743, 743), (1, 4, 32, 3000), (2, 1, 64, 64)):
+            n = tfa.dq_splits(b, H, lq, lk, d=d)
+            blocks = -(-lq // tfa.WIDE_BLOCK_Q) * b * H * ctas
+            assert n == (1 if blocks >= tfa.H100_SMS else max(1, min(-(-lk // tfa.DQ_BLOCK_K),
+                                                                     2 * tfa.H100_SMS // blocks)))
+            assert 1 <= n <= -(-lk // tfa.DQ_BLOCK_K) and n * ctas <= 65535
+    # [hd512]'s prefill: 12 x 14 x 2 CTAs fill the card; 32 queries of 4 heads at d 512 (two CTAs a cluster)
+    assert tfa.dq_splits(2, 7, 743, 743, d=512) == 1 and tfa.dq_splits(1, 4, 32, 3000, d=512) == 33
+    # d 2,112: 33 chunks in two passes of 5 CTAs (10 blocks of at most 4 chunks)
+    assert tfa.wide_cluster(2112, "dq") == (5, 2) and tfa.dq_splits(1, 1, 64, 640, d=2112) == 20
+
+
+@pytest.mark.parametrize("n_split", [2, 3, 7])
+def test_split_dq_twin_describes_the_wide_k5(n_split):
+    """K5's split path walks the same 32-key tiles from 64-row blocks
+    whatever its clusters: at d 512, causal GQA with lengths, the split twin
+    equals the unsplit one at the fp32 gate."""
+    q, k, v, lens, do = draw(512, 11)
+    scale = 512**-0.5
+    ref, lse = tfa.flash_reference(q, k, v, lens, scale, 0.1, True)
+    dq_ref, _, _ = tfa.flash_backward_reference(q, k, v, lens, ref, lse, do, scale, 0.1, True)
+    dq = tfa.split_dq_reference(q, k, v, lens, ref, lse, do, scale, 0.1, True, n_split)
+    assert chip_smoke.agreement(dq, dq_ref, chip_smoke.FP32_GATE)[1] <= 1
+
+
+def test_forward_tiles_at_192_follow_the_bf16_kernel():
+    """bf16 at the padded width 192 (d 136-192) walks 96-key tiles, every
+    other width and fp32 64: the split rule caps its chunks at those tiles,
+    and the split twin cuts its chunks on them (``tile_range`` over 96-key
+    tiles; at d 192 and 136, causal GQA with lengths, 2 / 3 / 7 chunks equal
+    to the unsplit twin at the bf16 gate)."""
+    bf16 = torch.bfloat16
+    assert [tfa.fwd_block_k(d, bf16) for d in (128, 136, 192, 200, 256, 512)] == [64, 96, 96, 64, 64, 64]
+    assert tfa.fwd_block_k(192, torch.float32) == 64
+    # 32 queries of one head over 3,000 keys: one 128-row block, capped at the 32 (bf16) or 47 (fp32) tiles
+    assert tfa.forward_splits(1, 1, 32, 3000, d=192) == 32
+    assert tfa.forward_splits(1, 1, 32, 3000, d=192, dtype=torch.float32) == 47
+    assert tfa.tile_range(0, 128, 300, 300, 300, False, 96, 1, 2, True) == (2, 4)  # chunk 1 of 2: keys 192-299
+    gen = torch.Generator().manual_seed(3)
+    for d in (192, 136):
+        q, k, v = (torch.randn(2, 4, 200, d, generator=gen).to(bf16) for _ in range(3))
+        lens = torch.tensor([200, 130])
+        ref, lse = tfa.flash_reference(q, k[:, :1], v[:, :1], lens, d**-0.5, 0.0, True)
+        for n_split in (2, 3, 7):
+            out, out_lse = tfa.split_forward_reference(q, k[:, :1], v[:, :1], lens, d**-0.5, 0.0, True, n_split)
+            assert chip_smoke.agreement(out.float(), ref.float(), chip_smoke.BF16_GATE)[1] <= 1
+            assert (out_lse - lse).abs().max().item() <= 1e-4
